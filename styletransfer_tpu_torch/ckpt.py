@@ -1,0 +1,184 @@
+"""Checkpoint save / load, with the JAX package's file format and naming.
+
+The port of what inference needs from ``styletransfer_tpu/ckpt.py``:
+per-epoch files ``{model}_{style}_epoch{e}.msgpack`` under ``data/models/``,
+"latest" discovery sorted numerically by epoch, and the flax ``.msgpack``
+format, read and written with ``msgpack`` alone so that one trained model
+runs in both packages.
+
+The flax format is a msgpack map of nested string-keyed maps whose array
+leaves are ExtType code 1 holding ``msgpack((shape, dtype name, raw C-order
+bytes))`` (code 3 is a numpy scalar in the same encoding).
+
+Discovery picks among ``.msgpack``, ``.orbax`` and reference ``.pth`` files
+exactly as the JAX package does; loading a ``.pth`` or ``.orbax`` checkpoint
+comes with a later slice of the port and raises here.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from styletransfer_tpu_torch import constants
+from styletransfer_tpu_torch.utils.logging import get_logger
+
+_EPOCH_RE = re.compile(r"epoch(\d+)")
+
+CKPT_SUFFIX = ".msgpack"
+ORBAX_SUFFIX = ".orbax"
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _models_dir(models_path: Optional[str] = None) -> str:
+    path = models_path or constants.MODELS_PATH
+    if not os.path.isabs(path):
+        path = os.path.join(constants.PROJECT_ROOT_PATH, path)
+    return path
+
+
+def checkpoint_path(
+    model_name: str, style_name: str, epoch: int, models_path: Optional[str] = None
+) -> str:
+    """``data/models/{model}_{style}_epoch{e}.msgpack``."""
+    return os.path.join(
+        _models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}{CKPT_SUFFIX}"
+    )
+
+
+def _array_from_ext(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    name = dtype_name.decode()
+    if name == "bfloat16":
+        # numpy has no bfloat16: widen exactly to float32.
+        bits = torch.frombuffer(bytearray(buffer), dtype=torch.bfloat16)
+        return bits.float().numpy().reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape)
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _array_from_ext(data)
+    if code == _EXT_NPSCALAR:
+        return _array_from_ext(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _ext_default(obj):
+    import msgpack
+
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        payload = msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                                use_bin_type=True)
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        return msgpack.ExtType(code, payload)
+    raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _as_tree(params: Any) -> Any:
+    if isinstance(params, nn.Module):
+        from styletransfer_tpu_torch.models import transformer
+
+        return transformer.params_to_tree(params)
+    if isinstance(params, Mapping):
+        return {str(k): _as_tree(v) for k, v in params.items()}
+    return params
+
+
+def save(params: Any, path: str) -> None:
+    """Write ``params`` (an ``nn.Module`` or a nested mapping of arrays /
+    tensors) as a flax-format ``.msgpack`` file, atomically."""
+    import msgpack
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    data = msgpack.packb(_as_tree(params), default=_ext_default, strict_types=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_native_id()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def load(path: str) -> Dict[str, Any]:
+    """Read a ``.msgpack`` checkpoint into nested dicts of numpy arrays."""
+    import msgpack
+
+    if not path.endswith(CKPT_SUFFIX):
+        raise NotImplementedError(
+            f"{os.path.basename(path)}: only .msgpack checkpoints are read by this "
+            "slice of the port (.pth and orbax come later)"
+        )
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+def _epoch_of(filename: str) -> int:
+    m = _EPOCH_RE.search(filename)
+    return int(m.group(1)) if m else -1
+
+
+def find_latest(
+    model_name: str, style_name: str, models_path: Optional[str] = None
+) -> Tuple[str, int]:
+    """Find the newest checkpoint for (model, style): names that start with
+    the model and hold the style after it, sorted numerically by epoch, the
+    native formats first among equal epochs. Returns ``(path, epoch)``;
+    raises ``FileNotFoundError`` if there is none."""
+    directory = _models_dir(models_path)
+    try:
+        names = [
+            x
+            for x in os.listdir(directory)
+            if x.startswith(model_name)
+            and style_name in os.path.splitext(x)[0][len(model_name):]
+            and (x.endswith(CKPT_SUFFIX) or x.endswith(".pth")
+                 or (x.endswith(ORBAX_SUFFIX)
+                     and os.path.isdir(os.path.join(directory, x))))
+            and "_step_state" not in x
+            and "_step_carry_" not in x
+        ]
+    except FileNotFoundError:
+        names = []
+    if not names:
+        get_logger().critical(
+            "There are no weights for the specified model name (%s) and style "
+            "(%s). In the specified path: %s",
+            model_name, style_name, directory,
+        )
+        raise FileNotFoundError(
+            f"No weights for model {model_name!r} and style {style_name!r} in {directory}"
+        )
+    names.sort(key=lambda n: (_epoch_of(n), n.endswith(CKPT_SUFFIX),
+                              n.endswith(ORBAX_SUFFIX)))
+    chosen = names[-1]
+    return os.path.join(directory, chosen), _epoch_of(chosen)
+
+
+def load_latest_transformer(
+    model_name: str,
+    style_name: str,
+    models_path: Optional[str] = None,
+    device=constants.DEFAULT_DEVICE,
+):
+    """Load the latest transform-net weights for (model, style) onto
+    ``device``. Returns ``(TransformerNet, epoch)``."""
+    from styletransfer_tpu_torch.models import transformer
+
+    path, epoch = find_latest(model_name, style_name, models_path)
+    params = transformer.params_from_jax(load(path), device=device)
+    get_logger().info("Loaded %s (epoch %d)", path, epoch)
+    return params, epoch

@@ -1,0 +1,14 @@
+"""Command-line interface: ``python -m styletransfer_tpu_torch <group> <task>``.
+
+The same contract as the JAX package's CLI for the commands this slice has
+(``fast_st convert-image`` and ``convert-dir``), plus ``--device``.
+"""
+
+import click
+
+from styletransfer_tpu_torch.clis import fast_st
+
+
+@click.group(commands={"fast_st": fast_st.fast_st})
+def cli():
+    """Style Transfer (PyTorch / CUDA)"""

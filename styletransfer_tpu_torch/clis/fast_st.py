@@ -1,0 +1,69 @@
+"""``fast_st`` CLI: feed-forward style transfer inference.
+
+The JAX package's ``convert-image`` and ``convert-dir`` commands, with the
+same arguments and output names, plus ``--device`` (default ``cuda``; there
+is no silent fallback to the CPU).
+"""
+
+import click
+
+_device_option = click.option(
+    "--device", default="cuda", show_default=True,
+    help="Torch device to run on ('cuda', 'cuda:1', 'cpu')",
+)
+_precision_option = click.option(
+    "--precision", default="f32", type=click.Choice(["f32", "bf16"]),
+    help="Activation precision",
+)
+
+
+@click.group()
+def fast_st():
+    """Fast Style Transfer"""
+
+
+@fast_st.command("convert-image")
+@click.argument("image-path")
+@click.argument("style-name")
+@click.option("-o", "--out-dir", default="results/",
+              help="The results directory where the converted image will be saved")
+@click.option("--size", default=None, type=int,
+              help="Working resolution (default 256; the net is fully convolutional)")
+@_precision_option
+@_device_option
+def convert_image(image_path, style_name, out_dir, size, precision, device):
+    """
+    Converts the image at `image-path` using the network trained with
+    `style-name` (latest `data/models/fast_st_{style}_epoch{e}.msgpack`) and
+    saves the result in `out-dir`.
+    """
+    from styletransfer_tpu_torch.engines import fast
+
+    fast.process_image(
+        image_path=image_path, style_name=style_name, out_dir=out_dir,
+        size=size, precision=precision, device=device,
+    )
+
+
+@fast_st.command("convert-dir")
+@click.argument("input-dir")
+@click.argument("style-name")
+@click.option("-b", "--batch-size", default=64, help="Inference batch size")
+@click.option("-o", "--out-dir", default="results/",
+              help="The results directory where converted images are saved")
+@click.option("--size", default=None, type=int,
+              help="Working resolution (default 256; the net is fully convolutional)")
+@_precision_option
+@_device_option
+def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, device):
+    """
+    Converts every image in `input-dir` (png/jpg/jpeg/bmp/webp) with the
+    network trained with `style-name`, in batches; outputs are saved as
+    `converted_fast_st_{style}_{name}.png` in `out-dir`.
+    """
+    from styletransfer_tpu_torch.engines import fast
+
+    fast.process_dir(
+        input_dir=input_dir, style_name=style_name, batch_size=batch_size,
+        out_dir=out_dir, size=size, precision=precision, device=device,
+    )

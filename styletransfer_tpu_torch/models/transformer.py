@@ -1,0 +1,239 @@
+"""The image transform net ("Perceptual Losses for Real-Time Style Transfer").
+
+The port of ``styletransfer_tpu/models/transformer.py`` for inference:
+parameters as ``nn.Module``s named after the JAX parameter keys, and the
+pad-early forward (``_apply_padearly`` there) on the two CUDA kernels:
+
+- ``conv3x3_valid`` runs the ten 3x3 128->128 residual convs and hands the
+  per-image sums of its output to the instance norm after the first conv
+  of each block;
+- ``instance_norm_pad`` runs all 15 instance norms, each writing its output
+  already padded (reflect, or edge before a phase-form upsample conv) for the
+  next conv.
+
+The other convs (9x9 conv1, stride-2 conv2/conv3, the phase-form upsample
+convs and the space-to-depth conv_out) run as ``F.conv2d``, as the JAX
+package leaves them to XLA. On CPU tensors the kernels' wrappers compute
+their plain PyTorch versions, which the tests hold against the JAX forward.
+
+Architecture (identical to the reference):
+- conv 9x9 s1 (3 or 6)->32, IN, ReLU; conv 3x3 s2 32->64, IN, ReLU;
+  conv 3x3 s2 64->128, IN, ReLU
+- 5x residual block(128): conv-IN-ReLU-conv, add the input, then IN
+- 2x [nearest upsample x2 -> conv 3x3 -> IN -> ReLU] 128->64->32
+- conv 9x9 32->3
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from styletransfer_tpu_torch import constants
+from styletransfer_tpu_torch.ops import layers
+from styletransfer_tpu_torch.ops.cuda.conv3x3 import conv3x3_valid
+from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
+
+NUM_RESIDUAL_BLOCKS = 5
+
+
+class Conv(nn.Module):
+    """Conv parameters: ``kernel`` [kh, kw, cin, cout] (HWIO) and ``bias``."""
+
+    def __init__(self, kernel: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(bias)
+
+
+class InstanceNorm(nn.Module):
+    """Affine instance-norm parameters: ``scale`` and ``bias`` [C]."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = nn.Parameter(scale)
+        self.bias = nn.Parameter(bias)
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, conv1: Conv, in1: InstanceNorm, conv2: Conv, in2: InstanceNorm):
+        super().__init__()
+        self.conv1, self.in1, self.conv2, self.in2 = conv1, in1, conv2, in2
+
+
+class TransformerNet(nn.Module):
+    """ImageTransformNet parameters, with the JAX parameter tree's names
+    (``conv1``, ``in1``, ``res1.conv1``, ..., ``up1_conv``, ``conv_out``)."""
+
+    def __init__(self, convs: Mapping[str, Conv], norms: Mapping[str, InstanceNorm],
+                 blocks: Mapping[str, ResidualBlock]):
+        super().__init__()
+        for name, module in {**convs, **norms, **blocks}.items():
+            self.add_module(name, module)
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return apply(self, x, compute_dtype)
+
+
+# (name, kernel size, in channels (None = the net's input), out channels)
+_CONVS = [("conv1", 9, None, 32), ("conv2", 3, 32, 64), ("conv3", 3, 64, 128),
+          ("up1_conv", 3, 128, 64), ("up2_conv", 3, 64, 32), ("conv_out", 9, 32, 3)]
+_NORMS = [("in1", 32), ("in2", 64), ("in3", 128), ("up1_in", 64), ("up2_in", 32)]
+
+
+def init_params(
+    seed: int = 0,
+    in_channels: int = 3,
+    device=constants.DEFAULT_DEVICE,
+) -> TransformerNet:
+    """Seeded fan-in-uniform f32 init (``in_channels=6`` for the video net).
+
+    The numbers differ from the JAX package's for the same seed (another
+    generator); :func:`params_from_jax` carries JAX parameters across."""
+    dev = constants.resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+
+    def conv(k, cin, cout):
+        return Conv(*layers.init_conv(gen, k, k, cin, cout, device=dev))
+
+    def norm(c):
+        return InstanceNorm(*layers.init_instance_norm(c, device=dev))
+
+    convs = {n: conv(k, cin or in_channels, cout) for n, k, cin, cout in _CONVS}
+    norms = {n: norm(c) for n, c in _NORMS}
+    blocks = {
+        f"res{i + 1}": ResidualBlock(conv(3, 128, 128), norm(128), conv(3, 128, 128), norm(128))
+        for i in range(NUM_RESIDUAL_BLOCKS)
+    }
+    return TransformerNet(convs, norms, blocks)
+
+
+def params_from_jax(tree: Mapping[str, Any], device=constants.DEFAULT_DEVICE) -> TransformerNet:
+    """Build the port's parameters from a JAX parameter tree (nested dicts of
+    numpy arrays, e.g. ``jax.device_get(params)`` or a loaded checkpoint)."""
+    dev = constants.resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, copy=True)).to(dev)
+
+    def conv(p):
+        return Conv(t(p["kernel"]), t(p["bias"]))
+
+    def norm(p):
+        return InstanceNorm(t(p["scale"]), t(p["bias"]))
+
+    convs = {n: conv(tree[n]) for n, *_ in _CONVS}
+    norms = {n: norm(tree[n]) for n, _ in _NORMS}
+    blocks = {}
+    for i in range(NUM_RESIDUAL_BLOCKS):
+        r = tree[f"res{i + 1}"]
+        blocks[f"res{i + 1}"] = ResidualBlock(
+            conv(r["conv1"]), norm(r["in1"]), conv(r["conv2"]), norm(r["in2"])
+        )
+    return TransformerNet(convs, norms, blocks)
+
+
+def params_to_tree(params: nn.Module) -> Dict[str, Any]:
+    """The JAX parameter tree of ``params``: nested dicts of numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for key, value in params.state_dict().items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy()
+    return tree
+
+
+def num_params(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+def _conv_valid(x, p: Conv, stride, cd):
+    return layers.conv2d(x, p.kernel, p.bias, stride, compute_dtype=cd)
+
+
+def _conv3x3(y, p: Conv, cd):
+    """A residual conv on the conv3x3 kernel: (out, sums, sumsqs)."""
+    w = p.kernel if cd is None else p.kernel.to(cd)
+    return conv3x3_valid(y, w, p.bias, relu=False)
+
+
+def _in_pad(h, p: InstanceNorm, pad, relu=True, residual=None, res_pad=0,
+            mode="reflect", stats=None):
+    return instance_norm_pad(h, p.scale, p.bias, residual=residual, res_pad=res_pad,
+                             relu=relu, pad=pad, mode=mode, stats=stats)
+
+
+def _conv_phase_up(y_padded, p: Conv, cd):
+    """Phase-form ``upsample x2 -> reflect-pad 1 -> conv3x3``: one VALID conv
+    on the small grid (input edge-padded by 1), output [B, h, w, 4*Cout] with
+    channel order (py, px, o)."""
+    kp = layers.upsample_phase_kernel(p.kernel)
+    return layers.conv2d(y_padded, kp, p.bias.repeat(4), 1, compute_dtype=cd)
+
+
+@torch.no_grad()
+def apply(
+    params: TransformerNet,
+    x: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    pad_mode: str = "reflect",
+) -> torch.Tensor:
+    """Forward pass, forward only: NHWC in (3 or 6 channels), NHWC out.
+
+    With ``compute_dtype=torch.bfloat16`` activations stay bf16 between ops
+    (instance-norm statistics are f32); the output has the input's dtype.
+    This is the pad-early formulation: every IN writes its output padded for
+    the next conv, and the convs run VALID. The instance norms here take the
+    exact two-pass variance (or the conv kernel's one-pass sums), where the
+    JAX forward takes the one-pass form everywhere: the two differ by about
+    1e-6.
+    """
+    if pad_mode == "zeros":
+        raise NotImplementedError(
+            "pad_mode='zeros' (the stacked form) comes with a later slice of "
+            "the port, together with the .pth import"
+        )
+    if pad_mode != "reflect":
+        raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
+    in_dtype = x.dtype
+    cd = compute_dtype
+    if cd is not None:
+        x = x.to(cd)
+
+    x = layers.reflect_pad(x, 4)
+    h = _conv_valid(x, params.conv1, 1, cd)
+    y = _in_pad(h, params.in1, pad=1)                              # [B,H+2,W+2,32]
+    h = _conv_valid(y, params.conv2, 2, cd)
+    y = _in_pad(h, params.in2, pad=1)
+    h = _conv_valid(y, params.conv3, 2, cd)
+    y = _in_pad(h, params.in3, pad=1)
+
+    for i in range(NUM_RESIDUAL_BLOCKS):
+        r = getattr(params, f"res{i + 1}")
+        h1, s1, ss1 = _conv3x3(y, r.conv1, cd)
+        y1 = _in_pad(h1, r.in1, pad=1, stats=(s1, ss1))
+        h2, _, _ = _conv3x3(y1, r.conv2, cd)
+        last = i == NUM_RESIDUAL_BLOCKS - 1
+        # The block's input is the interior of the padded y. The last block
+        # feeds a phase-form upsample conv, which wants EDGE padding.
+        y = _in_pad(h2, r.in2, pad=1, relu=False, residual=y, res_pad=1,
+                    mode="edge" if last else "reflect")
+
+    # Decoder in 2x2 phase form; the phase output is reassembled
+    # (depth_to_space) before the IN kernel, whose statistics over the
+    # reassembled tensor are the statistics pooled over the phases.
+    h = _conv_phase_up(y, params.up1_conv, cd)                     # [B,h,w,4*64]
+    y = _in_pad(layers.depth_to_space(h, 2), params.up1_in, pad=1, mode="edge")
+    h = _conv_phase_up(y, params.up2_conv, cd)                     # [B,2h,2w,4*32]
+    y = _in_pad(layers.depth_to_space(h, 2), params.up2_in, pad=4)  # conv_out is 9x9
+    # Final 9x9 32->3 conv in 4x4 space-to-depth phase form (3x3, 512->48).
+    kp = layers.phase_conv_kernel(params.conv_out.kernel, 4)
+    out = layers.conv2d(layers.space_to_depth(y, 4), kp, None, 1, compute_dtype=cd)
+    out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
+    return out.to(in_dtype)

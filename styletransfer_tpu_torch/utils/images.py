@@ -1,0 +1,85 @@
+"""Image loading / saving with the reference's transform semantics.
+
+The port of what fast_st serving needs from ``styletransfer_tpu/utils/
+images.py``: the shared center-crop + bilinear-resize recipe (host side, PIL),
+uint8 loading and atomic saving, and the on-device normalize / denormalize
+steps that let serving move uint8 both ways. Layout is NHWC.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+import torch
+from PIL import Image
+
+from styletransfer_tpu_torch import constants
+
+
+def _center_crop_resize_pil(image: "Image.Image", size: int) -> "Image.Image":
+    """The one crop recipe every load path shares: center-crop to the min
+    dimension's square, with torchvision CenterCrop's offsets
+    ``int(round(delta / 2.))`` (banker's rounding, not floor: they differ by
+    one pixel when delta % 4 == 3), then bilinear-resize to ``size``."""
+    w, h = image.size
+    side = min(w, h)
+    left = int(round((w - side) / 2.0))
+    top = int(round((h - side) / 2.0))
+    image = image.crop((left, top, left + side, top + side))
+    return image.resize((size, size), Image.BILINEAR)
+
+
+def load_image_uint8(image_path: str, size: int = constants.IMSIZE) -> np.ndarray:
+    """Load an image as ``[1, size, size, 3]`` uint8 (RGB, cropped and
+    resized, not normalized): the serving input path."""
+    with Image.open(image_path) as img:
+        img = img.convert("RGB")
+        img = _center_crop_resize_pil(img, size)
+        return np.asarray(img, dtype=np.uint8)[None, ...]
+
+
+def save_uint8(arr: np.ndarray, path: str) -> None:
+    """Atomically save a uint8 [H, W, 3] array as an image.
+
+    Write to a temporary name (pid and thread id, so two writers of one path
+    never share it) in the target directory, then rename: a reader never sees
+    a partly written file at the final path."""
+    if arr.ndim == 4:
+        arr = arr[0]
+    base, ext = os.path.splitext(path)
+    tmp = f"{base}.tmp-{os.getpid()}-{threading.get_ident()}{ext or '.png'}"
+    try:
+        Image.fromarray(arr).save(tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _stats(device) -> "tuple[torch.Tensor, torch.Tensor]":
+    mean = torch.tensor(constants.IMAGENET_MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(constants.IMAGENET_STD, dtype=torch.float32, device=device)
+    return mean, std
+
+
+def maybe_normalize_on_device(batch: torch.Tensor) -> torch.Tensor:
+    """ImageNet-normalize a raw uint8 NHWC batch where it lies; pass float
+    batches through."""
+    if batch.dtype != torch.uint8:
+        return batch
+    mean, std = _stats(batch.device)
+    return (batch.float() / 255.0 - mean) / std
+
+
+def to_uint8_on_device(image: torch.Tensor) -> torch.Tensor:
+    """Denormalize, clamp to the legal RGB range and scale to uint8.
+
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    mean, std = _stats(image.device)
+    arr = torch.clamp(image.float() * std + mean, 0.0, 1.0)
+    return torch.round(arr * 255.0).to(torch.uint8)

@@ -1,0 +1,95 @@
+"""Checkpoints cross between the packages: the port reads what JAX
+``ckpt.save`` wrote, JAX reads what the port wrote, and both pick the same
+latest file."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from styletransfer_tpu import ckpt as jckpt
+from styletransfer_tpu.models import transformer as jt
+from styletransfer_tpu_torch import ckpt as tckpt
+from styletransfer_tpu_torch.models import transformer as tt
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jax.device_get(jt.init_params(jax.random.PRNGKey(1)))
+
+
+def _assert_trees_equal(got, want):
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_port_loads_what_jax_saved(tmp_path, jax_params):
+    path = str(tmp_path / "fast_st_a_epoch0.msgpack")
+    jckpt.save(jax_params, path)
+    _assert_trees_equal(tckpt.load(path), jax_params)
+
+
+@pytest.mark.parametrize("as_module", [True, False])
+def test_jax_loads_what_the_port_saved(tmp_path, jax_params, as_module):
+    path = str(tmp_path / "fast_st_a_epoch0.msgpack")
+    params = tt.params_from_jax(jax_params, device="cpu")
+    tckpt.save(params if as_module else tt.params_to_tree(params), path)
+    template = jt.init_params(jax.random.PRNGKey(0))
+    _assert_trees_equal(jax.device_get(jckpt.load(path, template)), jax_params)
+    assert not any(n.startswith("fast_st_a_epoch0.msgpack.tmp") for n in os.listdir(tmp_path))
+
+
+def test_scalars_and_bf16_arrays_cross(tmp_path):
+    tree = {"a": {"w": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3)},
+            "step": np.int64(7), "x": np.float32(0.5)}
+    path = str(tmp_path / "t.msgpack")
+    jckpt.save(tree, path)
+    got = tckpt.load(path)
+    np.testing.assert_array_equal(got["a"]["w"], np.arange(6, dtype=np.float32).reshape(2, 3))
+    assert got["a"]["w"].dtype == np.float32  # numpy has no bfloat16: widened exactly
+    assert got["step"] == 7 and got["x"] == np.float32(0.5)
+    tckpt.save({"step": np.int64(7), "v": np.ones(3, np.float32)}, path)
+    back = jckpt.load(path, {"step": np.int64(0), "v": np.zeros(3, np.float32)})
+    assert np.asarray(back["step"]).shape == () and int(back["step"]) == 7
+    np.testing.assert_array_equal(back["v"], np.ones(3, np.float32))
+
+
+@pytest.mark.parametrize("names", [
+    ["fast_st_wave_epoch2.msgpack", "fast_st_wave_epoch10.msgpack"],
+    ["fast_st_wave_epoch3.pth", "fast_st_wave_epoch3.msgpack", "fast_st_wave_epoch1.pth"],
+    ["fast_st_wave_epoch4.pth", "fast_st_wave_epoch3.msgpack"],
+    ["fast_st_wave_epoch1.msgpack", "fast_st_wave_step_state.msgpack",
+     "fast_st_wavy_epoch9.msgpack", "fast_st_other_epoch5.msgpack", "notes.txt"],
+    ["fast_st_wave_epoch1.msgpack", "fast_st_wave_epoch2.orbax/"],
+])
+def test_find_latest_picks_the_same_file_as_jax(tmp_path, names):
+    for n in names:
+        if n.endswith("/"):
+            (tmp_path / n).mkdir()
+        else:
+            (tmp_path / n).write_bytes(b"")
+    assert tckpt.find_latest("fast_st", "wave", str(tmp_path)) == \
+        jckpt.find_latest("fast_st", "wave", str(tmp_path))
+
+
+def test_find_latest_raises_like_jax(tmp_path):
+    with pytest.raises(FileNotFoundError, match="No weights"):
+        tckpt.find_latest("fast_st", "wave", str(tmp_path / "missing"))
+
+
+def test_load_latest_transformer(tmp_path, jax_params):
+    jckpt.save_epoch(jax_params, "fast_st", "wave", 3, str(tmp_path))
+    params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path),
+                                                  device="cpu")
+    assert epoch == 3
+    _assert_trees_equal(tt.params_to_tree(params), jax_params)
+
+
+def test_pth_checkpoints_wait_for_a_later_slice(tmp_path):
+    (tmp_path / "fast_st_wave_epoch1.pth").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match=".pth"):
+        tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
