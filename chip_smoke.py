@@ -7,16 +7,29 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``styletransfer_tpu_torch/csrc`` (``sm_90a``);
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (batch 64, 256 px images) in f32 and bf16, and time
-   the kernel, the plain version and, for the conv, one ``F.conv2d``;
-4. drive the main path, fast_st inference: a seeded checkpoint written with
-   ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir`` from
-   the checkpoint load to the saved PNGs, in f32 and bf16. The kernels'
-   launch counters must show 10 conv3x3 and 15 IN-pad launches per forward,
-   and the first two outputs must match the port's own CPU run;
-5. print one JSON line with each kernel's error, launches and times, and as
+2. build the CUDA kernels from ``styletransfer_tpu_torch/csrc`` (``sm_90a``,
+   one ``nvcc`` per source, in parallel);
+3. hold each kernel against its plain PyTorch version on the card and time
+   the kernel, the plain version and, where one exists, the one PyTorch call
+   that computes the same function: the serving kernels (conv3x3, IN-pad) at
+   the serving path's shapes (batch 64, 256 px), the training kernels (the
+   fused instance norm's forward and backward) at each call shape of the
+   training forward (batch 4, 256 px), in f32 and bf16;
+4. drive the serving path, fast_st inference: a seeded checkpoint written
+   with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
+   from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
+   counters must show 10 conv3x3 and 15 IN-pad launches per forward, and the
+   first two outputs must match the port's own CPU run;
+5. drive the training path, fast_st training: ``engines.fast.static_train``
+   for a few steps at batch 4 on the synthetic corpus, seeded VGG and
+   transform-net parameters, in f32 and bf16. The counters must show 15
+   fused-IN forward and 15 backward launches per step (and 15 forward
+   launches per eval or preview forward), every logged loss must be finite,
+   and the epoch checkpoint must load and serve through ``process_dir``;
+6. one f32 training step on two images, card against the port's CPU run
+   (loss components and every parameter's gradient);
+7. time steady-state training steps at batch 4 and 16, f32 and bf16;
+8. print one JSON line with each kernel's error, launches and times, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
@@ -27,6 +40,8 @@ without a GPU, or a directory without the package. Scratch files go to
 from __future__ import annotations
 
 import json
+import logging
+import math
 import os
 import shutil
 import subprocess
@@ -52,8 +67,16 @@ TOL = {
     ("conv3x3_valid", "bfloat16"): (2 ** -7, 1e-3),
     ("instance_norm_pad", "float32"): (1e-5, 1e-5),
     ("instance_norm_pad", "bfloat16"): (2 ** -7, 1e-3),
+    ("fused_instance_norm_fwd", "float32"): (1e-5, 1e-5),
+    ("fused_instance_norm_fwd", "bfloat16"): (2 ** -7, 1e-3),
+    ("fused_instance_norm_bwd", "float32"): (1e-5, 1e-5),
+    ("fused_instance_norm_bwd", "bfloat16"): (2 ** -7, 1e-3),
 }
-# The conv's f32 sums over 4096 pixels: another summation order.
+# The statistics (mean, inv) of the forward: f32 means and variances over up
+# to 65,536 pixels, summed in another order.
+STATS_TOL = (1e-5, 1e-6)
+# The conv's f32 sums over 4096 pixels, and the backward's dscale / dbias
+# (sums over up to 4 x 65,536 pixels): another summation order.
 SUMS_TOL = (1e-4, 1e-2)
 # Main path against the port's CPU run, in 1/255 steps of the uint8 output.
 # f32: one step (rounding of values that land near a half step). bf16 (card
@@ -66,7 +89,32 @@ SOURCES = {
                       "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
     "instance_norm_pad": ("styletransfer_tpu_torch/csrc/instance_norm.cu",
                           "styletransfer_tpu/ops/pallas/instance_norm.py:229"),
+    # The training forward runs the IN kernel at pad 0 with the residual
+    # added in f32; the backward is its own kernel.
+    "fused_instance_norm_fwd": ("styletransfer_tpu_torch/csrc/instance_norm.cu",
+                                "styletransfer_tpu/ops/pallas/instance_norm.py:113"),
+    "fused_instance_norm_bwd": ("styletransfer_tpu_torch/csrc/instance_norm_bwd.cu",
+                                "styletransfer_tpu/ops/pallas/instance_norm.py:160"),
 }
+# Which path launches each kernel: its JSON launch count is that path's.
+SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad")
+TRAINING_KERNELS = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
+
+# The training path: batch 4 (the reference's and the CLI's default), a few
+# steps of one epoch on the synthetic corpus. Cadence (loss, preview, eval):
+# the loss every step, a preview every third step, the eval at step 0.
+TRAIN_BATCH = 4
+TRAIN_STEPS = 6
+TRAIN_CADENCE = (1, 3, 6)
+NORMS_PER_FORWARD = 15
+# Card against the port's CPU run, one f32 step on two images: the loss
+# components (relative), and each parameter's gradient (relative L2). cuDNN
+# and the CPU sum convolutions in other orders, and a ReLU whose input lies
+# within that rounding of 0 can switch, which moves its channel's gradient.
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_REL_L2 = 1e-3
+# Steady-state training steps timed at these batch sizes.
+STEP_BATCHES = (4, 16)
 
 
 class CheckFailed(Exception):
@@ -102,6 +150,34 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call as the card runs the calls back to back:
+    CUDA events around ``iters`` calls queued behind a spin kernel
+    (``torch.cuda._sleep``). At the training path's small shapes the host
+    takes longer to launch a call than the card to run it, so events around
+    calls issued as the host goes (``time_ms``) time the host. The spin is
+    lengthened until the host has queued every call before the card reaches
+    the first."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise CheckFailed("the host could not queue the timed calls ahead of the card")
+
+
 def bound(flops: float, nbytes: float, dtype: str):
     """Least time on the card in ms, and what bounds it."""
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -115,6 +191,25 @@ def max_err(a, b) -> float:
 
 def allclose(torch, a, b, rtol, atol) -> bool:
     return bool(torch.all((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()))
+
+
+def counters():
+    """Each kernel's launch counter: (module, attribute)."""
+    from styletransfer_tpu_torch.ops.cuda import conv3x3, fused_instance_norm, instance_norm
+
+    return {"conv3x3_valid": (conv3x3, "launches"),
+            "instance_norm_pad": (instance_norm, "launches"),
+            "fused_instance_norm_fwd": (fused_instance_norm, "fwd_launches"),
+            "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches")}
+
+
+def reset_counts() -> None:
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
 
 
 def conv_phase(torch, F, conv3x3, dtype):
@@ -228,6 +323,131 @@ def in_phase(torch, instance_norm, dtype):
     return entry
 
 
+# The fifteen instance norms of one training forward at batch 4, 256 px:
+# (name, H, C, residual, relu, calls per step).
+_FUSED_CALLS = [
+    ("in1", 256, 32, False, True, 1),
+    ("in2", 128, 64, False, True, 1),
+    ("in3", 64, 128, False, True, 1),
+    ("res.in1", 64, 128, False, True, 5),
+    ("res.in2", 64, 128, True, False, 5),
+    ("up1_in", 128, 64, False, True, 1),
+    ("up2_in", 256, 32, False, True, 1),
+]
+
+
+def fused_phase(torch, F, fin, dtype):
+    """The fused instance norm's forward and backward kernels against their
+    plain versions at every call shape of the training forward; the JSON
+    entries time the largest call (in1), beside ``F.instance_norm``. Times
+    are device times (``device_ms``); ``eager`` is the same call timed as the
+    host issues it."""
+    dn = str(dtype).split(".")[1]
+    names = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    entries = {}
+    worst = {n: 0.0 for n in names}
+    total = {n: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for n in names}
+    for call, H, C, with_res, relu, count in _FUSED_CALLS:
+        shape = (TRAIN_BATCH, H, H, C)
+        x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+        res = torch.randn(*shape, device="cuda", generator=g).to(dtype) if with_res else None
+        scale = torch.rand(C, device="cuda", generator=g) + 0.5
+        bias = torch.randn(C, device="cuda", generator=g)
+        gy = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+        out, mean, inv = fin.forward(x, scale, bias, res, relu)
+        dx, dscale, dbias = fin.backward(gy, x, res, mean, inv, scale, bias, relu)
+        torch.cuda.synchronize()
+        pout, pmean, pinv = fin.forward_plain(x, scale, bias, res, relu)
+        pdx, pdscale, pdbias = fin.backward_plain(gy, x, res, mean, inv, scale, bias, relu)
+        tag = f"{dn} {call} [{TRAIN_BATCH},{H},{H},{C}]"
+        rtol, atol = TOL[(names[0], dn)]
+        err = max_err(out, pout)
+        check(allclose(torch, out, pout, rtol, atol),
+              f"{names[0]} {tag}: out max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        check(allclose(torch, mean, pmean, *STATS_TOL) and allclose(torch, inv, pinv, *STATS_TOL),
+              f"{names[0]} {tag}: mean / inv max_abs_err {max_err(mean, pmean):.3g} / "
+              f"{max_err(inv, pinv):.3g} (rtol {STATS_TOL[0]}, atol {STATS_TOL[1]})")
+        worst[names[0]] = max(worst[names[0]], err)
+        rtol, atol = TOL[(names[1], dn)]
+        err = max_err(dx, pdx)
+        check(allclose(torch, dx, pdx, rtol, atol),
+              f"{names[1]} {tag}: dx max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        check(allclose(torch, dscale, pdscale, *SUMS_TOL)
+              and allclose(torch, dbias, pdbias, *SUMS_TOL),
+              f"{names[1]} {tag}: dscale / dbias max_abs_err {max_err(dscale, pdscale):.3g} / "
+              f"{max_err(dbias, pdbias):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
+        worst[names[1]] = max(worst[names[1]], err)
+        if with_res:
+            # Through the autograd Function: the residual's gradient is dx.
+            xr, rr = x.clone().requires_grad_(), res.clone().requires_grad_()
+            fin.fused_instance_norm(xr, scale, bias, residual=rr, relu=relu).backward(gy)
+            check(torch.equal(xr.grad, rr.grad) and allclose(torch, xr.grad, pdx, rtol, atol),
+                  f"{names[1]} {tag}: dresidual equals dx")
+        def fwd():
+            return fin.forward(x, scale, bias, res, relu)
+
+        def bwd():
+            return fin.backward(gy, x, res, mean, inv, scale, bias, relu)
+
+        fwd_ms, bwd_ms = device_ms(torch, fwd), device_ms(torch, bwd)
+        # The same calls back to back as the host issues them (CUDA events):
+        # what a step pays when the host is slower than the card.
+        fwd_eager, bwd_eager = time_ms(torch, fwd), time_ms(torch, bwd)
+        fwd_plain = device_ms(torch, lambda: fin.forward_plain(x, scale, bias, res, relu),
+                              iters=5)
+        bwd_plain = device_ms(torch, lambda: fin.backward_plain(gy, x, res, mean, inv, scale,
+                                                                bias, relu), iters=5)
+        ins = x.numel() * (2 if with_res else 1) * x.element_size()
+        chan = 2 * C * 4 + 2 * TRAIN_BATCH * C * 4  # scale, bias; mean, inv
+        fwd_bound, fwd_by = bound(8.0 * x.numel(), ins + out.numel() * x.element_size() + chan,
+                                  dn)
+        bwd_bytes = ins + 2 * gy.numel() * x.element_size() + chan + 2 * C * 4
+        bwd_bound, bwd_by = bound(16.0 * x.numel(), bwd_bytes, dn)
+        print(f"fused_instance_norm {dn} {call}: fwd kernel_ms {fwd_ms:.4f} (eager "
+              f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}; bwd "
+              f"kernel_ms {bwd_ms:.4f} (eager {bwd_eager:.4f}) plain_ms {bwd_plain:.4f} "
+              f"bound_ms {bwd_bound:.4f} ({bwd_by}; {bwd_bytes / 1e6:.1f} MB) x{count} per step",
+              flush=True)
+        for n, ms, eager, plain, bnd in ((names[0], fwd_ms, fwd_eager, fwd_plain, fwd_bound),
+                                         (names[1], bwd_ms, bwd_eager, bwd_plain, bwd_bound)):
+            total[n]["ms"] += ms * count
+            total[n]["eager_ms"] += eager * count
+            total[n]["plain_ms"] += plain * count
+            total[n]["bound_ms"] += bnd * count
+        if call != "in1":
+            continue
+        # The one PyTorch call that computes the same function (no residual,
+        # no ReLU): F.instance_norm on the NCHW view, and its autograd
+        # backward. The port never calls it.
+        xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        w, b = scale.to(dtype).requires_grad_(), bias.to(dtype).requires_grad_()
+        lib_fwd = device_ms(torch, lambda: F.instance_norm(xc, weight=w, bias=b, eps=fin.EPS))
+        y = F.instance_norm(xc, weight=w, bias=b, eps=fin.EPS)
+        gc = gy.permute(0, 3, 1, 2)
+        lib_bwd = device_ms(torch, lambda: torch.autograd.grad(y, (xc, w, b), gc,
+                                                               retain_graph=True))
+        for n, ms, eager, plain, bnd, by, lib in (
+                (names[0], fwd_ms, fwd_eager, fwd_plain, fwd_bound, fwd_by, lib_fwd),
+                (names[1], bwd_ms, bwd_eager, bwd_plain, bwd_bound, bwd_by, lib_bwd)):
+            entries[n] = {"name": f"{n}.{dn}", "route": "cuda", "source": SOURCES[n][0],
+                          "replaces": SOURCES[n][1], "ms": ms, "eager_ms": eager,
+                          "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                          "library_ms": lib,
+                          "shape": f"x[{TRAIN_BATCH},{H},{H},{C}] (in1, the largest call)"}
+        print(f"fused_instance_norm {dn} in1: library (F.instance_norm) fwd {lib_fwd:.4f} ms, "
+              f"autograd bwd {lib_bwd:.4f} ms", flush=True)
+    for n in names:
+        entries[n]["max_abs_err"] = worst[n]
+        entries[n]["step_ms"] = total[n]["ms"]
+        entries[n]["step_eager_ms"] = total[n]["eager_ms"]
+        entries[n]["step_bound_ms"] = total[n]["bound_ms"]
+        print(f"{n} {dn}: all 15 calls of one train step: kernel_ms {total[n]['ms']:.4f} "
+              f"(eager {total[n]['eager_ms']:.4f}) plain_ms {total[n]['plain_ms']:.4f} "
+              f"bound_ms {total[n]['bound_ms']:.4f}", flush=True)
+    return [entries[n] for n in names]
+
+
 def write_inputs(np):
     from PIL import Image
 
@@ -240,8 +460,9 @@ def write_inputs(np):
     return in_dir, imgs
 
 
-def main_path(torch, np, conv3x3, instance_norm):
-    """fast_st inference through process_dir, from a seeded checkpoint."""
+def main_path(torch, np, in_dir, imgs):
+    """The serving path: fast_st inference through process_dir, from a
+    seeded checkpoint. Returns each precision's launch counts and img/s."""
     from PIL import Image
 
     from styletransfer_tpu_torch import ckpt
@@ -252,52 +473,243 @@ def main_path(torch, np, conv3x3, instance_norm):
     models = os.path.join(WORK, "models")
     params = transformer.init_params(seed=0, device="cuda")
     ckpt.save(params, ckpt.checkpoint_path("fast_st", "smoke", 0, models))
-    in_dir, imgs = write_inputs(np)
     cpu_params, _ = ckpt.load_latest_transformer("fast_st", "smoke", models, device="cpu")
     launches = {}
     rates = {}
     for precision in ("f32", "bf16"):
         out_dir = os.path.join(WORK, f"out_{precision}")
-        conv3x3.launches = 0
-        instance_norm.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         paths = fast.process_dir(in_dir, "smoke", out_dir=out_dir, batch_size=BATCH,
                                  models_path=models, precision=precision, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = (conv3x3.launches, instance_norm.launches)
+        counts = read_counts()
         launches[precision] = counts
-        check(counts == (10, 15),
-              f"main path {precision}: one forward launched {counts[0]} conv3x3 and "
-              f"{counts[1]} IN-pad kernels (want 10 and 15)")
-        check(len(paths) == BATCH, f"main path {precision}: {len(paths)} PNGs written")
+        check(counts == {"conv3x3_valid": 10, "instance_norm_pad": 15,
+                         "fused_instance_norm_fwd": 0, "fused_instance_norm_bwd": 0},
+              f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, "
+              f"15 IN-pad, no training kernel)")
+        check(len(paths) == BATCH, f"serving path {precision}: {len(paths)} PNGs written")
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(outs.shape == (BATCH, SIZE, SIZE, 3) and outs.dtype == np.uint8,
-              f"main path {precision}: outputs {outs.shape} {outs.dtype}")
+              f"serving path {precision}: outputs {outs.shape} {outs.dtype}")
         # The CPU run of the port on the first two images.
         serve = fast.make_serve_fn(precision)
         ref = serve(cpu_params, torch.from_numpy(imgs[:2])).numpy()
         diff = np.abs(outs[:2].astype(np.int32) - ref.astype(np.int32))
         max_steps, mean_steps = MAIN_TOL[precision]
         check(int(diff.max()) <= max_steps and float(diff.mean()) <= mean_steps,
-              f"main path {precision}: card vs CPU on 2 images: max {int(diff.max())}/255, "
+              f"serving path {precision}: card vs CPU on 2 images: max {int(diff.max())}/255, "
               f"mean {float(diff.mean()):.4f}/255 (limits {max_steps}, {mean_steps})")
         # The float output before the uint8 cast (which would hide a NaN).
         batch = torch.from_numpy(imgs).cuda()
         y = transformer.apply(params, images.maybe_normalize_on_device(batch),
                               compute_dtype=torch.bfloat16 if precision == "bf16" else None)
         check(y.shape == (BATCH, SIZE, SIZE, 3) and bool(torch.isfinite(y).all()),
-              f"main path {precision}: forward output {tuple(y.shape)}, all finite")
+              f"serving path {precision}: forward output {tuple(y.shape)}, all finite")
         # Steady-state serving rate of the forward at batch 64 on the card.
         out = serve(params, batch)
         same = int((out.cpu().int() - torch.from_numpy(outs).int()).abs().max())
-        check(same <= 1, f"main path {precision}: serve_fn within {same}/255 of the saved PNGs")
+        check(same <= 1, f"serving path {precision}: serve_fn within {same}/255 of the saved PNGs")
         ms = time_ms(torch, lambda: serve(params, batch), iters=10, warmup=2)
         rates[precision] = BATCH / (ms / 1e3)
-        print(f"main path {precision}: process_dir {BATCH} images in {wall:.3f} s "
+        print(f"serving path {precision}: process_dir {BATCH} images in {wall:.3f} s "
               f"(incl. checkpoint load, decode, PNG encode); serve_fn batch {BATCH}: "
               f"{ms:.3f} ms = {rates[precision]:.1f} img/s", flush=True)
     return launches, rates
+
+
+class _LossLog(logging.Handler):
+    """Collects the losses static_train logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.train, self.test = [], []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("Batch Loss:"):
+            self.train.append(float(msg.split(":")[1]))
+        elif msg.startswith("Average test loss:"):
+            self.test.append(float(msg.split(":")[1]))
+
+
+def _style_image(np):
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.utils import images
+
+    return images.normalize(coco.synthetic_image(10_000, SIZE))[None].astype(np.float32)
+
+
+def train_path(torch, np, in_dir):
+    """The training path: static_train for TRAIN_STEPS steps at batch 4, in
+    f32 and bf16, from seeded parameters on the synthetic corpus; then its
+    epoch checkpoint through the serving path. Returns each precision's
+    launch counts of the training run."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    _, image_every, eval_every = TRAIN_CADENCE
+    launches = {}
+    for precision in ("f32", "bf16"):
+        models = os.path.join(WORK, f"models_train_{precision}")
+        test_loader, train_loader = coco.get_coco_loader(
+            batch_size=TRAIN_BATCH, test_limit=20, image_dir=os.path.join(WORK, "no_images"))
+        previews = len(range(0, TRAIN_STEPS, image_every))
+        eval_forwards = len(test_loader) * len(range(0, TRAIN_STEPS, eval_every))
+        params = transformer.init_params(seed=0, device="cuda")
+        log = _LossLog()
+        logger = get_logger()
+        logger.addHandler(log)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            fast.static_train(
+                style, style_name="smoke", epochs=1, batch_size=TRAIN_BATCH,
+                vgg_params=vgg_params, params=params, train_loader=train_loader,
+                test_loader=test_loader, log_cadence=TRAIN_CADENCE,
+                runs_dir=os.path.join(WORK, f"runs_{precision}"), models_path=models,
+                max_steps_per_epoch=TRAIN_STEPS, step_checkpoint_every=3,
+                precision=precision, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches[precision] = counts
+        want = {"conv3x3_valid": 0, "instance_norm_pad": 0,
+                "fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
+                                                                + eval_forwards),
+                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS}
+        check(counts == want,
+              f"training path {precision}: {TRAIN_STEPS} steps, {previews} previews and "
+              f"{eval_forwards} eval forwards launched {counts} (want {want}: 15 forward and 15 "
+              f"backward per step, 15 forward per preview or eval forward)")
+        check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train),
+              f"training path {precision}: logged losses {['%.4f' % v for v in log.train]} "
+              f"all finite")
+        check(len(log.test) == 1 and math.isfinite(log.test[0]),
+              f"training path {precision}: eval loss {log.test} finite")
+        state = ckpt.load_step_state("fast_st", "smoke", models, extra_keys=("batch_in_epoch",))
+        check(state is not None and (state["epoch"], state["iteration"]) == (1, TRAIN_STEPS)
+              and int(state["opt_state"]["0"]["count"]) == TRAIN_STEPS,
+              f"training path {precision}: step state at epoch 1, iteration {TRAIN_STEPS}, "
+              f"Adam count {TRAIN_STEPS}")
+        print(f"training path {precision}: static_train {TRAIN_STEPS} steps at batch "
+              f"{TRAIN_BATCH} in {wall:.3f} s (incl. VGG targets, eval, previews, "
+              f"checkpoints)", flush=True)
+        # The epoch checkpoint it wrote, through the serving path.
+        trained, epoch = ckpt.load_latest_transformer("fast_st", "smoke", models, device="cuda")
+        check(epoch == 0 and all(torch.equal(a, b) for a, b in
+                                 zip(trained.parameters(), params.parameters())),
+              f"training path {precision}: the epoch checkpoint holds the trained parameters")
+        reset_counts()
+        paths = fast.process_dir(in_dir, "smoke", out_dir=os.path.join(WORK, f"styl_{precision}"),
+                                 batch_size=BATCH, models_path=models, precision=precision,
+                                 device="cuda")
+        served = read_counts()
+        outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+        check(len(paths) == BATCH and outs.shape == (BATCH, SIZE, SIZE, 3)
+              and served["conv3x3_valid"] == 10 and served["instance_norm_pad"] == 15,
+              f"training path {precision}: the trained checkpoint stylized {len(paths)} images "
+              f"through process_dir ({served['conv3x3_valid']} conv3x3, "
+              f"{served['instance_norm_pad']} IN-pad launches)")
+    return launches
+
+
+def parity_phase(torch, np):
+    """One f32 training step's loss and gradients on two images: the card
+    against the port's CPU run, from the same seeded parameters."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils import images
+
+    style = torch.from_numpy(_style_image(np))
+    batch = torch.from_numpy(np.stack([images.normalize(coco.synthetic_image(i, SIZE))
+                                       for i in range(2)]).astype(np.float32))
+    cpu_params = transformer.init_params(seed=1, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = (cpu_params if dev == "cpu" else transformer.params_from_jax(
+            transformer.params_to_tree(cpu_params), device=dev))
+        vgg_params = vgg.init_params(seed=0, device=dev)
+        grams = vgg.style_gram_targets(vgg_params, style.to(dev))
+        t0 = time.perf_counter()
+        total, metrics = fast.loss_fn(params, batch.to(dev), vgg_params, grams, 100_000.0, 1.0)
+        total.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in params.named_parameters()}
+        runs[dev] = ({k: float(v.detach()) for k, v in metrics.items()}, grads)
+        print(f"parity: loss and gradients on {dev} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    (mg, gg), (mc, gc) = runs["cuda"], runs["cpu"]
+    worst_loss = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc)
+    check(worst_loss <= PARITY_LOSS_RTOL,
+          f"parity f32: loss components card {mg} vs CPU {mc}: worst relative difference "
+          f"{worst_loss:.3g} (limit {PARITY_LOSS_RTOL})")
+    scale = max(float(g.norm()) for g in gc.values())
+    worst, worst_name = 0.0, ""
+    for name, g in gc.items():
+        ref = float(g.norm())
+        if ref < 1e-6 * scale:
+            # A bias that an instance norm cancels: zero up to rounding.
+            check(float(gg[name].norm()) < 1e-5 * scale,
+                  f"parity f32: {name} gradient is zero up to rounding on both")
+            continue
+        rel = float((gg[name] - g).norm()) / ref
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= PARITY_GRAD_REL_L2,
+          f"parity f32: every parameter gradient within relative L2 {PARITY_GRAD_REL_L2} of the "
+          f"CPU run (worst {worst:.3g}, {worst_name})")
+    return worst_loss, worst
+
+
+def step_rates(torch, np):
+    """Steady-state train steps (forward, backward, Adam) on the card: ms per
+    step and img/s at STEP_BATCHES, f32 and bf16, with peak memory."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+
+    style = torch.from_numpy(_style_image(np)).cuda()
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    grams = vgg.style_gram_targets(vgg_params, style)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rates = {}
+    for precision in ("f32", "bf16"):
+        cd = torch.bfloat16 if precision == "bf16" else None
+        step = fast.make_train_step(vgg_params, grams, compute_dtype=cd)
+        for batch in STEP_BATCHES:
+            params = transformer.init_params(seed=0, device="cuda")
+            opt = fast.make_optimizer(params)
+            x = torch.randn(batch, SIZE, SIZE, 3, device="cuda", generator=g)
+            for _ in range(3):
+                step(params, opt, x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            iters = 10
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                m = step(params, opt, x)
+            loss = float(m["total"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(math.isfinite(loss), f"train step {precision} batch {batch}: loss {loss:.4f} "
+                  "finite")
+            rates[(precision, batch)] = batch / (ms / 1e3)
+            print(f"train step {precision} batch {batch} at {SIZE} px: {ms:.3f} ms/step = "
+                  f"{rates[(precision, batch)]:.1f} img/s, peak memory {peak:.2f} GiB",
+                  flush=True)
+    return rates
 
 
 def main() -> int:
@@ -316,7 +728,8 @@ def main() -> int:
         import torch.nn.functional as F
 
         from styletransfer_tpu_torch.ops import layers
-        from styletransfer_tpu_torch.ops.cuda import _build, conv3x3, instance_norm
+        from styletransfer_tpu_torch.ops.cuda import (
+            _build, conv3x3, fused_instance_norm, instance_norm)
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -326,6 +739,7 @@ def main() -> int:
     print(card, flush=True)
     layers.disable_tf32()
     shutil.rmtree(WORK, ignore_errors=True)
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         built = _build.build_all()
@@ -339,7 +753,12 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             entries.append(conv_phase(torch, F, conv3x3, dtype))
             entries.append(in_phase(torch, instance_norm, dtype))
-        launches, rates = main_path(torch, np, conv3x3, instance_norm)
+            entries += fused_phase(torch, F, fused_instance_norm, dtype)
+        in_dir, imgs = write_inputs(np)
+        serve_launches, rates = main_path(torch, np, in_dir, imgs)
+        train_launches = train_path(torch, np, in_dir)
+        parity_phase(torch, np)
+        step_rate = step_rates(torch, np)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -347,11 +766,14 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     for e in entries:
         kernel, dn = e["name"].split(".")
-        e["launches"] = launches["f32" if dn == "float32" else "bf16"][
-            0 if kernel == "conv3x3_valid" else 1]
+        path = serve_launches if kernel in SERVING_KERNELS else train_launches
+        e["launches"] = path["f32" if dn == "float32" else "bf16"][kernel]
     kind = torch.cuda.get_device_name(0)
-    print(f"main path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
+    print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")
+    print("training img/s at 256 px: " + ", ".join(
+        f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

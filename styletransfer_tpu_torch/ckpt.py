@@ -1,10 +1,18 @@
 """Checkpoint save / load, with the JAX package's file format and naming.
 
-The port of what inference needs from ``styletransfer_tpu/ckpt.py``:
-per-epoch files ``{model}_{style}_epoch{e}.msgpack`` under ``data/models/``,
-"latest" discovery sorted numerically by epoch, and the flax ``.msgpack``
-format, read and written with ``msgpack`` alone so that one trained model
-runs in both packages.
+The port of what fast_st training and inference need from
+``styletransfer_tpu/ckpt.py``: per-epoch files
+``{model}_{style}_epoch{e}.msgpack`` under ``data/models/`` with the
+epoch-skip resume checks, "latest" discovery sorted numerically by epoch,
+mid-epoch step states (params, Adam state, position) for exact resume, and
+the flax ``.msgpack`` format, read and written with ``msgpack`` alone so that
+one trained model, and one step state, runs in both packages.
+
+A step state keeps the optimizer as optax Adam's state tree
+(``{"0": {"count", "mu", "nu"}, "1": {}}``, the moments shaped like the
+parameter tree); :func:`adam_state_to_tree` and :func:`adam_state_from_tree`
+convert to and from ``torch.optim.Adam`` (``step``, ``exp_avg``,
+``exp_avg_sq``), whose update is optax's arithmetically.
 
 The flax format is a msgpack map of nested string-keyed maps whose array
 leaves are ExtType code 1 holding ``msgpack((shape, dtype name, raw C-order
@@ -20,7 +28,7 @@ from __future__ import annotations
 import os
 import re
 import threading
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +60,38 @@ def checkpoint_path(
     return os.path.join(
         _models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}{CKPT_SUFFIX}"
     )
+
+
+def save_epoch(
+    params: Any,
+    model_name: str,
+    style_name: str,
+    epoch: int,
+    models_path: Optional[str] = None,
+) -> str:
+    path = checkpoint_path(model_name, style_name, epoch, models_path)
+    save(params, path)
+    return path
+
+
+def existing_checkpoint_path(
+    model_name: str, style_name: str, epoch: int, models_path: Optional[str] = None
+) -> Optional[str]:
+    """The epoch's checkpoint in whichever format exists (``.msgpack`` first,
+    then an ``.orbax`` directory the JAX package may have written), or None."""
+    base = os.path.join(_models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}")
+    if os.path.isfile(base + CKPT_SUFFIX):
+        return base + CKPT_SUFFIX
+    if os.path.isdir(base + ORBAX_SUFFIX):
+        return base + ORBAX_SUFFIX
+    return None
+
+
+def epoch_checkpoint_exists(
+    model_name: str, style_name: str, epoch: int, models_path: Optional[str] = None
+) -> bool:
+    """Resume-skip check: an epoch saved in either format counts."""
+    return existing_checkpoint_path(model_name, style_name, epoch, models_path) is not None
 
 
 def _array_from_ext(data: bytes) -> np.ndarray:
@@ -107,6 +147,7 @@ def save(params: Any, path: str) -> None:
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     data = msgpack.packb(_as_tree(params), default=_ext_default, strict_types=True)
+    # pid and thread id: two writers of one path never share a temp file.
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_native_id()}"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -182,3 +223,129 @@ def load_latest_transformer(
     params = transformer.params_from_jax(load(path), device=device)
     get_logger().info("Loaded %s (epoch %d)", path, epoch)
     return params, epoch
+
+
+def step_state_path(model_name: str, style_name: str,
+                    models_path: Optional[str] = None) -> str:
+    return os.path.join(
+        _models_dir(models_path), f"{model_name}_{style_name}_step_state{CKPT_SUFFIX}"
+    )
+
+
+def save_step_state(
+    params: Any,
+    opt_state: Mapping[str, Any],
+    epoch: int,
+    iteration: int,
+    model_name: str,
+    style_name: str,
+    models_path: Optional[str] = None,
+    extra: Optional[Dict[str, int]] = None,
+) -> str:
+    """Atomically save mid-training state: ``params`` (module or tree),
+    ``opt_state`` (an optax-layout tree, :func:`adam_state_to_tree`), the
+    position, and ``extra`` integer run flags (e.g. ``batch_in_epoch``).
+    The layout is the JAX package's, so either package resumes it."""
+    state = {
+        "params": _as_tree(params),
+        "opt_state": opt_state,
+        "epoch": np.int64(epoch),
+        "iteration": np.int64(iteration),
+        "extra": {k: np.int64(v) for k, v in (extra or {}).items()},
+        "arrays": {},
+    }
+    path = step_state_path(model_name, style_name, models_path)
+    save(state, path)
+    return path
+
+
+def load_step_state(
+    model_name: str,
+    style_name: str,
+    models_path: Optional[str] = None,
+    extra_keys: Tuple[str, ...] = (),
+) -> Optional[Dict[str, Any]]:
+    """The saved step state, or None when there is none.
+
+    Returns ``{"params", "opt_state"}`` as trees of numpy arrays, ``epoch``
+    and ``iteration`` as ints, ``extra`` with every key of ``extra_keys``
+    (0 where the file lacks it: a state written before the key existed) and
+    ``arrays`` (empty entries dropped; {} for a state that predates the
+    field)."""
+    path = step_state_path(model_name, style_name, models_path)
+    if not os.path.isfile(path):
+        return None
+    raw = load(path)
+    state = {
+        "params": raw["params"],
+        "opt_state": raw["opt_state"],
+        "epoch": int(raw["epoch"]),
+        "iteration": int(raw["iteration"]),
+        "extra": {**{k: 0 for k in extra_keys},
+                  **{k: int(v) for k, v in raw.get("extra", {}).items()}},
+        "arrays": {k: v for k, v in raw.get("arrays", {}).items() if np.size(v)},
+    }
+    get_logger().info("Restored step state from %s (epoch %d, iteration %d)",
+                      path, state["epoch"], state["iteration"])
+    return state
+
+
+def _tree_get(tree: Mapping[str, Any], path: Sequence[str]) -> Any:
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _tree_set(tree: Dict[str, Any], path: Sequence[str], value: Any) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def adam_state_to_tree(params: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer``'s Adam state as optax ``adam``'s state tree:
+    ``{"0": {"count": int32, "mu": tree, "nu": tree}, "1": {}}``, the moments
+    keyed like ``params``' tree. Parameters without state yet (no step taken)
+    get zero moments and count 0."""
+    mu: Dict[str, Any] = {}
+    nu: Dict[str, Any] = {}
+    count = 0
+    for name, p in params.named_parameters():
+        st = optimizer.state.get(p, {})
+        path = name.split(".")
+        zeros = np.zeros(tuple(p.shape), np.float32)
+        if st:
+            count = int(st["step"])
+            _tree_set(mu, path, st["exp_avg"].detach().cpu().float().numpy())
+            _tree_set(nu, path, st["exp_avg_sq"].detach().cpu().float().numpy())
+        else:
+            _tree_set(mu, path, zeros)
+            _tree_set(nu, path, zeros)
+    return {"0": {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}, "1": {}}
+
+
+def adam_state_from_tree(
+    params: nn.Module, optimizer: torch.optim.Optimizer, tree: Mapping[str, Any]
+) -> None:
+    """Load an optax Adam state tree (as :func:`adam_state_to_tree` writes
+    it, or the JAX package's trainer saves it) into ``optimizer``, whose
+    parameters are ``params``'."""
+    adam = tree["0"]
+    count = int(np.asarray(adam["count"]))
+    for name, p in params.named_parameters():
+        path = name.split(".")
+        if count == 0:
+            optimizer.state.pop(p, None)
+            continue
+
+        def moment(key):
+            arr = np.asarray(_tree_get(adam[key], path), np.float32)
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{key} of {name} has shape {arr.shape}, want {tuple(p.shape)}")
+            return torch.from_numpy(arr.copy()).to(device=p.device, dtype=p.dtype)
+
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moment("mu"),
+            "exp_avg_sq": moment("nu"),
+        }

@@ -1,7 +1,7 @@
 """Command-line interface: ``python -m styletransfer_tpu_torch <group> <task>``.
 
-The same contract as the JAX package's CLI for the commands this slice has
-(``fast_st convert-image`` and ``convert-dir``), plus ``--device``.
+The same contract as the JAX package's CLI for the commands the port has
+(``fast_st train``, ``convert-image`` and ``convert-dir``), plus ``--device``.
 """
 
 import click

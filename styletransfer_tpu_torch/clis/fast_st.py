@@ -1,9 +1,12 @@
-"""``fast_st`` CLI: feed-forward style transfer inference.
+"""``fast_st`` CLI: feed-forward style transfer training and inference.
 
-The JAX package's ``convert-image`` and ``convert-dir`` commands, with the
-same arguments and output names, plus ``--device`` (default ``cuda``; there
-is no silent fallback to the CPU).
+The JAX package's ``train``, ``convert-image`` and ``convert-dir`` commands,
+with the same arguments and output names, plus ``--device`` (default
+``cuda``; there is no silent fallback to the CPU). ``train`` does not take
+the JAX command's ``--packed``, ``--distributed`` and ``--global-batch`` yet.
 """
+
+import os
 
 import click
 
@@ -20,6 +23,41 @@ _precision_option = click.option(
 @click.group()
 def fast_st():
     """Fast Style Transfer"""
+
+
+@fast_st.command()
+@click.argument("style-image-path")
+@click.option("-e", "--epochs", default=50, help="How many epochs the training will take")
+@click.option("-b", "--batch-size", default=4, help="Batch size for training")
+@click.option("-cw", "--content-weight", default=1,
+              help="The weight we will assign to the content loss during the optimization")
+@click.option("-sw", "--style-weight", default=100_000,
+              help="The weight we will assign to the style loss during the optimization")
+@click.option("--step-checkpoint-every", default=None, type=int,
+              help="Also save mid-epoch resumable state every N steps")
+@click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
+              help="Activation precision (params/optimizer stay f32)")
+@_device_option
+def train(style_image_path, epochs, batch_size, content_weight, style_weight,
+          step_checkpoint_every, precision, device):
+    """
+    Perform the training for the fast style transfer network. A checkpoint
+    will be created at the end of each epoch in the `data/models/` directory.
+    """
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.utils import images
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    constants.resolve_device(device)
+    style_name = style_image_path.split("/")[-1]
+    get_logger().info("Training fast style transfer network with style name: %s", style_name)
+    style_image = images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, style_image_path))
+    fast.static_train(
+        style_image, style_name=style_name, epochs=epochs, batch_size=batch_size,
+        style_weight=style_weight, content_weight=content_weight,
+        step_checkpoint_every=step_checkpoint_every, precision=precision, device=device,
+    )
 
 
 @fast_st.command("convert-image")

@@ -1,8 +1,9 @@
 """Global constants and device selection.
 
-The contract of ``styletransfer_tpu/constants.py`` for what this slice uses:
+The contract of ``styletransfer_tpu/constants.py`` for what the port uses:
 ImageNet normalization statistics, the working resolution, the project root
-(relocatable with ``STX_PROJECT_ROOT``) and the checkpoint directory.
+(relocatable with ``STX_PROJECT_ROOT``), the checkpoint and TensorBoard
+directories.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ PROJECT_ROOT_PATH = os.environ.get("STX_PROJECT_ROOT") or os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))
 )
 
-# Default location of model checkpoints.
+# Default locations of model checkpoints and of TensorBoard runs.
 MODELS_PATH = "data/models/"
+RUNS_PATH = "runs/"
 
 DEFAULT_DEVICE = "cuda"
 

@@ -6,9 +6,17 @@
 // the pad-early forward (styletransfer_tpu/models/transformer.py, _in_pad)
 // needs beyond it: edge padding, and statistics handed in by the conv3x3
 // kernel instead of computed here.
-//   s   = x + residual[interior]      (the sum rounded to the storage type,
-//                                       as the JAX forward adds in h.dtype)
+//   s   = x + residual[interior]      (with res_f32 == 0 the sum is rounded
+//                                       to the storage type, as the JAX
+//                                       pad-early forward adds in h.dtype;
+//                                       with res_f32 == 1 it stays f32, as
+//                                       fused_instance_norm's _kernel adds)
 //   out = pad(relu?((s - mean) * rsqrt(var + eps) * scale + bias))
+// The same kernels at pad 0 with res_f32 == 1 are the forward of
+// fused_instance_norm (_pallas_forward -> _kernel / _kernel_with_res) for the
+// training forward: mean and inv go back to the caller, which keeps them for
+// the backward (csrc/instance_norm_bwd.cu). One forward serves both paths,
+// so the training forward needs no second kernel.
 // With no statistics given, var is the exact centered variance, as in the
 // TPU kernel; with (sums, sumsqs) it is the one-pass form clamped at 0, as
 // in styletransfer_tpu/ops/layers.py instance_norm_stats.
@@ -75,6 +83,7 @@ __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
 
 struct Dims {
   int N, H, W, C, rp;  // rp: padding of the residual tensor (its interior is used)
+  int res_f32;         // 1: add the residual in f32; 0: round the sum to T
 };
 
 // s = x (+ residual interior) at pixel (n, y, x), channels c..c+3.
@@ -87,11 +96,17 @@ __device__ __forceinline__ float4 load_sum(const T* __restrict__ x,
     const int Hr = d.H + 2 * d.rp, Wr = d.W + 2 * d.rp;
     const float4 r =
         load4(res + (((size_t)n * Hr + y + d.rp) * Wr + xx + d.rp) * d.C + c);
-    const T* tag = nullptr;
-    v.x = round_to(v.x + r.x, tag);
-    v.y = round_to(v.y + r.y, tag);
-    v.z = round_to(v.z + r.z, tag);
-    v.w = round_to(v.w + r.w, tag);
+    v.x += r.x;
+    v.y += r.y;
+    v.z += r.z;
+    v.w += r.w;
+    if (!d.res_f32) {
+      const T* tag = nullptr;
+      v.x = round_to(v.x, tag);
+      v.y = round_to(v.y, tag);
+      v.z = round_to(v.z, tag);
+      v.w = round_to(v.w, tag);
+    }
   }
   return v;
 }
@@ -248,7 +263,7 @@ in_apply_pad(const T* __restrict__ x, const T* __restrict__ res, Dims d,
 }
 
 template <typename T>
-int launch(const void* x, const void* res, int res_pad, const void* sums,
+int launch(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
            const void* sumsqs, const void* scale, const void* bias, void* out, void* part,
            void* mean, void* inv, int N, int H, int W, int C, int pad, int edge, int relu,
            float eps, int G, int chunk, void* stream) {
@@ -259,6 +274,7 @@ int launch(const void* x, const void* res, int res_pad, const void* sums,
   d.W = W;
   d.C = C;
   d.rp = res_pad;
+  d.res_f32 = res_f32;
   const T* xt = static_cast<const T*>(x);
   const T* rt = static_cast<const T*>(res);
   float* mp = static_cast<float*>(mean);
@@ -296,24 +312,25 @@ const char* stx_instance_norm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x [N, H, W, C]; res [N, H+2*res_pad, W+2*res_pad, C] or NULL; sums/sumsqs
+// x [N, H, W, C]; res [N, H+2*res_pad, W+2*res_pad, C] or NULL, its interior
+// added in f32 (res_f32 = 1) or rounded to x's type (res_f32 = 0); sums/sumsqs
 // [N, C] f32 or NULL (then part [N, G, C, 3] f32 scratch holds the chunk
 // statistics of G chunks of `chunk` pixels); scale/bias [C] f32; mean/inv
-// [N, C] f32 scratch; out [N, H+2*pad, W+2*pad, C]. C % 4 == 0, C <= 1024.
-int stx_in_pad_f32(const void* x, const void* res, int res_pad, const void* sums,
+// [N, C] f32 outputs; out [N, H+2*pad, W+2*pad, C]. C % 4 == 0, C <= 1024.
+int stx_in_pad_f32(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
                    const void* sumsqs, const void* scale, const void* bias, void* out,
                    void* part, void* mean, void* inv, int N, int H, int W, int C, int pad,
                    int edge, int relu, float eps, int G, int chunk, void* stream) {
-  return launch<float>(x, res, res_pad, sums, sumsqs, scale, bias, out, part, mean, inv, N,
+  return launch<float>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, part, mean, inv, N,
                        H, W, C, pad, edge, relu, eps, G, chunk, stream);
 }
 
 // As stx_in_pad_f32 with x, res and out in bf16.
-int stx_in_pad_bf16(const void* x, const void* res, int res_pad, const void* sums,
+int stx_in_pad_bf16(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
                     const void* sumsqs, const void* scale, const void* bias, void* out,
                     void* part, void* mean, void* inv, int N, int H, int W, int C, int pad,
                     int edge, int relu, float eps, int G, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, res, res_pad, sums, sumsqs, scale, bias, out, part, mean,
+  return launch<__nv_bfloat16>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, part, mean,
                                inv, N, H, W, C, pad, edge, relu, eps, G, chunk, stream);
 }
 

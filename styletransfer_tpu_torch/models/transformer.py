@@ -1,8 +1,10 @@
 """The image transform net ("Perceptual Losses for Real-Time Style Transfer").
 
-The port of ``styletransfer_tpu/models/transformer.py`` for inference:
-parameters as ``nn.Module``s named after the JAX parameter keys, and the
-pad-early forward (``_apply_padearly`` there) on the two CUDA kernels:
+The port of ``styletransfer_tpu/models/transformer.py``: parameters as
+``nn.Module``s named after the JAX parameter keys, the stacked forward
+(:func:`apply_stacked`, differentiable, every instance norm on the fused-IN
+kernels; the training forward and ``pad_mode="zeros"``), and for serving
+the pad-early forward (``_apply_padearly`` there) on two CUDA kernels:
 
 - ``conv3x3_valid`` runs the ten 3x3 128->128 residual convs and hands the
   per-image sums of its output to the instance norm after the first conv
@@ -35,6 +37,7 @@ from torch import nn
 from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.ops import layers
 from styletransfer_tpu_torch.ops.cuda.conv3x3 import conv3x3_valid
+from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
 
 NUM_RESIDUAL_BLOCKS = 5
@@ -153,6 +156,54 @@ def num_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding):
+    x = layers.conv2d(x, conv.kernel, conv.bias, stride, compute_dtype=cd, padding=padding)
+    return fused_instance_norm(x, norm.scale, norm.bias, relu=True)
+
+
+def _residual_block(x, p: ResidualBlock, cd, padding):
+    """conv-IN-ReLU-conv, then IN of (out + the block's input): the residual
+    add is inside the second norm's kernel."""
+    out = _conv_in_relu(x, p.conv1, p.in1, 1, cd, padding)
+    out = layers.conv2d(out, p.conv2.kernel, p.conv2.bias, 1, compute_dtype=cd,
+                        padding=padding)
+    return fused_instance_norm(out, p.in2.scale, p.in2.bias, residual=x)
+
+
+def apply_stacked(
+    params: TransformerNet,
+    x: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    pad_mode: str = "reflect",
+) -> torch.Tensor:
+    """The stacked forward, differentiable: the port of the JAX
+    ``_apply_stacked`` with ``use_pallas=True``.
+
+    Each conv pads its own input (``pad_mode`` "reflect" or "zeros") and
+    runs as ``F.conv2d``; all 15 instance norms run on the fused-IN kernels
+    and their backward (``ops/cuda/fused_instance_norm.py``). This is the
+    training forward; in exact arithmetic it equals the pad-early
+    :func:`apply` (the two differ by about 1e-6 in f32)."""
+    if pad_mode not in ("reflect", "zeros"):
+        raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
+    in_dtype = x.dtype
+    cd = compute_dtype
+    if cd is not None:
+        x = x.to(cd)
+    x = _conv_in_relu(x, params.conv1, params.in1, 1, cd, pad_mode)
+    x = _conv_in_relu(x, params.conv2, params.in2, 2, cd, pad_mode)
+    x = _conv_in_relu(x, params.conv3, params.in3, 2, cd, pad_mode)
+    for i in range(NUM_RESIDUAL_BLOCKS):
+        x = _residual_block(x, getattr(params, f"res{i + 1}"), cd, pad_mode)
+    x = layers.upsample_nearest(x, 2)
+    x = _conv_in_relu(x, params.up1_conv, params.up1_in, 1, cd, pad_mode)
+    x = layers.upsample_nearest(x, 2)
+    x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode)
+    out = layers.conv2d(x, params.conv_out.kernel, params.conv_out.bias, 1, compute_dtype=cd,
+                        padding=pad_mode)
+    return out.to(in_dtype)
+
+
 def _conv_valid(x, p: Conv, stride, cd):
     return layers.conv2d(x, p.kernel, p.bias, stride, compute_dtype=cd)
 
@@ -193,14 +244,15 @@ def apply(
     exact two-pass variance (or the conv kernel's one-pass sums), where the
     JAX forward takes the one-pass form everywhere: the two differ by about
     1e-6.
+
+    ``pad_mode="zeros"`` zero-pads every conv, as the reference's own
+    checkpoints were trained (see the JAX ``apply``); it runs the stacked
+    form (:func:`apply_stacked`), since zero padding belongs to the conv.
     """
-    if pad_mode == "zeros":
-        raise NotImplementedError(
-            "pad_mode='zeros' (the stacked form) comes with a later slice of "
-            "the port, together with the .pth import"
-        )
-    if pad_mode != "reflect":
+    if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
+    if pad_mode == "zeros":
+        return apply_stacked(params, x, compute_dtype, pad_mode="zeros")
     in_dtype = x.dtype
     cd = compute_dtype
     if cd is not None:

@@ -7,7 +7,8 @@ padding and statistics handed in by the conv3x3 kernel. The kernel is
 ``csrc/instance_norm.cu``, whose header says what bounds it on the card.
 :func:`instance_norm_pad` launches it on CUDA tensors and computes
 :func:`instance_norm_pad_plain` on CPU tensors. ``launches`` counts the
-kernel's launches.
+kernel's launches by this wrapper; :func:`launch` is shared with the
+training forward (``fused_instance_norm.py``), which counts its own.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def instance_norm_pad_plain(
     return out.to(x.dtype)
 
 
-def _check(x, scale, bias, residual, res_pad, pad, mode, stats) -> None:
+def check(x, scale, bias, residual=None, res_pad=0, pad=0, mode="reflect", stats=None) -> None:
+    """Raise on what the kernel does not take (shapes, dtypes, C % 4, C <= 1024)."""
     if x.dim() != 4:
         raise ValueError(f"x must be [N, H, W, C], got shape {tuple(x.shape)}")
     N, H, W, C = x.shape
@@ -108,13 +110,35 @@ def instance_norm_pad(
     the input, as conv3x3 emits them, or None to compute the exact centered
     variance. Returns [N, H+2p, W+2p, C] in ``x.dtype``.
     """
-    _check(x, scale, bias, residual, res_pad, pad, mode, stats)
+    check(x, scale, bias, residual, res_pad, pad, mode, stats)
     if x.device.type == "cpu":
         return instance_norm_pad_plain(x, scale, bias, residual, res_pad, relu, pad, mode, stats)
+    global launches
+    out, _ = launch(x, scale, bias, residual, res_pad, False, relu, pad, mode, stats)
+    launches += 1
+    return out
+
+
+def launch(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    residual: Optional[torch.Tensor],
+    res_pad: int,
+    res_f32: bool,
+    relu: bool,
+    pad: int,
+    mode: str,
+    stats: Optional[Tuple[torch.Tensor, torch.Tensor]],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on checked CUDA tensors; counts nothing.
+
+    ``res_f32`` adds the residual in f32 instead of rounding the sum to
+    ``x.dtype``. Returns ``(out, mean_inv)`` with ``mean_inv`` [2, N, C] f32:
+    the statistics the output was normalized with."""
     extra = [] if residual is None else [residual]
     extra += [] if stats is None else list(stats)
     check_cuda_inputs(x, scale, bias, *extra)
-    global launches
     lib = _library()
     N, H, W, C = x.shape
     hw = H * W
@@ -131,6 +155,7 @@ def instance_norm_pad(
     with torch.cuda.device(dev):  # the library launches on the current device
         err = fn(
             x.data_ptr(), None if residual is None else residual.data_ptr(), res_pad,
+            int(res_f32),
             None if stats is None else stats[0].data_ptr(),
             None if stats is None else stats[1].data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -144,8 +169,7 @@ def instance_norm_pad(
             "instance-norm kernel launch failed: "
             f"{lib.stx_instance_norm_error_string(err).decode()}"
         )
-    launches += 1
-    return out
+    return out, mean_inv
 
 
 def _library() -> ctypes.CDLL:
@@ -153,7 +177,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_pad_f32, lib.stx_in_pad_bf16):
-            fn.argtypes = [p, p, i, p, p, p, p, p, p, p, p,
+            fn.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p,
                            i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
             fn.restype = i
         lib.stx_instance_norm_error_string.argtypes = [i]

@@ -1,9 +1,10 @@
 """Neural-net building blocks as plain PyTorch functions on NHWC tensors.
 
-The port of what the pad-early forward needs from
-``styletransfer_tpu/ops/layers.py``. The layout is the JAX package's: NHWC
-activations and HWIO conv kernels. ``F.conv2d`` takes an NHWC tensor through
-``permute(0, 3, 1, 2)``, a ``channels_last`` view with no copy.
+The port of what the pad-early forward, the stacked (training) forward and
+the VGG tower need from ``styletransfer_tpu/ops/layers.py``. The layout is
+the JAX package's: NHWC activations and HWIO conv kernels. ``F.conv2d``
+takes an NHWC tensor through ``permute(0, 3, 1, 2)``, a ``channels_last``
+view with no copy.
 
 Parity notes (the same as the JAX module's):
 - reflection padding does not repeat the edge pixel; edge padding does;
@@ -66,20 +67,58 @@ def conv2d(
     bias: Optional[torch.Tensor] = None,
     stride: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
+    padding: str = "valid",
 ) -> torch.Tensor:
-    """VALID 2-D convolution of an already padded NHWC input.
+    """2-D convolution of an NHWC input; differentiable.
 
-    ``kernel`` is HWIO. With a ``compute_dtype`` the inputs are cast to it
-    and the output comes in it (the product still accumulates in f32); the
-    bias is added in the output's dtype, as in the JAX function."""
+    ``kernel`` is HWIO. ``padding``: "valid" (the input is already padded),
+    "reflect" (reflection padding of k//2, the transform net's) or "zeros"
+    (zero padding of k//2, VGG's). With a ``compute_dtype`` the inputs are
+    cast to it and the output comes in it (the product still accumulates in
+    f32); the bias is added in the output's dtype, as in the JAX function."""
+    if padding not in ("valid", "reflect", "zeros"):
+        raise ValueError(f"padding must be 'valid', 'reflect' or 'zeros', got {padding!r}")
+    pad = kernel.shape[0] // 2
+    if padding == "reflect":
+        x = reflect_pad(x, pad)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         kernel = kernel.to(compute_dtype)
     w = kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride).permute(0, 2, 3, 1)
+    out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                   padding=pad if padding == "zeros" else 0).permute(0, 2, 3, 1)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.contiguous()
+
+
+def instance_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Affine instance norm over the spatial dims of NHWC ``x``, as
+    ``nn.InstanceNorm2d(C, affine=True)``: per (sample, channel), biased
+    variance, in f32; the output has ``x.dtype``. ``scale``/``bias`` are
+    [C] or [B, C]."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2), keepdim=True)
+    var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+    if scale.dim() == 2:
+        scale, bias = scale[:, None, None, :], bias[:, None, None, :]
+    return ((x32 - mean) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of NHWC by an integer factor
+    (``nn.Upsample(mode='nearest', scale_factor=factor)``)."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, factor, w, factor, c)
+    return x.reshape(n, h * factor, w * factor, c)
+
+
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """Max pooling (VGG's ``nn.MaxPool2d(2, 2)``) on NHWC, no padding."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def instance_norm_stats(

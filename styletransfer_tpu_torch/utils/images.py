@@ -1,9 +1,11 @@
 """Image loading / saving with the reference's transform semantics.
 
-The port of what fast_st serving needs from ``styletransfer_tpu/utils/
-images.py``: the shared center-crop + bilinear-resize recipe (host side, PIL),
-uint8 loading and atomic saving, and the on-device normalize / denormalize
-steps that let serving move uint8 both ways. Layout is NHWC.
+The port of what fast_st training and serving need from
+``styletransfer_tpu/utils/images.py``: the shared center-crop +
+bilinear-resize recipe (host side, PIL), normalized float and uint8 loading,
+atomic saving, the numpy normalize / denormalize and preview helpers, and the
+on-device normalize / denormalize steps that let serving move uint8 both
+ways. Layout is NHWC.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from PIL import Image
 
 from styletransfer_tpu_torch import constants
 
+_MEAN = np.asarray(constants.IMAGENET_MEAN, dtype=np.float32)
+_STD = np.asarray(constants.IMAGENET_STD, dtype=np.float32)
+
 
 def _center_crop_resize_pil(image: "Image.Image", size: int) -> "Image.Image":
     """The one crop recipe every load path shares: center-crop to the min
@@ -29,6 +34,48 @@ def _center_crop_resize_pil(image: "Image.Image", size: int) -> "Image.Image":
     top = int(round((h - side) / 2.0))
     image = image.crop((left, top, left + side, top + side))
     return image.resize((size, size), Image.BILINEAR)
+
+
+def center_crop_resize(image: "Image.Image", size: int = constants.IMSIZE) -> np.ndarray:
+    """Center-crop to a square of the min dimension, then bilinear-resize
+    (torchvision ``CenterCrop(min_dim) -> Resize(size)``). Returns float32
+    HWC in [0, 1]; a grayscale image keeps a channel axis of 1."""
+    arr = np.asarray(_center_crop_resize_pil(image, size), dtype=np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
+def normalize(image: np.ndarray) -> np.ndarray:
+    """ImageNet-normalize a [0, 1]-scaled NHWC (or HWC) image."""
+    return (image - _MEAN) / _STD
+
+
+def denormalize(image: np.ndarray) -> np.ndarray:
+    """Invert :func:`normalize`."""
+    return image * _STD + _MEAN
+
+
+def load_image(image_path: str, size: int = constants.IMSIZE) -> np.ndarray:
+    """Load an image as ``[1, size, size, 3]`` float32: decode, convert to
+    RGB, center-crop, resize, scale to [0, 1] and ImageNet-normalize."""
+    with Image.open(image_path) as img:
+        arr = center_crop_resize(img.convert("RGB"), size)
+    return normalize(arr)[None, ...]
+
+
+def concat_images(im1: np.ndarray, im2: np.ndarray, axis: int = -2) -> np.ndarray:
+    """Concatenate two HWC or NHWC images, along the width by default."""
+    return np.concatenate([np.asarray(im1), np.asarray(im2)], axis=axis)
+
+
+def to_uint8(image: np.ndarray) -> np.ndarray:
+    """A model-space image (HWC, or NHWC whose first image is taken) as
+    displayable HWC uint8: denormalize, clip to [0, 1], scale and round."""
+    arr = np.asarray(image, dtype=np.float32)
+    if arr.ndim == 4:
+        arr = arr[0]
+    return np.round(np.clip(denormalize(arr), 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
 def load_image_uint8(image_path: str, size: int = constants.IMSIZE) -> np.ndarray:

@@ -1,13 +1,17 @@
-"""Where the time of the fast_st forward goes on the GPU.
+"""Where the time of the fast_st forward, or of a training step, goes on
+the GPU.
 
     python -m styletransfer_tpu_torch.utils.profiling [--batch 64] [--size 256]
+    python -m styletransfer_tpu_torch.utils.profiling --train [--batch 4]
 
-Runs ``engines.fast.make_serve_fn`` on seeded parameters and a seeded uint8
-batch on the card, in f32 and bf16, under ``torch.profiler``, and prints the
-device time of each kernel and of each group of kernels (the port's two
-kernels, cuDNN's convolutions, everything else), the wall time per forward
-and the share of it in which the device ran no kernel. The last line is one
-JSON object with the same numbers. Needs a CUDA GPU; fails without one.
+Runs ``engines.fast.make_serve_fn`` (or, with ``--train``, the train step of
+``engines.fast.make_train_step``: forward, backward and Adam) on seeded
+parameters and a seeded batch on the card, in f32 and bf16, under
+``torch.profiler``, and prints the device time of each kernel and of each
+group of kernels (the port's kernels, cuDNN's convolutions, matrix products,
+the optimizer, everything else), the wall time per call and the share of it
+in which the device ran no kernel. The last line is one JSON object with the
+same numbers. Needs a CUDA GPU; fails without one.
 """
 
 from __future__ import annotations
@@ -24,12 +28,19 @@ import numpy as np
 import torch
 
 from styletransfer_tpu_torch.engines import fast
-from styletransfer_tpu_torch.models import transformer
+from styletransfer_tpu_torch.models import transformer, vgg
 
+# First match wins. The IN kernel serves both the IN-pad of the serving
+# forward and the fused-IN forward of the training forward.
 _GROUPS = (
     ("conv3x3 kernel", ("conv3x3_", "tile_sums_kernel")),
-    ("IN-pad kernel", ("in_partial_stats", "in_finalize", "in_apply_pad")),
-    ("cuDNN convolutions", ("conv", "xmma", "cudnn", "gemm", "implicit", "winograd", "fft")),
+    ("IN kernel (IN-pad / fused-IN forward)",
+     ("in_partial_stats", "in_finalize", "in_apply_pad")),
+    ("fused-IN backward kernel", ("inb_partial", "inb_finalize", "inb_dx")),
+    ("cuDNN convolutions", ("conv", "cudnn", "implicit", "winograd", "fft", "fprop", "dgrad",
+                            "wgrad", "pointwise_mult_and_sum")),
+    ("matrix products (Gram)", ("gemm", "cutlass")),
+    ("optimizer (Adam)", ("multi_tensor", "adam")),
 )
 
 
@@ -41,28 +52,28 @@ def _group(kernel_name: str) -> str:
     return "other (copies, pads, elementwise)"
 
 
-def profile_forward(precision: str, batch: int, size: int, iters: int = 5) -> Dict:
-    """Profile ``iters`` forwards after a warm-up; device times in ms per forward."""
-    dev = torch.device("cuda")
-    params = transformer.init_params(seed=0, device=dev)
-    x = torch.from_numpy(
-        np.random.default_rng(0).integers(0, 256, size=(batch, size, size, 3), dtype=np.uint8)
-    ).to(dev)
-    serve = fast.make_serve_fn(precision)
+def _profile(run, batch: int, iters: int) -> Dict:
+    """Profile ``iters`` calls of ``run`` after a warm-up; device times in ms
+    per call."""
     for _ in range(2):
-        serve(params, x)
+        run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            serve(params, x)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels: Dict[str, float] = defaultdict(float)
+    launches: Dict[str, int] = defaultdict(int)
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # Device-side spans of record_function ranges (an optimizer step)
+        # cover kernels counted on their own.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             kernels[ev.name] += ev.time_range.elapsed_us() / 1e3 / iters
+            launches[_group(ev.name)] += 1
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     groups: Dict[str, float] = defaultdict(float)
@@ -70,20 +81,53 @@ def profile_forward(precision: str, batch: int, size: int, iters: int = 5) -> Di
         groups[_group(name)] += ms
     busy = sum(kernels.values())
     return {
-        "precision": precision, "batch": batch, "size": size,
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
         "img_per_s": batch / (wall_ms / 1e3),
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "device_ops_per_call": {k: v / iters for k, v in sorted(launches.items())},
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]),
     }
 
 
+def profile_forward(precision: str, batch: int, size: int, iters: int = 5) -> Dict:
+    """The serving forward (uint8 in and out)."""
+    dev = torch.device("cuda")
+    params = transformer.init_params(seed=0, device=dev)
+    x = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, size=(batch, size, size, 3), dtype=np.uint8)
+    ).to(dev)
+    serve = fast.make_serve_fn(precision)
+    out = _profile(lambda: serve(params, x), batch, iters)
+    return {"precision": precision, "batch": batch, "size": size, **out}
+
+
+def profile_train_step(precision: str, batch: int, size: int, iters: int = 5) -> Dict:
+    """One training step (forward, backward, Adam) on seeded parameters,
+    seeded VGG and a seeded batch."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    params = transformer.init_params(seed=0, device=dev)
+    vgg_params = vgg.init_params(seed=0, device=dev)
+    style = torch.from_numpy(rng.standard_normal((1, size, size, 3)).astype(np.float32)).to(dev)
+    grams = vgg.style_gram_targets(vgg_params, style)
+    x = torch.from_numpy(rng.standard_normal((batch, size, size, 3)).astype(np.float32)).to(dev)
+    step = fast.make_train_step(vgg_params, grams,
+                                compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+    opt = fast.make_optimizer(params)
+    out = _profile(lambda: step(params, opt, x), batch, iters)
+    return {"precision": precision, "batch": batch, "size": size, "train_step": True, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default 64 for the forward, 4 for --train)")
     ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--train", action="store_true", help="profile a training step")
     args = ap.parse_args(argv)
+    batch = args.batch or (4 if args.train else 64)
+    what = "train step" if args.train else "forward"
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -93,13 +137,15 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     results = []
     for precision in ("f32", "bf16"):
-        r = profile_forward(precision, args.batch, args.size)
+        run = profile_train_step if args.train else profile_forward
+        r = run(precision, batch, args.size)
         results.append(r)
         print(f"{precision} batch {r['batch']} at {r['size']} px on {card}: "
-              f"{r['wall_ms']:.3f} ms/forward ({r['img_per_s']:.1f} img/s), device busy "
+              f"{r['wall_ms']:.3f} ms/{what} ({r['img_per_s']:.1f} img/s), device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.4f}")
         for name, ms in r["groups_ms"].items():
-            print(f"  {name:36s} {ms:9.3f} ms  {ms / r['device_busy_ms']:6.1%}")
+            print(f"  {name:40s} {ms:9.3f} ms  {ms / r['device_busy_ms']:6.1%}  "
+                  f"{r['device_ops_per_call'][name]:.0f} kernels")
         for name, ms in r["top_kernels_ms"].items():
             print(f"    {ms:9.3f} ms  {name[:110]}")
     print(json.dumps({"card": card, "profiles": results}))

@@ -93,3 +93,41 @@ def test_pth_checkpoints_wait_for_a_later_slice(tmp_path):
     (tmp_path / "fast_st_wave_epoch1.pth").write_bytes(b"")
     with pytest.raises(NotImplementedError, match=".pth"):
         tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+
+
+def test_epoch_checkpoint_checks_agree_with_jax(tmp_path, jax_params):
+    models = str(tmp_path)
+    assert not tckpt.epoch_checkpoint_exists("fast_st", "wave", 0, models)
+    path = tckpt.save_epoch(tt.params_from_jax(jax_params, device="cpu"), "fast_st", "wave", 0,
+                            models)
+    assert path == jckpt.checkpoint_path("fast_st", "wave", 0, models)
+    (tmp_path / "fast_st_wave_epoch1.orbax").mkdir()
+    for epoch in (0, 1, 2):
+        assert tckpt.existing_checkpoint_path("fast_st", "wave", epoch, models) == \
+            jckpt.existing_checkpoint_path("fast_st", "wave", epoch, models)
+        assert tckpt.epoch_checkpoint_exists("fast_st", "wave", epoch, models) == \
+            jckpt.epoch_checkpoint_exists("fast_st", "wave", epoch, models)
+
+
+def test_port_resumes_a_step_state_the_jax_trainer_wrote(tmp_path, jax_params):
+    import optax
+    import torch
+
+    opt = optax.adam(1e-3)
+    st = opt.init(jax_params)
+    grads = jax.tree_util.tree_map(lambda a: jnp.ones_like(a) * 0.5, jax_params)
+    _, st = opt.update(grads, st, jax_params)
+    jckpt.save_step_state(jax_params, st, 3, 70, "fast_st", "wave", str(tmp_path),
+                          extra={"batch_in_epoch": 9})
+    state = tckpt.load_step_state("fast_st", "wave", str(tmp_path),
+                                  extra_keys=("batch_in_epoch", "other"))
+    assert (state["epoch"], state["iteration"]) == (3, 70)
+    assert state["extra"] == {"batch_in_epoch": 9, "other": 0}
+    _assert_trees_equal(state["params"], jax_params)
+    params = tt.params_from_jax(state["params"], device="cpu")
+    topt = torch.optim.Adam(params.parameters())
+    tckpt.adam_state_from_tree(params, topt, state["opt_state"])
+    adam = topt.state[params.res2.conv1.kernel]
+    assert float(adam["step"]) == 1
+    np.testing.assert_allclose(adam["exp_avg"].numpy(), 0.05, rtol=1e-6)
+    np.testing.assert_allclose(adam["exp_avg_sq"].numpy(), 0.00025, rtol=1e-5)

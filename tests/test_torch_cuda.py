@@ -15,7 +15,7 @@ import torch
 
 from styletransfer_tpu_torch.models import transformer
 from styletransfer_tpu_torch.ops import layers
-from styletransfer_tpu_torch.ops.cuda import conv3x3, instance_norm
+from styletransfer_tpu_torch.ops.cuda import conv3x3, fused_instance_norm, instance_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +86,68 @@ def test_instance_norm_kernel_matches_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert instance_norm.launches == before + 1
     _close(out, instance_norm.instance_norm_pad_plain(*args), dtype)
+
+
+# (shape, residual, relu): every combination the training forward uses, plus
+# ragged shapes (a chunk that does not divide H*W, four channels).
+_FUSED_CASES = [
+    ((2, 16, 16, 32), False, True),
+    ((2, 9, 7, 128), True, False),
+    ((2, 12, 12, 64), True, True),
+    ((1, 300, 5, 4), False, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FUSED_CASES)
+def test_fused_instance_norm_kernels_match_plain(cuda, dtype, case):
+    (N, H, W, C), with_res, relu = case
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(N, H, W, C, device=cuda, generator=g) * 3 + 1).to(dtype)
+    res = torch.randn(N, H, W, C, device=cuda, generator=g).to(dtype) if with_res else None
+    scale = torch.rand(C, device=cuda, generator=g) + 0.5
+    bias = torch.randn(C, device=cuda, generator=g)
+    gy = torch.randn(N, H, W, C, device=cuda, generator=g).to(dtype)
+    before = fused_instance_norm.fwd_launches, fused_instance_norm.bwd_launches
+    out, mean, inv = fused_instance_norm.forward(x, scale, bias, res, relu)
+    dx, dscale, dbias = fused_instance_norm.backward(gy, x, res, mean, inv, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert (fused_instance_norm.fwd_launches, fused_instance_norm.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    pout, pmean, pinv = fused_instance_norm.forward_plain(x, scale, bias, res, relu)
+    torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv, pinv, rtol=1e-5, atol=1e-5)
+    _close(out, pout, dtype)
+    # The backward from the same statistics: the mask is bit-equal, the sums
+    # over H*W (up to 1,500 pixels here) differ in order only.
+    pdx, pdscale, pdbias = fused_instance_norm.backward_plain(gy, x, res, mean, inv, scale, bias,
+                                                              relu)
+    _close(dx, pdx, dtype)
+    torch.testing.assert_close(dscale, pdscale, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(dbias, pdbias, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_instance_norm_gradients_on_the_card_match_the_cpu(cuda, dtype):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32)).to(dtype)
+    res = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32)).to(dtype)
+    scale = torch.from_numpy((rng.random(16) + 0.5).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32))
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in (x, res, scale, bias)]
+        out = fused_instance_norm.fused_instance_norm(leaves[0], leaves[2], leaves[3],
+                                                      residual=leaves[1], relu=True)
+        (out.float() * w.to(device)).sum().backward()
+        return [t.grad.cpu() for t in leaves]
+
+    before = fused_instance_norm.bwd_launches
+    got = grads(cuda)
+    assert fused_instance_norm.bwd_launches == before + 1
+    for a, b in zip(got, grads("cpu")):
+        _close(a, b, dtype)
 
 
 def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):

@@ -59,6 +59,7 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch, styletransfer_tpu_torch.clis\n"
         "import styletransfer_tpu_torch.__main__\n"
         "import styletransfer_tpu_torch.engines.fast, styletransfer_tpu_torch.ckpt\n"
+        "import styletransfer_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
@@ -103,3 +104,14 @@ def test_cli_defaults_to_cuda_and_fails_without_a_gpu(no_gpu, tmp_path, monkeypa
     assert result.exit_code != 0
     assert "no CUDA GPU" in str(result.exception)
     assert not (tmp_path / "results").exists()
+
+
+def test_train_cli_defaults_to_cuda_and_fails_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    result = CliRunner().invoke(cli, ["fast_st", "train", "style.png", "-e", "1"])
+    assert result.exit_code != 0
+    assert "no CUDA GPU" in str(result.exception)
+    assert not (tmp_path / "runs").exists() and not (tmp_path / "data").exists()

@@ -127,3 +127,60 @@ def test_init_conv_and_instance_norm():
     assert torch.equal(k, k2)  # seeded
     s, z = tl.init_instance_norm(4)
     assert torch.equal(s, torch.ones(4)) and torch.equal(z, torch.zeros(4))
+
+
+def test_upsample_nearest_and_max_pool_equal_exactly(rng):
+    x = _x(rng, (2, 6, 4, 5))
+    np.testing.assert_array_equal(tl.upsample_nearest(torch.from_numpy(x), 2).numpy(),
+                                  np.asarray(jl.upsample_nearest(jnp.asarray(x), 2)))
+    np.testing.assert_array_equal(tl.max_pool(torch.from_numpy(x), 2, 2).numpy(),
+                                  np.asarray(jl.max_pool(jnp.asarray(x), 2, 2)))
+
+
+@pytest.mark.parametrize("padding,stride,k", [("reflect", 1, 3), ("reflect", 2, 3),
+                                              ("zeros", 1, 3), ("reflect", 1, 9)])
+def test_padded_conv2d_and_its_gradients_match_jax(rng, padding, stride, k):
+    """The convs of the stacked forward and VGG: value, and the gradients of
+    input, kernel and bias (f32; summation order only)."""
+    import jax
+
+    x, w, b = _x(rng, (2, 10, 10, 4)), _x(rng, (k, k, 4, 6)) * 0.2, _x(rng, (6,))
+    cot = _x(rng, (2, 10 // stride, 10 // stride, 6))
+
+    def jfn(x_, w_, b_):
+        out = jl.conv2d(x_, w_, b_, stride, reflect=padding == "reflect")
+        return jnp.sum(out * cot), out
+
+    (_, want), jg = jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    got = tl.conv2d(*leaves, stride, padding=padding)
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for t, g in zip(leaves, jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-4)
+
+
+def test_conv2d_bf16_adds_the_bias_in_bf16(rng):
+    x, w, b = _x(rng, (1, 6, 6, 4)), _x(rng, (3, 3, 4, 8)), _x(rng, (8,))
+    got = tl.conv2d(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                    compute_dtype=torch.bfloat16, padding="zeros")
+    plain = tl.conv2d(torch.from_numpy(x), torch.from_numpy(w), None,
+                      compute_dtype=torch.bfloat16, padding="zeros")
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, plain + torch.from_numpy(b).bfloat16())
+
+
+def test_conv2d_rejects_unknown_padding():
+    with pytest.raises(ValueError, match="padding"):
+        tl.conv2d(torch.zeros(1, 4, 4, 1), torch.zeros(3, 3, 1, 1), padding="same")
+
+
+def test_instance_norm_matches_jax(rng):
+    x = _x(rng, (2, 5, 6, 8)) * 3 + 1
+    scale, bias = _x(rng, (2, 8)), _x(rng, (2, 8))  # conditional [B, C] affine
+    np.testing.assert_allclose(
+        tl.instance_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                         torch.from_numpy(bias)).numpy(),
+        np.asarray(jl.instance_norm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))),
+        rtol=1e-5, atol=1e-5)

@@ -108,8 +108,15 @@ def test_module_forward_is_apply(port_params):
     assert torch.equal(port_params(x), tt.apply(port_params, x))
 
 
-def test_zeros_pad_mode_waits_for_a_later_slice(port_params):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.apply(port_params, torch.zeros(1, 16, 16, 3), pad_mode="zeros")
+def test_zeros_pad_mode_waits_for_a_later_slice(jax_params, port_params):
+    """pad_mode="zeros" runs the stacked forward, without autograd, against
+    the JAX apply(pad_mode="zeros"). (The name predates the stacked form.)"""
+    x = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jt.apply(jax_params, jnp.asarray(x), pad_mode="zeros"))
+    before = conv3x3.launches, instance_norm.launches
+    got = tt.apply(port_params, torch.from_numpy(x), pad_mode="zeros")
+    assert (conv3x3.launches, instance_norm.launches) == before
+    assert not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
     with pytest.raises(ValueError, match="pad_mode"):
         tt.apply(port_params, torch.zeros(1, 16, 16, 3), pad_mode="circular")
