@@ -14,7 +14,10 @@ It imports nothing of JAX. Phases:
    that computes the same function: the serving kernels (conv3x3, IN-pad) at
    the serving path's shapes (batch 64, 256 px), the training kernels (the
    fused instance norm's forward and backward) at each call shape of the
-   training forward (batch 4, 256 px), in f32 and bf16;
+   training forward (batch 4, 256 px), and the stat-free conv kernels
+   (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
+   Gatys closure (the tower's five forward convs and their five input
+   gradients), in f32 and bf16;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
@@ -24,12 +27,22 @@ It imports nothing of JAX. Phases:
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
    fused-IN forward and 15 backward launches per step (and 15 forward
-   launches per eval or preview forward), every logged loss must be finite,
-   and the epoch checkpoint must load and serve through ``process_dir``;
+   launches per eval or preview forward) and the VGG tower's conv kernels
+   (per step 2 conv3x3_im2col and 12 conv3x3_flat: the output's forward and
+   input gradient, the content target's forward), every logged loss must be
+   finite, and the epoch checkpoint must load and serve through
+   ``process_dir``;
 6. one f32 training step on two images, card against the port's CPU run
    (loss components and every parameter's gradient);
 7. time steady-state training steps at batch 4 and 16, f32 and bf16;
-8. print one JSON line with each kernel's error, launches and times, and as
+8. drive the Gatys path: the port's ``gatys_st`` command at 256 px (L-BFGS,
+   H = 100, compact) for a few steps in f32 and bf16, then at its defaults
+   (300 steps, f32), then on a directory of 4 images (4 lanes). Every
+   closure evaluation must launch 1 conv3x3_im2col and 9 conv3x3_flat, the
+   targets 1 + 4 (style) and 1 + 3 (content) per run, no cuDNN conv may run,
+   the losses must be finite and fall and the PNGs must be written; then one
+   f32 closure on a 64 px image, card against the port's CPU run;
+9. print one JSON line with each kernel's error, launches and times, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
@@ -71,6 +84,10 @@ TOL = {
     ("fused_instance_norm_fwd", "bfloat16"): (2 ** -7, 1e-3),
     ("fused_instance_norm_bwd", "float32"): (1e-5, 1e-5),
     ("fused_instance_norm_bwd", "bfloat16"): (2 ** -7, 1e-3),
+    ("conv3x3_flat", "float32"): (1e-4, 1e-4),
+    ("conv3x3_flat", "bfloat16"): (2 ** -7, 1e-3),
+    ("conv3x3_im2col", "float32"): (1e-4, 1e-4),
+    ("conv3x3_im2col", "bfloat16"): (2 ** -7, 1e-3),
 }
 # The statistics (mean, inv) of the forward: f32 means and variances over up
 # to 65,536 pixels, summed in another order.
@@ -95,10 +112,15 @@ SOURCES = {
                                 "styletransfer_tpu/ops/pallas/instance_norm.py:113"),
     "fused_instance_norm_bwd": ("styletransfer_tpu_torch/csrc/instance_norm_bwd.cu",
                                 "styletransfer_tpu/ops/pallas/instance_norm.py:160"),
+    "conv3x3_flat": ("styletransfer_tpu_torch/csrc/conv3x3_flat.cu",
+                     "styletransfer_tpu/ops/pallas/conv3x3.py:133"),
+    "conv3x3_im2col": ("styletransfer_tpu_torch/csrc/conv3x3_im2col.cu",
+                       "styletransfer_tpu/ops/pallas/conv3x3.py:86"),
 }
 # Which path launches each kernel: its JSON launch count is that path's.
 SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad")
 TRAINING_KERNELS = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
+GATYS_KERNELS = ("conv3x3_flat", "conv3x3_im2col")
 
 # The training path: batch 4 (the reference's and the CLI's default), a few
 # steps of one epoch on the synthetic corpus. Cadence (loss, preview, eval):
@@ -115,6 +137,33 @@ PARITY_LOSS_RTOL = 1e-5
 PARITY_GRAD_REL_L2 = 1e-3
 # Steady-state training steps timed at these batch sizes.
 STEP_BATCHES = (4, 16)
+# The VGG tower's conv launches of the training path: per train step (the
+# output's forward, up to conv3_1, and its input gradient; the content
+# target's forward, up to conv2_2), per eval forward (the output up to
+# conv3_1, then output and content up to conv2_2), and once per run for the
+# style Grams (up to conv3_1).
+VGG_PER_STEP = {"conv3x3_im2col": 2, "conv3x3_flat": 12}
+VGG_PER_EVAL = {"conv3x3_im2col": 3, "conv3x3_flat": 10}
+VGG_STYLE_TARGETS = {"conv3x3_im2col": 1, "conv3x3_flat": 4}
+
+# The Gatys path: 256 px (the CLI's default size), L-BFGS with the CLI's
+# H = 100 and compact history; a few outer steps in f32 and bf16, the CLI's
+# default (300 steps, f32) once, and a directory of GATYS_LANES images.
+GATYS_SIZE = 256
+GATYS_STEPS = 3
+GATYS_LANE_STEPS = 2
+GATYS_LANES = 4
+# Launches per closure evaluation (forward: conv1_1 on im2col, four convs on
+# flat; input gradient: five on flat) and per run for the targets (the style
+# Grams up to conv3_1 and the content target up to conv2_2, once each).
+GATYS_PER_CLOSURE = {"conv3x3_im2col": 1, "conv3x3_flat": 9}
+GATYS_TARGETS = {"conv3x3_im2col": 2, "conv3x3_flat": 7}
+# Card against the port's CPU run: one f32 closure on one 64 px image. The
+# loss (relative) and the pixel gradient (relative L2): the sums run in
+# another order, and a ReLU whose input lies within rounding of 0 may switch.
+GATYS_PARITY_SIZE = 64
+GATYS_PARITY_LOSS_RTOL = 1e-5
+GATYS_PARITY_GRAD_REL_L2 = 1e-3
 
 
 class CheckFailed(Exception):
@@ -195,12 +244,15 @@ def allclose(torch, a, b, rtol, atol) -> bool:
 
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from styletransfer_tpu_torch.ops.cuda import conv3x3, fused_instance_norm, instance_norm
+    from styletransfer_tpu_torch.ops.cuda import (
+        conv3x3, conv3x3_flat, fused_instance_norm, instance_norm)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
             "instance_norm_pad": (instance_norm, "launches"),
             "fused_instance_norm_fwd": (fused_instance_norm, "fwd_launches"),
-            "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches")}
+            "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches"),
+            "conv3x3_flat": (conv3x3_flat, "flat_launches"),
+            "conv3x3_im2col": (conv3x3_flat, "im2col_launches")}
 
 
 def reset_counts() -> None:
@@ -448,6 +500,93 @@ def fused_phase(torch, F, fin, dtype):
     return [entries[n] for n in names]
 
 
+# The ten 3x3 convs of one Gatys closure at 256 px, batch 1: (name, H, C, O).
+# The forward runs conv1_1 on conv3x3_im2col and the other four on
+# conv3x3_flat; the input gradient (".dx": C and O swapped) runs all five on
+# conv3x3_flat.
+_GATYS_CONVS = [
+    ("conv1_1", 256, 3, 64), ("conv1_2", 256, 64, 64), ("conv2_1", 128, 64, 128),
+    ("conv2_2", 128, 128, 128), ("conv3_1", 64, 128, 256),
+    ("conv1_1.dx", 256, 64, 3), ("conv1_2.dx", 256, 64, 64), ("conv2_1.dx", 128, 128, 64),
+    ("conv2_2.dx", 128, 128, 128), ("conv3_1.dx", 64, 256, 128),
+]
+
+
+def stat_free_phase(torch, F, cf, dtype):
+    """conv3x3_flat and conv3x3_im2col against their plain versions on the
+    ten conv shapes of a 256 px Gatys closure (conv1_2 also with ReLU), on
+    zero-padded inputs; device times of both kernels, both plain versions and
+    ``F.conv2d`` (padding 1, on the unpadded interior) at each shape. The
+    JSON entries: conv3x3_flat's nine calls of a closure, summed, and
+    conv3x3_im2col's one (conv1_1)."""
+    dn = str(dtype).split(".")[1]
+    names = ("conv3x3_flat", "conv3x3_im2col")
+    fns = {"conv3x3_flat": (cf.conv3x3_flat, cf.conv3x3_flat_plain),
+           "conv3x3_im2col": (cf.conv3x3_im2col, cf.conv3x3_im2col_plain)}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {n: 0.0 for n in names}
+    total = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+             for n in names}
+    for call, H, C, O in _GATYS_CONVS:
+        interior = torch.randn(1, H, H, C, device="cuda", generator=g).to(dtype)
+        x = F.pad(interior, (0, 0, 1, 1, 1, 1)).contiguous()
+        w = (torch.randn(3, 3, C, O, device="cuda", generator=g) * (9 * C) ** -0.5).to(dtype)
+        b = torch.randn(O, device="cuda", generator=g) * 0.1
+        routed = "conv3x3_im2col" if cf.uses_im2col(C) else "conv3x3_flat"
+        flops = 2.0 * H * H * 9 * C * O
+        nbytes = (x.numel() + w.numel() + H * H * O) * x.element_size() + O * 4
+        bound_ms, bound_by = bound(flops, nbytes, dn)
+        # The one PyTorch call that computes the same function: cuDNN on the
+        # channels-last view of the interior, zero padding 1, TF32 off.
+        xc = interior.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bc = b.to(dtype)
+        library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, bc, padding=1), iters=10)
+        times = {}
+        for name in names:
+            fn, plain = fns[name]
+            rtol, atol = TOL[(name, dn)]
+            for relu in ((False, True) if call == "conv1_2" else (False,)):
+                out = fn(x, w, b, relu)
+                torch.cuda.synchronize()
+                pout = plain(x, w, b, relu)
+                err = max_err(out, pout)
+                worst[name] = max(worst[name], err)
+                check(allclose(torch, out, pout, rtol, atol),
+                      f"{name} {dn} {call} [1,{H + 2},{H + 2},{C}] -> {O}"
+                      f"{' relu' if relu else ''}: max_abs_err {err:.3g} (rtol {rtol:.3g}, "
+                      f"atol {atol:.3g})")
+            times[name] = (device_ms(torch, lambda: fn(x, w, b), iters=10),
+                           device_ms(torch, lambda: plain(x, w, b), iters=5))
+        ms, plain_ms = times[routed]
+        t = total[routed]
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["library_ms"] += library_ms
+        t["flops"] += flops
+        t["bytes"] += nbytes
+        print(f"stat-free conv {dn} {call} [1,{H},{H},{C}] -> {O} ({flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB): flat {times['conv3x3_flat'][0]:.4f} ms (plain "
+              f"{times['conv3x3_flat'][1]:.4f}), im2col {times['conv3x3_im2col'][0]:.4f} ms "
+              f"(plain {times['conv3x3_im2col'][1]:.4f}), library {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); the closure runs {routed} "
+              f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    entries = []
+    for name in names:
+        t = total[name]
+        bound_ms, bound_by = bound(t["flops"], t["bytes"], dn)
+        calls = "the 9 calls of one 256 px closure, summed" if name == "conv3x3_flat" else \
+            "conv1_1 of one 256 px closure, its one call"
+        print(f"{name} {dn}: {calls}: kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
+              f"library_ms {t['library_ms']:.4f} bound_ms {bound_ms:.4f} ({bound_by})",
+              flush=True)
+        entries.append({"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
+                        "replaces": SOURCES[name][1], "max_abs_err": worst[name],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": t["library_ms"], "shape": calls})
+    return entries
+
+
 def write_inputs(np):
     from PIL import Image
 
@@ -487,7 +626,8 @@ def main_path(torch, np, in_dir, imgs):
         counts = read_counts()
         launches[precision] = counts
         check(counts == {"conv3x3_valid": 10, "instance_norm_pad": 15,
-                         "fused_instance_norm_fwd": 0, "fused_instance_norm_bwd": 0},
+                         "fused_instance_norm_fwd": 0, "fused_instance_norm_bwd": 0,
+                         "conv3x3_flat": 0, "conv3x3_im2col": 0},
               f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, "
               f"15 IN-pad, no training kernel)")
         check(len(paths) == BATCH, f"serving path {precision}: {len(paths)} PNGs written")
@@ -589,10 +729,15 @@ def train_path(torch, np, in_dir):
                 "fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
                                                                 + eval_forwards),
                 "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS}
+        for k in GATYS_KERNELS:
+            want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+                       + VGG_STYLE_TARGETS[k])
         check(counts == want,
               f"training path {precision}: {TRAIN_STEPS} steps, {previews} previews and "
-              f"{eval_forwards} eval forwards launched {counts} (want {want}: 15 forward and 15 "
-              f"backward per step, 15 forward per preview or eval forward)")
+              f"{eval_forwards} eval forwards launched {counts} (want {want}: 15 IN forward and "
+              f"15 backward per step, 15 forward per preview or eval forward; VGG convs "
+              f"{VGG_PER_STEP} per step, {VGG_PER_EVAL} per eval forward, "
+              f"{VGG_STYLE_TARGETS} for the style targets)")
         check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train),
               f"training path {precision}: logged losses {['%.4f' % v for v in log.train]} "
               f"all finite")
@@ -712,6 +857,175 @@ def step_rates(torch, np):
     return rates
 
 
+class _GatysLog(logging.Handler):
+    """Collects the losses train_gatys logs (the first step's and the last)."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("Gatys step") or msg.startswith("Gatys final loss:"):
+            self.losses.append(float(msg.rsplit(":", 1)[1]))
+
+
+def _save_png(np, path, index):
+    from PIL import Image
+
+    from styletransfer_tpu_torch.data import coco
+
+    img = coco.synthetic_image(index, GATYS_SIZE)
+    Image.fromarray(np.round(img * 255).astype(np.uint8)).save(path)
+
+
+def gatys_path(torch, np, F):
+    """The Gatys path through the port's ``gatys_st`` command: f32 and bf16
+    runs of GATYS_STEPS steps, the CLI's defaults once, and a directory of
+    GATYS_LANES images. Returns each precision's launch counts."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import gatys
+    from styletransfer_tpu_torch.models import vgg
+    from styletransfer_tpu_torch.utils import images
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    root = os.path.join(WORK, "gatys")
+    lanes_dir = os.path.join(root, "lanes")
+    os.makedirs(lanes_dir)
+    content, style = os.path.join(root, "content.png"), os.path.join(root, "style.png")
+    _save_png(np, content, 20_000)
+    _save_png(np, style, 20_001)
+    for i in range(GATYS_LANES):
+        _save_png(np, os.path.join(lanes_dir, f"img{i}.png"), 20_100 + i)
+    results = os.path.join(root, "results")
+    conv_calls = [0]
+    library_conv = F.conv2d
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    def run(label, args):
+        """One CLI run; checks its launches, the absence of cuDNN convs and
+        its losses. Returns (counts, closure evaluations, wall seconds)."""
+        reset_counts()
+        gatys.closure_evals = 0
+        conv_calls[0] = 0
+        log = _GatysLog()
+        logger = get_logger()
+        logger.addHandler(log)
+        t0 = time.perf_counter()
+        try:
+            cli.main(["gatys_st", *args, "--device", "cuda"], standalone_mode=False)
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        counts, evals = read_counts(), gatys.closure_evals
+        want = {k: 0 for k in counts}
+        for k in GATYS_KERNELS:
+            want[k] = GATYS_PER_CLOSURE[k] * evals + GATYS_TARGETS[k]
+        check(evals > 0 and counts == want,
+              f"gatys path {label}: {evals} closure evaluations launched {counts} (want {want}: "
+              f"{GATYS_PER_CLOSURE} per evaluation, {GATYS_TARGETS} for the targets)")
+        check(conv_calls[0] == 0,
+              f"gatys path {label}: {conv_calls[0]} F.conv2d (cuDNN) calls in the VGG tower")
+        check(len(log.losses) >= 2 and all(math.isfinite(v) for v in log.losses)
+              and log.losses[-1] < log.losses[0],
+              f"gatys path {label}: logged losses {log.losses} finite and falling")
+        return counts, evals, wall
+
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    F.conv2d = counting_conv2d
+    launches = {}
+    try:
+        common = ["--size", str(GATYS_SIZE), "--history-size", "100", "--history-math",
+                  "compact"]
+        for precision in ("f32", "bf16"):
+            counts, evals, wall = run(precision, [
+                content, style, "-s", str(GATYS_STEPS), "--precision", precision,
+                "-n", f"gatys_{precision}.png", *common])
+            launches[precision] = counts
+            out = np.asarray(Image.open(os.path.join(results, f"gatys_{precision}.png")))
+            check(out.shape == (GATYS_SIZE, GATYS_SIZE, 3) and out.dtype == np.uint8,
+                  f"gatys path {precision}: PNG {out.shape} {out.dtype} written")
+            print(f"gatys path {precision}: gatys_st -s {GATYS_STEPS} at {GATYS_SIZE} px: "
+                  f"{evals} closure evaluations in {wall:.3f} s (the whole command: VGG init, "
+                  f"image loads, targets, PNG) = {evals / wall:.1f} evals/s", flush=True)
+            # Steady state: the optimizer alone, again, on the same inputs.
+            vgg_params = vgg.load_params(device="cuda")
+            c = torch.from_numpy(images.load_image(content, GATYS_SIZE)).cuda()
+            grams = vgg.style_gram_targets(
+                vgg_params, torch.from_numpy(images.load_image(style, GATYS_SIZE)).cuda())
+            gatys.closure_evals = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = gatys._run_lbfgs_torch(
+                vgg_params, c, grams, GATYS_STEPS, 100_000.0, 1.0,
+                compute_dtype=torch.bfloat16 if precision == "bf16" else None,
+                history_size=100, history_math="compact")
+            float(hist[-1])
+            dt = time.perf_counter() - t0
+            print(f"gatys optimizer {precision}: {gatys.closure_evals} closure evaluations in "
+                  f"{dt:.3f} s = {gatys.closure_evals / dt:.1f} evals/s, "
+                  f"{dt * 1e3 / GATYS_STEPS:.1f} ms per outer step, "
+                  f"{dt * 1e3 / gatys.closure_evals:.3f} ms per evaluation "
+                  f"(losses {[round(float(v), 3) for v in hist]})", flush=True)
+        # The CLI's defaults: 300 steps at 256 px, L-BFGS H = 100, f32.
+        _, evals, wall = run("default", [content, style, "-n", "gatys_default.png"])
+        print(f"gatys path default (300 steps, f32, 256 px): {wall:.2f} s for one image, "
+              f"{evals} closure evaluations = {evals / wall:.1f} evals/s", flush=True)
+        # A directory: GATYS_LANES independent lanes in one optimization.
+        _, evals, wall = run("lanes", [lanes_dir, style, "-b", str(GATYS_LANES),
+                                       "-s", str(GATYS_LANE_STEPS), *common])
+        outs = sorted(f for f in os.listdir(results) if f.startswith("gatys_converted_img"))
+        check(len(outs) == GATYS_LANES,
+              f"gatys path lanes: {len(outs)} PNGs written for {GATYS_LANES} images")
+        print(f"gatys path lanes: {GATYS_LANES} images, -s {GATYS_LANE_STEPS}: {evals} closure "
+              f"evaluations of all lanes in {wall:.3f} s = {evals * GATYS_LANES / wall:.1f} "
+              f"image-evals/s", flush=True)
+    finally:
+        F.conv2d = library_conv
+        constants.PROJECT_ROOT_PATH = saved_root
+    return launches
+
+
+def gatys_parity(torch, np):
+    """One f32 closure (loss and pixel gradient) on one 64 px image: the card
+    against the port's CPU run, from the same seeded parameters."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import gatys
+    from styletransfer_tpu_torch.models import vgg
+    from styletransfer_tpu_torch.utils import images
+
+    def img(i):
+        return torch.from_numpy(images.normalize(
+            coco.synthetic_image(i, GATYS_PARITY_SIZE))[None].astype(np.float32))
+
+    content, style, pixels = img(30_000), img(30_001), img(30_002)
+    cpu_params = vgg.init_params(seed=0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: {leaf: v.to(dev) for leaf, v in p.items()} for k, p in cpu_params.items()}
+        grams = vgg.style_gram_targets(params, style.to(dev))
+        loss_fn = gatys.make_loss_fn(params, content.to(dev), grams)
+        x = pixels.to(dev).requires_grad_()
+        loss = loss_fn(x)
+        loss.sum().backward()
+        runs[dev] = (float(loss.detach()[0]), x.grad.cpu())
+    (lg, gg), (lc, gc) = runs["cuda"], runs["cpu"]
+    rel_loss = abs(lg - lc) / abs(lc)
+    rel_grad = float((gg - gc).norm() / gc.norm())
+    check(rel_loss <= GATYS_PARITY_LOSS_RTOL and rel_grad <= GATYS_PARITY_GRAD_REL_L2,
+          f"gatys parity f32 {GATYS_PARITY_SIZE} px: loss card {lg:.6f} vs CPU {lc:.6f} "
+          f"(relative {rel_loss:.3g}, limit {GATYS_PARITY_LOSS_RTOL}), pixel gradient relative "
+          f"L2 {rel_grad:.3g} (limit {GATYS_PARITY_GRAD_REL_L2})")
+
+
 def main() -> int:
     try:
         import torch
@@ -729,7 +1043,7 @@ def main() -> int:
 
         from styletransfer_tpu_torch.ops import layers
         from styletransfer_tpu_torch.ops.cuda import (
-            _build, conv3x3, fused_instance_norm, instance_norm)
+            _build, conv3x3, conv3x3_flat, fused_instance_norm, instance_norm)
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -754,11 +1068,14 @@ def main() -> int:
             entries.append(conv_phase(torch, F, conv3x3, dtype))
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
+            entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         train_launches = train_path(torch, np, in_dir)
         parity_phase(torch, np)
         step_rate = step_rates(torch, np)
+        gatys_launches = gatys_path(torch, np, F)
+        gatys_parity(torch, np)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -766,7 +1083,8 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     for e in entries:
         kernel, dn = e["name"].split(".")
-        path = serve_launches if kernel in SERVING_KERNELS else train_launches
+        path = (serve_launches if kernel in SERVING_KERNELS else
+                gatys_launches if kernel in GATYS_KERNELS else train_launches)
         e["launches"] = path["f32" if dn == "float32" else "bf16"][kernel]
     kind = torch.cuda.get_device_name(0)
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "

@@ -1,14 +1,15 @@
 """Command-line interface: ``python -m styletransfer_tpu_torch <group> <task>``.
 
 The same contract as the JAX package's CLI for the commands the port has
-(``fast_st train``, ``convert-image`` and ``convert-dir``), plus ``--device``.
+(``fast_st train``, ``convert-image`` and ``convert-dir``; the one-shot
+``gatys_st``), plus ``--device``.
 """
 
 import click
 
-from styletransfer_tpu_torch.clis import fast_st
+from styletransfer_tpu_torch.clis import fast_st, gatys_st
 
 
-@click.group(commands={"fast_st": fast_st.fast_st})
+@click.group(commands={"fast_st": fast_st.fast_st, "gatys_st": gatys_st.gatys_st})
 def cli():
     """Style Transfer (PyTorch / CUDA)"""

@@ -25,6 +25,7 @@ import torch
 
 from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.ops import layers, losses
+from styletransfer_tpu_torch.ops.cuda import conv3x3_flat
 from styletransfer_tpu_torch.utils.logging import get_logger
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -107,14 +108,19 @@ def extract_features(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run NHWC images through VGG19 features, returning the tapped
-    activations. The convs zero-pad by 1 (torch's default), not reflect."""
+    activations. The convs zero-pad by 1 (torch's default), not reflect, and
+    run on the stat-free 3x3 conv kernels (``ops.cuda.conv3x3_flat.
+    conv3x3_same``, their plain versions on CPU tensors), which give the
+    input gradient only: the weights are frozen. With a ``compute_dtype`` the
+    activations and kernels are cast to it and the outputs come in it."""
     want = set(taps)
     out: Dict[str, torch.Tensor] = {}
     for kind, name, _, _ in _plan(taps):
         if kind == "conv":
             p = params[name]
-            x = layers.conv2d(x, p["kernel"], p["bias"], 1, compute_dtype=compute_dtype,
-                              padding="zeros")
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
+            x = conv3x3_flat.conv3x3_same(x, p["kernel"].to(x.dtype), p["bias"].float())
         elif kind == "relu":
             x = torch.relu(x)
         else:

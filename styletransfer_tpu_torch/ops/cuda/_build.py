@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
 Libraries go to ``build/kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Each is written under a
-temporary name and renamed into place.
+``.gitignore``), named by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Each is written under a temporary name and renamed
+into place.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``library(name)`` builds what is missing and returns the loaded
@@ -55,9 +56,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(SOURCE_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    # The shared headers (csrc/*.cuh) are part of every source's hash.
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SOURCE_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(SOURCE_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str, target: str) -> "tuple[subprocess.Popen, str]":

@@ -1,11 +1,11 @@
 """Image loading / saving with the reference's transform semantics.
 
-The port of what fast_st training and serving need from
+The port of what fast_st training and serving and Gatys need from
 ``styletransfer_tpu/utils/images.py``: the shared center-crop +
 bilinear-resize recipe (host side, PIL), normalized float and uint8 loading,
-atomic saving, the numpy normalize / denormalize and preview helpers, and the
-on-device normalize / denormalize steps that let serving move uint8 both
-ways. Layout is NHWC.
+atomic saving (of uint8 arrays and of model-space float images), the numpy
+normalize / denormalize and preview helpers, and the on-device normalize /
+denormalize steps that let serving move uint8 both ways. Layout is NHWC.
 """
 
 from __future__ import annotations
@@ -76,6 +76,15 @@ def to_uint8(image: np.ndarray) -> np.ndarray:
     if arr.ndim == 4:
         arr = arr[0]
     return np.round(np.clip(denormalize(arr), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def save_image(image: np.ndarray, path: str) -> None:
+    """Save a model-space float image (HWC, or NHWC whose first image is
+    taken) to ``path`` as uint8, creating its directory."""
+    out_dir = os.path.dirname(path)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    save_uint8(to_uint8(image), path)
 
 
 def load_image_uint8(image_path: str, size: int = constants.IMSIZE) -> np.ndarray:

@@ -15,7 +15,8 @@ import torch
 
 from styletransfer_tpu_torch.models import transformer
 from styletransfer_tpu_torch.ops import layers
-from styletransfer_tpu_torch.ops.cuda import conv3x3, fused_instance_norm, instance_norm
+from styletransfer_tpu_torch.ops.cuda import (conv3x3, conv3x3_flat, fused_instance_norm,
+                                             instance_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +160,105 @@ def test_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
         conv3x3.conv3x3_valid(x, w, torch.zeros(8))
     with pytest.raises(ValueError, match="on"):
         instance_norm.instance_norm_pad(x, torch.ones(32), torch.zeros(32, device=cuda))
+
+
+@pytest.mark.parametrize("fn", [conv3x3_flat.conv3x3_flat, conv3x3_flat.conv3x3_im2col])
+def test_stat_free_conv_wrappers_raise_on_what_the_kernels_cannot_take(cuda, fn):
+    x = torch.zeros(1, 6, 6, 3, device=cuda)
+    w = torch.zeros(3, 3, 3, 8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="on"):
+        fn(x, w, torch.zeros(8))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn(x.half(), w.half(), b)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(x, w.bfloat16(), b)
+
+
+# (B, H, W, C, O): the Gatys tower's channel pairs at small sizes, ragged
+# channel counts on both sides, and a row width that is not a multiple of 4.
+_STAT_FREE_SHAPES = [
+    (1, 18, 18, 3, 64), (2, 16, 16, 64, 64), (1, 16, 16, 64, 3), (1, 8, 8, 128, 256),
+    (2, 9, 7, 5, 13), (1, 11, 6, 40, 72),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["flat", "im2col"])
+@pytest.mark.parametrize("shape", _STAT_FREE_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_stat_free_conv_kernels_match_plain(cuda, dtype, kernel, shape, relu):
+    B, H, W, C, O = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(B, H + 2, W + 2, C, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, O, device=cuda, generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(O, device=cuda, generator=g)
+    fn = getattr(conv3x3_flat, f"conv3x3_{kernel}")
+    before = getattr(conv3x3_flat, f"{kernel}_launches")
+    out = fn(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert getattr(conv3x3_flat, f"{kernel}_launches") == before + 1
+    assert out.shape == (B, H, W, O) and out.dtype == dtype
+    _close(out, conv3x3_flat.conv3x3_flat_plain(x, w, b, relu), dtype)
+    _close(out, conv3x3_flat.conv3x3_im2col_plain(x, w, b, relu), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,O", [(3, 64), (64, 128), (64, 3)])
+def test_conv3x3_same_and_its_input_gradient_match_the_cpu(cuda, dtype, C, O):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 12, 10, C)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((3, 3, C, O)) / np.sqrt(9 * C)).astype(
+        np.float32)).to(dtype)
+    b = torch.from_numpy(rng.standard_normal(O).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((2, 12, 10, O)).astype(np.float32)).to(dtype)
+
+    def run(device):
+        xd = x.to(device).requires_grad_()
+        y = conv3x3_flat.conv3x3_same(xd, w.to(device), b.to(device))
+        y.backward(gy.to(device))
+        return y.detach().cpu(), xd.grad.cpu()
+
+    before = conv3x3_flat.flat_launches, conv3x3_flat.im2col_launches
+    y, dx = run(cuda)
+    forward_im2col = conv3x3_flat.uses_im2col(C)
+    backward_im2col = conv3x3_flat.uses_im2col(O)
+    assert (conv3x3_flat.flat_launches - before[0], conv3x3_flat.im2col_launches - before[1]) == (
+        (not forward_im2col) + (not backward_im2col), forward_im2col + backward_im2col)
+    y_cpu, dx_cpu = run("cpu")
+    _close(y, y_cpu, dtype)
+    _close(dx, dx_cpu, dtype)
+
+
+def test_gatys_closure_on_the_kernels_matches_the_cpu(cuda):
+    from styletransfer_tpu_torch.engines import gatys
+    from styletransfer_tpu_torch.models import vgg
+
+    rng = np.random.default_rng(7)
+    content = torch.from_numpy(rng.standard_normal((1, 32, 32, 3)).astype(np.float32))
+    style = torch.from_numpy(rng.standard_normal((1, 32, 32, 3)).astype(np.float32))
+    pixels = torch.from_numpy(rng.standard_normal((1, 32, 32, 3)).astype(np.float32))
+    params = vgg.init_params(seed=0, device="cpu")
+
+    def closure(device):
+        p = {k: {leaf: v.to(device) for leaf, v in d.items()} for k, d in params.items()}
+        grams = vgg.style_gram_targets(p, style.to(device))
+        loss_fn = gatys.make_loss_fn(p, content.to(device), grams)
+        x = pixels.to(device).requires_grad_()
+        before = conv3x3_flat.flat_launches, conv3x3_flat.im2col_launches
+        loss = loss_fn(x)
+        loss.sum().backward()
+        launched = (conv3x3_flat.flat_launches - before[0],
+                    conv3x3_flat.im2col_launches - before[1])
+        return float(loss.detach()[0]), x.grad.cpu(), launched
+
+    loss, grad, launched = closure(cuda)
+    assert launched == (9, 1)
+    loss_cpu, grad_cpu, _ = closure("cpu")
+    assert abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert float((grad - grad_cpu).norm() / grad_cpu.norm()) <= 1e-3
 
 
 @pytest.mark.parametrize("precision,steps", [("f32", 1), ("bf16", 16)])

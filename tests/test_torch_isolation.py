@@ -59,6 +59,7 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch, styletransfer_tpu_torch.clis\n"
         "import styletransfer_tpu_torch.__main__\n"
         "import styletransfer_tpu_torch.engines.fast, styletransfer_tpu_torch.ckpt\n"
+        "import styletransfer_tpu_torch.engines.gatys, styletransfer_tpu_torch.ops.lbfgs\n"
         "import styletransfer_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
