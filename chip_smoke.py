@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -17,7 +18,8 @@ It imports nothing of JAX. Phases:
    training forward (batch 4, 256 px), and the stat-free conv kernels
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
    Gatys closure (the tower's five forward convs and their five input
-   gradients), in f32 and bf16;
+   gradients), in f32 and bf16, with conv3x3_flat's plan (route, tile and
+   split) for each shape and a bit-identical repeat of each call;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
@@ -515,10 +517,11 @@ _GATYS_CONVS = [
 def stat_free_phase(torch, F, cf, dtype):
     """conv3x3_flat and conv3x3_im2col against their plain versions on the
     ten conv shapes of a 256 px Gatys closure (conv1_2 also with ReLU), on
-    zero-padded inputs; device times of both kernels, both plain versions and
-    ``F.conv2d`` (padding 1, on the unpadded interior) at each shape. The
-    JSON entries: conv3x3_flat's nine calls of a closure, summed, and
-    conv3x3_im2col's one (conv1_1)."""
+    zero-padded inputs, each call repeated and required to give the same
+    bits; device times of both kernels, both plain versions and ``F.conv2d``
+    (padding 1, on the unpadded interior) at each shape, with conv3x3_flat's
+    plan and rate. The JSON entries: conv3x3_flat's nine calls of a closure,
+    summed, and conv3x3_im2col's one (conv1_1)."""
     dn = str(dtype).split(".")[1]
     names = ("conv3x3_flat", "conv3x3_im2col")
     fns = {"conv3x3_flat": (cf.conv3x3_flat, cf.conv3x3_flat_plain),
@@ -548,14 +551,15 @@ def stat_free_phase(torch, F, cf, dtype):
             rtol, atol = TOL[(name, dn)]
             for relu in ((False, True) if call == "conv1_2" else (False,)):
                 out = fn(x, w, b, relu)
+                again = fn(x, w, b, relu)
                 torch.cuda.synchronize()
                 pout = plain(x, w, b, relu)
                 err = max_err(out, pout)
                 worst[name] = max(worst[name], err)
-                check(allclose(torch, out, pout, rtol, atol),
+                check(allclose(torch, out, pout, rtol, atol) and torch.equal(out, again),
                       f"{name} {dn} {call} [1,{H + 2},{H + 2},{C}] -> {O}"
                       f"{' relu' if relu else ''}: max_abs_err {err:.3g} (rtol {rtol:.3g}, "
-                      f"atol {atol:.3g})")
+                      f"atol {atol:.3g}); the repeat is bit-identical")
             times[name] = (device_ms(torch, lambda: fn(x, w, b), iters=10),
                            device_ms(torch, lambda: plain(x, w, b), iters=5))
         ms, plain_ms = times[routed]
@@ -565,9 +569,11 @@ def stat_free_phase(torch, F, cf, dtype):
         t["library_ms"] += library_ms
         t["flops"] += flops
         t["bytes"] += nbytes
+        flat_ms = times["conv3x3_flat"][0]
         print(f"stat-free conv {dn} {call} [1,{H},{H},{C}] -> {O} ({flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB): flat {times['conv3x3_flat'][0]:.4f} ms (plain "
-              f"{times['conv3x3_flat'][1]:.4f}), im2col {times['conv3x3_im2col'][0]:.4f} ms "
+              f"{nbytes / 1e6:.1f} MB): flat {flat_ms:.4f} ms (plain "
+              f"{times['conv3x3_flat'][1]:.4f}; {cf.flat_plan(1, H, H, C, O, dtype)}; "
+              f"{flops / flat_ms / 1e9:.1f} TFLOP/s), im2col {times['conv3x3_im2col'][0]:.4f} ms "
               f"(plain {times['conv3x3_im2col'][1]:.4f}), library {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}); the closure runs {routed} "
               f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
@@ -1063,6 +1069,11 @@ def main() -> int:
             for line in log.splitlines():
                 if "Used" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
+        if sys.argv[1:] == ["--stat-free"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                stat_free_phase(torch, F, conv3x3_flat, dtype)
+            print(card)
+            return 0
         entries = []
         for dtype in (torch.float32, torch.bfloat16):
             entries.append(conv_phase(torch, F, conv3x3, dtype))

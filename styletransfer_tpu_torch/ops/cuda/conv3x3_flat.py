@@ -10,7 +10,8 @@ rounding (the JAX kernels add it in the output dtype: a deliberate difference
 in bf16).
 
 - :func:`conv3x3_flat` launches ``csrc/conv3x3_flat.cu`` (per-tap products
-  on a shared-memory span of shifted input rows);
+  on a shared-memory span of shifted input rows) on the tile and channel
+  split that :func:`flat_plan` picks for the shape;
 - :func:`conv3x3_im2col` launches ``csrc/conv3x3_im2col.cu`` (one product of
   depth 9C on an im2col operand staged in shared memory);
 - :func:`conv3x3_same` is the zero-padded stride-1 conv of VGG
@@ -30,7 +31,9 @@ count the kernels' launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+import functools
+import math
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +50,65 @@ im2col_launches = 0
 IM2COL_BELOW_C = 32
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# Streaming multiprocessors of an H100 SXM: a plan gives at least this many
+# blocks wherever the shape has the work for it.
+SMS = 132
+# conv3x3_flat's routes: the f32 one on the CUDA cores (FMA), the bf16 one on
+# the tensor cores (wgmma). Each has its (BM, BN) tiles for wide (O > 64),
+# mid (4 or 8 < O <= 64) and narrow O, in the order the plan tries them;
+# conv3x3_flat.cu builds exactly these.
+FLAT_ROUTES = {
+    torch.float32: ("f32_fma", 8, {"wide": ((128, 128),),
+                                   "mid": ((256, 64), (128, 64)),
+                                   "narrow": ((512, 4),)}),
+    torch.bfloat16: ("bf16_wgmma", 16, {"wide": ((128, 128), (128, 64)),
+                                        "mid": ((128, 64),),
+                                        "narrow": ((128, 8),)}),
+}
+# The most blocks one tile's channel chunks are split over.
+MAX_SPLIT = 8
+
+
+class FlatPlan(NamedTuple):
+    """How conv3x3_flat runs one shape: the route, the tile of ``bm``
+    positions by ``bn`` output channels, the number of blocks the channel
+    chunks are split over, and the blocks of the grid."""
+    route: str
+    bm: int
+    bn: int
+    split: int
+    blocks: int
+
+    def __str__(self) -> str:
+        return f"{self.route} {self.bm}x{self.bn} split {self.split} ({self.blocks} blocks)"
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
+def flat_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> FlatPlan:
+    """The tile and split of conv3x3_flat for ``[B, H+2, W+2, C] -> O``.
+
+    The first tile of the route's list for O that gives at least :data:`SMS`
+    blocks; if none does, the last (smallest) tile with its channel chunks
+    split over the fewest blocks that reach :data:`SMS` (a divisor of the
+    chunk count, at most :data:`MAX_SPLIT`; the largest such divisor if none
+    reaches it)."""
+    route, bk, tiles = FLAT_ROUTES[dtype]
+    narrow = bk // 2  # 4 in f32, 8 in bf16: one float4 or one n8 tile
+    group = tiles["wide"] if O > 64 else tiles["mid"] if O > narrow else tiles["narrow"]
+    positions = H * (W + 2)  # the Wp-wide output grid
+
+    def blocks(bm, bn):
+        return B * math.ceil(positions / bm) * math.ceil(O / bn)
+
+    for bm, bn in group:
+        if blocks(bm, bn) >= SMS:
+            return FlatPlan(route, bm, bn, 1, blocks(bm, bn))
+    bm, bn = group[-1]
+    chunks = math.ceil(C / bk)
+    splits = [d for d in range(1, MAX_SPLIT + 1) if chunks % d == 0]
+    split = next((d for d in splits if blocks(bm, bn) * d >= SMS), splits[-1])
+    return FlatPlan(route, bm, bn, split, blocks(bm, bn) * split)
 
 
 def conv3x3_flat_plain(
@@ -105,7 +167,9 @@ def conv3x3_flat(
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_flat_plain(x, w, b, relu)
-    out = _launch("flat", x, w, b, relu)
+    B, Hp, Wp, C = x.shape
+    plan = flat_plan(B, Hp - 2, Wp - 2, C, w.shape[3], x.dtype)
+    out = _launch("flat", x, w, b, relu, plan)
     flat_launches += 1
     return out
 
@@ -172,6 +236,10 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 _FUNCTIONS: Dict[str, Tuple[Callable, Callable]] = {}
+# Per device and stream: the f32 workspace of split plans and the zeroed
+# counters (one int32 per tile) that conv3x3_flat's kernels leave at zero
+# after each launch. Launches on one stream run in order, so they share them.
+_SPLIT_BUFFERS: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _function(kind: str, dtype: torch.dtype) -> Tuple[Callable, Callable]:
@@ -182,7 +250,9 @@ def _function(kind: str, dtype: torch.dtype) -> Tuple[Callable, Callable]:
         lib = _build.library(f"conv3x3_{kind}")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, key)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        # flat also takes its plan: bm, bn, split, the workspace and counters.
+        fn.argtypes = ([p, p, p, p] + [i] * 6 + ([i, i, i, p, p] if kind == "flat" else [])
+                       + [p])
         fn.restype = i
         err_string = getattr(lib, f"stx_conv3x3_{kind}_error_string")
         err_string.argtypes = [i]
@@ -191,16 +261,34 @@ def _function(kind: str, dtype: torch.dtype) -> Tuple[Callable, Callable]:
     return _FUNCTIONS[key]
 
 
+def _split_buffers(plan: FlatPlan, device: torch.device, stream: int) -> Tuple[int, int]:
+    """Pointers to a split plan's f32 workspace (``split`` partial tiles per
+    tile) and to the per-tile counters; 0 and 0 without a split."""
+    if plan.split == 1:
+        return 0, 0
+    ws, counters = _SPLIT_BUFFERS.get((device, stream), (None, None))
+    if ws is None or ws.numel() < plan.blocks * plan.bm * plan.bn:
+        ws = torch.empty(plan.blocks * plan.bm * plan.bn, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < plan.blocks // plan.split:
+        counters = torch.zeros(plan.blocks // plan.split, dtype=torch.int32, device=device)
+    _SPLIT_BUFFERS[(device, stream)] = ws, counters
+    return ws.data_ptr(), counters.data_ptr()
+
+
 def _launch(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            relu: bool) -> torch.Tensor:
+            relu: bool, plan: FlatPlan = None) -> torch.Tensor:
     check_cuda_inputs(x, w, b)
     fn, err_string = _function(kind, x.dtype)
     B, Hp, Wp, C = x.shape
     O = w.shape[3]
     out = torch.empty((B, Hp - 2, Wp - 2, O), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):  # the library launches on the current device
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, Hp, Wp, C, O,
-                 int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+        args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, Hp, Wp, C, O,
+                int(relu)]
+        if plan is not None:
+            args += [plan.bm, plan.bn, plan.split, *_split_buffers(plan, x.device, stream)]
+        err = fn(*args, stream)
     if err:
         raise RuntimeError(f"conv3x3_{kind} kernel launch failed: {err_string(err).decode()}")
     return out

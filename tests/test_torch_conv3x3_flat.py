@@ -113,3 +113,79 @@ def test_wrappers_check_their_inputs(bad, err):
     for fn in (tc.conv3x3_flat, tc.conv3x3_im2col):
         with pytest.raises(err):
             fn(t["x"], t["w"], t["b"])
+
+
+# conv3x3_flat's plan (tile and channel split per shape), a pure function of
+# the shape that the CUDA kernels take as arguments. The shapes: the ten 3x3
+# convs of the VGG tower up to conv3_1 (five forward, five input gradients)
+# at 256 px, as one Gatys closure runs them (batch 1) and as a train step
+# does (batch 4 and 16); (name, H, C, O).
+_VGG_CONVS = [
+    ("conv1_1", 256, 3, 64), ("conv1_2", 256, 64, 64), ("conv2_1", 128, 64, 128),
+    ("conv2_2", 128, 128, 128), ("conv3_1", 64, 128, 256),
+    ("conv1_1.dx", 256, 64, 3), ("conv1_2.dx", 256, 64, 64), ("conv2_1.dx", 128, 128, 64),
+    ("conv2_2.dx", 128, 128, 128), ("conv3_1.dx", 64, 256, 128),
+]
+_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _blocks(B, H, W, O, plan):
+    return B * -(-H * (W + 2) // plan.bm) * -(-O // plan.bn) * plan.split
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("batch", [1, 4, 16])
+@pytest.mark.parametrize("call,H,C,O", _VGG_CONVS)
+def test_flat_plan_fills_the_card_on_the_vgg_shapes(dtype, batch, call, H, C, O):
+    plan = tc.flat_plan(batch, H, H, C, O, dtype)
+    assert plan.blocks == _blocks(batch, H, H, O, plan) >= tc.SMS
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", [(b, H, H, C, O) for b in (1, 4, 16) for _, H, C, O in _VGG_CONVS]
+                         + [(1, 8, 8, 128, 256), (2, 9, 7, 5, 13), (1, 11, 6, 40, 72),
+                            (1, 30, 30, 37, 130), (1, 4, 4, 3, 3)])
+def test_a_flat_split_divides_the_channel_chunks(dtype, shape):
+    B, H, W, C, O = shape
+    route, bk, tiles = tc.FLAT_ROUTES[dtype]
+    plan = tc.flat_plan(B, H, W, C, O, dtype)
+    chunks = -(-C // bk)
+    assert 1 <= plan.split <= tc.MAX_SPLIT and chunks % plan.split == 0
+    assert plan.blocks == _blocks(B, H, W, O, plan)
+    if plan.blocks < tc.SMS:  # too little work: the smallest tile at the widest split
+        group = next(g for g in tiles.values() if (plan.bm, plan.bn) in g)
+        assert (plan.bm, plan.bn) == group[-1]
+        assert plan.split == max(d for d in range(1, tc.MAX_SPLIT + 1) if chunks % d == 0)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_every_flat_plan_is_a_named_route_and_a_tile_the_kernels_have(dtype):
+    source = open(tc.__file__.replace("ops/cuda/conv3x3_flat.py", "csrc/conv3x3_flat.cu")).read()
+    route, _, tiles = tc.FLAT_ROUTES[dtype]
+    entry = source[source.index(f"int stx_conv3x3_flat_{route.split('_')[0]}("):]
+    entry = entry[:entry.index("\n}\n")]
+    built = {tuple(int(v) for v in line.split("bm == ")[1].split(")")[0].split(" && bn == "))
+             for line in entry.splitlines() if "bm == " in line}
+    assert built == {t for group in tiles.values() for t in group}
+    shapes = [(b, H, H, C, O) for b in (1, 4, 16) for _, H, C, O in _VGG_CONVS]
+    for shape in shapes:
+        plan = tc.flat_plan(*shape, dtype)
+        assert plan.route == route and (plan.bm, plan.bn) in built
+        assert str(plan).startswith(f"{route} {plan.bm}x{plan.bn} split {plan.split}")
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_the_cuda_test_shapes_reach_every_flat_plan(dtype):
+    # tests/test_torch_cuda.py holds every kernel against its plain version
+    # on the card at _STAT_FREE_SHAPES: they must reach each tile unsplit and
+    # the smallest tile of each group split.
+    from test_torch_cuda import _STAT_FREE_SHAPES
+
+    _, _, tiles = tc.FLAT_ROUTES[dtype]
+    want = {t + (False,) for group in tiles.values() for t in group}
+    want |= {group[-1] + (True,) for group in tiles.values()}
+    reached = set()
+    for shape in _STAT_FREE_SHAPES:
+        plan = tc.flat_plan(*shape, dtype)
+        reached.add((plan.bm, plan.bn, plan.split > 1))
+    assert reached == want

@@ -178,10 +178,18 @@ def test_stat_free_conv_wrappers_raise_on_what_the_kernels_cannot_take(cuda, fn)
 
 
 # (B, H, W, C, O): the Gatys tower's channel pairs at small sizes, ragged
-# channel counts on both sides, and a row width that is not a multiple of 4.
+# channel counts on both sides, and a row width that is not a multiple of 4;
+# then shapes that give conv3x3_flat's every plan in both dtypes (each tile
+# of conv3x3_flat.FLAT_ROUTES, split and unsplit: see
+# tests/test_torch_conv3x3_flat.py), among them O = 3, a 64 px conv of
+# C = 256, and C = 44 and 37 (not a multiple of the chunk; not of 8, and not
+# of 4: the element-wise loaders) with O = 130 (the element-wise weight
+# loads and stores).
 _STAT_FREE_SHAPES = [
     (1, 18, 18, 3, 64), (2, 16, 16, 64, 64), (1, 16, 16, 64, 3), (1, 8, 8, 128, 256),
     (2, 9, 7, 5, 13), (1, 11, 6, 40, 72),
+    (4, 64, 64, 128, 256), (1, 64, 64, 256, 128), (1, 64, 64, 128, 256), (3, 128, 128, 64, 64),
+    (16, 64, 64, 64, 3), (1, 40, 40, 44, 64), (1, 30, 30, 37, 130),
 ]
 
 
@@ -203,6 +211,22 @@ def test_stat_free_conv_kernels_match_plain(cuda, dtype, kernel, shape, relu):
     assert out.shape == (B, H, W, O) and out.dtype == dtype
     _close(out, conv3x3_flat.conv3x3_flat_plain(x, w, b, relu), dtype)
     _close(out, conv3x3_flat.conv3x3_im2col_plain(x, w, b, relu), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _STAT_FREE_SHAPES)
+def test_conv3x3_flat_repeats_bit_for_bit(cuda, dtype, shape):
+    # A split plan adds its partial sums in split order, whichever block
+    # finishes last: two calls on the same inputs give the same bits.
+    B, H, W, C, O = shape
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(B, H + 2, W + 2, C, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, O, device=cuda, generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(O, device=cuda, generator=g)
+    first = conv3x3_flat.conv3x3_flat(x, w, b, True)
+    second = conv3x3_flat.conv3x3_flat(x, w, b, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
