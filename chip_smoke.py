@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
+    python3 chip_smoke.py --host-cost TREE   # phases 1-2 and conv3x3_flat's host
+                                             # cost, of the checkout at TREE
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -12,19 +14,25 @@ It imports nothing of JAX. Phases:
    one ``nvcc`` per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card and time
    the kernel, the plain version and, where one exists, the one PyTorch call
-   that computes the same function: the serving kernels (conv3x3, IN-pad) at
-   the serving path's shapes (batch 64, 256 px), the training kernels (the
+   that computes the same function: the serving kernels (conv3x3_valid on
+   each of its routes, with its plan, rate and a bit-identical repeat, and
+   in bf16 also at batch 1 and 4; IN-pad) at the serving path's shapes
+   (batch 64, 256 px), the training kernels (the
    fused instance norm's forward and backward) at each call shape of the
    training forward (batch 4, 256 px), and the stat-free conv kernels
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
    Gatys closure (the tower's five forward convs and their five input
    gradients), in f32 and bf16, with conv3x3_flat's plan (route, tile and
-   split) for each shape and a bit-identical repeat of each call;
+   split) for each shape and a bit-identical repeat of each call; then the
+   host's microseconds per call of conv3x3_flat and conv3x3_valid, the
+   calls queued behind a spin kernel;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
-   counters must show 10 conv3x3 and 15 IN-pad launches per forward, and the
-   first two outputs must match the port's own CPU run;
+   counters must show 10 conv3x3 and 15 IN-pad launches per forward, the
+   conv3x3 ones all on the f32_fma or bf16_wgmma route, and the first two
+   outputs must match the port's own CPU run; then the same images at 300 px
+   in bf16, whose 75-wide residual convs take the bf16_mma route;
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
@@ -67,6 +75,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "smoke")
 BATCH = 64
 SIZE = 256
+# A serving size whose residual stage (75 wide) conv3x3_valid runs on its
+# mma.sync route.
+WIDE_SIZE = 300
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 without tensor
 # cores (TF32 is off), and HBM3 bandwidth.
@@ -106,6 +117,10 @@ MAIN_TOL = {"f32": (1, 0.05), "bf16": (16, 1.0)}  # (max steps, mean steps)
 SOURCES = {
     "conv3x3_valid": ("styletransfer_tpu_torch/csrc/conv3x3.cu",
                       "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
+    # conv3x3_valid's bf16 route for the widths whose rows do not tile a
+    # block (ops/cuda/conv3x3.py::valid_plan).
+    "conv3x3_valid_mma": ("styletransfer_tpu_torch/csrc/conv3x3.cu",
+                          "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
     "instance_norm_pad": ("styletransfer_tpu_torch/csrc/instance_norm.cu",
                           "styletransfer_tpu/ops/pallas/instance_norm.py:229"),
     # The training forward runs the IN kernel at pad 0 with the residual
@@ -119,6 +134,10 @@ SOURCES = {
     "conv3x3_im2col": ("styletransfer_tpu_torch/csrc/conv3x3_im2col.cu",
                        "styletransfer_tpu/ops/pallas/conv3x3.py:86"),
 }
+# conv3x3_valid's kernel on each route of valid_plan.
+ROUTE_SOURCES = {"f32_fma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
+                 "bf16_mma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
+                 "bf16_wgmma": "styletransfer_tpu_torch/csrc/conv3x3_wgmma.cu"}
 # Which path launches each kernel: its JSON launch count is that path's.
 SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad")
 TRAINING_KERNELS = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
@@ -250,6 +269,9 @@ def counters():
         conv3x3, conv3x3_flat, fused_instance_norm, instance_norm)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
+            "conv3x3_valid.f32_fma": (conv3x3, "fma_launches"),
+            "conv3x3_valid.bf16_mma": (conv3x3, "mma_launches"),
+            "conv3x3_valid.bf16_wgmma": (conv3x3, "wgmma_launches"),
             "instance_norm_pad": (instance_norm, "launches"),
             "fused_instance_norm_fwd": (fused_instance_norm, "fwd_launches"),
             "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches"),
@@ -267,44 +289,81 @@ def read_counts() -> dict:
 
 
 def conv_phase(torch, F, conv3x3, dtype):
-    """conv3x3 kernel vs its plain version at the residual convs' shape."""
-    name = "conv3x3_valid"
+    """conv3x3_valid's kernels against the plain version at the residual
+    convs' shape (batch 64), each with its plan, rate and a bit-identical
+    repeat: f32 on the FMA route; bf16 on the route the plan names (wgmma)
+    and on the mma.sync route, which serves the widths whose rows do not tile
+    a block. In bf16 both routes are also timed at batch 1 and 4 beside
+    F.conv2d (device times, calls queued behind a spin kernel)."""
     dn = str(dtype).split(".")[1]
-    g = torch.Generator(device="cuda").manual_seed(1)
     H = W = SIZE // 4
     C = O = 128
-    x = torch.randn(BATCH, H + 2, W + 2, C, device="cuda", generator=g).to(dtype)
     bnd = 1.0 / (9 * C) ** 0.5
-    w = ((torch.rand(3, 3, C, O, device="cuda", generator=g) * 2 - 1) * bnd).to(dtype)
-    b = (torch.rand(O, device="cuda", generator=g) * 2 - 1) * bnd
-    out, s, ss = conv3x3.conv3x3_valid(x, w, b)
-    torch.cuda.synchronize()
+
+    def inputs(batch):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(batch, H + 2, W + 2, C, device="cuda", generator=g).to(dtype)
+        w = ((torch.rand(3, 3, C, O, device="cuda", generator=g) * 2 - 1) * bnd).to(dtype)
+        b = (torch.rand(O, device="cuda", generator=g) * 2 - 1) * bnd
+        return x, w, b
+
+    def library(x, w, b):
+        # The one PyTorch call that computes the same function (without the
+        # sums): cuDNN on the channels-last view, TF32 off.
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bc = b.to(dtype)
+        return lambda: F.conv2d(xc, wc, bc)
+
+    x, w, b = inputs(BATCH)
     pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b)
-    rtol, atol = TOL[(name, dn)]
-    err = max_err(out, pout)
-    check(allclose(torch, out, pout, rtol, atol),
-          f"{name} {dn} [{BATCH},{H + 2},{W + 2},{C}]: max_abs_err {err:.3g} "
-          f"(rtol {rtol:.3g}, atol {atol:.3g})")
-    check(allclose(torch, s, ps, *SUMS_TOL) and allclose(torch, ss, pss, *SUMS_TOL),
-          f"{name} {dn} sums/sumsqs: max_abs_err {max_err(s, ps):.3g} / "
-          f"{max_err(ss, pss):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
-    ms = time_ms(torch, lambda: conv3x3.conv3x3_valid(x, w, b))
     plain_ms = time_ms(torch, lambda: conv3x3.conv3x3_valid_plain(x, w, b))
-    xc = x.permute(0, 3, 1, 2)
-    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    bc = b.to(dtype)
-    library_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bc))
+    library_ms = time_ms(torch, library(x, w, b))
     flops = 2.0 * BATCH * H * W * 9 * C * O
-    nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() + (O + 2 * BATCH * O) * 4
+    nbytes = (x.numel() + w.numel() + pout.numel()) * x.element_size() + (O + 2 * BATCH * O) * 4
     bound_ms, bound_by = bound(flops, nbytes, dn)
-    print(f"{name} {dn}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB) achieved {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    return {"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": f"x[{BATCH},{H + 2},{W + 2},{C}] w[3,3,{C},{O}]"}
+    routes = [None] if dtype == torch.float32 else [None, "bf16_mma"]
+    entries = []
+    for route in routes:
+        plan = conv3x3.valid_plan(BATCH, H, W, C, O, dtype, route=route)
+        name = "conv3x3_valid_mma" if plan.route == "bf16_mma" else "conv3x3_valid"
+        out, s, ss = conv3x3.launch(x, w, b, False, plan)
+        again = conv3x3.launch(x, w, b, False, plan)
+        torch.cuda.synchronize()
+        rtol, atol = TOL[("conv3x3_valid", dn)]
+        err = max_err(out, pout)
+        tag = f"{name} {dn} [{BATCH},{H + 2},{W + 2},{C}] ({plan})"
+        check(allclose(torch, out, pout, rtol, atol),
+              f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        check(allclose(torch, s, ps, *SUMS_TOL) and allclose(torch, ss, pss, *SUMS_TOL),
+              f"{tag} sums/sumsqs: max_abs_err {max_err(s, ps):.3g} / "
+              f"{max_err(ss, pss):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
+        check(all(torch.equal(u, v) for u, v in zip((out, s, ss), again)),
+              f"{tag}: the repeat is bit-identical (output and sums)")
+        ms = time_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
+        print(f"{name} {dn} ({plan}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) achieved {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound", flush=True)
+        entries.append({"name": f"{name}.{dn}", "route": "cuda", "plan": str(plan),
+                        "source": ROUTE_SOURCES[plan.route], "replaces": SOURCES[name][1],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                        "shape": f"x[{BATCH},{H + 2},{W + 2},{C}] w[3,3,{C},{O}]"})
+    if dtype == torch.bfloat16:
+        for batch in (1, 4):
+            x, w, b = inputs(batch)
+            flops = 2.0 * batch * H * W * 9 * C * O
+            times = []
+            for route in routes:
+                plan = conv3x3.valid_plan(batch, H, W, C, O, dtype, route=route)
+                t = device_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
+                times.append(f"{plan}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)")
+            lib = device_ms(torch, library(x, w, b))
+            print(f"conv3x3_valid {dn} batch {batch} [{batch},{H + 2},{W + 2},{C}]: "
+                  f"{'; '.join(times)}; F.conv2d {lib:.4f} ms "
+                  f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
+    return entries
 
 
 # The fifteen instance norms of one forward at 256 px: (name, H, C, pad,
@@ -593,6 +652,67 @@ def stat_free_phase(torch, F, cf, dtype):
     return entries
 
 
+# ROADMAP item R0: host time per call, the calls queued behind a spin kernel
+# so that the host never waits for the card.
+HOST_CALLS = 1000
+HOST_CHUNK = 200
+
+
+def host_us(torch, fn) -> float:
+    """Mean host microseconds to issue one call: HOST_CALLS calls in chunks
+    of HOST_CHUNK, each queued behind a spin kernel that the card is still
+    running when the chunk has been issued (an event recorded after the spin
+    has not completed; else the chunk is issued again behind a longer spin)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles, total, done = 50_000_000, 0.0, 0
+    while done < HOST_CALLS:
+        torch.cuda._sleep(cycles)
+        mark = torch.cuda.Event()
+        mark.record()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CHUNK):
+            fn()
+        dt = time.perf_counter() - t0
+        ahead = not mark.query()
+        torch.cuda.synchronize()
+        if ahead:
+            total += dt
+            done += HOST_CHUNK
+        elif cycles > 2_000_000_000:
+            raise CheckFailed("the host could not queue the calls ahead of the card")
+        else:
+            cycles *= 2
+    return total / done * 1e6
+
+
+def host_cost_phase(torch, card, cf, conv3x3=None):
+    """Host microseconds per call of conv3x3_flat (conv2_2 of a 256 px Gatys
+    closure, f32 and bf16) and, given the conv3x3 module, of conv3x3_valid on
+    its wgmma and mma.sync routes (the residual shape at batch 1)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    costs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, 130, 130, 128, device="cuda", generator=g).to(dtype)
+        w = (torch.randn(3, 3, 128, 128, device="cuda", generator=g) * 0.03).to(dtype)
+        b = torch.randn(128, device="cuda", generator=g)
+        costs[f"conv3x3_flat {str(dtype).split('.')[1]}"] = host_us(
+            torch, lambda: cf.conv3x3_flat(x, w, b))
+    if conv3x3 is not None:
+        x = torch.randn(1, 66, 66, 128, device="cuda", generator=g).bfloat16()
+        w = (torch.randn(3, 3, 128, 128, device="cuda", generator=g) * 0.03).bfloat16()
+        b = torch.randn(128, device="cuda", generator=g)
+        for route in ("bf16_wgmma", "bf16_mma"):
+            costs[f"conv3x3_valid {route}"] = host_us(torch, lambda: conv3x3.launch(
+                x, w, b, False, conv3x3.valid_plan(1, 64, 64, 128, 128, torch.bfloat16,
+                                                   route=route)))
+    print(f"host us per call ({HOST_CALLS} calls queued behind a spin kernel; "
+          f"{cf.__file__}): " + ", ".join(f"{k} {v:.2f}" for k, v in costs.items())
+          + f" on {card}", flush=True)
+    return costs
+
+
 def write_inputs(np):
     from PIL import Image
 
@@ -631,11 +751,12 @@ def main_path(torch, np, in_dir, imgs):
         wall = time.perf_counter() - t0
         counts = read_counts()
         launches[precision] = counts
-        check(counts == {"conv3x3_valid": 10, "instance_norm_pad": 15,
-                         "fused_instance_norm_fwd": 0, "fused_instance_norm_bwd": 0,
-                         "conv3x3_flat": 0, "conv3x3_im2col": 0},
-              f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, "
-              f"15 IN-pad, no training kernel)")
+        route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+        want = {k: 0 for k in counts}
+        want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10, "instance_norm_pad": 15})
+        check(counts == want,
+              f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, all "
+              f"on the {route} route, 15 IN-pad, no training kernel)")
         check(len(paths) == BATCH, f"serving path {precision}: {len(paths)} PNGs written")
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(outs.shape == (BATCH, SIZE, SIZE, 3) and outs.dtype == np.uint8,
@@ -663,6 +784,35 @@ def main_path(torch, np, in_dir, imgs):
         print(f"serving path {precision}: process_dir {BATCH} images in {wall:.3f} s "
               f"(incl. checkpoint load, decode, PNG encode); serve_fn batch {BATCH}: "
               f"{ms:.3f} ms = {rates[precision]:.1f} img/s", flush=True)
+    # bf16 at WIDE_SIZE px (convert-dir --size 300): the residual stage is 75
+    # wide, whose rows do not tile a block, so conv3x3_valid runs on the
+    # mma.sync route.
+    out_dir = os.path.join(WORK, "out_wide")
+    reset_counts()
+    t0 = time.perf_counter()
+    paths = fast.process_dir(in_dir, "smoke", out_dir=out_dir, batch_size=BATCH,
+                             models_path=models, size=WIDE_SIZE, precision="bf16",
+                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches["wide"] = counts
+    want = {k: 0 for k in counts}
+    want.update({"conv3x3_valid": 10, "conv3x3_valid.bf16_mma": 10, "instance_norm_pad": 15})
+    check(counts == want, f"serving path bf16 at {WIDE_SIZE} px: one forward launched {counts} "
+          f"(want 10 conv3x3, all on the bf16_mma route, 15 IN-pad)")
+    outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+    check(outs.shape == (BATCH, WIDE_SIZE, WIDE_SIZE, 3),
+          f"serving path bf16 at {WIDE_SIZE} px: outputs {outs.shape}")
+    inputs = np.stack([images.load_image_uint8(os.path.join(in_dir, f), size=WIDE_SIZE)[0]
+                       for f in sorted(os.listdir(in_dir))[:2]])
+    ref = fast.make_serve_fn("bf16")(cpu_params, torch.from_numpy(inputs)).numpy()
+    diff = np.abs(outs[:2].astype(np.int32) - ref.astype(np.int32))
+    max_steps, mean_steps = MAIN_TOL["bf16"]
+    check(int(diff.max()) <= max_steps and float(diff.mean()) <= mean_steps,
+          f"serving path bf16 at {WIDE_SIZE} px: card vs CPU on 2 images: max "
+          f"{int(diff.max())}/255, mean {float(diff.mean()):.4f}/255 (limits {max_steps}, "
+          f"{mean_steps}); process_dir {BATCH} images in {wall:.3f} s")
     return launches, rates
 
 
@@ -731,10 +881,10 @@ def train_path(torch, np, in_dir):
         wall = time.perf_counter() - t0
         counts = read_counts()
         launches[precision] = counts
-        want = {"conv3x3_valid": 0, "instance_norm_pad": 0,
-                "fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
-                                                                + eval_forwards),
-                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS}
+        want = {k: 0 for k in counts}
+        want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
+                                                                     + eval_forwards),
+                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS})
         for k in GATYS_KERNELS:
             want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
@@ -1042,7 +1192,10 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU is available; this test runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    # --host-cost TREE: only the host cost of conv3x3_flat, of the package in
+    # the checkout at TREE (an older commit, for ROADMAP item R0).
+    host_tree = sys.argv[2] if sys.argv[1:2] == ["--host-cost"] and len(sys.argv) == 3 else None
+    sys.path.insert(0, os.path.abspath(host_tree) if host_tree else ROOT)
     try:
         import numpy as np
         import torch.nn.functional as F
@@ -1074,12 +1227,17 @@ def main() -> int:
                 stat_free_phase(torch, F, conv3x3_flat, dtype)
             print(card)
             return 0
+        if host_tree:
+            host_cost_phase(torch, card, conv3x3_flat)
+            print(card)
+            return 0
         entries = []
         for dtype in (torch.float32, torch.bfloat16):
-            entries.append(conv_phase(torch, F, conv3x3, dtype))
+            entries += conv_phase(torch, F, conv3x3, dtype)
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
+        host_cost_phase(torch, card, conv3x3_flat, conv3x3)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         train_launches = train_path(torch, np, in_dir)
@@ -1094,9 +1252,15 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     for e in entries:
         kernel, dn = e["name"].split(".")
-        path = (serve_launches if kernel in SERVING_KERNELS else
+        precision = "f32" if dn == "float32" else "bf16"
+        if kernel == "conv3x3_valid_mma":  # the WIDE_SIZE serving run
+            e["launches"] = serve_launches["wide"]["conv3x3_valid.bf16_mma"]
+            continue
+        if kernel == "conv3x3_valid":  # the route of the 256 px serving run
+            kernel = "conv3x3_valid." + ("f32_fma" if precision == "f32" else "bf16_wgmma")
+        path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
                 gatys_launches if kernel in GATYS_KERNELS else train_launches)
-        e["launches"] = path["f32" if dn == "float32" else "bf16"][kernel]
+        e["launches"] = path[precision][kernel]
     kind = torch.cuda.get_device_name(0)
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")

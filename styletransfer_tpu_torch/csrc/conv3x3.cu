@@ -32,11 +32,15 @@
 // Not yet used: TMA, wgmma and warp specialisation (the way to the bf16
 // tensor-core peak), and a copy pipeline for the f32 path.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "conv3x3_common.cuh"
 
 namespace {
+
+using conv3x3::ldmatrix_x4;
+using conv3x3::ldmatrix_x4_trans;
+using conv3x3::mma_bf16_16816;
+using conv3x3::smem_addr;
+using conv3x3::tile_sums_kernel;
 
 constexpr int BM = 128;  // output pixels per block (all in one image)
 constexpr int BN = 128;  // output channels per block
@@ -191,10 +195,6 @@ constexpr int A_STAGE = BM * A_LD;       // bf16 elements per stage
 constexpr int B_STAGE = BK_BF16 * B_LD;
 constexpr size_t BF16_SMEM = (size_t)STAGES * (A_STAGE + B_STAGE) * 2;  // 56,832 bytes
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16-byte global -> shared copy; src_bytes == 0 fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
@@ -206,26 +206,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared memory (dynamic, STAGES deep): As[stage][m][k] (shifted input rows)
@@ -409,22 +389,6 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Adds the per-tile partials of each image in tile order.
-__global__ void tile_sums_kernel(const float* __restrict__ psum,
-                                 const float* __restrict__ psq, float* __restrict__ sums,
-                                 float* __restrict__ sumsqs, int B, int tiles, int O) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * O) return;
-  const int b = i / O, n = i - (i / O) * O;
-  float ts = 0.f, tq = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    ts += psum[((size_t)b * tiles + t) * O + n];
-    tq += psq[((size_t)b * tiles + t) * O + n];
-  }
-  sums[i] = ts;
-  sumsqs[i] = tq;
-}
-
 template <typename T, typename Kernel>
 int launch(Kernel kernel, size_t smem, const void* x, const void* w, const void* bias,
            void* out, void* psum, void* psq, void* sums, void* sumsqs, int B, int Hp, int Wp,
@@ -459,9 +423,6 @@ int launch(Kernel kernel, size_t smem, const void* x, const void* w, const void*
 }  // namespace
 
 extern "C" {
-
-// Output pixels per block; the wrapper sizes the per-tile partials with it.
-int stx_conv3x3_block_m(void) { return BM; }
 
 const char* stx_conv3x3_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,6 +1,7 @@
-// Pieces shared by the stat-free 3x3 conv kernels (conv3x3_flat.cu,
-// conv3x3_im2col.cu): the bf16 tensor-core fragments, the f32 register
-// tile's column map, the epilogue stores, and the shared-memory opt-in.
+// Pieces shared by the 3x3 conv kernels (conv3x3.cu, conv3x3_flat.cu,
+// conv3x3_im2col.cu, conv3x3_wgmma.cu): the bf16 tensor-core fragments, the
+// f32 register tile's column map, the epilogue stores, the in-order sum of
+// the per-tile instance-norm partials, and the shared-memory opt-in.
 
 #pragma once
 
@@ -62,15 +63,45 @@ __device__ __forceinline__ void store_bf16_pair(__nv_bfloat16* row, int n, int O
   }
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel; the largest
-// size granted so far is remembered per kernel instantiation (by *granted).
+// Adds the per-tile column partials of each image in tile order: sums[b, n]
+// = sum over t of psum[b, t, n] (and the same for the squares), so the sums
+// are the same bit for bit from run to run, with no atomics.
+__global__ void tile_sums_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
+                                 float* __restrict__ sums, float* __restrict__ sumsqs, int B,
+                                 int tiles, int O) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * O) return;
+  const int b = i / O, n = i - (i / O) * O;
+  float ts = 0.f, tq = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    ts += psum[((size_t)b * tiles + t) * O + n];
+    tq += psq[((size_t)b * tiles + t) * O + n];
+  }
+  sums[i] = ts;
+  sumsqs[i] = tq;
+}
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel and per
+// device: cudaFuncSetAttribute applies to the current device's copy of the
+// kernel. Each caller keeps one Granted per kernel instantiation, the largest
+// size granted so far on each device.
+constexpr int MAX_DEVICES = 64;
+struct Granted {
+  size_t bytes[MAX_DEVICES] = {};
+};
+
 template <typename Kernel>
-__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
+__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes, Granted* granted) {
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) *granted = bytes;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= granted->bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) granted->bytes[dev] = bytes;
   return err;
 }
 

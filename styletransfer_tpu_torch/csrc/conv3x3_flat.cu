@@ -55,13 +55,12 @@
 // ReLU and rounds once. So a call is one kernel launch and its result is the
 // same bit for bit from run to run.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
-
-#include "conv3x3_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using conv3x3::smem_addr;
+using namespace hopper;
 
 struct FlatShape {
   int Wp, C, O, H, W;
@@ -320,141 +319,6 @@ __device__ __forceinline__ int b_swz(int t, int k, int n) {
   return t * BK_BF16 * BN + (n >> 6) * 1024 + k * 64 + ((((n >> 3) ^ k) & 7) << 3) + (n & 7);
 }
 
-// The register-A wgmma: d[64 x N] += a[64 x 16] (bf16, from registers, the
-// m16n8k16 A fragment of each warp's 16 rows) * b[16 x N] (bf16, shared
-// memory, by descriptor, N-major), f32 accumulators in the m16n8 C layout of
-// each warp's rows, n8 tile by n8 tile.
-__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3},"
-      " {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 8) wgmma_m64n8k16_rs(d, a, b);
-  if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, b);
-  if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, b);
-}
-
-// Descriptor of one tap's [16 x N] B tile, N-major. BN >= 64, 128-byte
-// swizzle: 8-row groups of k 1024 bytes apart (stride byte offset), 64-wide
-// atoms of n 2048 bytes apart (leading byte offset). BN = 8, no swizzle: the
-// two 8-row core matrices of k 128 bytes apart (leading byte offset).
-template <int N>
-__device__ __forceinline__ uint64_t b_desc(const void* p) {
-  const uint64_t start = (smem_addr(p) & 0x3FFFF) >> 4;
-  if constexpr (N < 64) return start | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(128 >> 4) << 32);
-  return start | ((uint64_t)(2048 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void fence_operand(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// mbarrier and TMA (cp.async.bulk.tensor) for the bf16 ring.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "wait:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity) : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Two warpgroups of 64 positions each, BN channels; at most 128 registers
 // a thread (two blocks an SM) below BN = 128. With
 // tma_x, one thread loads each stage's span by TMA (32-byte rows of tx) and
@@ -634,7 +498,7 @@ bool split_ok(const Launch& l, int bk) {
 
 template <int BM, int BN, int TN>
 int launch_f32(const Launch& l) {
-  static size_t granted = 0;
+  static conv3x3::Granted granted;
   constexpr int NT = BM * BN / (8 * TN);
   if (!split_ok(l, BK_F32)) return static_cast<int>(cudaErrorInvalidValue);
   const FlatShape s = make_shape(l.Hp, l.Wp, l.C, l.O, BM, BK_F32, l.split);
@@ -649,30 +513,6 @@ int launch_f32(const Launch& l) {
       static_cast<const float*>(l.bias), static_cast<float*>(l.out), s, l.relu, l.ws,
       l.counters);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The TMA maps of x (2-D: [C, B*Hp*Wp], 16 x 256 boxes, 32-byte swizzle)
@@ -705,7 +545,7 @@ cudaError_t encode_maps(const Launch& l, bool tma_x, bool tma_w, CUtensorMap* tx
 
 template <int BN>
 int launch_bf16(const Launch& l) {
-  static size_t granted = 0;
+  static conv3x3::Granted granted;
   if (!split_ok(l, BK_BF16)) return static_cast<int>(cudaErrorInvalidValue);
   const FlatShape s = make_shape(l.Hp, l.Wp, l.C, l.O, BM_BF16, BK_BF16, l.split);
   const size_t smem = (size_t)STAGES * bf16_stage_bytes(s.span, BN) + 1024;  // + alignment

@@ -1,26 +1,101 @@
 """3x3 VALID conv + bias (+ReLU) with per-image instance-norm sums.
 
-The port of ``styletransfer_tpu/ops/pallas/conv3x3.py::conv3x3_valid``. The
-kernel is ``csrc/conv3x3.cu``, whose header says what bounds it on the card
-and how it is built. :func:`conv3x3_valid` launches it on CUDA tensors and
+The port of ``styletransfer_tpu/ops/pallas/conv3x3.py::conv3x3_valid``. Its
+kernels, on the route that :func:`valid_plan` names for the shape:
+
+- ``bf16_wgmma``: ``csrc/conv3x3_wgmma.cu`` (TMA ring, ``wgmma`` from shared
+  memory), for bf16 wherever a tile's output rows are whole rows of the
+  image;
+- ``bf16_mma``: ``csrc/conv3x3.cu``'s ``mma.sync`` kernel, for bf16 at every
+  other width;
+- ``f32_fma``: ``csrc/conv3x3.cu``'s FMA kernel, for f32.
+
+The sources' headers say what bounds each kernel on the card and how it is
+built. :func:`conv3x3_valid` launches the planned kernel on CUDA tensors and
 computes :func:`conv3x3_valid_plain`, the same function in plain PyTorch, on
-CPU tensors. ``launches`` counts the kernel's launches.
+CPU tensors. ``launches`` counts every launch, ``fma_launches``,
+``mma_launches`` and ``wgmma_launches`` those of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from styletransfer_tpu_torch.ops.cuda import _build, check_cuda_inputs
 
-# Kernel launches since the counter was last set to 0.
+# Kernel launches since the counters were last set to 0: all, and per route.
 launches = 0
+fma_launches = 0
+mma_launches = 0
+wgmma_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# Streaming multiprocessors of an H100 SXM: the wgmma route's persistent grid
+# has at most one block on each.
+SMS = 132
+# Output positions per block of conv3x3.cu's two kernels.
+BLOCK_M = 128
+# The wgmma route's configurations (positions per tile, ring stages), in the
+# order the plan tries them: the first whose tiles fill the card, else the
+# last. conv3x3_wgmma.cu builds exactly these.
+WGMMA_CONFIGS = ((256, 3), (128, 4))
+# Output channels per tile of every route.
+BLOCK_N = 128
+
+
+class ValidPlan(NamedTuple):
+    """How conv3x3_valid runs one shape: the route, the tile of ``bm``
+    output positions, the ring's ``stages`` (wgmma only, else 0), the tiles
+    of one image (each writes its partial sums), and the blocks of the
+    grid."""
+    route: str
+    bm: int
+    stages: int
+    image_tiles: int
+    blocks: int
+
+    def __str__(self) -> str:
+        stages = f" stages {self.stages}" if self.stages else ""
+        return f"{self.route} bm {self.bm}{stages} ({self.blocks} blocks)"
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
+def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
+               route: Optional[str] = None) -> ValidPlan:
+    """The route and tile of conv3x3_valid for ``[B, H+2, W+2, C] -> O``.
+
+    bf16 takes the wgmma route where the box form holds: W <= 256, a
+    configuration's ``bm`` a multiple of W (a tile is ``bm / W`` whole output
+    rows), and C and O multiples of 8 (TMA's 16-byte strides; the launch
+    also needs 16-byte aligned tensors and raises without them). It takes
+    the first configuration of :data:`WGMMA_CONFIGS` whose tiles reach
+    :data:`SMS`, else the last that fits W, on a persistent grid of at most
+    one block per SM.
+    Other bf16 shapes take ``bf16_mma``, f32 takes ``f32_fma``. ``route``
+    asks for a given route's plan instead (``chip_smoke.py`` times the two
+    bf16 routes side by side); it raises where that route cannot run."""
+    n_tiles = math.ceil(O / BLOCK_N)
+    fits = [c for c in WGMMA_CONFIGS if W <= 256 and c[0] % W == 0]
+    wgmma = dtype == torch.bfloat16 and C % 8 == 0 and O % 8 == 0 and bool(fits)
+    default = "bf16_wgmma" if wgmma else "f32_fma" if dtype == torch.float32 else "bf16_mma"
+    route = route or default
+    if route != default and not (route == "bf16_mma" and dtype == torch.bfloat16):
+        raise ValueError(f"route {route} cannot run {dtype} [{B}, {H + 2}, {W + 2}, {C}] -> {O}")
+    if route == "bf16_wgmma":
+        def tiles(bm):
+            return B * math.ceil(H / (bm // W)) * n_tiles
+
+        bm, stages = next((c for c in fits if tiles(c[0]) >= SMS), fits[-1])
+        return ValidPlan(route, bm, stages, math.ceil(H / (bm // W)), min(tiles(bm), SMS))
+    image_tiles = math.ceil(H * W / BLOCK_M)
+    return ValidPlan(route, BLOCK_M, 0, image_tiles, B * image_tiles * n_tiles)
 
 
 def conv3x3_valid_plain(
@@ -66,42 +141,67 @@ def conv3x3_valid(
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_valid_plain(x, w, b, relu)
+    B, Hp, Wp, C = x.shape
+    return launch(x, w, b, relu, valid_plan(B, Hp - 2, Wp - 2, C, w.shape[3], x.dtype))
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
+           plan: ValidPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel of ``plan`` on CUDA tensors (:func:`conv3x3_valid` passes
+    :func:`valid_plan`'s; ``chip_smoke.py`` also times the routes side by
+    side). Raises if the launch fails or the route does not take x's dtype."""
+    _check(x, w, b)
     check_cuda_inputs(x, w, b)
-    global launches
+    if plan.route.split("_")[0] != ("f32" if x.dtype == torch.float32 else "bf16"):
+        raise ValueError(f"route {plan.route} does not take {x.dtype}")
+    global launches, fma_launches, mma_launches, wgmma_launches
     lib = _library()
     B, Hp, Wp, C = x.shape
     O = w.shape[3]
-    H, W = Hp - 2, Wp - 2
-    tiles = -(-(H * W) // lib.stx_conv3x3_block_m())
-    out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
-    partials = torch.empty((2, B, tiles, O), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, Hp - 2, Wp - 2, O), dtype=x.dtype, device=x.device)
+    partials = torch.empty((2, B, plan.image_tiles, O), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, B, O), dtype=torch.float32, device=x.device)
-    fn = lib.stx_conv3x3_f32 if x.dtype == torch.float32 else lib.stx_conv3x3_bf16
+    args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            partials[0].data_ptr(), partials[1].data_ptr(), sums[0].data_ptr(),
+            sums[1].data_ptr(), B, Hp, Wp, C, O, int(relu)]
     with torch.cuda.device(x.device):  # the library launches on the current device
-        err = fn(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            partials[0].data_ptr(), partials[1].data_ptr(),
-            sums[0].data_ptr(), sums[1].data_ptr(),
-            B, Hp, Wp, C, O, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan.route == "bf16_wgmma":
+            err = lib.wgmma.stx_conv3x3_wgmma(*args, plan.bm, plan.stages, plan.blocks, stream)
+            error_string = lib.wgmma.stx_conv3x3_wgmma_error_string
+        else:
+            general = lib.general
+            fn = general.stx_conv3x3_f32 if plan.route == "f32_fma" else general.stx_conv3x3_bf16
+            err = fn(*args, stream)
+            error_string = lib.general.stx_conv3x3_error_string
     if err:
         raise RuntimeError(
-            f"conv3x3 kernel launch failed: {lib.stx_conv3x3_error_string(err).decode()}"
-        )
+            f"conv3x3 kernel ({plan.route}) launch failed: {error_string(err).decode()}")
     launches += 1
+    if plan.route == "f32_fma":
+        fma_launches += 1
+    elif plan.route == "bf16_mma":
+        mma_launches += 1
+    else:
+        wgmma_launches += 1
     return out, sums[0], sums[1]
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.library("conv3x3")
-    if not getattr(lib, "_stx_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.stx_conv3x3_f32, lib.stx_conv3x3_bf16):
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-            fn.restype = i
-        lib.stx_conv3x3_block_m.argtypes = []
-        lib.stx_conv3x3_block_m.restype = i
-        lib.stx_conv3x3_error_string.argtypes = [i]
-        lib.stx_conv3x3_error_string.restype = ctypes.c_char_p
-        lib._stx_typed = True
-    return lib
+class _Libraries(NamedTuple):
+    general: ctypes.CDLL  # csrc/conv3x3.cu
+    wgmma: ctypes.CDLL  # csrc/conv3x3_wgmma.cu
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> _Libraries:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    general, wgmma = _build.library("conv3x3"), _build.library("conv3x3_wgmma")
+    for fn in (general.stx_conv3x3_f32, general.stx_conv3x3_bf16):
+        fn.argtypes = [p] * 8 + [i] * 6 + [p]
+        fn.restype = i
+    wgmma.stx_conv3x3_wgmma.argtypes = [p] * 8 + [i] * 9 + [p]
+    wgmma.stx_conv3x3_wgmma.restype = i
+    for fn in (general.stx_conv3x3_error_string, wgmma.stx_conv3x3_wgmma_error_string):
+        fn.argtypes = [i]
+        fn.restype = ctypes.c_char_p
+    return _Libraries(general, wgmma)

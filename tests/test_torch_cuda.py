@@ -40,23 +40,91 @@ def _close(a, b, dtype):
     torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (3, 9, 7, 64, 136)])
-@pytest.mark.parametrize("relu", [False, True])
-def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, relu):
-    B, H, W, C, O = shape
-    g = torch.Generator(device=cuda).manual_seed(0)
+# (B, H, W, C, O, bf16 route): conv3x3_valid's shapes on the card and the
+# route each reaches in bf16 (valid_plan; every shape takes f32_fma in f32,
+# see tests/test_torch_conv3x3_valid.py). wgmma: whole rows per tile (16, 32
+# and 64 wide), at batch 9 the large tile; C = 64 and O = 136 (a second,
+# mostly empty channel tile); C = 96 (a last chunk of 32 channels) with a
+# last tile of 3 of its 4 rows below the image and O = 72. mma.sync: widths
+# whose rows do not tile a block (7, and 75 as at 300 px).
+_VALID_SHAPES = [
+    (2, 16, 16, 128, 128, "bf16_wgmma"), (3, 9, 7, 64, 136, "bf16_mma"),
+    (2, 64, 64, 128, 128, "bf16_wgmma"), (1, 32, 32, 128, 128, "bf16_wgmma"),
+    (2, 16, 16, 64, 136, "bf16_wgmma"), (3, 7, 32, 96, 72, "bf16_wgmma"),
+    (9, 64, 64, 128, 128, "bf16_wgmma"), (1, 8, 75, 128, 128, "bf16_mma"),
+]
+_ROUTE_COUNTERS = {"f32_fma": "fma_launches", "bf16_mma": "mma_launches",
+                   "bf16_wgmma": "wgmma_launches"}
+
+
+def _valid_inputs(cuda, dtype, shape, seed):
+    B, H, W, C, O = shape[:5]
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(B, H + 2, W + 2, C, device=cuda, generator=g).to(dtype)
     w = (torch.randn(3, 3, C, O, device=cuda, generator=g) * 0.05).to(dtype)
     b = torch.randn(O, device=cuda, generator=g)
-    before = conv3x3.launches
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [s[:5] for s in _VALID_SHAPES])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, relu):
+    x, w, b = _valid_inputs(cuda, dtype, shape, 0)
+    route = conv3x3.valid_plan(*shape, dtype).route
+    before = conv3x3.launches, getattr(conv3x3, _ROUTE_COUNTERS[route])
     out, s, ss = conv3x3.conv3x3_valid(x, w, b, relu)
     torch.cuda.synchronize()
-    assert conv3x3.launches == before + 1
+    assert (conv3x3.launches, getattr(conv3x3, _ROUTE_COUNTERS[route])) == (
+        before[0] + 1, before[1] + 1)
     pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b, relu)
     _close(out, pout, dtype)
     torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(ss, pss, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("shape", _VALID_SHAPES)
+def test_conv3x3_valid_repeats_bit_for_bit(cuda, shape):
+    # The per-tile partial sums are added in a fixed order with no atomics:
+    # two calls on the same inputs give the same bits, sums included.
+    x, w, b = _valid_inputs(cuda, torch.bfloat16, shape, 10)
+    first = conv3x3.conv3x3_valid(x, w, b, True)
+    second = conv3x3.conv3x3_valid(x, w, b, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_the_two_bf16_routes_agree_on_the_residual_stage(cuda):
+    shape = (2, 64, 64, 128, 128)
+    x, w, b = _valid_inputs(cuda, torch.bfloat16, shape, 11)
+    plan = conv3x3.valid_plan(*shape, torch.bfloat16)
+    assert plan.route == "bf16_wgmma"
+    mma = conv3x3.valid_plan(*shape, torch.bfloat16, route="bf16_mma")
+    before = conv3x3.mma_launches
+    got, want = conv3x3.launch(x, w, b, True, plan), conv3x3.launch(x, w, b, True, mma)
+    torch.cuda.synchronize()
+    assert conv3x3.mma_launches == before + 1
+    _close(got[0], want[0], torch.bfloat16)
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-2)
+
+
+def test_kernels_needing_an_smem_opt_in_run_on_a_second_gpu(cuda):
+    # The shared-memory opt-in is per device: a call on cuda:1 after cuda:0
+    # must opt in again there.
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    for dev in (torch.device("cuda:0"), torch.device("cuda:1")):
+        x, w, b = _valid_inputs(dev, torch.bfloat16, (2, 64, 64, 128, 128), 12)
+        out, s, ss = conv3x3.conv3x3_valid(x, w, b, True)
+        pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b, True)
+        _close(out, pout, torch.bfloat16)
+        torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-2)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = _valid_inputs(dev, dtype, (1, 64, 64, 128, 256), 13)
+            _close(conv3x3_flat.conv3x3_flat(x, w, b, True),
+                   conv3x3_flat.conv3x3_flat_plain(x, w, b, True), dtype)
+        torch.cuda.synchronize(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -294,8 +362,10 @@ def test_serve_on_the_kernels_matches_the_cpu(cuda, precision, steps):
     batch = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, size=(2, 64, 64, 3), dtype=np.uint8))
     serve = fast.make_serve_fn(precision)
-    before = conv3x3.launches, instance_norm.launches
+    route = "wgmma_launches" if precision == "bf16" else "fma_launches"
+    before = conv3x3.launches, getattr(conv3x3, route), instance_norm.launches
     got = serve(params_gpu, batch.to(cuda)).cpu()
-    assert (conv3x3.launches - before[0], instance_norm.launches - before[1]) == (10, 15)
+    assert (conv3x3.launches - before[0], getattr(conv3x3, route) - before[1],
+            instance_norm.launches - before[2]) == (10, 10, 15)
     want = serve(params, batch)
     assert int((got.int() - want.int()).abs().max()) <= steps
