@@ -3,8 +3,6 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
-    python3 chip_smoke.py --host-cost TREE   # phases 1-2 and conv3x3_flat's host
-                                             # cost, of the checkout at TREE
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -14,18 +12,18 @@ It imports nothing of JAX. Phases:
    one ``nvcc`` per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card and time
    the kernel, the plain version and, where one exists, the one PyTorch call
-   that computes the same function: the serving kernels (conv3x3_valid on
-   each of its routes, with its plan, rate and a bit-identical repeat, and
-   in bf16 also at batch 1 and 4; IN-pad) at the serving path's shapes
-   (batch 64, 256 px), the training kernels (the
+   that computes the same function: the serving kernels at the serving
+   path's shapes (batch 64): conv3x3_valid through its wrapper at the
+   residual shape of each serving run, with its plan, rate and a
+   bit-identical repeat (256 px: f32 FMA and bf16 wgmma routes; 300 px: the
+   bf16 mma.sync route), the two bf16 routes side by side at 256 px, batch
+   1, 4 and 64, and IN-pad at 256 px; the training kernels (the
    fused instance norm's forward and backward) at each call shape of the
    training forward (batch 4, 256 px), and the stat-free conv kernels
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
    Gatys closure (the tower's five forward convs and their five input
    gradients), in f32 and bf16, with conv3x3_flat's plan (route, tile and
-   split) for each shape and a bit-identical repeat of each call; then the
-   host's microseconds per call of conv3x3_flat and conv3x3_valid, the
-   calls queued behind a spin kernel;
+   split) for each shape and a bit-identical repeat of each call;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
@@ -289,20 +287,24 @@ def read_counts() -> dict:
 
 
 def conv_phase(torch, F, conv3x3, dtype):
-    """conv3x3_valid's kernels against the plain version at the residual
-    convs' shape (batch 64), each with its plan, rate and a bit-identical
-    repeat: f32 on the FMA route; bf16 on the route the plan names (wgmma)
-    and on the mma.sync route, which serves the widths whose rows do not tile
-    a block. In bf16 both routes are also timed at batch 1 and 4 beside
-    F.conv2d (device times, calls queued behind a spin kernel)."""
+    """conv3x3_valid through its wrapper against the plain version at the
+    residual convs' shape of each serving run (batch 64), with the plan, the
+    route's launch count, the rate and a bit-identical repeat: 256 px (64
+    wide) on the route its plan names (f32: FMA, bf16: wgmma) and, in bf16,
+    300 px (75 wide, whose rows do not tile a block: the mma.sync route). In
+    bf16 the two bf16 routes are also timed side by side at 64 wide, batch
+    1, 4 and 64, beside F.conv2d (device times, calls queued behind a spin
+    kernel)."""
     dn = str(dtype).split(".")[1]
-    H = W = SIZE // 4
     C = O = 128
     bnd = 1.0 / (9 * C) ** 0.5
+    rtol, atol = TOL[("conv3x3_valid", dn)]
+    route_counts = dict(f32_fma="fma_launches", bf16_mma="mma_launches",
+                        bf16_wgmma="wgmma_launches")
 
-    def inputs(batch):
+    def inputs(batch, H):
         g = torch.Generator(device="cuda").manual_seed(1)
-        x = torch.randn(batch, H + 2, W + 2, C, device="cuda", generator=g).to(dtype)
+        x = torch.randn(batch, H + 2, H + 2, C, device="cuda", generator=g).to(dtype)
         w = ((torch.rand(3, 3, C, O, device="cuda", generator=g) * 2 - 1) * bnd).to(dtype)
         b = (torch.rand(O, device="cuda", generator=g) * 2 - 1) * bnd
         return x, w, b
@@ -315,24 +317,22 @@ def conv_phase(torch, F, conv3x3, dtype):
         bc = b.to(dtype)
         return lambda: F.conv2d(xc, wc, bc)
 
-    x, w, b = inputs(BATCH)
-    pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b)
-    plain_ms = time_ms(torch, lambda: conv3x3.conv3x3_valid_plain(x, w, b))
-    library_ms = time_ms(torch, library(x, w, b))
-    flops = 2.0 * BATCH * H * W * 9 * C * O
-    nbytes = (x.numel() + w.numel() + pout.numel()) * x.element_size() + (O + 2 * BATCH * O) * 4
-    bound_ms, bound_by = bound(flops, nbytes, dn)
-    routes = [None] if dtype == torch.float32 else [None, "bf16_mma"]
+    sizes = [SIZE] if dtype == torch.float32 else [SIZE, WIDE_SIZE]
     entries = []
-    for route in routes:
-        plan = conv3x3.valid_plan(BATCH, H, W, C, O, dtype, route=route)
+    for size in sizes:
+        H = W = size // 4
+        x, w, b = inputs(BATCH, H)
+        plan = conv3x3.valid_plan(BATCH, H, W, C, O, dtype)
         name = "conv3x3_valid_mma" if plan.route == "bf16_mma" else "conv3x3_valid"
-        out, s, ss = conv3x3.launch(x, w, b, False, plan)
-        again = conv3x3.launch(x, w, b, False, plan)
+        tag = f"{name} {dn} {size} px [{BATCH},{H + 2},{W + 2},{C}] ({plan})"
+        counted = getattr(conv3x3, route_counts[plan.route])
+        out, s, ss = conv3x3.conv3x3_valid(x, w, b)
+        again = conv3x3.conv3x3_valid(x, w, b)
         torch.cuda.synchronize()
-        rtol, atol = TOL[("conv3x3_valid", dn)]
+        check(getattr(conv3x3, route_counts[plan.route]) == counted + 2,
+              f"{tag}: both calls launched the {plan.route} kernel")
+        pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b)
         err = max_err(out, pout)
-        tag = f"{name} {dn} [{BATCH},{H + 2},{W + 2},{C}] ({plan})"
         check(allclose(torch, out, pout, rtol, atol),
               f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
         check(allclose(torch, s, ps, *SUMS_TOL) and allclose(torch, ss, pss, *SUMS_TOL),
@@ -340,8 +340,13 @@ def conv_phase(torch, F, conv3x3, dtype):
               f"{max_err(ss, pss):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
         check(all(torch.equal(u, v) for u, v in zip((out, s, ss), again)),
               f"{tag}: the repeat is bit-identical (output and sums)")
-        ms = time_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
-        print(f"{name} {dn} ({plan}): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        ms = time_ms(torch, lambda: conv3x3.conv3x3_valid(x, w, b))
+        plain_ms = time_ms(torch, lambda: conv3x3.conv3x3_valid_plain(x, w, b))
+        library_ms = time_ms(torch, library(x, w, b))
+        flops = 2.0 * BATCH * H * W * 9 * C * O
+        nbytes = (x.numel() + w.numel() + pout.numel()) * x.element_size() + (O + 2 * BATCH * O) * 4
+        bound_ms, bound_by = bound(flops, nbytes, dn)
+        print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB) achieved {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms:.3f} of the bound", flush=True)
@@ -349,19 +354,20 @@ def conv_phase(torch, F, conv3x3, dtype):
                         "source": ROUTE_SOURCES[plan.route], "replaces": SOURCES[name][1],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                        "shape": f"x[{BATCH},{H + 2},{W + 2},{C}] w[3,3,{C},{O}]"})
+                        "shape": f"x[{BATCH},{H + 2},{W + 2},{C}] w[3,3,{C},{O}] ({size} px)"})
     if dtype == torch.bfloat16:
-        for batch in (1, 4):
-            x, w, b = inputs(batch)
+        H = W = SIZE // 4
+        for batch in (1, 4, BATCH):
+            x, w, b = inputs(batch, H)
             flops = 2.0 * batch * H * W * 9 * C * O
             times = []
-            for route in routes:
+            for route in ("bf16_wgmma", "bf16_mma"):
                 plan = conv3x3.valid_plan(batch, H, W, C, O, dtype, route=route)
                 t = device_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
                 times.append(f"{plan}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)")
             lib = device_ms(torch, library(x, w, b))
-            print(f"conv3x3_valid {dn} batch {batch} [{batch},{H + 2},{W + 2},{C}]: "
-                  f"{'; '.join(times)}; F.conv2d {lib:.4f} ms "
+            print(f"conv3x3_valid {dn} routes side by side, batch {batch} "
+                  f"[{batch},{H + 2},{W + 2},{C}]: {'; '.join(times)}; F.conv2d {lib:.4f} ms "
                   f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
     return entries
 
@@ -650,67 +656,6 @@ def stat_free_phase(torch, F, cf, dtype):
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": t["library_ms"], "shape": calls})
     return entries
-
-
-# ROADMAP item R0: host time per call, the calls queued behind a spin kernel
-# so that the host never waits for the card.
-HOST_CALLS = 1000
-HOST_CHUNK = 200
-
-
-def host_us(torch, fn) -> float:
-    """Mean host microseconds to issue one call: HOST_CALLS calls in chunks
-    of HOST_CHUNK, each queued behind a spin kernel that the card is still
-    running when the chunk has been issued (an event recorded after the spin
-    has not completed; else the chunk is issued again behind a longer spin)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    cycles, total, done = 50_000_000, 0.0, 0
-    while done < HOST_CALLS:
-        torch.cuda._sleep(cycles)
-        mark = torch.cuda.Event()
-        mark.record()
-        t0 = time.perf_counter()
-        for _ in range(HOST_CHUNK):
-            fn()
-        dt = time.perf_counter() - t0
-        ahead = not mark.query()
-        torch.cuda.synchronize()
-        if ahead:
-            total += dt
-            done += HOST_CHUNK
-        elif cycles > 2_000_000_000:
-            raise CheckFailed("the host could not queue the calls ahead of the card")
-        else:
-            cycles *= 2
-    return total / done * 1e6
-
-
-def host_cost_phase(torch, card, cf, conv3x3=None):
-    """Host microseconds per call of conv3x3_flat (conv2_2 of a 256 px Gatys
-    closure, f32 and bf16) and, given the conv3x3 module, of conv3x3_valid on
-    its wgmma and mma.sync routes (the residual shape at batch 1)."""
-    g = torch.Generator(device="cuda").manual_seed(7)
-    costs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn(1, 130, 130, 128, device="cuda", generator=g).to(dtype)
-        w = (torch.randn(3, 3, 128, 128, device="cuda", generator=g) * 0.03).to(dtype)
-        b = torch.randn(128, device="cuda", generator=g)
-        costs[f"conv3x3_flat {str(dtype).split('.')[1]}"] = host_us(
-            torch, lambda: cf.conv3x3_flat(x, w, b))
-    if conv3x3 is not None:
-        x = torch.randn(1, 66, 66, 128, device="cuda", generator=g).bfloat16()
-        w = (torch.randn(3, 3, 128, 128, device="cuda", generator=g) * 0.03).bfloat16()
-        b = torch.randn(128, device="cuda", generator=g)
-        for route in ("bf16_wgmma", "bf16_mma"):
-            costs[f"conv3x3_valid {route}"] = host_us(torch, lambda: conv3x3.launch(
-                x, w, b, False, conv3x3.valid_plan(1, 64, 64, 128, 128, torch.bfloat16,
-                                                   route=route)))
-    print(f"host us per call ({HOST_CALLS} calls queued behind a spin kernel; "
-          f"{cf.__file__}): " + ", ".join(f"{k} {v:.2f}" for k, v in costs.items())
-          + f" on {card}", flush=True)
-    return costs
 
 
 def write_inputs(np):
@@ -1192,10 +1137,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU is available; this test runs on the card",
               file=sys.stderr)
         return 2
-    # --host-cost TREE: only the host cost of conv3x3_flat, of the package in
-    # the checkout at TREE (an older commit, for ROADMAP item R0).
-    host_tree = sys.argv[2] if sys.argv[1:2] == ["--host-cost"] and len(sys.argv) == 3 else None
-    sys.path.insert(0, os.path.abspath(host_tree) if host_tree else ROOT)
+    sys.path.insert(0, ROOT)
     try:
         import numpy as np
         import torch.nn.functional as F
@@ -1227,17 +1169,12 @@ def main() -> int:
                 stat_free_phase(torch, F, conv3x3_flat, dtype)
             print(card)
             return 0
-        if host_tree:
-            host_cost_phase(torch, card, conv3x3_flat)
-            print(card)
-            return 0
         entries = []
         for dtype in (torch.float32, torch.bfloat16):
             entries += conv_phase(torch, F, conv3x3, dtype)
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
-        host_cost_phase(torch, card, conv3x3_flat, conv3x3)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         train_launches = train_path(torch, np, in_dir)

@@ -1,7 +1,7 @@
 """What bounds conv3x3_valid's wgmma kernel on the GPU: the kernel timed
 against copies of its source with one part taken out.
 
-    python -m styletransfer_tpu_torch.utils.ablation
+    python3 scripts/torch_wgmma_ablation.py
 
 Builds ``csrc/conv3x3_wgmma.cu`` as it is and with, in turn, no TMA loads
 (the producer only signals the stages, so the tensor cores read whatever the
@@ -11,7 +11,10 @@ own library under ``build/ablation/``, and times each on the residual
 stage's shape ([B, 66, 66, 128] -> 128, B = 64, 16 and 4) on each of the
 kernel's tiles, as device time (CUDA events around 20 calls queued behind a
 spin kernel, the best of three). The copies compute wrong outputs: only
-their times mean something. Needs a CUDA GPU and nvcc.
+their times mean something. Each part is taken out by replacing its text
+in a copy of the source, so a change to those lines of the kernel needs the
+same change here (a build stops with the variant's name otherwise). Needs a
+CUDA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from styletransfer_tpu_torch.ops.cuda import _build, conv3x3
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from styletransfer_tpu_torch.ops.cuda import _build, conv3x3  # noqa: E402
 
 OUT_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "ablation")
 

@@ -17,7 +17,7 @@
 // L2 to the SMs are about 9x the input and the weights are read once per
 // tile: the larger the tile, the fewer of those bytes. The loads alone and
 // the math alone each take most of the kernel's time
-// (styletransfer_tpu_torch/utils/ablation.py times both).
+// (scripts/torch_wgmma_ablation.py times both).
 //
 // Design: an implicit GEMM over [B*H*W] x [9*C] -> [O] whose K axis is the
 // nine taps times the 64-channel chunks of C (18 k-steps at C = 128). A tile

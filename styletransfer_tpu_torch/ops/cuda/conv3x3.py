@@ -71,10 +71,11 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
                route: Optional[str] = None) -> ValidPlan:
     """The route and tile of conv3x3_valid for ``[B, H+2, W+2, C] -> O``.
 
-    bf16 takes the wgmma route where the box form holds: W <= 256, a
+    bf16 takes the wgmma route where the box form holds: W <= 256 and a
     configuration's ``bm`` a multiple of W (a tile is ``bm / W`` whole output
-    rows), and C and O multiples of 8 (TMA's 16-byte strides; the launch
-    also needs 16-byte aligned tensors and raises without them). It takes
+    rows). TMA's 16-byte strides need C and O to be multiples of 8, which
+    :func:`conv3x3_valid` requires of every route (C % 32, O % 8); the
+    launch also needs 16-byte aligned tensors and raises without them. It takes
     the first configuration of :data:`WGMMA_CONFIGS` whose tiles reach
     :data:`SMS`, else the last that fits W, on a persistent grid of at most
     one block per SM.
@@ -83,7 +84,7 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
     bf16 routes side by side); it raises where that route cannot run."""
     n_tiles = math.ceil(O / BLOCK_N)
     fits = [c for c in WGMMA_CONFIGS if W <= 256 and c[0] % W == 0]
-    wgmma = dtype == torch.bfloat16 and C % 8 == 0 and O % 8 == 0 and bool(fits)
+    wgmma = dtype == torch.bfloat16 and bool(fits)
     default = "bf16_wgmma" if wgmma else "f32_fma" if dtype == torch.float32 else "bf16_mma"
     route = route or default
     if route != default and not (route == "bf16_mma" and dtype == torch.bfloat16):
@@ -142,18 +143,23 @@ def conv3x3_valid(
     if x.device.type == "cpu":
         return conv3x3_valid_plain(x, w, b, relu)
     B, Hp, Wp, C = x.shape
-    return launch(x, w, b, relu, valid_plan(B, Hp - 2, Wp - 2, C, w.shape[3], x.dtype))
+    return _launch(x, w, b, relu, valid_plan(B, Hp - 2, Wp - 2, C, w.shape[3], x.dtype))
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
            plan: ValidPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel of ``plan`` on CUDA tensors (:func:`conv3x3_valid` passes
-    :func:`valid_plan`'s; ``chip_smoke.py`` also times the routes side by
-    side). Raises if the launch fails or the route does not take x's dtype."""
+    """:func:`conv3x3_valid` on a given plan's kernel, for CUDA tensors
+    (``chip_smoke.py`` times the two bf16 routes side by side). Raises if
+    the route does not take x's dtype or the launch fails."""
     _check(x, w, b)
-    check_cuda_inputs(x, w, b)
     if plan.route.split("_")[0] != ("f32" if x.dtype == torch.float32 else "bf16"):
         raise ValueError(f"route {plan.route} does not take {x.dtype}")
+    return _launch(x, w, b, relu, plan)
+
+
+def _launch(x, w, b, relu, plan):
+    """The kernel of ``plan`` on inputs that ``_check`` has passed."""
+    check_cuda_inputs(x, w, b)
     global launches, fma_launches, mma_launches, wgmma_launches
     lib = _library()
     B, Hp, Wp, C = x.shape

@@ -81,16 +81,15 @@ def test_every_wgmma_configuration_is_one_the_kernel_has():
     assert f"constexpr int BN = {tc.BLOCK_N};" in source
 
 
-def test_the_ablation_variants_take_out_parts_the_kernel_has():
-    # utils/ablation.py builds copies of the kernel with one part replaced:
-    # each replaced text is in the source exactly once.
-    from styletransfer_tpu_torch.utils import ablation
-
-    source = open(os.path.join(_CSRC, "conv3x3_wgmma.cu")).read()
-    assert "kernel" in ablation.VARIANTS
-    for name, edits in ablation.VARIANTS.items():
-        for old, _ in edits:
-            assert source.count(old) == 1, name
+@pytest.mark.parametrize("C,O", [(48, 128), (128, 132)])
+def test_the_wrapper_refuses_channels_the_routes_cannot_stride(C, O):
+    # valid_plan sends any bf16 width whose rows tile a block to the TMA
+    # kernel, whose 16-byte strides need C and O to be multiples of 8: the
+    # wrapper's check (C % 32, O % 8) guarantees that for every route.
+    x, w, b = torch.zeros(1, 6, 6, C), torch.zeros(3, 3, C, O), torch.zeros(O)
+    with pytest.raises(ValueError, match="C % 32"):
+        tc.conv3x3_valid(x, w, b)
+    assert tc.valid_plan(1, 4, 4, 32, 8, torch.bfloat16).route == "bf16_wgmma"
 
 
 def test_the_cuda_test_shapes_reach_the_route_each_is_meant_for():
