@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
+    python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -15,9 +16,13 @@ It imports nothing of JAX. Phases:
    that computes the same function: the serving kernels at the serving
    path's shapes (batch 64): conv3x3_valid through its wrapper at the
    residual shape of each serving run, with its plan, rate and a
-   bit-identical repeat (256 px: f32 FMA and bf16 wgmma routes; 300 px: the
-   bf16 mma.sync route), the two bf16 routes side by side at 256 px, batch
-   1, 4 and 64, and IN-pad at 256 px; the training kernels (the
+   bit-identical repeat (256 px: f32 FMA and bf16 wgmma routes; 300 px:
+   bf16 wgmma with partial tiles; 1040 px at batch 4: the bf16 mma.sync
+   route), the two bf16 routes side by side at 256 px, batch 1, 4 and 64,
+   and at 300 px (the mma.sync route forced there, also held against the
+   plain version), and IN-pad at each of the fifteen call shapes of a 256
+   px forward, with its plan, occupancy, share of the bound and a
+   bit-identical repeat; the training kernels (the
    fused instance norm's forward and backward) at each call shape of the
    training forward (batch 4, 256 px), and the stat-free conv kernels
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
@@ -30,7 +35,9 @@ It imports nothing of JAX. Phases:
    counters must show 10 conv3x3 and 15 IN-pad launches per forward, the
    conv3x3 ones all on the f32_fma or bf16_wgmma route, and the first two
    outputs must match the port's own CPU run; then the same images at 300 px
-   in bf16, whose 75-wide residual convs take the bf16_mma route;
+   in bf16, whose 75-wide residual convs take the bf16_wgmma route too, and
+   four of them at 1040 px in bf16, whose 260-wide residual convs take the
+   bf16_mma route;
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
@@ -73,9 +80,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "smoke")
 BATCH = 64
 SIZE = 256
-# A serving size whose residual stage (75 wide) conv3x3_valid runs on its
-# mma.sync route.
+# A serving size whose residual stage (75 wide) fills a wgmma tile only in
+# part (3 rows, 225 of 256 positions).
 WIDE_SIZE = 300
+# A serving size whose residual rows (260 wide) are past the wgmma kernel's
+# 256: conv3x3_valid runs them on its mma.sync route. Driven at batch 4.
+WIDEST_SIZE = 1040
+WIDEST_BATCH = 4
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 without tensor
 # cores (TF32 is off), and HBM3 bandwidth.
@@ -115,8 +126,11 @@ MAIN_TOL = {"f32": (1, 0.05), "bf16": (16, 1.0)}  # (max steps, mean steps)
 SOURCES = {
     "conv3x3_valid": ("styletransfer_tpu_torch/csrc/conv3x3.cu",
                       "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
-    # conv3x3_valid's bf16 route for the widths whose rows do not tile a
-    # block (ops/cuda/conv3x3.py::valid_plan).
+    # conv3x3_valid in bf16 at 300 px (75-wide rows, partial wgmma tiles),
+    # and on its mma.sync route, which takes rows over 256 wide
+    # (ops/cuda/conv3x3.py::valid_plan).
+    "conv3x3_valid_wide": ("styletransfer_tpu_torch/csrc/conv3x3_wgmma.cu",
+                           "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
     "conv3x3_valid_mma": ("styletransfer_tpu_torch/csrc/conv3x3.cu",
                           "styletransfer_tpu/ops/pallas/conv3x3.py:192"),
     "instance_norm_pad": ("styletransfer_tpu_torch/csrc/instance_norm.cu",
@@ -288,13 +302,15 @@ def read_counts() -> dict:
 
 def conv_phase(torch, F, conv3x3, dtype):
     """conv3x3_valid through its wrapper against the plain version at the
-    residual convs' shape of each serving run (batch 64), with the plan, the
-    route's launch count, the rate and a bit-identical repeat: 256 px (64
-    wide) on the route its plan names (f32: FMA, bf16: wgmma) and, in bf16,
-    300 px (75 wide, whose rows do not tile a block: the mma.sync route). In
-    bf16 the two bf16 routes are also timed side by side at 64 wide, batch
-    1, 4 and 64, beside F.conv2d (device times, calls queued behind a spin
-    kernel)."""
+    residual convs' shape of each serving run, with the plan, the route's
+    launch count, the rate and a bit-identical repeat: 256 px (64 wide,
+    batch 64) on the route its plan names (f32: FMA, bf16: wgmma) and, in
+    bf16, 300 px (75 wide, batch 64: wgmma with partial tiles) and 1040 px
+    (260 wide, batch 4: the mma.sync route). In bf16 the two bf16 routes
+    are also timed side by side at 64 wide, batch 1, 4 and 64, and at 75
+    wide, batch 64, with the forced mma.sync route held against the plain
+    version there too, beside F.conv2d (device times, calls queued behind a
+    spin kernel)."""
     dn = str(dtype).split(".")[1]
     C = O = 128
     bnd = 1.0 / (9 * C) ** 0.5
@@ -317,20 +333,11 @@ def conv_phase(torch, F, conv3x3, dtype):
         bc = b.to(dtype)
         return lambda: F.conv2d(xc, wc, bc)
 
-    sizes = [SIZE] if dtype == torch.float32 else [SIZE, WIDE_SIZE]
-    entries = []
-    for size in sizes:
-        H = W = size // 4
-        x, w, b = inputs(BATCH, H)
-        plan = conv3x3.valid_plan(BATCH, H, W, C, O, dtype)
-        name = "conv3x3_valid_mma" if plan.route == "bf16_mma" else "conv3x3_valid"
-        tag = f"{name} {dn} {size} px [{BATCH},{H + 2},{W + 2},{C}] ({plan})"
-        counted = getattr(conv3x3, route_counts[plan.route])
-        out, s, ss = conv3x3.conv3x3_valid(x, w, b)
-        again = conv3x3.conv3x3_valid(x, w, b)
+    def held(tag, call, x, w, b):
+        """The call and its repeat against the plain version."""
+        out, s, ss = call()
+        again = call()
         torch.cuda.synchronize()
-        check(getattr(conv3x3, route_counts[plan.route]) == counted + 2,
-              f"{tag}: both calls launched the {plan.route} kernel")
         pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b)
         err = max_err(out, pout)
         check(allclose(torch, out, pout, rtol, atol),
@@ -340,11 +347,27 @@ def conv_phase(torch, F, conv3x3, dtype):
               f"{max_err(ss, pss):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
         check(all(torch.equal(u, v) for u, v in zip((out, s, ss), again)),
               f"{tag}: the repeat is bit-identical (output and sums)")
+        return err, pout
+
+    runs = [("conv3x3_valid", SIZE, BATCH)]
+    if dtype == torch.bfloat16:
+        runs += [("conv3x3_valid_wide", WIDE_SIZE, BATCH),
+                 ("conv3x3_valid_mma", WIDEST_SIZE, WIDEST_BATCH)]
+    entries = []
+    for name, size, batch in runs:
+        H = W = size // 4
+        x, w, b = inputs(batch, H)
+        plan = conv3x3.valid_plan(batch, H, W, C, O, dtype)
+        tag = f"{name} {dn} {size} px [{batch},{H + 2},{W + 2},{C}] ({plan})"
+        counted = getattr(conv3x3, route_counts[plan.route])
+        err, pout = held(tag, lambda: conv3x3.conv3x3_valid(x, w, b), x, w, b)
+        check(getattr(conv3x3, route_counts[plan.route]) == counted + 2,
+              f"{tag}: both calls launched the {plan.route} kernel")
         ms = time_ms(torch, lambda: conv3x3.conv3x3_valid(x, w, b))
         plain_ms = time_ms(torch, lambda: conv3x3.conv3x3_valid_plain(x, w, b))
         library_ms = time_ms(torch, library(x, w, b))
-        flops = 2.0 * BATCH * H * W * 9 * C * O
-        nbytes = (x.numel() + w.numel() + pout.numel()) * x.element_size() + (O + 2 * BATCH * O) * 4
+        flops = 2.0 * batch * H * W * 9 * C * O
+        nbytes = (x.numel() + w.numel() + pout.numel()) * x.element_size() + (O + 2 * batch * O) * 4
         bound_ms, bound_by = bound(flops, nbytes, dn)
         print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
@@ -354,21 +377,25 @@ def conv_phase(torch, F, conv3x3, dtype):
                         "source": ROUTE_SOURCES[plan.route], "replaces": SOURCES[name][1],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                        "shape": f"x[{BATCH},{H + 2},{W + 2},{C}] w[3,3,{C},{O}] ({size} px)"})
+                        "shape": f"x[{batch},{H + 2},{W + 2},{C}] w[3,3,{C},{O}] ({size} px)"})
     if dtype == torch.bfloat16:
-        H = W = SIZE // 4
-        for batch in (1, 4, BATCH):
-            x, w, b = inputs(batch, H)
-            flops = 2.0 * batch * H * W * 9 * C * O
-            times = []
-            for route in ("bf16_wgmma", "bf16_mma"):
-                plan = conv3x3.valid_plan(batch, H, W, C, O, dtype, route=route)
-                t = device_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
-                times.append(f"{plan}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)")
-            lib = device_ms(torch, library(x, w, b))
-            print(f"conv3x3_valid {dn} routes side by side, batch {batch} "
-                  f"[{batch},{H + 2},{W + 2},{C}]: {'; '.join(times)}; F.conv2d {lib:.4f} ms "
-                  f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
+        for size, batches in ((SIZE, (1, 4, BATCH)), (WIDE_SIZE, (BATCH,))):
+            H = W = size // 4
+            for batch in batches:
+                x, w, b = inputs(batch, H)
+                flops = 2.0 * batch * H * W * 9 * C * O
+                times = []
+                for route in ("bf16_wgmma", "bf16_mma"):
+                    plan = conv3x3.valid_plan(batch, H, W, C, O, dtype, route=route)
+                    if size == WIDE_SIZE and route == "bf16_mma":
+                        held(f"conv3x3_valid {dn} {size} px on the forced {plan}",
+                             lambda: conv3x3.launch(x, w, b, False, plan), x, w, b)
+                    t = device_ms(torch, lambda: conv3x3.launch(x, w, b, False, plan))
+                    times.append(f"{plan}: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)")
+                lib = device_ms(torch, library(x, w, b))
+                print(f"conv3x3_valid {dn} routes side by side, {size} px, batch {batch} "
+                      f"[{batch},{H + 2},{W + 2},{C}]: {'; '.join(times)}; F.conv2d {lib:.4f} ms "
+                      f"({flops / lib / 1e9:.1f} TFLOP/s)", flush=True)
     return entries
 
 
@@ -386,16 +413,30 @@ _IN_CALLS = [
 ]
 
 
+def check_routes(instance_norm, entries) -> None:
+    """The IN-pad calls of both dtypes reached every route of in_plan."""
+    reached = {r for e in entries for r in e.pop("routes", [])}
+    check(reached == set(instance_norm.ROUTES),
+          f"instance_norm_pad: the forward's calls reach every route of in_plan "
+          f"({sorted(reached)})")
+
+
 def in_phase(torch, instance_norm, dtype):
-    """IN-pad kernel vs its plain version at every call shape of the forward;
-    the JSON entry times the largest call (in1)."""
+    """IN-pad kernel vs its plain version at every call shape of the forward
+    (the two dtypes' calls together reach every route of ``in_plan``:
+    ``check_routes``), with the plan, how many of its clusters the card runs
+    at once, the share of the bound and a bit-identical repeat. Times are
+    device times (``device_ms``); ``eager`` is the same call timed as the
+    host launches it. The JSON entry times the largest call (in1) and carries
+    the fifteen calls' totals."""
     name = "instance_norm_pad"
     dn = str(dtype).split(".")[1]
     rtol, atol = TOL[(name, dn)]
     g = torch.Generator(device="cuda").manual_seed(2)
     entry = None
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     worst = 0.0
+    routes = set()
     for call, H, C, pad, rp, relu, mode, with_stats, count in _IN_CALLS:
         x = (torch.randn(BATCH, H, H, C, device="cuda", generator=g) * 2 + 0.5).to(dtype)
         scale = torch.rand(C, device="cuda", generator=g) + 0.5
@@ -409,35 +450,50 @@ def in_phase(torch, instance_norm, dtype):
             xf = x.float()
             stats = (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)))
         args = (x, scale, bias, res, rp or 0, relu, pad, mode, stats)
+        plan = instance_norm.in_plan(BATCH, H, H, C, dtype, res is not None, with_stats)
+        routes.add(plan.route)
+        clusters = instance_norm.max_active_clusters(x, plan)
         out = instance_norm.instance_norm_pad(*args)
+        again = instance_norm.instance_norm_pad(*args)
         torch.cuda.synchronize()
         pout = instance_norm.instance_norm_pad_plain(*args)
         err = max_err(out, pout)
         worst = max(worst, err)
+        tag = f"{name} {dn} {call} [{BATCH},{H},{H},{C}] pad {pad} {mode} ({plan})"
         check(allclose(torch, out, pout, rtol, atol),
-              f"{name} {dn} {call} [{BATCH},{H},{H},{C}] pad {pad} {mode}: max_abs_err "
-              f"{err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
-        ms = time_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
-        plain_ms = time_ms(torch, lambda: instance_norm.instance_norm_pad_plain(*args), iters=5)
+              f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        check(torch.equal(out, again), f"{tag}: the repeat is bit-identical")
+        # Device time, the calls queued behind a spin kernel: the smaller
+        # calls take the host longer to launch than the card to run.
+        ms = device_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
+        eager = time_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
+        plain_ms = device_ms(torch, lambda: instance_norm.instance_norm_pad_plain(*args), iters=5)
         interior = x.numel() * (2 if res is not None else 1)
         nbytes = (interior + out.numel()) * x.element_size() + 2 * C * 4
         nbytes += 0 if stats is None else 2 * BATCH * C * 4
         bound_ms, bound_by = bound(8.0 * x.numel(), nbytes, dn)
-        print(f"{name} {dn} {call}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB) "
-              f"x{count} per forward", flush=True)
+        print(f"{name} {dn} {call}: kernel_ms {ms:.4f} (eager {eager:.4f}) plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB), "
+              f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.0f} GB/s; "
+              f"{clusters} clusters at once; x{count} per forward", flush=True)
         total["ms"] += ms * count
+        total["eager_ms"] += eager * count
         total["plain_ms"] += plain_ms * count
         total["bound_ms"] += bound_ms * count
         if entry is None:
             entry = {"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
-                     "replaces": SOURCES[name][1], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "replaces": SOURCES[name][1], "ms": ms, "eager_ms": eager,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None,
                      "shape": f"x[{BATCH},{H},{H},{C}] pad {pad} (in1, the largest call)"}
+    entry["routes"] = sorted(routes)
     entry["max_abs_err"] = worst
-    print(f"{name} {dn}: all 15 calls of one forward: kernel_ms {total['ms']:.4f} "
-          f"plain_ms {total['plain_ms']:.4f} bound_ms {total['bound_ms']:.4f}", flush=True)
+    print(f"{name} {dn}: all 15 calls of one forward: kernel_ms {total['ms']:.4f} (eager "
+          f"{total['eager_ms']:.4f}) plain_ms {total['plain_ms']:.4f} bound_ms "
+          f"{total['bound_ms']:.4f}, "
+          f"{total['bound_ms'] / total['ms']:.3f} of the bound", flush=True)
     entry["forward_ms"] = total["ms"]
+    entry["forward_eager_ms"] = total["eager_ms"]
     entry["forward_bound_ms"] = total["bound_ms"]
     return entry
 
@@ -461,6 +517,8 @@ def fused_phase(torch, F, fin, dtype):
     entries time the largest call (in1), beside ``F.instance_norm``. Times
     are device times (``device_ms``); ``eager`` is the same call timed as the
     host issues it."""
+    from styletransfer_tpu_torch.ops.cuda import instance_norm
+
     dn = str(dtype).split(".")[1]
     names = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -523,7 +581,8 @@ def fused_phase(torch, F, fin, dtype):
                                   dn)
         bwd_bytes = ins + 2 * gy.numel() * x.element_size() + chan + 2 * C * 4
         bwd_bound, bwd_by = bound(16.0 * x.numel(), bwd_bytes, dn)
-        print(f"fused_instance_norm {dn} {call}: fwd kernel_ms {fwd_ms:.4f} (eager "
+        plan = instance_norm.in_plan(*shape, dtype, with_res, False, True)
+        print(f"fused_instance_norm {dn} {call} ({plan}): fwd kernel_ms {fwd_ms:.4f} (eager "
               f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}; bwd "
               f"kernel_ms {bwd_ms:.4f} (eager {bwd_eager:.4f}) plain_ms {bwd_plain:.4f} "
               f"bound_ms {bwd_bound:.4f} ({bwd_by}; {bwd_bytes / 1e6:.1f} MB) x{count} per step",
@@ -678,6 +737,7 @@ def main_path(torch, np, in_dir, imgs):
     from styletransfer_tpu_torch import ckpt
     from styletransfer_tpu_torch.engines import fast
     from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.ops.cuda import conv3x3
     from styletransfer_tpu_torch.utils import images
 
     models = os.path.join(WORK, "models")
@@ -730,8 +790,7 @@ def main_path(torch, np, in_dir, imgs):
               f"(incl. checkpoint load, decode, PNG encode); serve_fn batch {BATCH}: "
               f"{ms:.3f} ms = {rates[precision]:.1f} img/s", flush=True)
     # bf16 at WIDE_SIZE px (convert-dir --size 300): the residual stage is 75
-    # wide, whose rows do not tile a block, so conv3x3_valid runs on the
-    # mma.sync route.
+    # wide, whose rows fill the wgmma kernel's tiles only in part.
     out_dir = os.path.join(WORK, "out_wide")
     reset_counts()
     t0 = time.perf_counter()
@@ -743,9 +802,9 @@ def main_path(torch, np, in_dir, imgs):
     counts = read_counts()
     launches["wide"] = counts
     want = {k: 0 for k in counts}
-    want.update({"conv3x3_valid": 10, "conv3x3_valid.bf16_mma": 10, "instance_norm_pad": 15})
+    want.update({"conv3x3_valid": 10, "conv3x3_valid.bf16_wgmma": 10, "instance_norm_pad": 15})
     check(counts == want, f"serving path bf16 at {WIDE_SIZE} px: one forward launched {counts} "
-          f"(want 10 conv3x3, all on the bf16_mma route, 15 IN-pad)")
+          f"(want 10 conv3x3, all on the bf16_wgmma route, 15 IN-pad)")
     outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
     check(outs.shape == (BATCH, WIDE_SIZE, WIDE_SIZE, 3),
           f"serving path bf16 at {WIDE_SIZE} px: outputs {outs.shape}")
@@ -758,6 +817,52 @@ def main_path(torch, np, in_dir, imgs):
           f"serving path bf16 at {WIDE_SIZE} px: card vs CPU on 2 images: max "
           f"{int(diff.max())}/255, mean {float(diff.mean()):.4f}/255 (limits {max_steps}, "
           f"{mean_steps}); process_dir {BATCH} images in {wall:.3f} s")
+    # bf16 at WIDEST_SIZE px on WIDEST_BATCH images: 260-wide residual rows,
+    # past the wgmma kernel's 256, so conv3x3_valid runs on mma.sync.
+    few_dir = os.path.join(WORK, "images_few")
+    os.makedirs(few_dir)
+    for f in sorted(os.listdir(in_dir))[:WIDEST_BATCH]:
+        shutil.copy(os.path.join(in_dir, f), few_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    paths = fast.process_dir(few_dir, "smoke", out_dir=os.path.join(WORK, "out_widest"),
+                             batch_size=WIDEST_BATCH, models_path=models, size=WIDEST_SIZE,
+                             precision="bf16", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches["widest"] = counts
+    want = {k: 0 for k in counts}
+    want.update({"conv3x3_valid": 10, "conv3x3_valid.bf16_mma": 10, "instance_norm_pad": 15})
+    check(counts == want, f"serving path bf16 at {WIDEST_SIZE} px: one forward launched {counts} "
+          f"(want 10 conv3x3, all on the bf16_mma route, 15 IN-pad)")
+    outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+    check(outs.shape == (WIDEST_BATCH, WIDEST_SIZE, WIDEST_SIZE, 3),
+          f"serving path bf16 at {WIDEST_SIZE} px: outputs {outs.shape}")
+    # The float output before the uint8 cast is finite, and the served
+    # image matches the same forward with the ten residual convs on their
+    # plain version (a CPU run at this size would take minutes).
+    batch = torch.from_numpy(np.stack([
+        images.load_image_uint8(os.path.join(few_dir, f), size=WIDEST_SIZE)[0]
+        for f in sorted(os.listdir(few_dir))[:1]])).cuda()
+    y = transformer.apply(params, images.maybe_normalize_on_device(batch),
+                          compute_dtype=torch.bfloat16)
+    serve = fast.make_serve_fn("bf16")
+    got = serve(params, batch)
+    kernel_conv = transformer.conv3x3_valid
+    transformer.conv3x3_valid = conv3x3.conv3x3_valid_plain
+    try:
+        ref = serve(params, batch)
+    finally:
+        transformer.conv3x3_valid = kernel_conv
+    diff = (got.int() - ref.int()).abs()
+    max_steps, mean_steps = MAIN_TOL["bf16"]
+    check(bool(torch.isfinite(y).all()) and int(diff.max()) <= max_steps
+          and float(diff.float().mean()) <= mean_steps,
+          f"serving path bf16 at {WIDEST_SIZE} px: forward output finite; on the kernels against "
+          f"the residual convs' plain version: max {int(diff.max())}/255, mean "
+          f"{float(diff.float().mean()):.4f}/255 (limits {max_steps}, {mean_steps}); process_dir "
+          f"{WIDEST_BATCH} images in {wall:.3f} s")
     return launches, rates
 
 
@@ -1169,12 +1274,21 @@ def main() -> int:
                 stat_free_phase(torch, F, conv3x3_flat, dtype)
             print(card)
             return 0
+        if sys.argv[1:] == ["--norms"]:
+            norms = []
+            for dtype in (torch.float32, torch.bfloat16):
+                norms.append(in_phase(torch, instance_norm, dtype))
+                fused_phase(torch, F, fused_instance_norm, dtype)
+            check_routes(instance_norm, norms)
+            print(card)
+            return 0
         entries = []
         for dtype in (torch.float32, torch.bfloat16):
             entries += conv_phase(torch, F, conv3x3, dtype)
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
+        check_routes(instance_norm, entries)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         train_launches = train_path(torch, np, in_dir)
@@ -1190,8 +1304,11 @@ def main() -> int:
     for e in entries:
         kernel, dn = e["name"].split(".")
         precision = "f32" if dn == "float32" else "bf16"
-        if kernel == "conv3x3_valid_mma":  # the WIDE_SIZE serving run
-            e["launches"] = serve_launches["wide"]["conv3x3_valid.bf16_mma"]
+        if kernel == "conv3x3_valid_wide":  # the WIDE_SIZE serving run
+            e["launches"] = serve_launches["wide"]["conv3x3_valid.bf16_wgmma"]
+            continue
+        if kernel == "conv3x3_valid_mma":  # the WIDEST_SIZE serving run
+            e["launches"] = serve_launches["widest"]["conv3x3_valid.bf16_mma"]
             continue
         if kernel == "conv3x3_valid":  # the route of the 256 px serving run
             kernel = "conv3x3_valid." + ("f32_fma" if precision == "f32" else "bf16_wgmma")

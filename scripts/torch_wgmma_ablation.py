@@ -33,20 +33,20 @@ from styletransfer_tpu_torch.ops.cuda import _build, conv3x3  # noqa: E402
 
 OUT_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "ablation")
 
-_LOADS = """          mbar_expect(full + stage, A_BYTES + boxes * B_BOX_BYTES);
+_LOADS = """          mbar_expect(full + stage, positions * BK * 2 + boxes * B_BOX_BYTES);
           tma_4d(a, &tx, c0, tap % 3, tile.y0 + tap / 3, tile.img, full + stage);
           for (int h = 0; h < boxes; ++h)
             tma_3d(a + A_BYTES + h * B_BOX_BYTES, &tw, tile.n0 + h * 64, c0, tap, full + stage);"""
 _MMA = """          wgmma_m64n128k16_ss(acc[mi], smem_desc(a + mi * 64 * 128 + kk * 32, 16, 1024, true),
                               db);"""
-_STORE = """        tma_store_3d(&to, stg + h * half, tile.n0 + h * 64, first, tile.img);"""
+_STORE = """        tma_store_4d(&to, staging + h * BOX, tile.n0 + h * 64, 0, tile.y0, tile.img);"""
 
 # name -> (text of the source, what replaces it)
 VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "kernel": [],
     "no loads": [(_LOADS, "          (void)a; (void)boxes; (void)tap; mbar_arrive(full + stage);")],
     "no wgmma": [(_MMA, "          (void)db;")],
-    "no store": [(_STORE, "        (void)stg;")],
+    "no store": [(_STORE, "        (void)BOX;")],
 }
 
 

@@ -1,7 +1,7 @@
 // Pieces shared by the 3x3 conv kernels (conv3x3.cu, conv3x3_flat.cu,
 // conv3x3_im2col.cu, conv3x3_wgmma.cu): the bf16 tensor-core fragments, the
-// f32 register tile's column map, the epilogue stores, the in-order sum of
-// the per-tile instance-norm partials, and the shared-memory opt-in.
+// f32 register tile's column map, the epilogue stores, and the in-order sum
+// of the per-tile instance-norm partials.
 
 #pragma once
 
@@ -79,30 +79,6 @@ __global__ void tile_sums_kernel(const float* __restrict__ psum, const float* __
   }
   sums[i] = ts;
   sumsqs[i] = tq;
-}
-
-// Dynamic shared memory above 48 KB needs an opt-in per kernel and per
-// device: cudaFuncSetAttribute applies to the current device's copy of the
-// kernel. Each caller keeps one Granted per kernel instantiation, the largest
-// size granted so far on each device.
-constexpr int MAX_DEVICES = 64;
-struct Granted {
-  size_t bytes[MAX_DEVICES] = {};
-};
-
-template <typename Kernel>
-__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes, Granted* granted) {
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (bytes <= granted->bytes[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) granted->bytes[dev] = bytes;
-  return err;
 }
 
 }  // namespace conv3x3

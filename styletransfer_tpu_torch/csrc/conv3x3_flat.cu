@@ -498,14 +498,14 @@ bool split_ok(const Launch& l, int bk) {
 
 template <int BM, int BN, int TN>
 int launch_f32(const Launch& l) {
-  static conv3x3::Granted granted;
+  static hopper::Granted granted;
   constexpr int NT = BM * BN / (8 * TN);
   if (!split_ok(l, BK_F32)) return static_cast<int>(cudaErrorInvalidValue);
   const FlatShape s = make_shape(l.Hp, l.Wp, l.C, l.O, BM, BK_F32, l.split);
   const size_t smem = sizeof(float) * STAGES *
                       (size_t)(BN == TN ? f32_stage_floats<true>(s.span, BN)
                                         : f32_stage_floats<false>(s.span, BN));
-  cudaError_t err = conv3x3::allow_smem(conv3x3_flat_f32_kernel<BM, BN, TN>, smem, &granted);
+  cudaError_t err = hopper::allow_smem(conv3x3_flat_f32_kernel<BM, BN, TN>, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(l.B * s.tiles, (l.O + BN - 1) / BN, l.split);
   conv3x3_flat_f32_kernel<BM, BN, TN><<<grid, NT, smem, l.stream>>>(
@@ -545,11 +545,11 @@ cudaError_t encode_maps(const Launch& l, bool tma_x, bool tma_w, CUtensorMap* tx
 
 template <int BN>
 int launch_bf16(const Launch& l) {
-  static conv3x3::Granted granted;
+  static hopper::Granted granted;
   if (!split_ok(l, BK_BF16)) return static_cast<int>(cudaErrorInvalidValue);
   const FlatShape s = make_shape(l.Hp, l.Wp, l.C, l.O, BM_BF16, BK_BF16, l.split);
   const size_t smem = (size_t)STAGES * bf16_stage_bytes(s.span, BN) + 1024;  // + alignment
-  cudaError_t err = conv3x3::allow_smem(conv3x3_flat_bf16_kernel<BN>, smem, &granted);
+  cudaError_t err = hopper::allow_smem(conv3x3_flat_bf16_kernel<BN>, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tx = {}, tw = {};
   // TMA needs 16-byte aligned bases and rows.

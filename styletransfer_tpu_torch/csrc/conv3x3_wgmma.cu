@@ -7,8 +7,8 @@
 // on an input that the previous instance norm already wrote padded, plus
 // sums[b, o] and sumsqs[b, o] of the post-activation f32 accumulator (taken
 // before the one rounding to bf16), ready for the next instance norm. It
-// serves every shape whose output rows tile a block (ops/cuda/conv3x3.py::
-// valid_plan); conv3x3.cu's mma.sync kernel serves the other widths.
+// serves bf16 at every width up to 256 (ops/cuda/conv3x3.py::valid_plan);
+// conv3x3.cu's mma.sync kernel serves wider rows.
 //
 // What bounds it on an H100: the residual-stack call ([64, 66, 66, 128] ->
 // [64, 64, 64, 128]) is 77.3 GFLOP on 139 MB, bound by the tensor cores
@@ -21,12 +21,16 @@
 //
 // Design: an implicit GEMM over [B*H*W] x [9*C] -> [O] whose K axis is the
 // nine taps times the 64-channel chunks of C (18 k-steps at C = 128). A tile
-// is BM output positions, BM / W whole output rows of one image, by BN = 128
-// output channels.
+// is rows = floor(BM / W) whole output rows of one image, rows x W <= BM
+// output positions, by BN = 128 output channels.
 //   A: one TMA box of a 4-D map over x [B, Hp, Wp, C] per k-step: box
-//      {64 channels, W, BM / W rows, 1 image} at (c0, dx, y0 + dy, b) is the
-//      tap's BM x 64 window, and it lands K-major in the 128-byte swizzle that
-//      a wgmma descriptor reads (no ldmatrix, no garbage columns).
+//      {64 channels, W, rows, 1 image} at (c0, dx, y0 + dy, b) is the tap's
+//      (rows x W) x 64 window, and it lands K-major in the 128-byte swizzle
+//      that a wgmma descriptor reads (no ldmatrix, no garbage columns). Where
+//      rows x W < BM (75 wide: 225 of 256), the stage's last A rows keep
+//      whatever an earlier box left there. Row i of a wgmma's D reads only
+//      row i of A, so they reach only accumulator rows that are neither
+//      stored nor summed.
 //   B: the tap's 64 x BN weights by TMA, from a 3-D map over w as [9, C, O],
 //      N-major in the same swizzle (64-channel atoms of 64 k-rows).
 //   A ring of STAGES stages, each with a "full" mbarrier that counts the
@@ -39,7 +43,9 @@
 //   grid is persistent (one block per SM), so the producer fills the ring
 //   for the next tile while the consumers run this tile's epilogue.
 //   Epilogue: bias in f32, ReLU and one rounding to bf16 into a staging
-//   tile in shared memory, stored by TMA while the next tile computes; the
+//   tile in shared memory (one [BM][64] box per 64 channels), stored by TMA
+//   as {64, W, rows, 1} boxes of a 4-D map over out, whole rows only, while
+//   the next tile computes; the
 //   per-tile column sums and sums of squares of the f32 values, added in a
 //   fixed order (each thread's rows, a butterfly over the lanes, then the
 //   eight consumer warps in order) and written per tile; tile_sums_kernel
@@ -65,7 +71,7 @@ constexpr int RED_BYTES = 2 * CONSUMER_WARPS * BN * 4;  // the epilogue's per-wa
 
 struct Shape {
   int H, W, O;
-  int rows;       // output rows per tile: BM / W
+  int rows;       // output rows per tile: floor(BM / W)
   int row_tiles;  // tiles per image along the rows
   int n_tiles;    // tiles along the output channels
   int tiles;      // B * row_tiles * n_tiles
@@ -104,20 +110,20 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap to, const float* __restrict__ bias,
                      float* __restrict__ psum, float* __restrict__ psq, Shape s, int relu) {
   constexpr int MI = BM / 128;  // m64 blocks of rows per consumer warpgroup
-  constexpr int A_BYTES = BM * BK * 2;
+  constexpr int A_BYTES = BM * BK * 2;  // the A slot of a stage; a box fills rows * W of its rows
   constexpr int STAGE = stage_bytes<BM>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[STAGES], empty[STAGES];
   // Swizzled layouts repeat every 1024 bytes: align the stages to that.
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // After the ring: each consumer warpgroup's half of the output tile, as
-  // two [BM / 2][64] bf16 boxes in the 128-byte swizzle; then the per-warp
-  // sums [2][warp][BN].
+  // After the ring: the output tile as BN / 64 [BM][64] bf16 boxes in the
+  // 128-byte swizzle; then the per-warp sums [2][warp][BN].
   unsigned char* staging = smem + STAGES * STAGE;
   float* red = reinterpret_cast<float*>(staging + BM * BN * 2);
   const int tid = threadIdx.x;
   const int ksteps = 9 * s.chunks;
+  const int positions = s.rows * s.W;  // output positions of a tile
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -144,7 +150,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           mbar_wait(empty + stage, ((it / STAGES) & 1) ^ 1);
           const int tap = k % 9, c0 = k / 9 * BK;
           unsigned char* a = smem + stage * STAGE;
-          mbar_expect(full + stage, A_BYTES + boxes * B_BOX_BYTES);
+          mbar_expect(full + stage, positions * BK * 2 + boxes * B_BOX_BYTES);
           tma_4d(a, &tx, c0, tap % 3, tile.y0 + tap / 3, tile.img, full + stage);
           for (int h = 0; h < boxes; ++h)
             tma_3d(a + A_BYTES + h * B_BOX_BYTES, &tw, tile.n0 + h * 64, c0, tap, full + stage);
@@ -207,16 +213,16 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 
     // Epilogue. Accumulator of n8 tile i: e = 0,1 -> row g, channels
     // 8i + 2*t4 + {0,1}; e = 2,3 -> row g + 8. Each warpgroup rounds its rows
-    // into its half of the staging tile, where channel group i (16 bytes) of
-    // row r sits at chunk (i % 8) ^ (r % 8) of box i / 8, and one thread
-    // stores the boxes by TMA (rows below the image and channels past O are
-    // not written). The store runs on while the next tile computes; before
-    // the staging tile is written again, its reads have finished.
-    const int half = (BM / 2) * 128;  // bytes of one [BM / 2][64] box
-    unsigned char* stg = staging + wg * 2 * half;
-    const int first = tile.y0 * s.W + wg * (BM / 2);  // the warpgroup's first position
-    if ((tid & 127) == 0) bulk_wait_read<0>();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    // into the staging tile, where channel group i (16 bytes) of tile row R
+    // sits at chunk (i % 8) ^ (R % 8) of box i / 8, and one thread stores the
+    // boxes by TMA: the tile's rows x W positions, whole image rows (rows
+    // below the image and channels past O are not written). The store runs
+    // on while the next tile computes; before the staging tile is written
+    // again, its reads have finished.
+    constexpr int BOX = BM * 128;  // bytes of one [BM][64] box
+    const int first = tile.y0 * s.W;  // the tile's first position in the image
+    if (tid == 0) bulk_wait_read<0>();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const int n = tile.n0 + i * 8 + t4 * 2;
@@ -226,13 +232,13 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = mi * 64 + (warp & 3) * 16 + g + 8 * h;
+          const int r = wg * (BM / 2) + mi * 64 + (warp & 3) * 16 + g + 8 * h;
           const float v0 = conv3x3::bias_relu(acc[mi][i * 4 + h * 2], b0, relu);
           const float v1 = conv3x3::bias_relu(acc[mi][i * 4 + h * 2 + 1], b1, relu);
-          *reinterpret_cast<__nv_bfloat162*>(stg + (i / 8) * half + r * 128 +
+          *reinterpret_cast<__nv_bfloat162*>(staging + (i / 8) * BOX + r * 128 +
                                              (((i % 8) ^ (r & 7)) << 4) + t4 * 4) =
               __floats2bfloat162_rn(v0, v1);
-          if (first + r < s.H * s.W) {  // a row of the image
+          if (r < positions && first + r < s.H * s.W) {  // a position of the image
             s0 += v0;
             s1 += v1;
             q0 += v0 * v0;
@@ -256,13 +262,12 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     }
     // The TMA store reads the staging tile through the async proxy.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-    if ((tid & 127) == 0 && first < s.H * s.W) {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
+    if (tid == 0) {
       for (int h = 0; h < BN / 64 && tile.n0 + h * 64 < s.O; ++h)
-        tma_store_3d(&to, stg + h * half, tile.n0 + h * 64, first, tile.img);
+        tma_store_4d(&to, staging + h * BOX, tile.n0 + h * 64, 0, tile.y0, tile.img);
       bulk_commit();
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
     if (tid < BN && tile.n0 + tid < s.O) {
       float ts = 0.f, tq = 0.f;
       for (int wp = 0; wp < CONSUMER_WARPS; ++wp) {
@@ -276,7 +281,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     // red is read before the next tile's epilogue writes it.
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
   }
-  if ((tid & 127) == 0) bulk_wait<0>();
+  if (tid == 0) bulk_wait<0>();
 }
 
 struct Launch {
@@ -286,10 +291,11 @@ struct Launch {
   cudaStream_t stream;
 };
 
-// The TMA maps of x (4-D: [C, Wp, Hp, B], {64, W, BM / W, 1} boxes), w
-// (3-D: [O, C, 9], {64, 64, 1} boxes) and out (3-D: [O, H * W, B],
-// {64, BM / 2, 1} boxes), all in the 128-byte swizzle. Loads outside the
-// tensors arrive as zeros; stores outside them are dropped.
+// The TMA maps of x (4-D: [C, Wp, Hp, B], {64, W, rows, 1} boxes), w
+// (3-D: [O, C, 9], {64, 64, 1} boxes) and out (4-D: [O, W, H, B],
+// {64, W, rows, 1} boxes), all in the 128-byte swizzle, with rows =
+// floor(bm / W). Loads outside the tensors arrive as zeros; stores outside
+// them are dropped.
 cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* tw,
                         CUtensorMap* to) {
   const EncodeTiled encode = encoder();
@@ -298,14 +304,16 @@ cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* t
                               (cuuint64_t)l.B};
   const cuuint64_t xstride[3] = {(cuuint64_t)l.C * 2, (cuuint64_t)l.Wp * l.C * 2,
                                  (cuuint64_t)l.Hp * l.Wp * l.C * 2};
-  const cuuint32_t xbox[4] = {BK, (cuuint32_t)(l.Wp - 2), (cuuint32_t)(bm / (l.Wp - 2)), 1};
+  const cuuint32_t rows = (cuuint32_t)(bm / (l.Wp - 2));
+  const cuuint32_t xbox[4] = {BK, (cuuint32_t)(l.Wp - 2), rows, 1};
   const cuuint64_t wdim[3] = {(cuuint64_t)l.O, (cuuint64_t)l.C, 9};
   const cuuint64_t wstride[2] = {(cuuint64_t)l.O * 2, (cuuint64_t)l.C * l.O * 2};
   const cuuint32_t wbox[3] = {64, BK, 1}, ones[4] = {1, 1, 1, 1};
-  const cuuint64_t odim[3] = {(cuuint64_t)l.O, (cuuint64_t)(l.Hp - 2) * (l.Wp - 2),
+  const cuuint64_t odim[4] = {(cuuint64_t)l.O, (cuuint64_t)(l.Wp - 2), (cuuint64_t)(l.Hp - 2),
                               (cuuint64_t)l.B};
-  const cuuint64_t ostride[2] = {(cuuint64_t)l.O * 2, odim[1] * l.O * 2};
-  const cuuint32_t obox[3] = {64, (cuuint32_t)bm / 2, 1};
+  const cuuint64_t ostride[3] = {(cuuint64_t)l.O * 2, odim[1] * l.O * 2,
+                                 odim[2] * odim[1] * l.O * 2};
+  const cuuint32_t obox[4] = {64, (cuuint32_t)(l.Wp - 2), rows, 1};
   if (encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(l.x), xdim, xstride,
              xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -313,7 +321,7 @@ cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* t
       encode(tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(l.w), wdim, wstride,
              wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, l.out, odim, ostride, obox, ones,
+      encode(to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, l.out, odim, ostride, obox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
@@ -322,16 +330,17 @@ cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* t
 
 template <int BM, int STAGES>
 int launch(const Launch& l) {
-  static conv3x3::Granted granted;
+  static hopper::Granted granted;
   const int W = l.Wp - 2, H = l.Hp - 2;
-  // The box form: whole output rows per tile, TMA's 16-byte strides and
-  // bases (C and O multiples of 8, 16-byte aligned x, w and out).
-  if (W < 1 || W > 256 || BM % W != 0 || H < 1 || l.C % 8 != 0 || l.O % 8 != 0 || l.grid < 1 ||
+  // The box form: at least one whole output row per tile (TMA boxes are at
+  // most 256 wide), TMA's 16-byte strides and bases (C and O multiples of 8,
+  // 16-byte aligned x, w and out).
+  if (W < 1 || W > 256 || W > BM || H < 1 || l.C % 8 != 0 || l.O % 8 != 0 || l.grid < 1 ||
       ((reinterpret_cast<uintptr_t>(l.x) | reinterpret_cast<uintptr_t>(l.w) |
         reinterpret_cast<uintptr_t>(l.out)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<BM, STAGES>();
-  cudaError_t err = conv3x3::allow_smem(conv3x3_wgmma_kernel<BM, STAGES>, smem, &granted);
+  cudaError_t err = hopper::allow_smem(conv3x3_wgmma_kernel<BM, STAGES>, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   Shape s;
   s.H = H;

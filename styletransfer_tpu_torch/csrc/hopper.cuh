@@ -1,8 +1,10 @@
 // Hopper (sm_90a) pieces shared by the tensor-core conv kernels
-// (conv3x3_flat.cu, conv3x3_wgmma.cu): the wgmma wrappers and shared-memory
-// matrix descriptors, the mbarrier and TMA (cp.async.bulk.tensor) load and
-// store wrappers, and the tensor-map encoder looked up through the CUDA
-// runtime.
+// (conv3x3_flat.cu, conv3x3_wgmma.cu) and the instance norm
+// (instance_norm.cu): the wgmma wrappers and shared-memory matrix
+// descriptors, the mbarrier, bulk-copy and TMA (cp.async.bulk.tensor) load
+// and store wrappers, the tensor-map encoder looked up through the CUDA runtime, and
+// the per-device opt-ins for shared memory past 48 KB and for clusters of
+// more than 8 blocks.
 
 #pragma once
 
@@ -194,7 +196,17 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, int c0
       : "memory");
 }
 
-// A TMA store of a 3-D box from shared memory, in the bulk group of the
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory, completing on an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A TMA store of a 3-D or 4-D box from shared memory, in the bulk group of the
 // issuing thread; bulk_wait_read<0>() returns once the shared memory of
 // every committed store may be written again, bulk_wait<0>() once the
 // stores are done.
@@ -204,6 +216,14 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -240,6 +260,46 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel and per
+// device: cudaFuncSetAttribute applies to the current device's copy of the
+// kernel. Each caller keeps one Granted per kernel instantiation: the largest
+// size granted so far on each device, and whether clusters of more than 8
+// blocks were allowed there.
+constexpr int MAX_DEVICES = 64;
+struct Granted {
+  size_t bytes[MAX_DEVICES] = {};
+  bool large_clusters[MAX_DEVICES] = {};
+};
+
+template <typename Kernel>
+__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes, Granted* granted) {
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= granted->bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) granted->bytes[dev] = bytes;
+  return err;
+}
+
+// Clusters of 9 to 16 blocks (non-portable sizes) need their own opt-in, per
+// kernel and per device.
+template <typename Kernel>
+__host__ cudaError_t allow_large_clusters(Kernel kernel, Granted* granted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (granted->large_clusters[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) granted->large_clusters[dev] = true;
+  return err;
 }
 
 }  // namespace hopper

@@ -12,11 +12,10 @@
 //                                       with res_f32 == 1 it stays f32, as
 //                                       fused_instance_norm's _kernel adds)
 //   out = pad(relu?((s - mean) * rsqrt(var + eps) * scale + bias))
-// The same kernels at pad 0 with res_f32 == 1 are the forward of
+// The same kernel at pad 0 with res_f32 == 1 is the forward of
 // fused_instance_norm (_pallas_forward -> _kernel / _kernel_with_res) for the
 // training forward: mean and inv go back to the caller, which keeps them for
-// the backward (csrc/instance_norm_bwd.cu). One forward serves both paths,
-// so the training forward needs no second kernel.
+// the backward (csrc/instance_norm_bwd.cu). One forward serves both paths.
 // With no statistics given, var is the exact centered variance, as in the
 // TPU kernel; with (sums, sumsqs) it is the one-pass form clamped at 0, as
 // in styletransfer_tpu/ops/layers.py instance_norm_stats.
@@ -26,194 +25,203 @@
 // memory. The largest call of the forward ([64, 256, 256, 32] -> pad 1) moves
 // 537 MB in and 545 MB out in f32.
 //
-// Design: the TPU kernel held one whole image in VMEM and reduced it in one
-// grid step. A Hopper block cannot see a whole image and blocks run in no
-// order, so the reduction is split:
-//   1. in_partial_stats: each block reduces one chunk of pixels of one image,
-//      every thread keeping a Welford (count, mean, M2) for four channels,
-//      merged inside the block in a fixed order with Chan's formula.
-//   2. in_finalize_*: one thread per (image, channel) merges the chunks in
-//      order (or turns the conv's sums into mean / variance).
-//   3. in_apply_pad: one thread per (output pixel, four channels) maps its
-//      output coordinate to a source pixel (reflect or edge), recomputes s
-//      and writes the normalized value. Loads and stores are 16 bytes (f32)
-//      or 8 bytes (bf16) per thread, neighbouring threads on neighbouring
-//      channels.
-// The result is deterministic. Pass 1 re-reads x in pass 3 (the bound counts
-// it once); fusing the two for images that fit in shared memory is later work.
+// Design: one launch per call, one image per thread-block cluster. The TPU
+// kernel held one whole image in VMEM per grid step: one HBM read and one
+// padded write per sample. Here the `ctas` blocks of one image (a cluster of
+// up to 16, launched with cudaLaunchKernelEx) each own a band of `rows`
+// whole image rows, and each writes the output rows its band feeds,
+// including the reflected or edge border rows and columns at the image's
+// top and bottom. ops/cuda/instance_norm.py::in_plan names the route:
+//   ROUTE_SMEM: the band of s fits shared memory with two blocks per SM.
+//     One thread loads x's band with bulk copies (TMA's cp.async.bulk: the
+//     whole band in flight at once, up to 8 chunks of whole rows on an
+//     mbarrier each), while the block sums each chunk as it lands, adding a
+//     residual in place (its loads batched U at a time); the cluster adds
+//     its blocks' sums in rank order over distributed shared memory (DSMEM)
+//     into the mean; the block takes the centered sum of squares from
+//     shared memory, merged the same way; then it normalizes from shared
+//     memory and writes the padded output. A border row whose source row
+//     lies in another block's band is read from that block over DSMEM. One
+//     HBM read of x and one padded write. Bands whose rows are not 16-byte
+//     multiples, or that hold a bf16 residual added in f32 (so s in f32),
+//     are loaded by the threads instead.
+//   ROUTE_L2: the other images without given statistics. Each thread keeps
+//     (n, mean, M2) over its pixels, merging one group of U pixels at a
+//     time with Chan's formula (one reciprocal per group, not per element);
+//     the block merges its threads, the cluster its blocks in rank order
+//     over DSMEM; then each block reads its band again, backwards (the
+//     rows read last come back first, while L2 still holds them), marking
+//     those lines first to evict. A round of resident clusters keeps 57 MB
+//     (bf16 in1) to 115 MB (f32) of bands live against a 50 MB L2, so part
+//     of the re-read still comes from HBM: the route runs at just over half
+//     its bound.
+//   ROUTE_SUMS: (sums, sumsqs) come from the conv3x3 kernel: no reduction,
+//     no cluster; about one wave of blocks normalizes x.
+// Per element: 16-byte loads and stores (8-byte for bf16 where C % 8 != 0),
+// neighbouring threads on neighbouring channels, U = 8 raw vectors in flight
+// per thread where threads load from global memory, streaming stores (the
+// output is not read again here); each thread keeps one channel group, so
+// the statistics and affine are read once into registers; pixels are walked
+// by row and column with no division per element. Every merge runs in a
+// fixed order with no atomics: a call repeats bit for bit.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+constexpr int NT = 256;  // threads per block
+constexpr int U = 8;     // raw vectors in flight per thread
+constexpr int ROUTE_SUMS = 0, ROUTE_SMEM = 1, ROUTE_L2 = 2;
+constexpr int MAX_CLUSTER = 16;
+constexpr int MAX_CHUNKS = 8;  // bulk-copy chunks of a band, an mbarrier each
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
+// VEC consecutive values of T: the raw vector (16 or 8 bytes) and its floats;
+// ld_last / st_stream mark the lines first to evict from L2 (__ldcs, __stcs):
+// a last read of the input, and the output, which this kernel never reads.
+template <typename T, int VEC>
+struct Vec;
+template <>
+struct Vec<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw ld(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[4]) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+  static __device__ __forceinline__ void st(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  static __device__ __forceinline__ Raw ld_last(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void st_stream(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+struct Float8 {
+  float4 a, b;
+};
+template <>
+struct Vec<float, 8> {
+  using Raw = Float8;
+  static __device__ __forceinline__ Raw ld(const float* p) {
+    return Float8{*reinterpret_cast<const float4*>(p), *reinterpret_cast<const float4*>(p + 4)};
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[8]) {
+    v[0] = r.a.x;
+    v[1] = r.a.y;
+    v[2] = r.a.z;
+    v[3] = r.a.w;
+    v[4] = r.b.x;
+    v[5] = r.b.y;
+    v[6] = r.b.z;
+    v[7] = r.b.w;
+  }
+  static __device__ __forceinline__ void st(float* p, const float (&v)[8]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+__device__ __forceinline__ void unpack(uint32_t u, float& a, float& b) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  a = f.x;
+  b = f.y;
 }
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw ld(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[8]) {
+    unpack(r.x, v[0], v[1]);
+    unpack(r.y, v[2], v[3]);
+    unpack(r.z, v[4], v[5]);
+    unpack(r.w, v[6], v[7]);
+  }
+  static __device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+  }
+  static __device__ __forceinline__ Raw ld_last(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void st_stream(__nv_bfloat16* p, const float (&v)[8]) {
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7])));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw ld(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[4]) {
+    unpack(r.x, v[0], v[1]);
+    unpack(r.y, v[2], v[3]);
+  }
+  static __device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack(v[0], v[1]), pack(v[2], v[3]));
+  }
+  static __device__ __forceinline__ Raw ld_last(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void st_stream(__nv_bfloat16* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<uint2*>(p), make_uint2(pack(v[0], v[1]), pack(v[2], v[3])));
+  }
+};
 
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-struct Dims {
-  int N, H, W, C, rp;  // rp: padding of the residual tensor (its interior is used)
-  int res_f32;         // 1: add the residual in f32; 0: round the sum to T
+struct Params {
+  const void* x;    // [N, H, W, C]
+  const void* res;  // [N, H + 2 rp, W + 2 rp, C] or NULL
+  const float *sums, *sumsqs;  // [N, C] or NULL
+  const float *scale, *bias;   // [C]
+  void* out;                   // [N, H + 2 pad, W + 2 pad, C]
+  float *mean, *inv;           // [N, C]
+  int H, W, C, rp, res_f32, pad, edge, relu;
+  float eps;
+  int rows;  // image rows per block
+  int ctas;  // blocks per image
+  int bulk;  // ROUTE_SMEM: bulk copies can fill the band (rows of 16-byte multiples)
 };
 
-// s = x (+ residual interior) at pixel (n, y, x), channels c..c+3.
-template <typename T>
-__device__ __forceinline__ float4 load_sum(const T* __restrict__ x,
-                                           const T* __restrict__ res, const Dims& d,
-                                           int n, int y, int xx, int c) {
-  float4 v = load4(x + (((size_t)n * d.H + y) * d.W + xx) * d.C + c);
-  if (res != nullptr) {
-    const int Hr = d.H + 2 * d.rp, Wr = d.W + 2 * d.rp;
-    const float4 r =
-        load4(res + (((size_t)n * Hr + y + d.rp) * Wr + xx + d.rp) * d.C + c);
-    v.x += r.x;
-    v.y += r.y;
-    v.z += r.z;
-    v.w += r.w;
-    if (!d.res_f32) {
-      const T* tag = nullptr;
-      v.x = round_to(v.x, tag);
-      v.y = round_to(v.y, tag);
-      v.z = round_to(v.z, tag);
-      v.w = round_to(v.w, tag);
-    }
-  }
-  return v;
-}
-
-// Chan's merge of (nb, mb, m2b) into (na, ma, m2a).
-__device__ __forceinline__ void chan_merge(float& na, float& ma, float& m2a, float nb,
-                                           float mb, float m2b) {
-  if (nb == 0.f) return;
-  const float n = na + nb;
-  const float delta = mb - ma;
-  ma += delta * (nb / n);
-  m2a += m2b + delta * delta * (na * nb / n);
-  na = n;
-}
-
-// grid (G, N): block g reduces pixels [g*chunk, min(HW, (g+1)*chunk)) of image n.
-// part[n, g, c, 0..2] = (count, mean, M2).
-template <typename T>
-__global__ void __launch_bounds__(NT)
-in_partial_stats(const T* __restrict__ x, const T* __restrict__ res, Dims d, int chunk,
-                 float* __restrict__ part) {
-  __shared__ float sh_n[NT];
-  __shared__ float4 sh_mean[NT];
-  __shared__ float4 sh_m2[NT];
-
-  const int G = gridDim.x, g = blockIdx.x, n = blockIdx.y;
-  const int C4 = d.C / 4;
-  const int ppi = NT / C4;  // pixels per iteration of the block
-  const int tid = threadIdx.x;
-  const int c4 = tid % C4, lp = tid / C4;
-  const int HW = d.H * d.W;
-  const int pb = g * chunk;
-  const int pe = min(HW, pb + chunk);
-
-  float cnt = 0.f;
-  float4 mean = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 m2 = mean;
-  if (lp < ppi) {
-    for (int p = pb + lp; p < pe; p += ppi) {
-      const int y = p / d.W, xx = p - (p / d.W) * d.W;
-      const float4 v = load_sum(x, res, d, n, y, xx, c4 * 4);
-      cnt += 1.f;
-      const float r = 1.f / cnt;
-      float dl;
-      dl = v.x - mean.x; mean.x += dl * r; m2.x += dl * (v.x - mean.x);
-      dl = v.y - mean.y; mean.y += dl * r; m2.y += dl * (v.y - mean.y);
-      dl = v.z - mean.z; mean.z += dl * r; m2.z += dl * (v.z - mean.z);
-      dl = v.w - mean.w; mean.w += dl * r; m2.w += dl * (v.w - mean.w);
-    }
-  }
-  sh_n[tid] = cnt;
-  sh_mean[tid] = mean;
-  sh_m2[tid] = m2;
-  __syncthreads();
-  if (tid < C4) {
-    float na = sh_n[tid];
-    float4 ma = sh_mean[tid], qa = sh_m2[tid];
-    for (int j = 1; j < ppi; ++j) {
-      const int t = j * C4 + tid;
-      const float nb = sh_n[t];
-      const float4 mb = sh_mean[t], qb = sh_m2[t];
-      float nn;
-      nn = na; chan_merge(nn, ma.x, qa.x, nb, mb.x, qb.x);
-      nn = na; chan_merge(nn, ma.y, qa.y, nb, mb.y, qb.y);
-      nn = na; chan_merge(nn, ma.z, qa.z, nb, mb.z, qb.z);
-      nn = na; chan_merge(nn, ma.w, qa.w, nb, mb.w, qb.w);
-      na = nn;
-    }
-    float* o = part + (((size_t)n * G + g) * d.C + tid * 4) * 3;
-    const float m[4] = {ma.x, ma.y, ma.z, ma.w};
-    const float q[4] = {qa.x, qa.y, qa.z, qa.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      o[3 * k + 0] = na;
-      o[3 * k + 1] = m[k];
-      o[3 * k + 2] = q[k];
-    }
+// One step of a thread's pixel walk: the pixel `step = dy * w + dx` further
+// on, in a row of w pixels (dx < w).
+__device__ __forceinline__ void advance(int& y, int& x, int dy, int dx, int w) {
+  y += dy;
+  x += dx;
+  if (x >= w) {
+    x -= w;
+    ++y;
   }
 }
 
-// One thread per (n, c): merge the G chunk partials in order.
-__global__ void in_finalize_partials(const float* __restrict__ part, int N, int G, int C,
-                                     float eps, float* __restrict__ mean,
-                                     float* __restrict__ inv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * C) return;
-  const int n = i / C, c = i - (i / C) * C;
-  float na = 0.f, ma = 0.f, qa = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const float* p = part + (((size_t)n * G + g) * C + c) * 3;
-    chan_merge(na, ma, qa, p[0], p[1], p[2]);
+// The same walk backwards.
+__device__ __forceinline__ void retreat(int& y, int& x, int dy, int dx, int w) {
+  y -= dy;
+  x -= dx;
+  if (x < 0) {
+    x += w;
+    --y;
   }
-  mean[i] = ma;
-  inv[i] = 1.f / sqrtf(qa / na + eps);
-}
-
-// One thread per (n, c): the one-pass clamped form from the conv's sums.
-__global__ void in_finalize_sums(const float* __restrict__ sums,
-                                 const float* __restrict__ sumsqs, int NC, float count,
-                                 float eps, float* __restrict__ mean,
-                                 float* __restrict__ inv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NC) return;
-  const float m = sums[i] / count;
-  const float var = fmaxf(sumsqs[i] / count - m * m, 0.f);
-  mean[i] = m;
-  inv[i] = 1.f / sqrtf(var + eps);
 }
 
 __device__ __forceinline__ int source_index(int i, int L, int edge) {
@@ -223,85 +231,530 @@ __device__ __forceinline__ int source_index(int i, int L, int edge) {
   return i;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-in_apply_pad(const T* __restrict__ x, const T* __restrict__ res, Dims d,
-             const float* __restrict__ mean, const float* __restrict__ inv,
-             const float* __restrict__ scale, const float* __restrict__ bias,
-             T* __restrict__ out, int pad, int edge, int relu) {
-  const int C4 = d.C / 4;
-  const int Ho = d.H + 2 * pad, Wo = d.W + 2 * pad;
-  const size_t total = (size_t)d.N * Ho * Wo * C4;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C4) * 4;
-    size_t q = i / C4;
-    const int ox = (int)(q % Wo);
-    q /= Wo;
-    const int oy = (int)(q % Ho);
-    const int n = (int)(q / Ho);
-    const int sy = source_index(oy - pad, d.H, edge);
-    const int sx = source_index(ox - pad, d.W, edge);
-    const float4 s = load_sum(x, res, d, n, sy, sx, c);
-    const float4 mu = load4(mean + (size_t)n * d.C + c);
-    const float4 iv = load4(inv + (size_t)n * d.C + c);
-    const float4 ga = load4(scale + c);
-    const float4 be = load4(bias + c);
-    float4 o;
-    o.x = (s.x - mu.x) * iv.x * ga.x + be.x;
-    o.y = (s.y - mu.y) * iv.y * ga.y + be.y;
-    o.z = (s.z - mu.z) * iv.z * ga.z + be.z;
-    o.w = (s.w - mu.w) * iv.w * ga.w + be.w;
-    if (relu) {
-      o.x = fmaxf(o.x, 0.f);
-      o.y = fmaxf(o.y, 0.f);
-      o.z = fmaxf(o.z, 0.f);
-      o.w = fmaxf(o.w, 0.f);
-    }
-    store4(out + i * 4, o);
+// The fixed-order tree over the PL pixel lanes of one channel group: slot t
+// (= pl * CV + cv) holds WIDTH floats; merge(a, b) folds slot b into slot a.
+// Afterwards slot cv holds the group's total.
+template <int WIDTH, typename Merge>
+__device__ __forceinline__ void block_tree(float* scratch, int t, int pl, int PL, int CV,
+                                           Merge merge) {
+  int half = 1;
+  while (half < PL) half <<= 1;
+  for (half >>= 1; half > 0; half >>= 1) {
+    __syncthreads();
+    if (pl < half && pl + half < PL) merge(scratch + t * WIDTH, scratch + (t + half * CV) * WIDTH);
   }
+  __syncthreads();
+}
+
+// Chan's merge of (nb, mb, m2b) into (na, ma, m2a), VEC channels at once.
+template <int VEC>
+__device__ __forceinline__ void chan_merge(float* a, const float* b) {
+  const float na = a[0], nb = b[0];
+  if (nb == 0.f) return;
+  const float n = na + nb, f = nb / n;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float d = b[1 + j] - a[1 + j];
+    a[1 + j] += d * f;
+    a[1 + VEC + j] += b[1 + VEC + j] + d * d * na * f;
+  }
+  a[0] = n;
+}
+
+template <int ROUTE, int VEC>
+__host__ __device__ constexpr int scratch_floats() {
+  return ROUTE == ROUTE_L2 ? 1 + 2 * VEC : ROUTE == ROUTE_SMEM ? VEC : 0;
+}
+
+// Dynamic shared memory: mean, inv * scale and the cluster partials [4][C],
+// the per-thread partials, and on ROUTE_SMEM the chunks' mbarriers and the
+// band of s (in S).
+template <typename S, int VEC, int ROUTE>
+size_t smem_bytes(const Params& p) {
+  size_t b = (size_t)4 * p.C * 4 + (size_t)NT * scratch_floats<ROUTE, VEC>() * 4;
+  if (ROUTE == ROUTE_SMEM) b += MAX_CHUNKS * 8 + (size_t)p.rows * p.W * p.C * sizeof(S);
+  return b;
+}
+
+// The partials of channel i of every block of the cluster, loaded all at
+// once (one DSMEM round trip, not one per rank); ranks past the cluster
+// read as 0.
+__device__ __forceinline__ void gather(cg::cluster_group& cluster, float* part, int i,
+                                       int ranks, float (&got)[MAX_CLUSTER]) {
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    got[r] = r < ranks ? cluster.map_shared_rank(part, r)[i] : 0.f;
+}
+
+// grid N * ctas blocks, block n * ctas + k owns image rows [k * rows,
+// (k + 1) * rows) of image n; clusters of ctas blocks (1 on ROUTE_SUMS).
+// T: the tensors' type; S: the band's type (float where a bf16 residual is
+// added in f32, else T); RES: a residual is added.
+template <typename T, typename S, int VEC, int ROUTE, bool RES>
+__global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
+  using V = Vec<T, VEC>;
+  using Raw = typename V::Raw;
+  using VS = Vec<S, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, W = p.W, C = p.C;
+  const int CV = C / VEC, PL = NT / CV;  // channel groups; pixel lanes
+  const int t = threadIdx.x, cv = t % CV, pl = t / CV, c = cv * VEC;
+  const bool active = pl < PL;
+  const int n = blockIdx.x / p.ctas, k = blockIdx.x - n * p.ctas;
+  const int r0 = min(H, k * p.rows), r1 = min(H, r0 + p.rows);
+  const int P = (r1 - r0) * W;  // pixels of the band
+  const float HW = (float)H * (float)W;
+  const int Wr = W + 2 * p.rp;
+  float* mu = reinterpret_cast<float*>(smem);  // [C] mean
+  float* mul = mu + C;                          // [C] inv * scale
+  float* part = mul + C;                        // [2][C] the block's partials
+  float* scratch = part + 2 * C;                // [NT][scratch_floats]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(scratch + NT * scratch_floats<ROUTE, VEC>());
+  S* band = reinterpret_cast<S*>(bars + MAX_CHUNKS);  // [rows * W * C] of s
+  const T* x = static_cast<const T*>(p.x) + (size_t)n * H * W * C;
+  const T* res = RES ? static_cast<const T*>(p.res) + (size_t)n * (H + 2 * p.rp) * Wr * C
+                     : nullptr;
+  const int dy = PL / W, dx = PL - dy * W;  // a thread's step over the band
+  // s at pixel (y, xx) of the image from the raw vectors of x and residual.
+  auto s_of = [&](const Raw& rx, const Raw& rr, float(&v)[VEC]) {
+    V::to_float(rx, v);
+    if constexpr (RES) {
+      float r[VEC];
+      V::to_float(rr, r);
+      const T* tag = nullptr;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = p.res_f32 ? v[j] + r[j] : round_to(v[j] + r[j], tag);
+    }
+  };
+  auto x_at = [&](int y, int xx) { return V::ld(x + (y * W + xx) * C + c); };
+  auto r_at = [&](int y, int xx) {
+    Raw r{};
+    if constexpr (RES) r = V::ld(res + ((y + p.rp) * Wr + xx + p.rp) * C + c);
+    return r;
+  };
+
+  if constexpr (ROUTE == ROUTE_SUMS) {
+    for (int i = t; i < C; i += NT) {
+      const float m = p.sums[n * C + i] / HW;
+      const float var = fmaxf(p.sumsqs[n * C + i] / HW - m * m, 0.f);
+      const float iv = 1.f / sqrtf(var + p.eps);
+      mu[i] = m;
+      mul[i] = iv * p.scale[i];
+      if (k == 0) {
+        p.mean[n * C + i] = m;
+        p.inv[n * C + i] = iv;
+      }
+    }
+    __syncthreads();
+  } else if constexpr (ROUTE == ROUTE_SMEM) {
+    cg::cluster_group cluster = cg::this_cluster();
+    // The band of s into shared memory: bulk copies of x in chunks of whole
+    // rows where S is T and rows are 16-byte multiples (the residual, if
+    // any, added in place as each chunk lands), else loaded by the threads.
+    const int band_rows = r1 - r0;
+    const int crow = (band_rows + MAX_CHUNKS - 1) / MAX_CHUNKS;  // rows per chunk
+    const int chunks = crow > 0 ? (band_rows + crow - 1) / crow : 0;
+    const int row = W * C;  // elements of an image row
+    const bool bulk = sizeof(S) == sizeof(T) && p.bulk;
+    if (bulk) {
+      if (t == 0) {
+        for (int j = 0; j < chunks; ++j) hopper::mbar_init(bars + j, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      __syncthreads();
+      if (t == 0) {
+        for (int j = 0; j < chunks; ++j) {
+          const int y0 = j * crow, y1 = min(band_rows, y0 + crow);
+          const uint32_t bytes = (uint32_t)((y1 - y0) * row * sizeof(T));
+          hopper::mbar_expect(bars + j, bytes);
+          hopper::bulk_load(band + y0 * row, x + (r0 + y0) * row, bytes, bars + j);
+        }
+      }
+    } else {
+      int y = r0 + pl / W, xx = pl % W;
+      for (int q = pl; active && q < P; q += PL) {
+        float v[VEC];
+        s_of(x_at(y, xx), r_at(y, xx), v);
+        VS::st(band + q * C + c, v);
+        advance(y, xx, dy, dx, W);
+      }
+      __syncthreads();
+    }
+    // The sum, as the copies land. With a residual, each thread loads U
+    // residual vectors, waits for the chunks that hold their pixels, and
+    // writes s back in place.
+    float acc[VEC] = {};
+    int waited = 0;  // chunks this thread has waited for
+    auto wait_rows = [&](int y) {  // every chunk up to the one holding image row y
+      for (const int need = (y - r0) / crow; bulk && waited <= need; ++waited)
+        hopper::mbar_wait(bars + waited, 0);
+    };
+    auto add = [&](float(&v)[VEC]) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
+    };
+    if (RES && bulk) {
+      int y = r0 + pl / W, xx = pl % W, q = pl;
+      for (; active && q + (U - 1) * PL < P; q += U * PL) {
+        Raw rr[U];
+        int last = y;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          rr[u] = r_at(y, xx);
+          last = y;
+          advance(y, xx, dy, dx, W);
+        }
+        wait_rows(last);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          S* at = band + (q + u * PL) * C + c;
+          float v[VEC];
+          s_of(V::ld(reinterpret_cast<const T*>(at)), rr[u], v);
+          VS::st(at, v);
+          add(v);
+        }
+      }
+      for (; active && q < P; q += PL) {
+        const Raw rr = r_at(y, xx);
+        wait_rows(y);
+        advance(y, xx, dy, dx, W);
+        S* at = band + q * C + c;
+        float v[VEC];
+        s_of(V::ld(reinterpret_cast<const T*>(at)), rr, v);
+        VS::st(at, v);
+        add(v);
+      }
+    } else {
+      for (int j = 0; j < chunks; ++j) {
+        wait_rows(r0 + j * crow);
+        const int q1 = min(band_rows, (j + 1) * crow) * W;
+        for (int q = j * crow * W + pl; active && q < q1; q += PL) {
+          float v[VEC];
+          VS::to_float(VS::ld(band + q * C + c), v);
+          add(v);
+        }
+      }
+    }
+    // Every thread has seen every chunk land before any reads another's pixels.
+    if (chunks > 0) wait_rows(r1 - 1);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) scratch[t * VEC + j] = acc[j];
+    block_tree<VEC>(scratch, t, pl, PL, CV, [](float* a, const float* b) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) a[j] += b[j];
+    });
+    if (t < CV)
+      for (int j = 0; j < VEC; ++j) part[c + j] = scratch[t * VEC + j];
+    cluster.sync();
+    for (int i = t; i < C; i += NT) {
+      float got[MAX_CLUSTER], s = 0.f;
+      gather(cluster, part, i, p.ctas, got);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) s += got[r];
+      mu[i] = s / HW;
+    }
+    __syncthreads();
+    // The centered sum of squares, from shared memory.
+    float m[VEC], sq[VEC] = {};
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) m[j] = mu[c + j];
+    for (int q = pl; active && q < P; q += PL) {
+      float v[VEC];
+      VS::to_float(VS::ld(band + q * C + c), v);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float d = v[j] - m[j];
+        sq[j] += d * d;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) scratch[t * VEC + j] = sq[j];
+    block_tree<VEC>(scratch, t, pl, PL, CV, [](float* a, const float* b) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) a[j] += b[j];
+    });
+    if (t < CV)
+      for (int j = 0; j < VEC; ++j) part[C + c + j] = scratch[t * VEC + j];
+    cluster.sync();
+    for (int i = t; i < C; i += NT) {
+      float got[MAX_CLUSTER], q2 = 0.f;
+      gather(cluster, part + C, i, p.ctas, got);
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) q2 += got[r];
+      const float iv = 1.f / sqrtf(q2 / HW + p.eps);
+      mul[i] = iv * p.scale[i];
+      if (k == 0) {
+        p.mean[n * C + i] = mu[i];
+        p.inv[n * C + i] = iv;
+      }
+    }
+    __syncthreads();
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    // (n, mean, M2) per thread, one group of U pixels at a time.
+    float cnt = 0.f, m[VEC] = {}, q2[VEC] = {};
+    if (active) {
+      int y = r0 + pl / W, xx = pl % W, q = pl;
+      for (; q + (U - 1) * PL < P; q += U * PL) {
+        Raw rx[U], rr[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          rx[u] = x_at(y, xx);
+          rr[u] = r_at(y, xx);
+          advance(y, xx, dy, dx, W);
+        }
+        float gm[VEC] = {}, gq[VEC] = {};
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float v[VEC];
+          s_of(rx[u], rr[u], v);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) gm[j] += v[j];
+        }
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) gm[j] *= 1.f / U;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float v[VEC];
+          s_of(rx[u], rr[u], v);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float e = v[j] - gm[j];
+            gq[j] += e * e;
+          }
+        }
+        const float f = (float)U / (cnt + (float)U);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = gm[j] - m[j];
+          m[j] += d * f;
+          q2[j] += gq[j] + d * d * cnt * f;
+        }
+        cnt += (float)U;
+      }
+      for (; q < P; q += PL) {
+        float v[VEC];
+        s_of(x_at(y, xx), r_at(y, xx), v);
+        advance(y, xx, dy, dx, W);
+        cnt += 1.f;
+        const float f = 1.f / cnt;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = v[j] - m[j];
+          m[j] += d * f;
+          q2[j] += d * (v[j] - m[j]);
+        }
+      }
+    }
+    float* slot = scratch + t * (1 + 2 * VEC);
+    slot[0] = cnt;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      slot[1 + j] = m[j];
+      slot[1 + VEC + j] = q2[j];
+    }
+    block_tree<1 + 2 * VEC>(scratch, t, pl, PL, CV,
+                            [](float* a, const float* b) { chan_merge<VEC>(a, b); });
+    if (t < CV)
+      for (int j = 0; j < VEC; ++j) {
+        part[c + j] = slot[1 + j];
+        part[C + c + j] = slot[1 + VEC + j];
+      }
+    cluster.sync();
+    for (int i = t; i < C; i += NT) {
+      float gm[MAX_CLUSTER], gq[MAX_CLUSTER];
+      gather(cluster, part, i, p.ctas, gm);
+      gather(cluster, part + C, i, p.ctas, gq);
+      float a[3] = {0.f, 0.f, 0.f};  // (n, mean, M2) merged over the ranks in order
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) {
+        const int b0 = min(H, r * p.rows), b1 = min(H, b0 + p.rows);
+        const float b[3] = {r < p.ctas ? (float)((b1 - b0) * W) : 0.f, gm[r], gq[r]};
+        chan_merge<1>(a, b);
+      }
+      const float iv = 1.f / sqrtf(a[2] / a[0] + p.eps);
+      mu[i] = a[1];
+      mul[i] = iv * p.scale[i];
+      if (k == 0) {
+        p.mean[n * C + i] = a[1];
+        p.inv[n * C + i] = iv;
+      }
+    }
+    // Every block has read the partials (and mu, mul are in place).
+    cluster.sync();
+  }
+
+  // Normalize and write the output rows the band feeds.
+  if (P > 0 && active) {
+    float m[VEC], sc[VEC], b[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      m[j] = mu[c + j];
+      sc[j] = mul[c + j];
+      b[j] = p.bias[c + j];
+    }
+    const int pad = p.pad, Wo = W + 2 * pad, Ho = H + 2 * pad;
+    const int o0 = r0 == 0 ? 0 : r0 + pad, o1 = r1 == H ? Ho : r1 + pad;
+    const int Q = (o1 - o0) * Wo;
+    T* out = static_cast<T*>(p.out) + ((size_t)n * Ho + o0) * Wo * C + c;
+    const int ody = PL / Wo, odx = PL - ody * Wo;
+    int oy = o0 + pl / Wo, ox = pl % Wo;
+    auto emit = [&](T* dst, float(&v)[VEC]) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float o = (v[j] - m[j]) * sc[j] + b[j];
+        v[j] = p.relu ? fmaxf(o, 0.f) : o;
+      }
+      V::st_stream(dst, v);
+    };
+    int q = pl;
+    if constexpr (ROUTE == ROUTE_SMEM) {
+      for (; q < Q; q += PL) {
+        const int sy = source_index(oy - pad, H, p.edge), sx = source_index(ox - pad, W, p.edge);
+        advance(oy, ox, ody, odx, Wo);
+        const S* src = band + ((sy - r0) * W + sx) * C + c;
+        if (sy < r0 || sy >= r1) {  // a border row fed by another block's band
+          const int owner = sy / p.rows;
+          src = cg::this_cluster().map_shared_rank(band, owner) +
+                ((sy - owner * p.rows) * W + sx) * C + c;
+        }
+        float v[VEC];
+        VS::to_float(VS::ld(src), v);
+        emit(out + (size_t)q * C, v);
+      }
+    } else {
+      // Backwards from the band's last output pixel: on the L2 route the
+      // rows read last by the statistics come back first, while L2 still
+      // holds them. Output pixel Q - 1 - q for q = pl, pl + PL, ...
+      oy = o0 + (Q - 1 - pl) / Wo;
+      ox = (Q - 1 - pl) % Wo;
+      auto x_last = [&](int y, int xx) {
+        return ROUTE == ROUTE_L2 ? V::ld_last(x + (y * W + xx) * C + c) : x_at(y, xx);
+      };
+      for (; q + (U - 1) * PL < Q; q += U * PL) {
+        Raw rx[U], rr[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int sy = source_index(oy - pad, H, p.edge);
+          const int sx = source_index(ox - pad, W, p.edge);
+          retreat(oy, ox, ody, odx, Wo);
+          rx[u] = x_last(sy, sx);
+          rr[u] = r_at(sy, sx);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float v[VEC];
+          s_of(rx[u], rr[u], v);
+          emit(out + (size_t)(Q - 1 - (q + u * PL)) * C, v);
+        }
+      }
+      for (; q < Q; q += PL) {
+        const int sy = source_index(oy - pad, H, p.edge), sx = source_index(ox - pad, W, p.edge);
+        retreat(oy, ox, ody, odx, Wo);
+        float v[VEC];
+        s_of(x_last(sy, sx), r_at(sy, sx), v);
+        emit(out + (size_t)(Q - 1 - q) * C, v);
+      }
+    }
+  }
+  // Other blocks may still read this band over DSMEM.
+  if constexpr (ROUTE == ROUTE_SMEM) cg::this_cluster().sync();
+}
+
+// Launches the kernel, or with `clusters` set reports how many of its
+// clusters the device runs at once instead.
+template <typename T, typename S, int VEC, int ROUTE, bool RES>
+cudaError_t run(const Params& p, int N, int cluster, cudaStream_t stream, int* clusters) {
+  static hopper::Granted granted;
+  auto kernel = in_kernel<T, S, VEC, ROUTE, RES>;
+  const size_t smem = smem_bytes<S, VEC, ROUTE>(p);
+  cudaError_t err = hopper::allow_smem(kernel, smem, &granted);
+  if (err != cudaSuccess) return err;
+  if (cluster > 8 && (err = hopper::allow_large_clusters(kernel, &granted)) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N * p.ctas);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool RES>
+cudaError_t by_route(int route, const Params& p, int N, int cluster, cudaStream_t stream,
+                     int* clusters) {
+  if (route == ROUTE_SUMS) return run<T, T, VEC, ROUTE_SUMS, RES>(p, N, cluster, stream, clusters);
+  if (route == ROUTE_L2) return run<T, T, VEC, ROUTE_L2, RES>(p, N, cluster, stream, clusters);
+  if constexpr (RES && sizeof(T) == 2) {  // a bf16 residual added in f32 keeps s in f32
+    if (p.res_f32) return run<T, float, VEC, ROUTE_SMEM, RES>(p, N, cluster, stream, clusters);
+  }
+  return run<T, T, VEC, ROUTE_SMEM, RES>(p, N, cluster, stream, clusters);
+}
+
+template <typename T, int VEC>
+cudaError_t by_residual(int route, const Params& p, int N, int cluster, cudaStream_t stream,
+                        int* clusters) {
+  if (p.res != nullptr) return by_route<T, VEC, true>(route, p, N, cluster, stream, clusters);
+  return by_route<T, VEC, false>(route, p, N, cluster, stream, clusters);
 }
 
 template <typename T>
 int launch(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
-           const void* sumsqs, const void* scale, const void* bias, void* out, void* part,
-           void* mean, void* inv, int N, int H, int W, int C, int pad, int edge, int relu,
-           float eps, int G, int chunk, void* stream) {
+           const void* sumsqs, const void* scale, const void* bias, void* out, void* mean,
+           void* inv, int N, int H, int W, int C, int pad, int edge, int relu, float eps,
+           int route, int ctas, int cluster, int rows, int vec, void* stream, int* clusters) {
+  Params p;
+  p.x = x;
+  p.res = res;
+  p.sums = static_cast<const float*>(sums);
+  p.sumsqs = static_cast<const float*>(sumsqs);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.mean = static_cast<float*>(mean);
+  p.inv = static_cast<float*>(inv);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.rp = res_pad;
+  p.res_f32 = res_f32;
+  p.pad = pad;
+  p.edge = edge;
+  p.relu = relu;
+  p.eps = eps;
+  p.rows = rows;
+  p.ctas = ctas;
+  // Bulk copies move whole image rows: 16-byte multiples at 16-byte bases.
+  p.bulk = (C * sizeof(T)) % 16 == 0;
+  const uintptr_t align = (uintptr_t)vec * sizeof(T) - 1;
+  const bool given = sums != nullptr && sumsqs != nullptr;
+  // The plan's shape: every image row in one block's band, a cluster of the
+  // image's blocks (one block on ROUTE_SUMS), whole channel groups.
+  if (N < 1 || H < 1 || W < 1 || C < 4 || C > 1024 || C % vec != 0 || C / vec > NT ||
+      rows < 1 || ctas < 1 || (long)rows * ctas < H || (route == ROUTE_SUMS) != given ||
+      route < ROUTE_SUMS || route > ROUTE_L2 || cluster != (route == ROUTE_SUMS ? 1 : ctas) ||
+      cluster > MAX_CLUSTER || (!edge && pad >= (H < W ? H : W)) ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(res) |
+        reinterpret_cast<uintptr_t>(out)) & align) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Dims d;
-  d.N = N;
-  d.H = H;
-  d.W = W;
-  d.C = C;
-  d.rp = res_pad;
-  d.res_f32 = res_f32;
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(res);
-  float* mp = static_cast<float*>(mean);
-  float* ip = static_cast<float*>(inv);
-  const int NC = N * C;
-  cudaError_t err;
-  if (sums != nullptr) {
-    in_finalize_sums<<<(NC + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(sums), static_cast<const float*>(sumsqs), NC,
-        static_cast<float>(H) * static_cast<float>(W), eps, mp, ip);
+  cudaError_t err = cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4) err = by_residual<float, 4>(route, p, N, cluster, st, clusters);
   } else {
-    in_partial_stats<T><<<dim3(G, N), NT, 0, st>>>(xt, rt, d, chunk,
-                                                   static_cast<float*>(part));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    in_finalize_partials<<<(NC + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
-                                                            N, G, C, eps, mp, ip);
+    if (vec == 8) err = by_residual<T, 8>(route, p, N, cluster, st, clusters);
+    if (vec == 4) err = by_residual<T, 4>(route, p, N, cluster, st, clusters);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = (size_t)N * (H + 2 * pad) * (W + 2 * pad) * (C / 4);
-  const size_t want = (total + NT - 1) / NT;
-  const unsigned blocks = (unsigned)(want < (1u << 20) ? want : (1u << 20));
-  in_apply_pad<T><<<blocks, NT, 0, st>>>(xt, rt, d, mp, ip, static_cast<const float*>(scale),
-                                         static_cast<const float*>(bias),
-                                         static_cast<T*>(out), pad, edge, relu);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -314,24 +767,33 @@ const char* stx_instance_norm_error_string(int err) {
 
 // x [N, H, W, C]; res [N, H+2*res_pad, W+2*res_pad, C] or NULL, its interior
 // added in f32 (res_f32 = 1) or rounded to x's type (res_f32 = 0); sums/sumsqs
-// [N, C] f32 or NULL (then part [N, G, C, 3] f32 scratch holds the chunk
-// statistics of G chunks of `chunk` pixels); scale/bias [C] f32; mean/inv
-// [N, C] f32 outputs; out [N, H+2*pad, W+2*pad, C]. C % 4 == 0, C <= 1024.
+// [N, C] f32 or NULL; scale/bias [C] f32; mean/inv [N, C] f32 outputs; out
+// [N, H+2*pad, W+2*pad, C]. The plan (ops/cuda/instance_norm.py::in_plan):
+// route (0 given sums, 1 band in shared memory, 2 band re-read from L2),
+// ctas blocks of `rows` image rows per image in clusters of `cluster`
+// blocks, `vec` channels per access. With `clusters` non-NULL nothing is
+// launched: it receives how many such clusters the device runs at once.
+// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for a shape or
+// plan the kernel does not take).
 int stx_in_pad_f32(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
-                   const void* sumsqs, const void* scale, const void* bias, void* out,
-                   void* part, void* mean, void* inv, int N, int H, int W, int C, int pad,
-                   int edge, int relu, float eps, int G, int chunk, void* stream) {
-  return launch<float>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, part, mean, inv, N,
-                       H, W, C, pad, edge, relu, eps, G, chunk, stream);
+                   const void* sumsqs, const void* scale, const void* bias, void* out, void* mean,
+                   void* inv, int N, int H, int W, int C, int pad, int edge, int relu, float eps,
+                   int route, int ctas, int cluster, int rows, int vec, void* stream,
+                   int* clusters) {
+  return launch<float>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, mean, inv, N, H,
+                       W, C, pad, edge, relu, eps, route, ctas, cluster, rows, vec, stream,
+                       clusters);
 }
 
 // As stx_in_pad_f32 with x, res and out in bf16.
 int stx_in_pad_bf16(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
                     const void* sumsqs, const void* scale, const void* bias, void* out,
-                    void* part, void* mean, void* inv, int N, int H, int W, int C, int pad,
-                    int edge, int relu, float eps, int G, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, part, mean,
-                               inv, N, H, W, C, pad, edge, relu, eps, G, chunk, stream);
+                    void* mean, void* inv, int N, int H, int W, int C, int pad, int edge,
+                    int relu, float eps, int route, int ctas, int cluster, int rows, int vec,
+                    void* stream, int* clusters) {
+  return launch<__nv_bfloat16>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, mean,
+                               inv, N, H, W, C, pad, edge, relu, eps, route, ctas, cluster, rows,
+                               vec, stream, clusters);
 }
 
 }  // extern "C"

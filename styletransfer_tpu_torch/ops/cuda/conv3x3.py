@@ -4,10 +4,10 @@ The port of ``styletransfer_tpu/ops/pallas/conv3x3.py::conv3x3_valid``. Its
 kernels, on the route that :func:`valid_plan` names for the shape:
 
 - ``bf16_wgmma``: ``csrc/conv3x3_wgmma.cu`` (TMA ring, ``wgmma`` from shared
-  memory), for bf16 wherever a tile's output rows are whole rows of the
-  image;
-- ``bf16_mma``: ``csrc/conv3x3.cu``'s ``mma.sync`` kernel, for bf16 at every
-  other width;
+  memory), for bf16 at every width up to 256, a tile being
+  ``floor(bm / W)`` whole rows of the image;
+- ``bf16_mma``: ``csrc/conv3x3.cu``'s ``mma.sync`` kernel, for bf16 rows
+  wider than 256 (images over 1,024 px);
 - ``f32_fma``: ``csrc/conv3x3.cu``'s FMA kernel, for f32.
 
 The sources' headers say what bounds each kernel on the card and how it is
@@ -43,8 +43,8 @@ SMS = 132
 # Output positions per block of conv3x3.cu's two kernels.
 BLOCK_M = 128
 # The wgmma route's configurations (positions per tile, ring stages), in the
-# order the plan tries them: the first whose tiles fill the card, else the
-# last. conv3x3_wgmma.cu builds exactly these.
+# order the plan prefers them on a tie. conv3x3_wgmma.cu builds exactly
+# these.
 WGMMA_CONFIGS = ((256, 3), (128, 4))
 # Output channels per tile of every route.
 BLOCK_N = 128
@@ -71,19 +71,21 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
                route: Optional[str] = None) -> ValidPlan:
     """The route and tile of conv3x3_valid for ``[B, H+2, W+2, C] -> O``.
 
-    bf16 takes the wgmma route where the box form holds: W <= 256 and a
-    configuration's ``bm`` a multiple of W (a tile is ``bm / W`` whole output
-    rows). TMA's 16-byte strides need C and O to be multiples of 8, which
+    bf16 takes the wgmma route wherever W <= 256: a tile is ``rows =
+    bm // W >= 1`` whole output rows, ``rows * W <= bm`` positions. TMA's
+    16-byte strides need C and O to be multiples of 8, which
     :func:`conv3x3_valid` requires of every route (C % 32, O % 8); the
-    launch also needs 16-byte aligned tensors and raises without them. It takes
-    the first configuration of :data:`WGMMA_CONFIGS` whose tiles reach
-    :data:`SMS`, else the last that fits W, on a persistent grid of at most
-    one block per SM.
-    Other bf16 shapes take ``bf16_mma``, f32 takes ``f32_fma``. ``route``
+    launch also needs 16-byte aligned tensors and raises without them. Of
+    the configurations of :data:`WGMMA_CONFIGS` with ``bm >= W`` it takes
+    the one with the largest ``rows * W / bm * min(1, tiles / SMS)`` (how
+    full a tile is, times how much of the card the tiles fill), the earlier
+    on a tie, on a persistent grid of at most one block per SM. At 75 wide
+    (300 px) that is bm 256: 3 rows, 225 of 256 positions.
+    Wider bf16 rows take ``bf16_mma``, f32 takes ``f32_fma``. ``route``
     asks for a given route's plan instead (``chip_smoke.py`` times the two
     bf16 routes side by side); it raises where that route cannot run."""
     n_tiles = math.ceil(O / BLOCK_N)
-    fits = [c for c in WGMMA_CONFIGS if W <= 256 and c[0] % W == 0]
+    fits = [c for c in WGMMA_CONFIGS if W <= min(256, c[0])]
     wgmma = dtype == torch.bfloat16 and bool(fits)
     default = "bf16_wgmma" if wgmma else "f32_fma" if dtype == torch.float32 else "bf16_mma"
     route = route or default
@@ -93,7 +95,11 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
         def tiles(bm):
             return B * math.ceil(H / (bm // W)) * n_tiles
 
-        bm, stages = next((c for c in fits if tiles(c[0]) >= SMS), fits[-1])
+        def score(config):
+            bm = config[0]
+            return (bm // W) * W / bm * min(1.0, tiles(bm) / SMS)
+
+        bm, stages = max(fits, key=score)  # the first of equal scores
         return ValidPlan(route, bm, stages, math.ceil(H / (bm // W)), min(tiles(bm), SMS))
     image_tiles = math.ceil(H * W / BLOCK_M)
     return ValidPlan(route, BLOCK_M, 0, image_tiles, B * image_tiles * n_tiles)

@@ -4,17 +4,20 @@ The port of ``styletransfer_tpu/ops/pallas/instance_norm.py::
 fused_instance_norm_padded``, with the two things the pad-early forward
 (``_in_pad`` in ``styletransfer_tpu/models/transformer.py``) adds: edge
 padding and statistics handed in by the conv3x3 kernel. The kernel is
-``csrc/instance_norm.cu``, whose header says what bounds it on the card.
-:func:`instance_norm_pad` launches it on CUDA tensors and computes
-:func:`instance_norm_pad_plain` on CPU tensors. ``launches`` counts the
-kernel's launches by this wrapper; :func:`launch` is shared with the
-training forward (``fused_instance_norm.py``), which counts its own.
+``csrc/instance_norm.cu``, whose header says what bounds it on the card:
+one launch per call, one image per thread-block cluster, on the route that
+:func:`in_plan` names for the shape. :func:`instance_norm_pad` launches it
+on CUDA tensors and computes :func:`instance_norm_pad_plain` on CPU
+tensors. ``launches`` counts the kernel's launches by this wrapper;
+:func:`launch` is shared with the training forward
+(``fused_instance_norm.py``), which counts its own.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,9 +28,74 @@ from styletransfer_tpu_torch.ops.cuda import _build, check_cuda_inputs
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# Elements of x that one block of the statistics pass reduces.
-_ELEMS_PER_BLOCK = 16384
 EPS = 1e-5  # nn.InstanceNorm2d's
+
+# Threads per block of csrc/instance_norm.cu, and its largest cluster (16 is
+# past the portable 8: the kernel opts in).
+THREADS = 256
+MAX_CLUSTER = 16
+# Shared memory a block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+# Streaming multiprocessors of an H100 SXM.
+SMS = 132
+# The routes, by the kernel's numbers for them.
+ROUTES = {"sums": 0, "smem": 1, "l2": 2}
+# Bytes of the smem route's mbarriers (one per bulk-copy chunk, at most 8).
+_CHUNK_BARRIERS = 8 * 8
+
+
+class InPlan(NamedTuple):
+    """How the IN kernel runs one shape: the route (``sums``: statistics
+    given, no reduction; ``smem``: each block's band of s stays in shared
+    memory; ``l2``: the band is read again from L2), ``ctas`` blocks per
+    image of ``rows`` image rows each, in clusters of ``cluster`` blocks,
+    ``vec`` channels per 16- (or 8-) byte access, and the dynamic shared
+    memory of a block in bytes."""
+    route: str
+    ctas: int
+    cluster: int
+    rows: int
+    vec: int
+    smem: int
+
+    def __str__(self) -> str:
+        return (f"{self.route}: {self.ctas} blocks of {self.rows} rows per image, cluster "
+                f"{self.cluster}, vec {self.vec}, {self.smem} B shared")
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
+def in_plan(N: int, H: int, W: int, C: int, dtype: torch.dtype, has_residual: bool,
+            has_stats: bool, res_f32: bool = False) -> InPlan:
+    """The route and blocks of the IN kernel for x [N, H, W, C].
+
+    ``has_stats``: (sums, sumsqs) are given, so there is no reduction and no
+    cluster; the images' blocks of whole rows make about one wave of three
+    blocks per SM. Otherwise an image is one cluster of the largest power
+    of two of blocks up to :data:`MAX_CLUSTER` and H, each owning
+    ``ceil(H / cluster)`` rows (the last blocks of a ragged H may own none);
+    the block's band of s stays in shared memory where two such blocks fit
+    an SM's :data:`SMEM_LIMIT` (``smem``), else it is read again from L2
+    (``l2``): with one block per SM the band's load, reductions and write
+    run one after another, and the L2 route was faster on an H100 (bf16
+    in2, [64, 128, 128, 64]: 0.2305 ms from shared memory, 0.1586 on the L2
+    route). s is kept in x's dtype, or in f32 where a bf16 residual is
+    added in f32 (``res_f32``, the training forward). Accesses are 16 bytes
+    (``vec`` 4 in f32, 8 in bf16), 8 in bf16 where C % 8 != 0. Every shape
+    the wrapper's check takes (C % 4 == 0, C <= 1024) has a plan."""
+    size = 4 if dtype == torch.float32 else 2
+    vec = 8 if size == 2 and C % 8 == 0 else 4
+    channels = 4 * C * 4  # mean, inv * scale and the cluster partials
+    if has_stats:  # about one wave of three blocks per SM
+        ctas = min(H, max(1, 3 * SMS // N))
+        rows = -(-H // ctas)
+        return InPlan("sums", -(-H // rows), 1, rows, vec, channels)
+    cluster = 1 << (min(MAX_CLUSTER, H).bit_length() - 1)
+    rows = -(-H // cluster)
+    band = rows * W * C * (4 if has_residual and res_f32 else size)
+    smem = channels + THREADS * vec * 4 + _CHUNK_BARRIERS + band
+    if 2 * smem <= SMEM_LIMIT:
+        return InPlan("smem", cluster, cluster, rows, vec, smem)
+    return InPlan("l2", cluster, cluster, rows, vec, channels + THREADS * (1 + 2 * vec) * 4)
 
 
 def instance_norm_pad_plain(
@@ -134,42 +202,56 @@ def launch(
     """Launch the kernel on checked CUDA tensors; counts nothing.
 
     ``res_f32`` adds the residual in f32 instead of rounding the sum to
-    ``x.dtype``. Returns ``(out, mean_inv)`` with ``mean_inv`` [2, N, C] f32:
-    the statistics the output was normalized with."""
+    ``x.dtype``. Runs :func:`in_plan`'s plan for the shape. Returns ``(out,
+    mean_inv)`` with ``mean_inv`` [2, N, C] f32: the statistics the output
+    was normalized with. Raises if the launch is refused (a cluster the
+    device cannot place, shared memory it does not grant, an unaligned
+    tensor)."""
     extra = [] if residual is None else [residual]
     extra += [] if stats is None else list(stats)
     check_cuda_inputs(x, scale, bias, *extra)
-    lib = _library()
     N, H, W, C = x.shape
-    hw = H * W
-    groups = max(1, min(hw, -(-(hw * C) // _ELEMS_PER_BLOCK)))
-    chunk = -(-hw // groups)
-    groups = -(-hw // chunk)
+    plan = in_plan(N, H, W, C, x.dtype, residual is not None, stats is not None, res_f32)
     dev = x.device
     out = torch.empty((N, H + 2 * pad, W + 2 * pad, C), dtype=x.dtype, device=dev)
     mean_inv = torch.empty((2, N, C), dtype=torch.float32, device=dev)
-    part = None
-    if stats is None:
-        part = torch.empty((N, groups, C, 3), dtype=torch.float32, device=dev)
-    fn = lib.stx_in_pad_f32 if x.dtype == torch.float32 else lib.stx_in_pad_bf16
-    with torch.cuda.device(dev):  # the library launches on the current device
-        err = fn(
-            x.data_ptr(), None if residual is None else residual.data_ptr(), res_pad,
-            int(res_f32),
+    ptrs = (x.data_ptr(), None if residual is None else residual.data_ptr(),
             None if stats is None else stats[0].data_ptr(),
             None if stats is None else stats[1].data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            mean_inv[0].data_ptr(), mean_inv[1].data_ptr(),
-            N, H, W, C, pad, int(mode == "edge"), int(relu), EPS, groups, chunk,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            mean_inv[0].data_ptr(), mean_inv[1].data_ptr())
+    _call(x.dtype, dev, ptrs, res_pad, res_f32, (N, H, W, C), pad, mode, relu, plan, None)
+    return out, mean_inv
+
+
+def max_active_clusters(x: torch.Tensor, plan: InPlan) -> int:
+    """How many clusters of ``plan``'s kernel the device of ``x`` (a CUDA
+    tensor of the call's shape and dtype) runs at once
+    (``cudaOccupancyMaxActiveClusters``); launches nothing."""
+    N, H, W, C = x.shape
+    found = ctypes.c_int(0)
+    ptrs = (x.data_ptr(), None, None, None, None, None, x.data_ptr(), None, None)
+    if plan.route == "sums":  # the kernel checks that the route has its sums
+        ptrs = ptrs[:2] + (x.data_ptr(), x.data_ptr()) + ptrs[4:]
+    _call(x.dtype, x.device, ptrs, 0, False, (N, H, W, C), 0, "edge", False, plan,
+          ctypes.byref(found))
+    return found.value
+
+
+def _call(dtype, dev, ptrs, res_pad, res_f32, shape, pad, mode, relu, plan, clusters) -> None:
+    lib = _library()
+    fn = lib.stx_in_pad_f32 if dtype == torch.float32 else lib.stx_in_pad_bf16
+    N, H, W, C = shape
+    with torch.cuda.device(dev):  # the library launches on the current device
+        err = fn(ptrs[0], ptrs[1], res_pad, int(res_f32), *ptrs[2:], N, H, W, C, pad,
+                 int(mode == "edge"), int(relu), EPS, ROUTES[plan.route], plan.ctas,
+                 plan.cluster, plan.rows, plan.vec,
+                 torch.cuda.current_stream(dev).cuda_stream, clusters)
     if err:
         raise RuntimeError(
-            "instance-norm kernel launch failed: "
+            f"instance-norm kernel ({plan}) launch failed: "
             f"{lib.stx_instance_norm_error_string(err).decode()}"
         )
-    return out, mean_inv
 
 
 def _library() -> ctypes.CDLL:
@@ -177,8 +259,8 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_pad_f32, lib.stx_in_pad_bf16):
-            fn.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p,
-                           i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+            fn.argtypes = [p, p, i, i, p, p, p, p, p, p, p,
+                           i, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p, p]
             fn.restype = i
         lib.stx_instance_norm_error_string.argtypes = [i]
         lib.stx_instance_norm_error_string.restype = ctypes.c_char_p

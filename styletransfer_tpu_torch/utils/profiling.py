@@ -41,8 +41,7 @@ _GROUPS = (
     ("conv3x3_flat kernel", ("conv3x3_flat_",)),
     ("conv3x3_im2col kernel", ("conv3x3_im2col_",)),
     ("conv3x3 kernel", ("conv3x3_", "tile_sums_kernel")),
-    ("IN kernel (IN-pad / fused-IN forward)",
-     ("in_partial_stats", "in_finalize", "in_apply_pad")),
+    ("IN kernel (IN-pad / fused-IN forward)", ("::in_kernel<",)),
     ("fused-IN backward kernel", ("inb_partial", "inb_finalize", "inb_dx")),
     ("cuDNN convolutions", ("conv", "cudnn", "implicit", "winograd", "fft", "fprop", "dgrad",
                             "wgrad", "pointwise_mult_and_sum")),

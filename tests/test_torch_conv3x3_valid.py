@@ -36,11 +36,17 @@ def test_the_residual_stage_takes_the_wgmma_route_in_bf16(batch):
 @pytest.mark.parametrize("batch", [1, 64])
 def test_a_75_wide_stage_takes_the_mma_route(batch):
     # convert-image --size 300: the residual stage is 75 x 75, whose rows do
-    # not tile a block.
+    # not tile a block. It runs on the wgmma kernel all the same: at batch 64
+    # a tile is 3 whole rows, 225 of 256 positions, 25 tiles per image; at
+    # batch 1 the 128-position tile of one row, whose 75 tiles fill more of
+    # the card than 25 larger ones would.
     plan = tc.valid_plan(batch, 75, 75, 128, 128, torch.bfloat16)
-    assert plan.route == "bf16_mma" and plan.stages == 0
-    assert plan.image_tiles == -(-75 * 75 // tc.BLOCK_M)
-    assert plan.blocks == batch * plan.image_tiles
+    assert plan.route == "bf16_wgmma"
+    if batch == 64:
+        assert (plan.bm, plan.stages, plan.image_tiles) == (256, 3, 25)
+        assert plan.blocks == tc.SMS and batch * plan.image_tiles == 1600
+    else:
+        assert (plan.bm, plan.stages, plan.image_tiles, plan.blocks) == (128, 4, 75, 75)
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 64, 128, 128), (64, 64, 64, 128, 128),
@@ -52,16 +58,20 @@ def test_f32_takes_the_fma_route(shape):
     assert plan.blocks == B * -(-H * W // tc.BLOCK_M) * -(-O // tc.BLOCK_N)
 
 
-@pytest.mark.parametrize("W,route", [(1, "bf16_wgmma"), (48, "bf16_mma"), (64, "bf16_wgmma"),
-                                     (128, "bf16_wgmma"), (200, "bf16_mma"),
+@pytest.mark.parametrize("W,route", [(1, "bf16_wgmma"), (48, "bf16_wgmma"), (64, "bf16_wgmma"),
+                                     (128, "bf16_wgmma"), (200, "bf16_wgmma"),
                                      (256, "bf16_wgmma"), (512, "bf16_mma")])
 def test_the_wgmma_route_needs_whole_rows_in_a_tile(W, route):
+    # A tile is floor(bm / W) >= 1 whole rows: every width up to 256 has one
+    # (48 and 200 wide only partly fill theirs), wider rows go to mma.sync.
     plan = tc.valid_plan(2, 5, W, 64, 64, torch.bfloat16)
     assert plan.route == route
     if route == "bf16_wgmma":
-        assert W <= 256 and plan.bm % W == 0
         rows = plan.bm // W
+        assert W <= 256 and rows >= 1 and rows * W <= plan.bm
         assert plan.image_tiles == -(-5 // rows)
+    else:
+        assert W > 256 and plan.stages == 0
 
 
 def test_every_wgmma_configuration_is_one_the_kernel_has():
@@ -111,17 +121,21 @@ def test_the_cuda_test_shapes_reach_the_route_each_is_meant_for():
 
 
 def test_the_serving_forward_runs_every_residual_conv_on_the_wgmma_route():
-    # The serving path's ten convs at 256 px and at 64 px (the CUDA serving
-    # test's size); a 300 px image runs them on the mma.sync route.
-    for size, route in ((256, "bf16_wgmma"), (64, "bf16_wgmma"), (300, "bf16_mma")):
+    # The serving path's ten convs at 256 px, at 64 px (the CUDA serving
+    # test's size) and at 300 px (75-wide rows, partial tiles); only images
+    # over 1,024 px (rows over 256 wide) run them on the mma.sync route.
+    for size, route in ((256, "bf16_wgmma"), (64, "bf16_wgmma"), (300, "bf16_wgmma"),
+                        (1028, "bf16_mma")):
         H = size // 4
         for batch in (1, 2, 64):
             assert tc.valid_plan(batch, H, H, 128, 128, torch.bfloat16).route == route
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64, 136), (3, 7, 32, 96, 72)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64, 136), (3, 7, 32, 96, 72),
+                                   (2, 4, 75, 32, 16)])
 @pytest.mark.parametrize("relu", [False, True])
 def test_wrapper_on_cpu_matches_the_jax_kernel_at_the_new_routes_shapes(shape, relu):
+    # (2, 4, 75, 32, 16): a width whose rows only partly fill a wgmma tile.
     B, H, W, C, O = shape
     rng = np.random.default_rng(9)
     x = rng.standard_normal((B, H + 2, W + 2, C)).astype(np.float32)
@@ -144,7 +158,7 @@ def test_a_plan_on_a_given_route():
     assert mma.route == "bf16_mma" and mma.blocks == 64 * 32
     assert tc.valid_plan(1, 64, 64, 128, 128, torch.bfloat16, route="bf16_wgmma") == \
         tc.valid_plan(1, 64, 64, 128, 128, torch.bfloat16)
-    for route, dtype, W in (("bf16_wgmma", torch.bfloat16, 75), ("f32_fma", torch.bfloat16, 64),
+    for route, dtype, W in (("bf16_wgmma", torch.bfloat16, 300), ("f32_fma", torch.bfloat16, 64),
                             ("bf16_mma", torch.float32, 64), ("bf16_wgmma", torch.float32, 64)):
         with pytest.raises(ValueError):
             tc.valid_plan(1, 8, W, 128, 128, dtype, route=route)

@@ -45,13 +45,19 @@ def _close(a, b, dtype):
 # see tests/test_torch_conv3x3_valid.py). wgmma: whole rows per tile (16, 32
 # and 64 wide), at batch 9 the large tile; C = 64 and O = 136 (a second,
 # mostly empty channel tile); C = 96 (a last chunk of 32 channels) with a
-# last tile of 3 of its 4 rows below the image and O = 72. mma.sync: widths
-# whose rows do not tile a block (7, and 75 as at 300 px).
+# last tile of 3 of its 4 rows below the image and O = 72. Partial tiles,
+# whose rows x W positions leave the last A rows stale: 7 wide (36 rows of
+# 252 positions, one tile holding the whole 9-row image), 75 wide as at 300
+# px (one row of 128 positions at batch 1, three of 256 at batch 4), and 75
+# wide with a ragged last row tile (10 rows in tiles of 3). mma.sync: rows
+# wider than 256.
 _VALID_SHAPES = [
-    (2, 16, 16, 128, 128, "bf16_wgmma"), (3, 9, 7, 64, 136, "bf16_mma"),
+    (2, 16, 16, 128, 128, "bf16_wgmma"), (3, 9, 7, 64, 136, "bf16_wgmma"),
     (2, 64, 64, 128, 128, "bf16_wgmma"), (1, 32, 32, 128, 128, "bf16_wgmma"),
     (2, 16, 16, 64, 136, "bf16_wgmma"), (3, 7, 32, 96, 72, "bf16_wgmma"),
-    (9, 64, 64, 128, 128, "bf16_wgmma"), (1, 8, 75, 128, 128, "bf16_mma"),
+    (9, 64, 64, 128, 128, "bf16_wgmma"), (1, 8, 75, 128, 128, "bf16_wgmma"),
+    (4, 75, 75, 128, 128, "bf16_wgmma"), (32, 10, 75, 64, 64, "bf16_wgmma"),
+    (1, 3, 300, 64, 72, "bf16_mma"),
 ]
 _ROUTE_COUNTERS = {"f32_fma": "fma_launches", "bf16_mma": "mma_launches",
                    "bf16_wgmma": "wgmma_launches"}
@@ -155,6 +161,78 @@ def test_instance_norm_kernel_matches_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert instance_norm.launches == before + 1
     _close(out, instance_norm.instance_norm_pad_plain(*args), dtype)
+
+
+# Each branch of instance_norm.in_plan: (route in both dtypes, shape, pad,
+# mode, residual pad or None, statistics given, residual added in f32 as the
+# training forward does). smem: bands of 2 rows; bands of 1 row under a pad
+# of 4, whose border rows come from other blocks' bands over DSMEM; a
+# residual rounded to x's dtype (added in place as bulk copies land); a
+# residual added in f32 (in bf16 an f32 band the threads fill). l2: an
+# image past the cluster's shared memory, without and with a residual
+# (rounded, then added in f32). sums: statistics given. Tiny images: 3 x 5
+# with four channels (a cluster of 2; in bf16 8-byte accesses and a band
+# the threads fill, its rows too short for bulk copies) and one pixel under
+# edge padding.
+_IN_PLAN_CASES = [
+    ("smem", (2, 32, 32, 64), 1, "reflect", None, False, False),
+    ("smem", (2, 16, 16, 32), 4, "reflect", None, False, False),
+    ("smem", (2, 32, 32, 128), 1, "reflect", 1, False, False),
+    ("smem", (2, 32, 32, 128), 0, "reflect", 0, False, True),
+    ("l2", (1, 256, 256, 32), 1, "reflect", None, False, False),
+    ("l2", (1, 256, 256, 32), 4, "edge", 1, False, False),
+    ("l2", (1, 128, 128, 64), 0, "reflect", 0, False, True),
+    ("sums", (2, 16, 16, 128), 1, "reflect", None, True, False),
+    ("smem", (1, 3, 5, 4), 1, "edge", None, False, False),
+    ("smem", (1, 1, 1, 4), 2, "edge", None, False, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _IN_PLAN_CASES)
+def test_instance_norm_plan_branches_match_plain_and_repeat(cuda, dtype, case):
+    route, (N, H, W, C), pad, mode, rp, with_stats, res_f32 = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(N, H, W, C, device=cuda, generator=g) * 3 + 1).to(dtype)
+    scale = torch.rand(C, device=cuda, generator=g) + 0.5
+    bias = torch.randn(C, device=cuda, generator=g)
+    res = None
+    if rp is not None:
+        res = torch.randn(N, H + 2 * rp, W + 2 * rp, C, device=cuda, generator=g).to(dtype)
+    stats = None
+    if with_stats:
+        stats = (x.float().sum(dim=(1, 2)), (x.float() ** 2).sum(dim=(1, 2)))
+    plan = instance_norm.in_plan(N, H, W, C, dtype, res is not None, with_stats, res_f32)
+    assert plan.route == route
+    if res_f32:  # the training forward: pad 0, the residual added in f32
+        before = fused_instance_norm.fwd_launches
+        first = fused_instance_norm.forward(x, scale, bias, res, True)
+        again = fused_instance_norm.forward(x, scale, bias, res, True)
+        torch.cuda.synchronize()
+        assert fused_instance_norm.fwd_launches == before + 2
+        pout, pmean, pinv = fused_instance_norm.forward_plain(x, scale, bias, res, True)
+        torch.testing.assert_close(first[1], pmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(first[2], pinv, rtol=1e-5, atol=1e-5)
+        _close(first[0], pout, dtype)
+    else:
+        args = (x, scale, bias, res, rp or 0, True, pad, mode, stats)
+        before = instance_norm.launches
+        first = (instance_norm.instance_norm_pad(*args),)
+        again = (instance_norm.instance_norm_pad(*args),)
+        torch.cuda.synchronize()
+        assert instance_norm.launches == before + 2
+        _close(first[0], instance_norm.instance_norm_pad_plain(*args), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_instance_norm_clusters_fit_the_device(cuda):
+    # The 16-block clusters of the serving shapes: the device places at
+    # least one of each plan at once, so no launch of theirs is refused.
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, C in ((256, 32), (128, 64), (64, 128)):
+            x = torch.zeros(1, H, H, C, device=cuda, dtype=dtype)
+            plan = instance_norm.in_plan(64, H, H, C, dtype, False, False)
+            assert instance_norm.max_active_clusters(x, plan) >= 1
 
 
 # (shape, residual, relu): every combination the training forward uses, plus
