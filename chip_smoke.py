@@ -399,17 +399,18 @@ def conv_phase(torch, F, conv3x3, dtype):
     return entries
 
 
-# The fifteen instance norms of one forward at 256 px: (name, H, C, pad,
-# residual pad or None, relu, mode, stats from the conv, calls per forward).
+# The fifteen instance norms of one serving forward at S px: (name, S // H,
+# C, pad, residual pad or None, relu, mode, stats from the conv, calls per
+# forward).
 _IN_CALLS = [
-    ("in1", 256, 32, 1, None, True, "reflect", False, 1),
-    ("in2", 128, 64, 1, None, True, "reflect", False, 1),
-    ("in3", 64, 128, 1, None, True, "reflect", False, 1),
-    ("res.in1", 64, 128, 1, None, True, "reflect", True, 5),
-    ("res.in2", 64, 128, 1, 1, False, "reflect", False, 4),
-    ("res5.in2", 64, 128, 1, 1, False, "edge", False, 1),
-    ("up1_in", 128, 64, 1, None, True, "edge", False, 1),
-    ("up2_in", 256, 32, 4, None, True, "reflect", False, 1),
+    ("in1", 1, 32, 1, None, True, "reflect", False, 1),
+    ("in2", 2, 64, 1, None, True, "reflect", False, 1),
+    ("in3", 4, 128, 1, None, True, "reflect", False, 1),
+    ("res.in1", 4, 128, 1, None, True, "reflect", True, 5),
+    ("res.in2", 4, 128, 1, 1, False, "reflect", False, 4),
+    ("res5.in2", 4, 128, 1, 1, False, "edge", False, 1),
+    ("up1_in", 2, 64, 1, None, True, "edge", False, 1),
+    ("up2_in", 1, 32, 4, None, True, "reflect", False, 1),
 ]
 
 
@@ -422,79 +423,105 @@ def check_routes(instance_norm, entries) -> None:
 
 
 def in_phase(torch, instance_norm, dtype):
-    """IN-pad kernel vs its plain version at every call shape of the forward
+    """IN-pad kernel vs its plain version at every call shape of each
+    serving run's forward (256 px at batch 64; in bf16 also 300 px at batch
+    64 and 1040 px at batch 4), with the plan, how many of its clusters the
+    card runs at once, the share of the bound and a bit-identical repeat
     (the two dtypes' calls together reach every route of ``in_plan``:
-    ``check_routes``), with the plan, how many of its clusters the card runs
-    at once, the share of the bound and a bit-identical repeat. Times are
-    device times (``device_ms``); ``eager`` is the same call timed as the
-    host launches it. The JSON entry times the largest call (in1) and carries
-    the fifteen calls' totals."""
+    ``check_routes``). Where a call's plan keeps the band in shared memory,
+    the forced L2 route is held against the plain version too and timed
+    beside it (device times). ``ms`` is the call timed as the host issues it
+    (``time_ms``), ``device_ms`` the calls queued behind a spin kernel
+    (``device_ms``): the smaller calls take the host longer to launch than
+    the card to run. The JSON entry times the largest call of the 256 px
+    forward (in1) and carries that forward's fifteen calls' totals."""
     name = "instance_norm_pad"
     dn = str(dtype).split(".")[1]
     rtol, atol = TOL[(name, dn)]
     g = torch.Generator(device="cuda").manual_seed(2)
     entry = None
-    total = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     worst = 0.0
     routes = set()
-    for call, H, C, pad, rp, relu, mode, with_stats, count in _IN_CALLS:
-        x = (torch.randn(BATCH, H, H, C, device="cuda", generator=g) * 2 + 0.5).to(dtype)
-        scale = torch.rand(C, device="cuda", generator=g) + 0.5
-        bias = torch.randn(C, device="cuda", generator=g)
-        res = None
-        if rp is not None:
-            res = torch.randn(BATCH, H + 2 * rp, H + 2 * rp, C, device="cuda",
-                              generator=g).to(dtype)
-        stats = None
-        if with_stats:
-            xf = x.float()
-            stats = (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)))
-        args = (x, scale, bias, res, rp or 0, relu, pad, mode, stats)
-        plan = instance_norm.in_plan(BATCH, H, H, C, dtype, res is not None, with_stats)
-        routes.add(plan.route)
-        clusters = instance_norm.max_active_clusters(x, plan)
-        out = instance_norm.instance_norm_pad(*args)
-        again = instance_norm.instance_norm_pad(*args)
-        torch.cuda.synchronize()
-        pout = instance_norm.instance_norm_pad_plain(*args)
-        err = max_err(out, pout)
-        worst = max(worst, err)
-        tag = f"{name} {dn} {call} [{BATCH},{H},{H},{C}] pad {pad} {mode} ({plan})"
-        check(allclose(torch, out, pout, rtol, atol),
-              f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
-        check(torch.equal(out, again), f"{tag}: the repeat is bit-identical")
-        # Device time, the calls queued behind a spin kernel: the smaller
-        # calls take the host longer to launch than the card to run.
-        ms = device_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
-        eager = time_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
-        plain_ms = device_ms(torch, lambda: instance_norm.instance_norm_pad_plain(*args), iters=5)
-        interior = x.numel() * (2 if res is not None else 1)
-        nbytes = (interior + out.numel()) * x.element_size() + 2 * C * 4
-        nbytes += 0 if stats is None else 2 * BATCH * C * 4
-        bound_ms, bound_by = bound(8.0 * x.numel(), nbytes, dn)
-        print(f"{name} {dn} {call}: kernel_ms {ms:.4f} (eager {eager:.4f}) plain_ms {plain_ms:.4f} "
-              f"bound_ms {bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB), "
-              f"{bound_ms / ms:.3f} of the bound, {nbytes / ms / 1e6:.0f} GB/s; "
-              f"{clusters} clusters at once; x{count} per forward", flush=True)
-        total["ms"] += ms * count
-        total["eager_ms"] += eager * count
-        total["plain_ms"] += plain_ms * count
-        total["bound_ms"] += bound_ms * count
-        if entry is None:
-            entry = {"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
-                     "replaces": SOURCES[name][1], "ms": ms, "eager_ms": eager,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None,
-                     "shape": f"x[{BATCH},{H},{H},{C}] pad {pad} (in1, the largest call)"}
+    runs = [(SIZE, BATCH)]
+    if dtype == torch.bfloat16:
+        runs += [(WIDE_SIZE, BATCH), (WIDEST_SIZE, WIDEST_BATCH)]
+    for size, batch in runs:
+        timed = size == SIZE  # the plain version and eager times at 256 px only
+        total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for call, div, C, pad, rp, relu, mode, with_stats, count in _IN_CALLS:
+            H = size // div
+            x = (torch.randn(batch, H, H, C, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+            scale = torch.rand(C, device="cuda", generator=g) + 0.5
+            bias = torch.randn(C, device="cuda", generator=g)
+            res = None
+            if rp is not None:
+                res = torch.randn(batch, H + 2 * rp, H + 2 * rp, C, device="cuda",
+                                  generator=g).to(dtype)
+            stats = None
+            if with_stats:
+                xf = x.float()
+                stats = (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)))
+            args = (x, scale, bias, res, rp or 0, relu, pad, mode, stats)
+            plan = instance_norm.in_plan(batch, H, H, C, dtype, res is not None, with_stats)
+            routes.add(plan.route)
+            clusters = instance_norm.max_active_clusters(x, plan)
+            out = instance_norm.instance_norm_pad(*args)
+            again = instance_norm.instance_norm_pad(*args)
+            torch.cuda.synchronize()
+            pout = instance_norm.instance_norm_pad_plain(*args)
+            err = max_err(out, pout)
+            worst = max(worst, err)
+            tag = f"{name} {dn} {size} px {call} [{batch},{H},{H},{C}] pad {pad} {mode} ({plan})"
+            check(allclose(torch, out, pout, rtol, atol),
+                  f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+            check(torch.equal(out, again), f"{tag}: the repeat is bit-identical")
+            dev = device_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
+            ms = plain_ms = math.nan
+            if timed:
+                ms = time_ms(torch, lambda: instance_norm.instance_norm_pad(*args), iters=10)
+                plain_ms = device_ms(torch, lambda: instance_norm.instance_norm_pad_plain(*args),
+                                     iters=5)
+            interior = x.numel() * (2 if res is not None else 1)
+            nbytes = (interior + out.numel()) * x.element_size() + 2 * C * 4
+            nbytes += 0 if stats is None else 2 * batch * C * 4
+            bound_ms, bound_by = bound(8.0 * x.numel(), nbytes, dn)
+            side = ""
+            if plan.route == "smem":
+                l2 = instance_norm.in_plan(batch, H, H, C, dtype, res is not None, False,
+                                           route="l2")
+                lout, _ = instance_norm.launch(*args[:5], False, *args[5:], l2)
+                torch.cuda.synchronize()
+                check(allclose(torch, lout, pout, rtol, atol),
+                      f"{tag}: on the forced {l2}: max_abs_err {max_err(lout, pout):.3g}")
+                l2_ms = device_ms(torch, lambda: instance_norm.launch(*args[:5], False,
+                                                                      *args[5:], l2), iters=10)
+                side = f"; forced {l2}: {l2_ms:.4f} ms device ({bound_ms / l2_ms:.3f} of the bound)"
+            eager = f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} " if timed else ""
+            print(f"{name} {dn} {size} px {call}: {eager}device_ms {dev:.4f} bound_ms "
+                  f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB), {bound_ms / dev:.3f} "
+                  f"of the bound (device), {nbytes / dev / 1e6:.0f} GB/s; {clusters} clusters "
+                  f"at once; x{count} per forward{side}", flush=True)
+            total["ms"] += ms * count
+            total["device_ms"] += dev * count
+            total["plain_ms"] += plain_ms * count
+            total["bound_ms"] += bound_ms * count
+            if entry is None:
+                entry = {"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
+                         "replaces": SOURCES[name][1], "ms": ms, "device_ms": dev,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None,
+                         "shape": f"x[{batch},{H},{H},{C}] pad {pad} (in1, the largest call)"}
+        eager = (f"kernel_ms {total['ms']:.4f} ({total['bound_ms'] / total['ms']:.3f} of the "
+                 f"bound) plain_ms {total['plain_ms']:.4f} " if timed else "")
+        print(f"{name} {dn} {size} px: all 15 calls of one forward: {eager}device_ms "
+              f"{total['device_ms']:.4f} ({total['bound_ms'] / total['device_ms']:.3f} of the "
+              f"bound) bound_ms {total['bound_ms']:.4f}", flush=True)
+        if timed:
+            entry["forward_ms"] = total["ms"]
+            entry["forward_device_ms"] = total["device_ms"]
+            entry["forward_bound_ms"] = total["bound_ms"]
     entry["routes"] = sorted(routes)
     entry["max_abs_err"] = worst
-    print(f"{name} {dn}: all 15 calls of one forward: kernel_ms {total['ms']:.4f} (eager "
-          f"{total['eager_ms']:.4f}) plain_ms {total['plain_ms']:.4f} bound_ms "
-          f"{total['bound_ms']:.4f}, "
-          f"{total['bound_ms'] / total['ms']:.3f} of the bound", flush=True)
-    entry["forward_ms"] = total["ms"]
-    entry["forward_eager_ms"] = total["eager_ms"]
-    entry["forward_bound_ms"] = total["bound_ms"]
     return entry
 
 
@@ -582,8 +609,20 @@ def fused_phase(torch, F, fin, dtype):
         bwd_bytes = ins + 2 * gy.numel() * x.element_size() + chan + 2 * C * 4
         bwd_bound, bwd_by = bound(16.0 * x.numel(), bwd_bytes, dn)
         plan = instance_norm.in_plan(*shape, dtype, with_res, False, True)
+        side = ""
+        if plan.route == "smem":  # the forced L2 route, held and timed beside it
+            l2 = instance_norm.in_plan(*shape, dtype, with_res, False, True, route="l2")
+            l2_args = (x, scale, bias, res, 0, True, relu, 0, "reflect", None, l2)
+            lout, lstats = instance_norm.launch(*l2_args)
+            torch.cuda.synchronize()
+            rtol, atol = TOL[(names[0], dn)]
+            check(allclose(torch, lout, pout, rtol, atol)
+                  and allclose(torch, lstats[0], pmean, *STATS_TOL),
+                  f"{names[0]} {tag} on the forced {l2}: out max_abs_err {max_err(lout, pout):.3g}")
+            side = (f"; fwd on the forced {l2}: "
+                    f"{device_ms(torch, lambda: instance_norm.launch(*l2_args)):.4f} ms device")
         print(f"fused_instance_norm {dn} {call} ({plan}): fwd kernel_ms {fwd_ms:.4f} (eager "
-              f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}; bwd "
+              f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}{side}; bwd "
               f"kernel_ms {bwd_ms:.4f} (eager {bwd_eager:.4f}) plain_ms {bwd_plain:.4f} "
               f"bound_ms {bwd_bound:.4f} ({bwd_by}; {bwd_bytes / 1e6:.1f} MB) x{count} per step",
               flush=True)
@@ -737,7 +776,7 @@ def main_path(torch, np, in_dir, imgs):
     from styletransfer_tpu_torch import ckpt
     from styletransfer_tpu_torch.engines import fast
     from styletransfer_tpu_torch.models import transformer
-    from styletransfer_tpu_torch.ops.cuda import conv3x3
+    from styletransfer_tpu_torch.ops.cuda import conv3x3, instance_norm
     from styletransfer_tpu_torch.utils import images
 
     models = os.path.join(WORK, "models")
@@ -840,8 +879,9 @@ def main_path(torch, np, in_dir, imgs):
     check(outs.shape == (WIDEST_BATCH, WIDEST_SIZE, WIDEST_SIZE, 3),
           f"serving path bf16 at {WIDEST_SIZE} px: outputs {outs.shape}")
     # The float output before the uint8 cast is finite, and the served
-    # image matches the same forward with the ten residual convs on their
-    # plain version (a CPU run at this size would take minutes).
+    # image matches the same forward with the ten residual convs and the
+    # fifteen instance norms on their plain versions (a CPU run at this size
+    # would take minutes).
     batch = torch.from_numpy(np.stack([
         images.load_image_uint8(os.path.join(few_dir, f), size=WIDEST_SIZE)[0]
         for f in sorted(os.listdir(few_dir))[:1]])).cuda()
@@ -849,18 +889,19 @@ def main_path(torch, np, in_dir, imgs):
                           compute_dtype=torch.bfloat16)
     serve = fast.make_serve_fn("bf16")
     got = serve(params, batch)
-    kernel_conv = transformer.conv3x3_valid
+    kernels = transformer.conv3x3_valid, transformer.instance_norm_pad
     transformer.conv3x3_valid = conv3x3.conv3x3_valid_plain
+    transformer.instance_norm_pad = instance_norm.instance_norm_pad_plain
     try:
         ref = serve(params, batch)
     finally:
-        transformer.conv3x3_valid = kernel_conv
+        transformer.conv3x3_valid, transformer.instance_norm_pad = kernels
     diff = (got.int() - ref.int()).abs()
     max_steps, mean_steps = MAIN_TOL["bf16"]
     check(bool(torch.isfinite(y).all()) and int(diff.max()) <= max_steps
           and float(diff.float().mean()) <= mean_steps,
           f"serving path bf16 at {WIDEST_SIZE} px: forward output finite; on the kernels against "
-          f"the residual convs' plain version: max {int(diff.max())}/255, mean "
+          f"the convs' and instance norms' plain versions: max {int(diff.max())}/255, mean "
           f"{float(diff.float().mean()):.4f}/255 (limits {max_steps}, {mean_steps}); process_dir "
           f"{WIDEST_BATCH} images in {wall:.3f} s")
     return launches, rates

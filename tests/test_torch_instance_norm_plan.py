@@ -41,7 +41,8 @@ def _check_invariants(plan, N, H, W, C, dtype, has_residual, res_f32=False):
     assert plan.vec * (2 if dtype == torch.bfloat16 else 4) in (8, 16)
     assert plan.smem <= tin.SMEM_LIMIT
     if plan.route == "smem":
-        assert 2 * plan.smem <= tin.SMEM_LIMIT  # two blocks per SM
+        # Two blocks per SM, each with the SM's per-block reservation.
+        assert 2 * (plan.smem + tin.BLOCK_RESERVED) <= tin.SM_SMEM
         # The band of s (f32 where a residual is added in f32), and an
         # mbarrier per bulk-copy chunk.
         f32 = dtype == torch.float32 or (has_residual and res_f32)
