@@ -20,9 +20,10 @@ It imports nothing of JAX. Phases:
    bf16 wgmma with partial tiles; 1040 px at batch 4: the bf16 mma.sync
    route), the two bf16 routes side by side at 256 px, batch 1, 4 and 64,
    and at 300 px (the mma.sync route forced there, also held against the
-   plain version), and IN-pad at each of the fifteen call shapes of a 256
-   px forward, with its plan, occupancy, share of the bound and a
-   bit-identical repeat; the training kernels (the
+   plain version), and IN-pad at each of the fifteen call shapes of each
+   serving run's forward (256 px; in bf16 also 300 px and 1040 px at batch
+   4), with its plan, occupancy, share of the bound and a bit-identical
+   repeat; the training kernels (the
    fused instance norm's forward and backward) at each call shape of the
    training forward (batch 4, 256 px), and the stat-free conv kernels
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
@@ -37,7 +38,8 @@ It imports nothing of JAX. Phases:
    outputs must match the port's own CPU run; then the same images at 300 px
    in bf16, whose 75-wide residual convs take the bf16_wgmma route too, and
    four of them at 1040 px in bf16, whose 260-wide residual convs take the
-   bf16_mma route;
+   bf16_mma route (one image against the same forward on the convs' and
+   instance norms' plain versions);
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
@@ -428,9 +430,7 @@ def in_phase(torch, instance_norm, dtype):
     64 and 1040 px at batch 4), with the plan, how many of its clusters the
     card runs at once, the share of the bound and a bit-identical repeat
     (the two dtypes' calls together reach every route of ``in_plan``:
-    ``check_routes``). Where a call's plan keeps the band in shared memory,
-    the forced L2 route is held against the plain version too and timed
-    beside it (device times). ``ms`` is the call timed as the host issues it
+    ``check_routes``). ``ms`` is the call timed as the host issues it
     (``time_ms``), ``device_ms`` the calls queued behind a spin kernel
     (``device_ms``): the smaller calls take the host longer to launch than
     the card to run. The JSON entry times the largest call of the 256 px
@@ -462,7 +462,7 @@ def in_phase(torch, instance_norm, dtype):
                 xf = x.float()
                 stats = (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)))
             args = (x, scale, bias, res, rp or 0, relu, pad, mode, stats)
-            plan = instance_norm.in_plan(batch, H, H, C, dtype, res is not None, with_stats)
+            plan = instance_norm.in_plan(batch, H, H, C, dtype, with_stats)
             routes.add(plan.route)
             clusters = instance_norm.max_active_clusters(x, plan)
             out = instance_norm.instance_norm_pad(*args)
@@ -485,22 +485,11 @@ def in_phase(torch, instance_norm, dtype):
             nbytes = (interior + out.numel()) * x.element_size() + 2 * C * 4
             nbytes += 0 if stats is None else 2 * batch * C * 4
             bound_ms, bound_by = bound(8.0 * x.numel(), nbytes, dn)
-            side = ""
-            if plan.route == "smem":
-                l2 = instance_norm.in_plan(batch, H, H, C, dtype, res is not None, False,
-                                           route="l2")
-                lout, _ = instance_norm.launch(*args[:5], False, *args[5:], l2)
-                torch.cuda.synchronize()
-                check(allclose(torch, lout, pout, rtol, atol),
-                      f"{tag}: on the forced {l2}: max_abs_err {max_err(lout, pout):.3g}")
-                l2_ms = device_ms(torch, lambda: instance_norm.launch(*args[:5], False,
-                                                                      *args[5:], l2), iters=10)
-                side = f"; forced {l2}: {l2_ms:.4f} ms device ({bound_ms / l2_ms:.3f} of the bound)"
             eager = f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} " if timed else ""
             print(f"{name} {dn} {size} px {call}: {eager}device_ms {dev:.4f} bound_ms "
                   f"{bound_ms:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB), {bound_ms / dev:.3f} "
                   f"of the bound (device), {nbytes / dev / 1e6:.0f} GB/s; {clusters} clusters "
-                  f"at once; x{count} per forward{side}", flush=True)
+                  f"at once; x{count} per forward", flush=True)
             total["ms"] += ms * count
             total["device_ms"] += dev * count
             total["plain_ms"] += plain_ms * count
@@ -608,21 +597,9 @@ def fused_phase(torch, F, fin, dtype):
                                   dn)
         bwd_bytes = ins + 2 * gy.numel() * x.element_size() + chan + 2 * C * 4
         bwd_bound, bwd_by = bound(16.0 * x.numel(), bwd_bytes, dn)
-        plan = instance_norm.in_plan(*shape, dtype, with_res, False, True)
-        side = ""
-        if plan.route == "smem":  # the forced L2 route, held and timed beside it
-            l2 = instance_norm.in_plan(*shape, dtype, with_res, False, True, route="l2")
-            l2_args = (x, scale, bias, res, 0, True, relu, 0, "reflect", None, l2)
-            lout, lstats = instance_norm.launch(*l2_args)
-            torch.cuda.synchronize()
-            rtol, atol = TOL[(names[0], dn)]
-            check(allclose(torch, lout, pout, rtol, atol)
-                  and allclose(torch, lstats[0], pmean, *STATS_TOL),
-                  f"{names[0]} {tag} on the forced {l2}: out max_abs_err {max_err(lout, pout):.3g}")
-            side = (f"; fwd on the forced {l2}: "
-                    f"{device_ms(torch, lambda: instance_norm.launch(*l2_args)):.4f} ms device")
+        plan = instance_norm.in_plan(*shape, dtype, False)
         print(f"fused_instance_norm {dn} {call} ({plan}): fwd kernel_ms {fwd_ms:.4f} (eager "
-              f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}{side}; bwd "
+              f"{fwd_eager:.4f}) plain_ms {fwd_plain:.4f} bound_ms {fwd_bound:.4f}; bwd "
               f"kernel_ms {bwd_ms:.4f} (eager {bwd_eager:.4f}) plain_ms {bwd_plain:.4f} "
               f"bound_ms {bwd_bound:.4f} ({bwd_by}; {bwd_bytes / 1e6:.1f} MB) x{count} per step",
               flush=True)

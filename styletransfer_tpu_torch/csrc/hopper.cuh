@@ -1,8 +1,8 @@
 // Hopper (sm_90a) pieces shared by the tensor-core conv kernels
 // (conv3x3_flat.cu, conv3x3_wgmma.cu) and the instance norm
 // (instance_norm.cu): the wgmma wrappers and shared-memory matrix
-// descriptors, the mbarrier, bulk-copy and TMA (cp.async.bulk.tensor) load
-// and store wrappers, the tensor-map encoder looked up through the CUDA runtime, and
+// descriptors, the mbarrier and TMA (cp.async.bulk.tensor) load and store
+// wrappers, the tensor-map encoder looked up through the CUDA runtime, and
 // the per-device opt-ins for shared memory past 48 KB and for clusters of
 // more than 8 blocks.
 
@@ -193,16 +193,6 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, int c0
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// from global to shared memory, completing on an mbarrier.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

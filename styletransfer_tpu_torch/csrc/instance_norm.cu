@@ -32,38 +32,30 @@
 // whole image rows, and each writes the output rows its band feeds,
 // including the reflected or edge border rows and columns at the image's
 // top and bottom. ops/cuda/instance_norm.py::in_plan names the route:
-//   ROUTE_SMEM: the band of s fits shared memory with two blocks per SM.
-//     One thread loads x's band with bulk copies (TMA's cp.async.bulk: the
-//     whole band in flight at once, up to 8 chunks of whole rows on an
-//     mbarrier each), while the block sums each chunk as it lands, adding a
-//     residual in place (its loads batched U at a time); the cluster adds
-//     its blocks' sums in rank order over distributed shared memory (DSMEM)
-//     into the mean; the block takes the centered sum of squares from
-//     shared memory, merged the same way; then it normalizes from shared
-//     memory and writes the padded output. A border row whose source row
-//     lies in another block's band is read from that block over DSMEM. One
-//     HBM read of x and one padded write. Bands whose rows are not 16-byte
-//     multiples, or that hold a bf16 residual added in f32 (so s in f32),
-//     are loaded by the threads instead.
-//   ROUTE_L2: the other images without given statistics. Each thread keeps
+//   ROUTE_L2: every image without given statistics. Each thread keeps
 //     (n, mean, M2) over its pixels, merging one group of U pixels at a
 //     time with Chan's formula (one reciprocal per group, not per element);
 //     the block merges its threads, the cluster its blocks in rank order
-//     over DSMEM; then each block reads its band again, backwards (the
-//     rows read last come back first, while L2 still holds them), marking
-//     those lines first to evict. A round of resident clusters keeps 57 MB
-//     (bf16 in1) to 115 MB (f32) of bands live against a 50 MB L2, so part
-//     of the re-read still comes from HBM: the route runs at just over half
-//     its bound.
+//     over distributed shared memory (DSMEM, the remote partials gathered
+//     in one round trip); then each block reads its band again, backwards
+//     (the rows read last come back first, while L2 still holds them),
+//     marking those lines first to evict. A round of resident clusters
+//     keeps 57 MB (bf16 in1) to 115 MB (f32) of bands live against a 50 MB
+//     L2, so part of the re-read still comes from HBM: the route runs at
+//     just over half its bound. Keeping a band in shared memory instead
+//     (one HBM read, as on the TPU) was, on an H100, 1.6-5% faster where
+//     two blocks fit an SM (bf16 bands of 4-5 rows of 64-75 x 128), 7-10%
+//     slower at the training forward's batch of 4, and slower where only
+//     one block fits, so the kernel has no such route.
 //   ROUTE_SUMS: (sums, sumsqs) come from the conv3x3 kernel: no reduction,
 //     no cluster; about one wave of blocks normalizes x.
 // Per element: 16-byte loads and stores (8-byte for bf16 where C % 8 != 0),
 // neighbouring threads on neighbouring channels, U = 8 raw vectors in flight
-// per thread where threads load from global memory, streaming stores (the
-// output is not read again here); each thread keeps one channel group, so
-// the statistics and affine are read once into registers; pixels are walked
-// by row and column with no division per element. Every merge runs in a
-// fixed order with no atomics: a call repeats bit for bit.
+// per thread, streaming stores (the output is not read again here); each
+// thread keeps one channel group, so the statistics and affine are read
+// once into registers; pixels are walked by row and column with no division
+// per element. Every merge runs in a fixed order with no atomics: a call
+// repeats bit for bit.
 
 #include <cooperative_groups.h>
 
@@ -75,9 +67,8 @@ namespace cg = cooperative_groups;
 
 constexpr int NT = 256;  // threads per block
 constexpr int U = 8;     // raw vectors in flight per thread
-constexpr int ROUTE_SUMS = 0, ROUTE_SMEM = 1, ROUTE_L2 = 2;
+constexpr int ROUTE_SUMS = 0, ROUTE_L2 = 1;
 constexpr int MAX_CLUSTER = 16;
-constexpr int MAX_CHUNKS = 8;  // bulk-copy chunks of a band, an mbarrier each
 
 // VEC consecutive values of T: the raw vector (16 or 8 bytes) and its floats;
 // ld_last / st_stream mark the lines first to evict from L2 (__ldcs, __stcs):
@@ -96,38 +87,11 @@ struct Vec<float, 4> {
     v[2] = r.z;
     v[3] = r.w;
   }
-  static __device__ __forceinline__ void st(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
   static __device__ __forceinline__ Raw ld_last(const float* p) {
     return __ldcs(reinterpret_cast<const float4*>(p));
   }
   static __device__ __forceinline__ void st_stream(float* p, const float (&v)[4]) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-};
-struct Float8 {
-  float4 a, b;
-};
-template <>
-struct Vec<float, 8> {
-  using Raw = Float8;
-  static __device__ __forceinline__ Raw ld(const float* p) {
-    return Float8{*reinterpret_cast<const float4*>(p), *reinterpret_cast<const float4*>(p + 4)};
-  }
-  static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[8]) {
-    v[0] = r.a.x;
-    v[1] = r.a.y;
-    v[2] = r.a.z;
-    v[3] = r.a.w;
-    v[4] = r.b.x;
-    v[5] = r.b.y;
-    v[6] = r.b.z;
-    v[7] = r.b.w;
-  }
-  static __device__ __forceinline__ void st(float* p, const float (&v)[8]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
   }
 };
 __device__ __forceinline__ void unpack(uint32_t u, float& a, float& b) {
@@ -151,10 +115,6 @@ struct Vec<__nv_bfloat16, 8> {
     unpack(r.z, v[4], v[5]);
     unpack(r.w, v[6], v[7]);
   }
-  static __device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[8]) {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
-  }
   static __device__ __forceinline__ Raw ld_last(const __nv_bfloat16* p) {
     return __ldcs(reinterpret_cast<const uint4*>(p));
   }
@@ -172,9 +132,6 @@ struct Vec<__nv_bfloat16, 4> {
   static __device__ __forceinline__ void to_float(const Raw& r, float (&v)[4]) {
     unpack(r.x, v[0], v[1]);
     unpack(r.y, v[2], v[3]);
-  }
-  static __device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[4]) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack(v[0], v[1]), pack(v[2], v[3]));
   }
   static __device__ __forceinline__ Raw ld_last(const __nv_bfloat16* p) {
     return __ldcs(reinterpret_cast<const uint2*>(p));
@@ -200,7 +157,6 @@ struct Params {
   float eps;
   int rows;  // image rows per block
   int ctas;  // blocks per image
-  int bulk;  // ROUTE_SMEM: bulk copies can fill the band (rows of 16-byte multiples)
 };
 
 // One step of a thread's pixel walk: the pixel `step = dy * w + dx` further
@@ -261,19 +217,11 @@ __device__ __forceinline__ void chan_merge(float* a, const float* b) {
   a[0] = n;
 }
 
-template <int ROUTE, int VEC>
-__host__ __device__ constexpr int scratch_floats() {
-  return ROUTE == ROUTE_L2 ? 1 + 2 * VEC : ROUTE == ROUTE_SMEM ? VEC : 0;
-}
-
 // Dynamic shared memory: mean, inv * scale and the cluster partials [4][C],
-// the per-thread partials, and on ROUTE_SMEM the chunks' mbarriers and the
-// band of s (in S).
-template <typename S, int VEC, int ROUTE>
+// and on ROUTE_L2 each thread's (n, mean[VEC], M2[VEC]).
+template <int VEC, int ROUTE>
 size_t smem_bytes(const Params& p) {
-  size_t b = (size_t)4 * p.C * 4 + (size_t)NT * scratch_floats<ROUTE, VEC>() * 4;
-  if (ROUTE == ROUTE_SMEM) b += MAX_CHUNKS * 8 + (size_t)p.rows * p.W * p.C * sizeof(S);
-  return b;
+  return (size_t)4 * p.C * 4 + (ROUTE == ROUTE_L2 ? (size_t)NT * (1 + 2 * VEC) * 4 : 0);
 }
 
 // The partials of channel i of every block of the cluster, loaded all at
@@ -288,13 +236,11 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, float* part, 
 
 // grid N * ctas blocks, block n * ctas + k owns image rows [k * rows,
 // (k + 1) * rows) of image n; clusters of ctas blocks (1 on ROUTE_SUMS).
-// T: the tensors' type; S: the band's type (float where a bf16 residual is
-// added in f32, else T); RES: a residual is added.
-template <typename T, typename S, int VEC, int ROUTE, bool RES>
+// T: the tensors' type; RES: a residual is added.
+template <typename T, int VEC, int ROUTE, bool RES>
 __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
   using V = Vec<T, VEC>;
   using Raw = typename V::Raw;
-  using VS = Vec<S, VEC>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, W = p.W, C = p.C;
   const int CV = C / VEC, PL = NT / CV;  // channel groups; pixel lanes
@@ -308,9 +254,7 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
   float* mu = reinterpret_cast<float*>(smem);  // [C] mean
   float* mul = mu + C;                          // [C] inv * scale
   float* part = mul + C;                        // [2][C] the block's partials
-  float* scratch = part + 2 * C;                // [NT][scratch_floats]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(scratch + NT * scratch_floats<ROUTE, VEC>());
-  S* band = reinterpret_cast<S*>(bars + MAX_CHUNKS);  // [rows * W * C] of s
+  float* scratch = part + 2 * C;                // [NT][1 + 2 * VEC] on ROUTE_L2
   const T* x = static_cast<const T*>(p.x) + (size_t)n * H * W * C;
   const T* res = RES ? static_cast<const T*>(p.res) + (size_t)n * (H + 2 * p.rp) * Wr * C
                      : nullptr;
@@ -342,149 +286,6 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
       mul[i] = iv * p.scale[i];
       if (k == 0) {
         p.mean[n * C + i] = m;
-        p.inv[n * C + i] = iv;
-      }
-    }
-    __syncthreads();
-  } else if constexpr (ROUTE == ROUTE_SMEM) {
-    cg::cluster_group cluster = cg::this_cluster();
-    // The band of s into shared memory: bulk copies of x in chunks of whole
-    // rows where S is T and rows are 16-byte multiples (the residual, if
-    // any, added in place as each chunk lands), else loaded by the threads.
-    const int band_rows = r1 - r0;
-    const int crow = (band_rows + MAX_CHUNKS - 1) / MAX_CHUNKS;  // rows per chunk
-    const int chunks = crow > 0 ? (band_rows + crow - 1) / crow : 0;
-    const int row = W * C;  // elements of an image row
-    const bool bulk = sizeof(S) == sizeof(T) && p.bulk;
-    if (bulk) {
-      if (t == 0) {
-        for (int j = 0; j < chunks; ++j) hopper::mbar_init(bars + j, 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      }
-      __syncthreads();
-      if (t == 0) {
-        for (int j = 0; j < chunks; ++j) {
-          const int y0 = j * crow, y1 = min(band_rows, y0 + crow);
-          const uint32_t bytes = (uint32_t)((y1 - y0) * row * sizeof(T));
-          hopper::mbar_expect(bars + j, bytes);
-          hopper::bulk_load(band + y0 * row, x + (r0 + y0) * row, bytes, bars + j);
-        }
-      }
-    } else {
-      int y = r0 + pl / W, xx = pl % W;
-      for (int q = pl; active && q < P; q += PL) {
-        float v[VEC];
-        s_of(x_at(y, xx), r_at(y, xx), v);
-        VS::st(band + q * C + c, v);
-        advance(y, xx, dy, dx, W);
-      }
-      __syncthreads();
-    }
-    // The sum, as the copies land. With a residual, each thread loads U
-    // residual vectors, waits for the chunks that hold their pixels, and
-    // writes s back in place.
-    float acc[VEC] = {};
-    int waited = 0;  // chunks this thread has waited for
-    auto wait_rows = [&](int y) {  // every chunk up to the one holding image row y
-      for (const int need = (y - r0) / crow; bulk && waited <= need; ++waited)
-        hopper::mbar_wait(bars + waited, 0);
-    };
-    auto add = [&](float(&v)[VEC]) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
-    };
-    if (RES && bulk) {
-      int y = r0 + pl / W, xx = pl % W, q = pl;
-      for (; active && q + (U - 1) * PL < P; q += U * PL) {
-        Raw rr[U];
-        int last = y;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          rr[u] = r_at(y, xx);
-          last = y;
-          advance(y, xx, dy, dx, W);
-        }
-        wait_rows(last);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          S* at = band + (q + u * PL) * C + c;
-          float v[VEC];
-          s_of(V::ld(reinterpret_cast<const T*>(at)), rr[u], v);
-          VS::st(at, v);
-          add(v);
-        }
-      }
-      for (; active && q < P; q += PL) {
-        const Raw rr = r_at(y, xx);
-        wait_rows(y);
-        advance(y, xx, dy, dx, W);
-        S* at = band + q * C + c;
-        float v[VEC];
-        s_of(V::ld(reinterpret_cast<const T*>(at)), rr, v);
-        VS::st(at, v);
-        add(v);
-      }
-    } else {
-      for (int j = 0; j < chunks; ++j) {
-        wait_rows(r0 + j * crow);
-        const int q1 = min(band_rows, (j + 1) * crow) * W;
-        for (int q = j * crow * W + pl; active && q < q1; q += PL) {
-          float v[VEC];
-          VS::to_float(VS::ld(band + q * C + c), v);
-          add(v);
-        }
-      }
-    }
-    // Every thread has seen every chunk land before any reads another's pixels.
-    if (chunks > 0) wait_rows(r1 - 1);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) scratch[t * VEC + j] = acc[j];
-    block_tree<VEC>(scratch, t, pl, PL, CV, [](float* a, const float* b) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) a[j] += b[j];
-    });
-    if (t < CV)
-      for (int j = 0; j < VEC; ++j) part[c + j] = scratch[t * VEC + j];
-    cluster.sync();
-    for (int i = t; i < C; i += NT) {
-      float got[MAX_CLUSTER], s = 0.f;
-      gather(cluster, part, i, p.ctas, got);
-#pragma unroll
-      for (int r = 0; r < MAX_CLUSTER; ++r) s += got[r];
-      mu[i] = s / HW;
-    }
-    __syncthreads();
-    // The centered sum of squares, from shared memory.
-    float m[VEC], sq[VEC] = {};
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) m[j] = mu[c + j];
-    for (int q = pl; active && q < P; q += PL) {
-      float v[VEC];
-      VS::to_float(VS::ld(band + q * C + c), v);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float d = v[j] - m[j];
-        sq[j] += d * d;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) scratch[t * VEC + j] = sq[j];
-    block_tree<VEC>(scratch, t, pl, PL, CV, [](float* a, const float* b) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) a[j] += b[j];
-    });
-    if (t < CV)
-      for (int j = 0; j < VEC; ++j) part[C + c + j] = scratch[t * VEC + j];
-    cluster.sync();
-    for (int i = t; i < C; i += NT) {
-      float got[MAX_CLUSTER], q2 = 0.f;
-      gather(cluster, part + C, i, p.ctas, got);
-#pragma unroll
-      for (int r = 0; r < MAX_CLUSTER; ++r) q2 += got[r];
-      const float iv = 1.f / sqrtf(q2 / HW + p.eps);
-      mul[i] = iv * p.scale[i];
-      if (k == 0) {
-        p.mean[n * C + i] = mu[i];
         p.inv[n * C + i] = iv;
       }
     }
@@ -598,7 +399,6 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
     const int Q = (o1 - o0) * Wo;
     T* out = static_cast<T*>(p.out) + ((size_t)n * Ho + o0) * Wo * C + c;
     const int ody = PL / Wo, odx = PL - ody * Wo;
-    int oy = o0 + pl / Wo, ox = pl % Wo;
     auto emit = [&](T* dst, float(&v)[VEC]) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
@@ -607,69 +407,48 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
       }
       V::st_stream(dst, v);
     };
-    int q = pl;
-    if constexpr (ROUTE == ROUTE_SMEM) {
-      for (; q < Q; q += PL) {
-        const int sy = source_index(oy - pad, H, p.edge), sx = source_index(ox - pad, W, p.edge);
-        advance(oy, ox, ody, odx, Wo);
-        const S* src = band + ((sy - r0) * W + sx) * C + c;
-        if (sy < r0 || sy >= r1) {  // a border row fed by another block's band
-          const int owner = sy / p.rows;
-          src = cg::this_cluster().map_shared_rank(band, owner) +
-                ((sy - owner * p.rows) * W + sx) * C + c;
-        }
-        float v[VEC];
-        VS::to_float(VS::ld(src), v);
-        emit(out + (size_t)q * C, v);
-      }
-    } else {
-      // Backwards from the band's last output pixel: on the L2 route the
-      // rows read last by the statistics come back first, while L2 still
-      // holds them. Output pixel Q - 1 - q for q = pl, pl + PL, ...
-      oy = o0 + (Q - 1 - pl) / Wo;
-      ox = (Q - 1 - pl) % Wo;
-      auto x_last = [&](int y, int xx) {
-        return ROUTE == ROUTE_L2 ? V::ld_last(x + (y * W + xx) * C + c) : x_at(y, xx);
-      };
-      for (; q + (U - 1) * PL < Q; q += U * PL) {
-        Raw rx[U], rr[U];
+    // Backwards from the band's last output pixel: on the L2 route the rows
+    // read last by the statistics come back first, while L2 still holds
+    // them. Output pixel Q - 1 - q for q = pl, pl + PL, ...
+    int oy = o0 + (Q - 1 - pl) / Wo, ox = (Q - 1 - pl) % Wo, q = pl;
+    auto x_last = [&](int y, int xx) {
+      return ROUTE == ROUTE_L2 ? V::ld_last(x + (y * W + xx) * C + c) : x_at(y, xx);
+    };
+    for (; q + (U - 1) * PL < Q; q += U * PL) {
+      Raw rx[U], rr[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int sy = source_index(oy - pad, H, p.edge);
-          const int sx = source_index(ox - pad, W, p.edge);
-          retreat(oy, ox, ody, odx, Wo);
-          rx[u] = x_last(sy, sx);
-          rr[u] = r_at(sy, sx);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float v[VEC];
-          s_of(rx[u], rr[u], v);
-          emit(out + (size_t)(Q - 1 - (q + u * PL)) * C, v);
-        }
-      }
-      for (; q < Q; q += PL) {
-        const int sy = source_index(oy - pad, H, p.edge), sx = source_index(ox - pad, W, p.edge);
+      for (int u = 0; u < U; ++u) {
+        const int sy = source_index(oy - pad, H, p.edge);
+        const int sx = source_index(ox - pad, W, p.edge);
         retreat(oy, ox, ody, odx, Wo);
+        rx[u] = x_last(sy, sx);
+        rr[u] = r_at(sy, sx);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
         float v[VEC];
-        s_of(x_last(sy, sx), r_at(sy, sx), v);
-        emit(out + (size_t)(Q - 1 - q) * C, v);
+        s_of(rx[u], rr[u], v);
+        emit(out + (size_t)(Q - 1 - (q + u * PL)) * C, v);
       }
     }
+    for (; q < Q; q += PL) {
+      const int sy = source_index(oy - pad, H, p.edge), sx = source_index(ox - pad, W, p.edge);
+      retreat(oy, ox, ody, odx, Wo);
+      float v[VEC];
+      s_of(x_last(sy, sx), r_at(sy, sx), v);
+      emit(out + (size_t)(Q - 1 - q) * C, v);
+    }
   }
-  // Other blocks may still read this band over DSMEM.
-  if constexpr (ROUTE == ROUTE_SMEM) cg::this_cluster().sync();
 }
 
 // Launches the kernel, or with `clusters` set reports how many of its
 // clusters the device runs at once instead.
-template <typename T, typename S, int VEC, int ROUTE, bool RES>
+template <typename T, int VEC, int ROUTE, bool RES>
 cudaError_t run(const Params& p, int N, int cluster, cudaStream_t stream, int* clusters) {
   static hopper::Granted granted;
-  auto kernel = in_kernel<T, S, VEC, ROUTE, RES>;
-  const size_t smem = smem_bytes<S, VEC, ROUTE>(p);
-  cudaError_t err = hopper::allow_smem(kernel, smem, &granted);
-  if (err != cudaSuccess) return err;
+  auto kernel = in_kernel<T, VEC, ROUTE, RES>;
+  const size_t smem = smem_bytes<VEC, ROUTE>(p);  // at most 33 KB: no opt-in
+  cudaError_t err;
   if (cluster > 8 && (err = hopper::allow_large_clusters(kernel, &granted)) != cudaSuccess)
     return err;
   cudaLaunchConfig_t cfg = {};
@@ -692,12 +471,8 @@ cudaError_t run(const Params& p, int N, int cluster, cudaStream_t stream, int* c
 template <typename T, int VEC, bool RES>
 cudaError_t by_route(int route, const Params& p, int N, int cluster, cudaStream_t stream,
                      int* clusters) {
-  if (route == ROUTE_SUMS) return run<T, T, VEC, ROUTE_SUMS, RES>(p, N, cluster, stream, clusters);
-  if (route == ROUTE_L2) return run<T, T, VEC, ROUTE_L2, RES>(p, N, cluster, stream, clusters);
-  if constexpr (RES && sizeof(T) == 2) {  // a bf16 residual added in f32 keeps s in f32
-    if (p.res_f32) return run<T, float, VEC, ROUTE_SMEM, RES>(p, N, cluster, stream, clusters);
-  }
-  return run<T, T, VEC, ROUTE_SMEM, RES>(p, N, cluster, stream, clusters);
+  if (route == ROUTE_SUMS) return run<T, VEC, ROUTE_SUMS, RES>(p, N, cluster, stream, clusters);
+  return run<T, VEC, ROUTE_L2, RES>(p, N, cluster, stream, clusters);
 }
 
 template <typename T, int VEC>
@@ -733,8 +508,6 @@ int launch(const void* x, const void* res, int res_pad, int res_f32, const void*
   p.eps = eps;
   p.rows = rows;
   p.ctas = ctas;
-  // Bulk copies move whole image rows: 16-byte multiples at 16-byte bases.
-  p.bulk = (C * sizeof(T)) % 16 == 0;
   const uintptr_t align = (uintptr_t)vec * sizeof(T) - 1;
   const bool given = sums != nullptr && sumsqs != nullptr;
   // The plan's shape: every image row in one block's band, a cluster of the
@@ -769,7 +542,7 @@ const char* stx_instance_norm_error_string(int err) {
 // added in f32 (res_f32 = 1) or rounded to x's type (res_f32 = 0); sums/sumsqs
 // [N, C] f32 or NULL; scale/bias [C] f32; mean/inv [N, C] f32 outputs; out
 // [N, H+2*pad, W+2*pad, C]. The plan (ops/cuda/instance_norm.py::in_plan):
-// route (0 given sums, 1 band in shared memory, 2 band re-read from L2),
+// route (0 given sums, 1 band re-read from L2),
 // ctas blocks of `rows` image rows per image in clusters of `cluster`
 // blocks, `vec` channels per access. With `clusters` non-NULL nothing is
 // launched: it receives how many such clusters the device runs at once.

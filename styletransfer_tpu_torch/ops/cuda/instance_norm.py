@@ -34,23 +34,16 @@ EPS = 1e-5  # nn.InstanceNorm2d's
 # past the portable 8: the kernel opts in).
 THREADS = 256
 MAX_CLUSTER = 16
-# Shared memory a block may use on an H100 (227 KB), an SM's (228 KB), and
-# what the SM reserves of it for each resident block (1 KB).
-SMEM_LIMIT = 232448
-SM_SMEM = 233472
-BLOCK_RESERVED = 1024
 # Streaming multiprocessors of an H100 SXM.
 SMS = 132
 # The routes, by the kernel's numbers for them.
-ROUTES = {"sums": 0, "smem": 1, "l2": 2}
-# Bytes of the smem route's mbarriers (one per bulk-copy chunk, at most 8).
-_CHUNK_BARRIERS = 8 * 8
+ROUTES = {"sums": 0, "l2": 1}
 
 
 class InPlan(NamedTuple):
     """How the IN kernel runs one shape: the route (``sums``: statistics
-    given, no reduction; ``smem``: each block's band of s stays in shared
-    memory; ``l2``: the band is read again from L2), ``ctas`` blocks per
+    given, no reduction; ``l2``: each block's band is read again from L2
+    after the cluster's reduction), ``ctas`` blocks per
     image of ``rows`` image rows each, in clusters of ``cluster`` blocks,
     ``vec`` channels per 16- (or 8-) byte access, and the dynamic shared
     memory of a block in bytes."""
@@ -67,47 +60,26 @@ class InPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
-def in_plan(N: int, H: int, W: int, C: int, dtype: torch.dtype, has_residual: bool,
-            has_stats: bool, res_f32: bool = False, route: Optional[str] = None) -> InPlan:
+def in_plan(N: int, H: int, W: int, C: int, dtype: torch.dtype, has_stats: bool) -> InPlan:
     """The route and blocks of the IN kernel for x [N, H, W, C].
 
     ``has_stats``: (sums, sumsqs) are given, so there is no reduction and no
     cluster; the images' blocks of whole rows make about one wave of three
     blocks per SM. Otherwise an image is one cluster of the largest power
     of two of blocks up to :data:`MAX_CLUSTER` and H, each owning
-    ``ceil(H / cluster)`` rows (the last blocks of a ragged H may own none);
-    the block's band of s stays in shared memory where two such blocks fit
-    an SM's :data:`SM_SMEM`, :data:`BLOCK_RESERVED` of it reserved for
-    each (``smem``), else it is read again from L2
-    (``l2``): with one block per SM the band's load, reductions and write
-    run one after another, and the L2 route was faster on an H100 (bf16
-    in2, [64, 128, 128, 64]: 0.2305 ms from shared memory, 0.1586 on the L2
-    route). s is kept in x's dtype, or in f32 where a bf16 residual is
-    added in f32 (``res_f32``, the training forward). Accesses are 16 bytes
-    (``vec`` 4 in f32, 8 in bf16), 8 in bf16 where C % 8 != 0. Every shape
-    the wrapper's check takes (C % 4 == 0, C <= 1024) has a plan. ``route``
-    asks for the ``l2`` or ``smem`` plan instead of the one chosen
-    (``chip_smoke.py`` times the two side by side); it raises where that
-    route cannot run."""
-    size = 4 if dtype == torch.float32 else 2
-    vec = 8 if size == 2 and C % 8 == 0 else 4
+    ``ceil(H / cluster)`` rows (the last blocks of a ragged H may own none),
+    whose band is read again from L2 after the cluster's reduction
+    (``l2``). Accesses are 16 bytes (``vec`` 4 in f32, 8 in bf16), 8 in
+    bf16 where C % 8 != 0. Every shape the wrapper's check takes (C % 4 ==
+    0, C <= 1024) has a plan, with or without a residual."""
+    vec = 8 if dtype == torch.bfloat16 and C % 8 == 0 else 4
     channels = 4 * C * 4  # mean, inv * scale and the cluster partials
-    if route is not None and (route not in ROUTES or (route == "sums") != has_stats):
-        raise ValueError(f"route {route} cannot run [{N}, {H}, {W}, {C}] "
-                         f"({'with' if has_stats else 'without'} statistics given)")
     if has_stats:  # about one wave of three blocks per SM
         ctas = min(H, max(1, 3 * SMS // N))
         rows = -(-H // ctas)
         return InPlan("sums", -(-H // rows), 1, rows, vec, channels)
     cluster = 1 << (min(MAX_CLUSTER, H).bit_length() - 1)
     rows = -(-H // cluster)
-    band = rows * W * C * (4 if has_residual and res_f32 else size)
-    smem = channels + THREADS * vec * 4 + _CHUNK_BARRIERS + band
-    two_per_sm = 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
-    if route == "smem" and smem > SMEM_LIMIT:
-        raise ValueError(f"a band of {band} B does not fit a block's shared memory")
-    if route == "smem" or (route is None and two_per_sm):
-        return InPlan("smem", cluster, cluster, rows, vec, smem)
     return InPlan("l2", cluster, cluster, rows, vec, channels + THREADS * (1 + 2 * vec) * 4)
 
 
@@ -211,13 +183,11 @@ def launch(
     pad: int,
     mode: str,
     stats: Optional[Tuple[torch.Tensor, torch.Tensor]],
-    plan: Optional[InPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on checked CUDA tensors; counts nothing.
 
     ``res_f32`` adds the residual in f32 instead of rounding the sum to
-    ``x.dtype``. Runs ``plan``, by default :func:`in_plan`'s plan for the
-    shape (``chip_smoke.py`` passes a forced route's). Returns ``(out,
+    ``x.dtype``. Runs :func:`in_plan`'s plan for the shape. Returns ``(out,
     mean_inv)`` with ``mean_inv`` [2, N, C] f32: the statistics the output
     was normalized with. Raises if the launch is refused (a cluster the
     device cannot place, shared memory it does not grant, an unaligned
@@ -226,7 +196,7 @@ def launch(
     extra += [] if stats is None else list(stats)
     check_cuda_inputs(x, scale, bias, *extra)
     N, H, W, C = x.shape
-    plan = plan or in_plan(N, H, W, C, x.dtype, residual is not None, stats is not None, res_f32)
+    plan = in_plan(N, H, W, C, x.dtype, stats is not None)
     dev = x.device
     out = torch.empty((N, H + 2 * pad, W + 2 * pad, C), dtype=x.dtype, device=dev)
     mean_inv = torch.empty((2, N, C), dtype=torch.float32, device=dev)

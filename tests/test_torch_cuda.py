@@ -165,26 +165,23 @@ def test_instance_norm_kernel_matches_plain(cuda, dtype, case):
 
 # Each branch of instance_norm.in_plan: (route in both dtypes, shape, pad,
 # mode, residual pad or None, statistics given, residual added in f32 as the
-# training forward does). smem: bands of 2 rows; bands of 1 row under a pad
-# of 4, whose border rows come from other blocks' bands over DSMEM; a
-# residual rounded to x's dtype (added in place as bulk copies land); a
-# residual added in f32 (in bf16 an f32 band the threads fill). l2: an
-# image past the cluster's shared memory, without and with a residual
-# (rounded, then added in f32). sums: statistics given. Tiny images: 3 x 5
-# with four channels (a cluster of 2; in bf16 8-byte accesses and a band
-# the threads fill, its rows too short for bulk copies) and one pixel under
-# edge padding.
+# training forward does). l2: bands of 2 rows; bands of 1 row under a pad of
+# 4, whose border rows come from other blocks' bands; a residual rounded to
+# x's dtype; a residual added in f32; images of 16-row bands, without and
+# with a residual (rounded, then added in f32). sums: statistics given.
+# Tiny images: 3 x 5 with four channels (a cluster of 2; in bf16 8-byte
+# accesses) and one pixel under edge padding.
 _IN_PLAN_CASES = [
-    ("smem", (2, 32, 32, 64), 1, "reflect", None, False, False),
-    ("smem", (2, 16, 16, 32), 4, "reflect", None, False, False),
-    ("smem", (2, 32, 32, 128), 1, "reflect", 1, False, False),
-    ("smem", (2, 32, 32, 128), 0, "reflect", 0, False, True),
+    ("l2", (2, 32, 32, 64), 1, "reflect", None, False, False),
+    ("l2", (2, 16, 16, 32), 4, "reflect", None, False, False),
+    ("l2", (2, 32, 32, 128), 1, "reflect", 1, False, False),
+    ("l2", (2, 32, 32, 128), 0, "reflect", 0, False, True),
     ("l2", (1, 256, 256, 32), 1, "reflect", None, False, False),
     ("l2", (1, 256, 256, 32), 4, "edge", 1, False, False),
     ("l2", (1, 128, 128, 64), 0, "reflect", 0, False, True),
     ("sums", (2, 16, 16, 128), 1, "reflect", None, True, False),
-    ("smem", (1, 3, 5, 4), 1, "edge", None, False, False),
-    ("smem", (1, 1, 1, 4), 2, "edge", None, False, False),
+    ("l2", (1, 3, 5, 4), 1, "edge", None, False, False),
+    ("l2", (1, 1, 1, 4), 2, "edge", None, False, False),
 ]
 
 
@@ -202,7 +199,7 @@ def test_instance_norm_plan_branches_match_plain_and_repeat(cuda, dtype, case):
     stats = None
     if with_stats:
         stats = (x.float().sum(dim=(1, 2)), (x.float() ** 2).sum(dim=(1, 2)))
-    plan = instance_norm.in_plan(N, H, W, C, dtype, res is not None, with_stats, res_f32)
+    plan = instance_norm.in_plan(N, H, W, C, dtype, with_stats)
     assert plan.route == route
     if res_f32:  # the training forward: pad 0, the residual added in f32
         before = fused_instance_norm.fwd_launches
@@ -231,7 +228,7 @@ def test_instance_norm_clusters_fit_the_device(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         for H, C in ((256, 32), (128, 64), (64, 128)):
             x = torch.zeros(1, H, H, C, device=cuda, dtype=dtype)
-            plan = instance_norm.in_plan(64, H, H, C, dtype, False, False)
+            plan = instance_norm.in_plan(64, H, H, C, dtype, False)
             assert instance_norm.max_active_clusters(x, plan) >= 1
 
 
