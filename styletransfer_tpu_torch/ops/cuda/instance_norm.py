@@ -190,8 +190,7 @@ def launch(
     ``x.dtype``. Runs :func:`in_plan`'s plan for the shape. Returns ``(out,
     mean_inv)`` with ``mean_inv`` [2, N, C] f32: the statistics the output
     was normalized with. Raises if the launch is refused (a cluster the
-    device cannot place, shared memory it does not grant, an unaligned
-    tensor)."""
+    device cannot place, an unaligned tensor)."""
     extra = [] if residual is None else [residual]
     extra += [] if stats is None else list(stats)
     check_cuda_inputs(x, scale, bias, *extra)
