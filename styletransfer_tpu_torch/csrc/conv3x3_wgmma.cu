@@ -7,8 +7,8 @@
 // on an input that the previous instance norm already wrote padded, plus
 // sums[b, o] and sumsqs[b, o] of the post-activation f32 accumulator (taken
 // before the one rounding to bf16), ready for the next instance norm. It
-// serves bf16 at every width up to 256 (ops/cuda/conv3x3.py::valid_plan);
-// conv3x3.cu's mma.sync kernel serves wider rows.
+// serves bf16 at every width (ops/cuda/conv3x3.py::valid_plan); conv3x3.cu's
+// mma.sync kernel stays as a route that a caller can ask for.
 //
 // What bounds it on an H100: the residual-stack call ([64, 66, 66, 128] ->
 // [64, 64, 64, 128]) is 77.3 GFLOP on 139 MB, bound by the tensor cores
@@ -21,16 +21,20 @@
 //
 // Design: an implicit GEMM over [B*H*W] x [9*C] -> [O] whose K axis is the
 // nine taps times the 64-channel chunks of C (18 k-steps at C = 128). A tile
-// is rows = floor(BM / W) whole output rows of one image, rows x W <= BM
-// output positions, by BN = 128 output channels.
+// is `rows` output rows by `seg` output columns of one image, rows x seg <=
+// BM output positions, by BN = 128 output channels: a row of width W is cut
+// into segs = ceil(W / seg) segments of at most 256 columns (a TMA box
+// dimension is at most 256 wide), and rows = floor(BM / seg). Rows up to
+// 256 wide take whole-row tiles (seg = W); valid_plan picks seg for wider
+// rows. Accumulator row i is output pixel (y0 + i / seg, x0 + i % seg).
 //   A: one TMA box of a 4-D map over x [B, Hp, Wp, C] per k-step: box
-//      {64 channels, W, rows, 1 image} at (c0, dx, y0 + dy, b) is the tap's
-//      (rows x W) x 64 window, and it lands K-major in the 128-byte swizzle
-//      that a wgmma descriptor reads (no ldmatrix, no garbage columns). Where
-//      rows x W < BM (75 wide: 225 of 256), the stage's last A rows keep
-//      whatever an earlier box left there. Row i of a wgmma's D reads only
-//      row i of A, so they reach only accumulator rows that are neither
-//      stored nor summed.
+//      {64 channels, seg, rows, 1 image} at (c0, x0 + dx, y0 + dy, b) is the
+//      tap's (rows x seg) x 64 window, and it lands K-major in the 128-byte
+//      swizzle that a wgmma descriptor reads (no ldmatrix, no garbage
+//      columns). Where rows x seg < BM (75 wide: 225 of 256), the stage's
+//      last A rows keep whatever an earlier box left there. Row i of a
+//      wgmma's D reads only row i of A, so they reach only accumulator rows
+//      that are neither stored nor summed.
 //   B: the tap's 64 x BN weights by TMA, from a 3-D map over w as [9, C, O],
 //      N-major in the same swizzle (64-channel atoms of 64 k-rows).
 //   A ring of STAGES stages, each with a "full" mbarrier that counts the
@@ -44,16 +48,18 @@
 //   for the next tile while the consumers run this tile's epilogue.
 //   Epilogue: bias in f32, ReLU and one rounding to bf16 into a staging
 //   tile in shared memory (one [BM][64] box per 64 channels), stored by TMA
-//   as {64, W, rows, 1} boxes of a 4-D map over out, whole rows only, while
-//   the next tile computes; the
-//   per-tile column sums and sums of squares of the f32 values, added in a
-//   fixed order (each thread's rows, a butterfly over the lanes, then the
-//   eight consumer warps in order) and written per tile; tile_sums_kernel
-//   then adds each image's tiles in tile order. No atomics: a call is the
-//   same bit for bit from run to run.
+//   as {64, seg, rows, 1} boxes of a 4-D map over out at (n0, x0, y0, img)
+//   while the next tile computes; the per-tile column sums and sums of
+//   squares of the f32 values, added in a fixed order (each thread's rows,
+//   a butterfly over the lanes, then the eight consumer warps in order) and
+//   written per tile; tile_sums_kernel then adds each image's tiles in tile
+//   order (row tile by row tile, segment by segment). No atomics: a call is
+//   the same bit for bit from run to run.
 // TMA fills what lies outside x or w with zeros: a last chunk of C that is
-// not full, rows below the image, weights past O. The TMA stores drop rows
-// below the image and channels past O, and the sums skip them.
+// not full, rows below the image, columns right of it in the last segment,
+// weights past O. The TMA stores drop rows below the image, columns right of
+// it and channels past O, and the sums skip those positions (y >= H or
+// x >= W).
 
 #include "hopper.cuh"
 
@@ -71,24 +77,30 @@ constexpr int RED_BYTES = 2 * CONSUMER_WARPS * BN * 4;  // the epilogue's per-wa
 
 struct Shape {
   int H, W, O;
-  int rows;       // output rows per tile: floor(BM / W)
-  int row_tiles;  // tiles per image along the rows
-  int n_tiles;    // tiles along the output channels
-  int tiles;      // B * row_tiles * n_tiles
-  int chunks;     // 64-channel chunks of C
+  int seg;          // output columns per tile: W, or a segment of a wider row
+  int segs;         // segments per row: ceil(W / seg)
+  int rows;         // output rows per tile: floor(BM / seg)
+  int image_tiles;  // tiles per image: ceil(H / rows) * segs
+  int n_tiles;      // tiles along the output channels
+  int tiles;        // B * image_tiles * n_tiles
+  int chunks;       // 64-channel chunks of C
 };
 
+// A tile: image, index among the image's tiles (row tile by row tile,
+// segment by segment), first output row and column, first output channel.
 struct Tile {
-  int img, mt, y0, n0;
+  int img, it, y0, x0, n0;
 };
 
 __device__ __forceinline__ Tile tile_of(int t, const Shape& s) {
   const int r = t / s.n_tiles;
   Tile tile;
   tile.n0 = (t - r * s.n_tiles) * BN;
-  tile.img = r / s.row_tiles;
-  tile.mt = r - tile.img * s.row_tiles;
-  tile.y0 = tile.mt * s.rows;
+  tile.img = r / s.image_tiles;
+  tile.it = r - tile.img * s.image_tiles;
+  const int mt = tile.it / s.segs;
+  tile.y0 = mt * s.rows;
+  tile.x0 = (tile.it - mt * s.segs) * s.seg;
   return tile;
 }
 
@@ -110,7 +122,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap to, const float* __restrict__ bias,
                      float* __restrict__ psum, float* __restrict__ psq, Shape s, int relu) {
   constexpr int MI = BM / 128;  // m64 blocks of rows per consumer warpgroup
-  constexpr int A_BYTES = BM * BK * 2;  // the A slot of a stage; a box fills rows * W of its rows
+  constexpr int A_BYTES = BM * BK * 2;  // the A slot of a stage; a box fills rows * seg of its rows
   constexpr int STAGE = stage_bytes<BM>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[STAGES], empty[STAGES];
@@ -123,7 +135,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   float* red = reinterpret_cast<float*>(staging + BM * BN * 2);
   const int tid = threadIdx.x;
   const int ksteps = 9 * s.chunks;
-  const int positions = s.rows * s.W;  // output positions of a tile
+  const int positions = s.rows * s.seg;  // output positions of a tile
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -151,7 +163,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           const int tap = k % 9, c0 = k / 9 * BK;
           unsigned char* a = smem + stage * STAGE;
           mbar_expect(full + stage, positions * BK * 2 + boxes * B_BOX_BYTES);
-          tma_4d(a, &tx, c0, tap % 3, tile.y0 + tap / 3, tile.img, full + stage);
+          tma_4d(a, &tx, c0, tile.x0 + tap % 3, tile.y0 + tap / 3, tile.img, full + stage);
           for (int h = 0; h < boxes; ++h)
             tma_3d(a + A_BYTES + h * B_BOX_BYTES, &tw, tile.n0 + h * 64, c0, tap, full + stage);
         }
@@ -215,12 +227,21 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     // 8i + 2*t4 + {0,1}; e = 2,3 -> row g + 8. Each warpgroup rounds its rows
     // into the staging tile, where channel group i (16 bytes) of tile row R
     // sits at chunk (i % 8) ^ (R % 8) of box i / 8, and one thread stores the
-    // boxes by TMA: the tile's rows x W positions, whole image rows (rows
-    // below the image and channels past O are not written). The store runs
-    // on while the next tile computes; before the staging tile is written
-    // again, its reads have finished.
+    // boxes by TMA: the tile's rows x seg positions (rows below the image,
+    // columns right of it and channels past O are not written). The store
+    // runs on while the next tile computes; before the staging tile is
+    // written again, its reads have finished. Tile row R is a position of
+    // the image where R < rows * seg, y0 + R / seg < H and x0 + R % seg < W.
     constexpr int BOX = BM * 128;  // bytes of one [BM][64] box
-    const int first = tile.y0 * s.W;  // the tile's first position in the image
+    bool inside[MI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * (BM / 2) + mi * 64 + (warp & 3) * 16 + g + 8 * h;
+        const int yy = r / s.seg;
+        inside[mi][h] = r < positions && tile.y0 + yy < s.H && tile.x0 + r - yy * s.seg < s.W;
+      }
     if (tid == 0) bulk_wait_read<0>();
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
 #pragma unroll
@@ -238,7 +259,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           *reinterpret_cast<__nv_bfloat162*>(staging + (i / 8) * BOX + r * 128 +
                                              (((i % 8) ^ (r & 7)) << 4) + t4 * 4) =
               __floats2bfloat162_rn(v0, v1);
-          if (r < positions && first + r < s.H * s.W) {  // a position of the image
+          if (inside[mi][h]) {  // a position of the image
             s0 += v0;
             s1 += v1;
             q0 += v0 * v0;
@@ -265,7 +286,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_WARPS * 32) : "memory");
     if (tid == 0) {
       for (int h = 0; h < BN / 64 && tile.n0 + h * 64 < s.O; ++h)
-        tma_store_4d(&to, staging + h * BOX, tile.n0 + h * 64, 0, tile.y0, tile.img);
+        tma_store_4d(&to, staging + h * BOX, tile.n0 + h * 64, tile.x0, tile.y0, tile.img);
       bulk_commit();
     }
     if (tid < BN && tile.n0 + tid < s.O) {
@@ -274,7 +295,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         ts += red[wp * BN + tid];
         tq += red[(CONSUMER_WARPS + wp) * BN + tid];
       }
-      const size_t o = ((size_t)tile.img * s.row_tiles + tile.mt) * s.O + tile.n0 + tid;
+      const size_t o = ((size_t)tile.img * s.image_tiles + tile.it) * s.O + tile.n0 + tid;
       psum[o] = ts;
       psq[o] = tq;
     }
@@ -287,14 +308,14 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 struct Launch {
   const void *x, *w, *bias;
   void *out, *psum, *psq, *sums, *sumsqs;
-  int B, Hp, Wp, C, O, relu, grid;
+  int B, Hp, Wp, C, O, relu, seg, grid;
   cudaStream_t stream;
 };
 
-// The TMA maps of x (4-D: [C, Wp, Hp, B], {64, W, rows, 1} boxes), w
+// The TMA maps of x (4-D: [C, Wp, Hp, B], {64, seg, rows, 1} boxes), w
 // (3-D: [O, C, 9], {64, 64, 1} boxes) and out (4-D: [O, W, H, B],
-// {64, W, rows, 1} boxes), all in the 128-byte swizzle, with rows =
-// floor(bm / W). Loads outside the tensors arrive as zeros; stores outside
+// {64, seg, rows, 1} boxes), all in the 128-byte swizzle, with rows =
+// floor(bm / seg). Loads outside the tensors arrive as zeros; stores outside
 // them are dropped.
 cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* tw,
                         CUtensorMap* to) {
@@ -304,8 +325,8 @@ cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* t
                               (cuuint64_t)l.B};
   const cuuint64_t xstride[3] = {(cuuint64_t)l.C * 2, (cuuint64_t)l.Wp * l.C * 2,
                                  (cuuint64_t)l.Hp * l.Wp * l.C * 2};
-  const cuuint32_t rows = (cuuint32_t)(bm / (l.Wp - 2));
-  const cuuint32_t xbox[4] = {BK, (cuuint32_t)(l.Wp - 2), rows, 1};
+  const cuuint32_t rows = (cuuint32_t)(bm / l.seg);
+  const cuuint32_t xbox[4] = {BK, (cuuint32_t)l.seg, rows, 1};
   const cuuint64_t wdim[3] = {(cuuint64_t)l.O, (cuuint64_t)l.C, 9};
   const cuuint64_t wstride[2] = {(cuuint64_t)l.O * 2, (cuuint64_t)l.C * l.O * 2};
   const cuuint32_t wbox[3] = {64, BK, 1}, ones[4] = {1, 1, 1, 1};
@@ -313,7 +334,7 @@ cudaError_t encode_maps(const Launch& l, int bm, CUtensorMap* tx, CUtensorMap* t
                               (cuuint64_t)l.B};
   const cuuint64_t ostride[3] = {(cuuint64_t)l.O * 2, odim[1] * l.O * 2,
                                  odim[2] * odim[1] * l.O * 2};
-  const cuuint32_t obox[4] = {64, (cuuint32_t)(l.Wp - 2), rows, 1};
+  const cuuint32_t obox[4] = {64, (cuuint32_t)l.seg, rows, 1};
   if (encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(l.x), xdim, xstride,
              xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -332,10 +353,11 @@ template <int BM, int STAGES>
 int launch(const Launch& l) {
   static hopper::Granted granted;
   const int W = l.Wp - 2, H = l.Hp - 2;
-  // The box form: at least one whole output row per tile (TMA boxes are at
-  // most 256 wide), TMA's 16-byte strides and bases (C and O multiples of 8,
-  // 16-byte aligned x, w and out).
-  if (W < 1 || W > 256 || W > BM || H < 1 || l.C % 8 != 0 || l.O % 8 != 0 || l.grid < 1 ||
+  // The box form: segments of at most 256 columns (TMA's largest box
+  // dimension) and at least one row of them per tile, TMA's 16-byte strides
+  // and bases (C and O multiples of 8, 16-byte aligned x, w and out).
+  if (W < 1 || l.seg < 1 || l.seg > 256 || l.seg > BM || l.seg > W || H < 1 || l.C % 8 != 0 ||
+      l.O % 8 != 0 || l.grid < 1 ||
       ((reinterpret_cast<uintptr_t>(l.x) | reinterpret_cast<uintptr_t>(l.w) |
         reinterpret_cast<uintptr_t>(l.out)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -346,10 +368,12 @@ int launch(const Launch& l) {
   s.H = H;
   s.W = W;
   s.O = l.O;
-  s.rows = BM / W;
-  s.row_tiles = (H + s.rows - 1) / s.rows;
+  s.seg = l.seg;
+  s.segs = (W + l.seg - 1) / l.seg;
+  s.rows = BM / l.seg;
+  s.image_tiles = (H + s.rows - 1) / s.rows * s.segs;
   s.n_tiles = (l.O + BN - 1) / BN;
-  s.tiles = l.B * s.row_tiles * s.n_tiles;
+  s.tiles = l.B * s.image_tiles * s.n_tiles;
   s.chunks = (l.C + BK - 1) / BK;
   CUtensorMap tx = {}, tw = {}, to = {};
   if ((err = encode_maps(l, BM, &tx, &tw, &to)) != cudaSuccess) return static_cast<int>(err);
@@ -360,7 +384,7 @@ int launch(const Launch& l) {
   const int n = l.B * l.O;
   conv3x3::tile_sums_kernel<<<(n + 255) / 256, 256, 0, l.stream>>>(
       static_cast<const float*>(l.psum), static_cast<const float*>(l.psq),
-      static_cast<float*>(l.sums), static_cast<float*>(l.sumsqs), l.B, s.row_tiles, l.O);
+      static_cast<float*>(l.sums), static_cast<float*>(l.sumsqs), l.B, s.image_tiles, l.O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,17 +397,18 @@ const char* stx_conv3x3_wgmma_error_string(int err) {
 }
 
 // x [B, Hp, Wp, C] and w [3, 3, C, O] bf16, bias [O] f32, out [B, Hp-2, Wp-2,
-// O] bf16, psum/psq [B, row tiles, O] f32 scratch (row tiles = ceil(H / (bm /
-// W))), sums/sumsqs [B, O] f32; on tiles of bm positions with a ring of
-// `stages` and a persistent grid of `grid` blocks, one per SM (the wrapper's
-// plan). Returns a cudaError_t (0 on success;
+// O] bf16, psum/psq [B, image tiles, O] f32 scratch (image tiles = ceil(H /
+// floor(bm / seg)) * ceil(W / seg)), sums/sumsqs [B, O] f32; on tiles of
+// floor(bm / seg) rows of `seg` columns (seg <= min(W, 256, bm)) with a ring
+// of `stages` and a persistent grid of `grid` blocks, one per SM (the
+// wrapper's plan). Returns a cudaError_t (0 on success;
 // cudaErrorInvalidValue for a shape outside the box form or a configuration
 // the library does not have).
 int stx_conv3x3_wgmma(const void* x, const void* w, const void* bias, void* out, void* psum,
                       void* psq, void* sums, void* sumsqs, int B, int Hp, int Wp, int C, int O,
-                      int relu, int bm, int stages, int grid, void* stream) {
-  const Launch l{x,  w,  bias, out, psum, psq,  sums, sumsqs, B,
-                 Hp, Wp, C,    O,   relu, grid, static_cast<cudaStream_t>(stream)};
+                      int relu, int bm, int stages, int seg, int grid, void* stream) {
+  const Launch l{x,  w,  bias, out,  psum, psq, sums, sumsqs, B, Hp,
+                 Wp, C,  O,    relu, seg,  grid, static_cast<cudaStream_t>(stream)};
   if (bm == 256 && stages == 3) return launch<256, 3>(l);
   if (bm == 128 && stages == 4) return launch<128, 4>(l);
   return static_cast<int>(cudaErrorInvalidValue);

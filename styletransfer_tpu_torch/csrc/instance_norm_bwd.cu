@@ -21,30 +21,47 @@
 // at 3.35 TB/s; at that size a call is also short enough that the host's
 // launch of it can take longer than the card's run (PERF.md).
 //
-// Design: an image (up to 65,536 pixels) does not fit in one block's shared
-// memory, and blocks run in no order, so the two reductions are split into
-// deterministic passes without atomics, as in the forward's statistics:
-//   1. inb_partial: grid (G, N); each block reduces one chunk of pixels of
-//      one image. A thread owns four channels and strides over pixels,
-//      keeping (S1, S2); the block adds its threads in a fixed order and
-//      writes part[n, g, c, 0..1].
-//   2. inb_finalize: one warp per channel. For each image the lanes add the
-//      chunk partials at a fixed stride, a xor-shuffle tree (the same on
-//      every lane) adds the lanes, and lane 0 writes S1, S2 and carries the
-//      sums over images for dscale and dbias.
-//   3. inb_dx: one thread per (pixel, four channels) recomputes xhat and the
-//      mask and writes dx; 16-byte (f32) or 8-byte (bf16) loads and stores.
-// x, the residual and g are read twice (passes 1 and 3); the bound counts
-// them once. A single-read design would keep an image on chip across a
-// cluster of blocks (distributed shared memory): later work.
+// Design: one cooperative launch per call, no atomics. The grid is at most
+// the blocks the card holds at once (the occupancy API; the launch is
+// refused otherwise), so a grid-wide barrier can join the two reductions.
+// An image's pixels are cut into `G` chunks of `chunk` pixels (the wrapper's
+// plan, ops/cuda/fused_instance_norm.py::bwd_plan); chunk t of image n is
+// item n * G + t, and block b takes items b, b + grid, ... A thread owns
+// four channels and one pixel lane of its block (NT / (C / 4) lanes).
+//   1. Pass 1: each thread strides over its item's pixels, keeping (S1,
+//      S2); the block adds its threads in a fixed tree and writes
+//      part[n, t, 0..1, c].
+//   2. cooperative_groups::this_grid().sync().
+//   3. Each block adds its image's G partials in the same fixed order (a
+//      strided sum per thread, then the same tree), so every block of an
+//      image holds the same S1, S2 bit for bit.
+//   4. Pass 2 writes dx with streaming stores; 16-byte (f32) or 8-byte
+//      (bf16) accesses.
+//   5. Block 0 adds all N * G partials in one fixed order (the same strided
+//      sum and tree) into dbias and dscale (need_dx = false: steps 1-3 and
+//      5 only).
+// Two routes. Held (a call whose chunks of up to HELD pixels a lane fit on
+// the resident blocks at once, one each: the 64 x 64 x 128 calls of a
+// training step, 11 of 15): pass 1 issues all of a thread's loads at once
+// and keeps s and g in registers, so x and g are read once and pass 2
+// reads nothing but the partials. Streaming (wider images): pass 1 reads
+// the item forwards and pass 2 again backwards, the last-read lines first,
+// while L2 still holds them (marked first to evict); x, the residual and g
+// are read twice, the bound counts them once. Either way a call's time at
+// these sizes is mostly its chain of dependent steps (launch, loads,
+// barrier, partials, stores), not its bytes. The partials are G * 2 * C
+// floats per image, read by each of its G blocks.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;
+namespace cg = cooperative_groups;
+
+constexpr int NT = 512;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -59,31 +76,44 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+// The last read of a line: marked first to evict from L2 (__ldcs).
+__device__ __forceinline__ float4 load4_last(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+__device__ __forceinline__ float4 load4_last(const __nv_bfloat16* p) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// dx, which this kernel never reads again: streaming stores (__stcs).
+__device__ __forceinline__ void store4_stream(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+
+__device__ __forceinline__ void store4_stream(__nv_bfloat16* p, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+  __stcs(reinterpret_cast<uint2*>(p), u);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // s = x (+ residual) at flat element offset off (four channels), in f32.
-template <typename T>
+template <bool LAST, typename T>
 __device__ __forceinline__ float4 load_sum(const T* __restrict__ x, const T* __restrict__ res,
                                            size_t off) {
-  float4 v = load4(x + off);
-  if (res != nullptr) {
-    const float4 r = load4(res + off);
-    v.x += r.x;
-    v.y += r.y;
-    v.z += r.z;
-    v.w += r.w;
-  }
+  float4 v = LAST ? load4_last(x + off) : load4(x + off);
+  if (res != nullptr) v = add4(v, LAST ? load4_last(res + off) : load4(res + off));
   return v;
 }
 
@@ -110,157 +140,240 @@ __device__ __forceinline__ Chan4 load_chan(const float* mean, const float* inv,
   return k;
 }
 
-// grid (G, N): block gi reduces pixels [gi*chunk, min(HW, (gi+1)*chunk)) of
-// image n. part[n, gi, c, 0..1] = (S1, S2) of that chunk.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-inb_partial(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
-            const float* __restrict__ mean, const float* __restrict__ inv,
-            const float* __restrict__ scale, const float* __restrict__ bias, int HW, int C,
-            int relu, int chunk, float* __restrict__ part) {
+// What the threads of a block share: each thread's channel group c4 (four
+// channels) and pixel lane lp; ppi = NT / C4 lanes per channel group.
+struct Lanes {
+  int C4, ppi, c4, lp;
+};
+
+// Adds a (and b) over the ppi lanes of each channel group in a fixed tree
+// (lane j takes lane j + stride, the stride halving); lane 0's sums are left
+// in sh1[c4], sh2[c4]. Every thread of the block calls it.
+__device__ __forceinline__ void block_sum(float4* sh1, float4* sh2, float4 a, float4 b,
+                                          const Lanes& L) {
+  const int tid = threadIdx.x;
+  sh1[tid] = a;
+  sh2[tid] = b;
+  __syncthreads();
+  int span = 1;
+  while (span < L.ppi) span <<= 1;
+  for (int stride = span >> 1; stride > 0; stride >>= 1) {
+    if (L.lp < stride && L.lp + stride < L.ppi) {
+      sh1[tid] = add4(sh1[tid], sh1[tid + stride * L.C4]);
+      sh2[tid] = add4(sh2[tid], sh2[tid + stride * L.C4]);
+    }
+    __syncthreads();
+  }
+}
+
+// S1, S2 of image n's four channels of this thread: its G chunk partials
+// added in the same order by every block (lane lp takes chunks lp, lp +
+// ppi, ..., then the tree), so all of the image's blocks agree bit for bit.
+__device__ __forceinline__ void image_sums(const float* __restrict__ part, int n, int G, int C,
+                                           float4* sh1, float4* sh2, const Lanes& L, float4& s1,
+                                           float4& s2) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  if (L.lp < L.ppi) {
+    for (int t = L.lp; t < G; t += L.ppi) {
+      const float* p = part + ((size_t)n * G + t) * 2 * C + L.c4 * 4;
+      a = add4(a, load4(p));
+      b = add4(b, load4(p + C));
+    }
+  }
+  block_sum(sh1, sh2, a, b, L);
+  s1 = sh1[L.c4];
+  s2 = sh2[L.c4];
+  __syncthreads();  // sh1 and sh2 are written again by the next sum
+}
+
+// One element's dx from its sum s, gradient g and the image's S1, S2.
+__device__ __forceinline__ float dx_of(float s, float mu, float iv, float ga, float be, float g,
+                                       float a, float b, float rhw, int relu) {
+  float xh, gm;
+  xhat_gm(s, mu, iv, ga, be, g, relu, xh, gm);
+  return iv * ga * (gm - a * rhw - xh * (b * rhw));
+}
+
+__device__ __forceinline__ float4 dx4(float4 s, float4 gg, const Chan4& k, float4 a, float4 b,
+                                      float rhw, int relu) {
+  return make_float4(dx_of(s.x, k.mu.x, k.iv.x, k.ga.x, k.be.x, gg.x, a.x, b.x, rhw, relu),
+                     dx_of(s.y, k.mu.y, k.iv.y, k.ga.y, k.be.y, gg.y, a.y, b.y, rhw, relu),
+                     dx_of(s.z, k.mu.z, k.iv.z, k.ga.z, k.be.z, gg.z, a.z, b.z, rhw, relu),
+                     dx_of(s.w, k.mu.w, k.iv.w, k.ga.w, k.be.w, gg.w, a.w, b.w, rhw, relu));
+}
+
+// Adds one element group's (S1, S2) terms into s1, s2.
+__device__ __forceinline__ void add_terms(float4 s, float4 gg, const Chan4& k, int relu,
+                                          float4& s1, float4& s2) {
+  float xh, gm;
+  xhat_gm(s.x, k.mu.x, k.iv.x, k.ga.x, k.be.x, gg.x, relu, xh, gm);
+  s1.x += gm; s2.x += gm * xh;
+  xhat_gm(s.y, k.mu.y, k.iv.y, k.ga.y, k.be.y, gg.y, relu, xh, gm);
+  s1.y += gm; s2.y += gm * xh;
+  xhat_gm(s.z, k.mu.z, k.iv.z, k.ga.z, k.be.z, gg.z, relu, xh, gm);
+  s1.z += gm; s2.z += gm * xh;
+  xhat_gm(s.w, k.mu.w, k.iv.w, k.ga.w, k.be.w, gg.w, relu, xh, gm);
+  s1.w += gm; s2.w += gm * xh;
+}
+
+// KEEP = 0: the streaming route (pass 2 reads the item again). KEEP > 0:
+// the held route, one item per block whose pixels are at most KEEP per
+// lane: pass 1 keeps each lane's s and g in registers, and pass 2 reads
+// nothing but the image's partials.
+template <typename T, int KEEP>
+__global__ void __launch_bounds__(NT, KEEP > 0 ? 1 : 2)
+inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
+           const float* __restrict__ mean, const float* __restrict__ inv,
+           const float* __restrict__ scale, const float* __restrict__ bias, int N, int HW,
+           int C, int relu, int G, int chunk, float* __restrict__ part,
+           float* __restrict__ dscale, float* __restrict__ dbias, T* __restrict__ dx) {
   __shared__ float4 sh1[NT];
   __shared__ float4 sh2[NT];
-  const int G = gridDim.x, gi = blockIdx.x, n = blockIdx.y;
-  const int C4 = C / 4;
-  const int ppi = NT / C4;  // pixels per iteration of the block
-  const int tid = threadIdx.x;
-  const int c4 = tid % C4, lp = tid / C4;
-  const int pb = gi * chunk;
-  const int pe = min(HW, pb + chunk);
-
-  float4 s1 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 s2 = s1;
-  if (lp < ppi) {
-    const int c = c4 * 4;
-    const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
-    for (int p = pb + lp; p < pe; p += ppi) {
-      const size_t off = ((size_t)n * HW + p) * C + c;
-      const float4 s = load_sum(x, res, off);
-      const float4 gg = load4(g + off);
-      float xh, gm;
-      xhat_gm(s.x, k.mu.x, k.iv.x, k.ga.x, k.be.x, gg.x, relu, xh, gm);
-      s1.x += gm; s2.x += gm * xh;
-      xhat_gm(s.y, k.mu.y, k.iv.y, k.ga.y, k.be.y, gg.y, relu, xh, gm);
-      s1.y += gm; s2.y += gm * xh;
-      xhat_gm(s.z, k.mu.z, k.iv.z, k.ga.z, k.be.z, gg.z, relu, xh, gm);
-      s1.z += gm; s2.z += gm * xh;
-      xhat_gm(s.w, k.mu.w, k.iv.w, k.ga.w, k.be.w, gg.w, relu, xh, gm);
-      s1.w += gm; s2.w += gm * xh;
-    }
-  }
-  sh1[tid] = s1;
-  sh2[tid] = s2;
-  __syncthreads();
-  if (tid < C4) {
-    float4 a = sh1[tid], b = sh2[tid];
-    for (int j = 1; j < ppi; ++j) {
-      const float4 u = sh1[j * C4 + tid], v = sh2[j * C4 + tid];
-      a.x += u.x; a.y += u.y; a.z += u.z; a.w += u.w;
-      b.x += v.x; b.y += v.y; b.z += v.z; b.w += v.w;
-    }
-    float* o = part + (((size_t)n * G + gi) * C + tid * 4) * 2;
-    o[0] = a.x; o[1] = b.x;
-    o[2] = a.y; o[3] = b.y;
-    o[4] = a.z; o[5] = b.z;
-    o[6] = a.w; o[7] = b.w;
-  }
-}
-
-// grid C, one warp each: S1/S2 [N, C] from the G chunk partials of each
-// image, and dscale/dbias [C] summed over the images in order.
-__global__ void __launch_bounds__(32)
-inb_finalize(const float* __restrict__ part, int N, int G, int C, float* __restrict__ s1,
-             float* __restrict__ s2, float* __restrict__ dscale, float* __restrict__ dbias) {
-  const int c = blockIdx.x, lane = threadIdx.x;
-  float ds = 0.f, db = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float a = 0.f, b = 0.f;
-    for (int gi = lane; gi < G; gi += 32) {
-      const float* p = part + (((size_t)n * G + gi) * C + c) * 2;
-      a += p[0];
-      b += p[1];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      b += __shfl_xor_sync(0xffffffffu, b, off);
-    }
-    if (lane == 0) {
-      s1[(size_t)n * C + c] = a;
-      s2[(size_t)n * C + c] = b;
-    }
-    db += a;
-    ds += b;
-  }
-  if (lane == 0) {
-    dscale[c] = ds;
-    dbias[c] = db;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-inb_dx(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
-       const float* __restrict__ mean, const float* __restrict__ inv,
-       const float* __restrict__ scale, const float* __restrict__ bias,
-       const float* __restrict__ s1, const float* __restrict__ s2, int N, int HW, int C,
-       int relu, T* __restrict__ dx) {
-  const int C4 = C / 4;
-  const size_t total = (size_t)N * HW * C4;
+  Lanes L;
+  L.C4 = C / 4;
+  L.ppi = NT / L.C4;
+  L.c4 = threadIdx.x % L.C4;
+  L.lp = threadIdx.x / L.C4;
+  const bool lane = L.lp < L.ppi;  // threads past ppi * C4 own no pixels
+  const int c = L.c4 * 4;
+  const int items = N * G;
   const float rhw = 1.f / (float)HW;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C4) * 4;
-    const int n = (int)(i / C4 / HW);
-    const size_t off = i * 4;
-    const float4 s = load_sum(x, res, off);
-    const float4 gg = load4(g + off);
-    const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
-    const float4 a = load4(s1 + (size_t)n * C + c);
-    const float4 b = load4(s2 + (size_t)n * C + c);
-    float4 o;
-    float xh, gm;
-    xhat_gm(s.x, k.mu.x, k.iv.x, k.ga.x, k.be.x, gg.x, relu, xh, gm);
-    o.x = k.iv.x * k.ga.x * (gm - a.x * rhw - xh * (b.x * rhw));
-    xhat_gm(s.y, k.mu.y, k.iv.y, k.ga.y, k.be.y, gg.y, relu, xh, gm);
-    o.y = k.iv.y * k.ga.y * (gm - a.y * rhw - xh * (b.y * rhw));
-    xhat_gm(s.z, k.mu.z, k.iv.z, k.ga.z, k.be.z, gg.z, relu, xh, gm);
-    o.z = k.iv.z * k.ga.z * (gm - a.z * rhw - xh * (b.z * rhw));
-    xhat_gm(s.w, k.mu.w, k.iv.w, k.ga.w, k.be.w, gg.w, relu, xh, gm);
-    o.w = k.iv.w * k.ga.w * (gm - a.w * rhw - xh * (b.w * rhw));
-    store4(dx + off, o);
+  constexpr int KEPT = KEEP > 0 ? KEEP : 1;
+  float4 kept_s[KEPT], kept_g[KEPT];
+
+  // Pass 1: the chunk partials of each item of this block.
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n = item / G, t = item - n * G;
+    const int pb = t * chunk, pe = min(HW, pb + chunk);
+    float4 s1 = make_float4(0.f, 0.f, 0.f, 0.f), s2 = s1;
+    if (lane) {
+      const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
+      if constexpr (KEEP > 0) {
+        // Every load of the lane in flight at once, then the sums.
+#pragma unroll
+        for (int j = 0; j < KEEP; ++j) {
+          const int p = pb + L.lp + j * L.ppi;
+          if (p < pe) {
+            const size_t off = ((size_t)n * HW + p) * C + c;
+            kept_s[j] = load_sum<true>(x, res, off);
+            kept_g[j] = load4_last(g + off);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KEEP; ++j)
+          if (pb + L.lp + j * L.ppi < pe) add_terms(kept_s[j], kept_g[j], k, relu, s1, s2);
+      } else {
+#pragma unroll 4
+        for (int p = pb + L.lp; p < pe; p += L.ppi) {
+          const size_t off = ((size_t)n * HW + p) * C + c;
+          add_terms(load_sum<false>(x, res, off), load4(g + off), k, relu, s1, s2);
+        }
+      }
+    }
+    block_sum(sh1, sh2, s1, s2, L);
+    if (threadIdx.x < L.C4) {
+      float* o = part + (size_t)item * 2 * C + c;
+      *reinterpret_cast<float4*>(o) = sh1[threadIdx.x];
+      *reinterpret_cast<float4*>(o + C) = sh2[threadIdx.x];
+    }
+    __syncthreads();
   }
+
+  cg::this_grid().sync();
+
+  // Pass 2: dx of each item, from the image's sums.
+  if (dx != nullptr) {
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int n = item / G, t = item - n * G;
+      float4 a, b;
+      image_sums(part, n, G, C, sh1, sh2, L, a, b);
+      if (!lane) continue;
+      const int pb = t * chunk, pe = min(HW, pb + chunk);
+      if (pb + L.lp >= pe) continue;
+      const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
+      if constexpr (KEEP > 0) {
+#pragma unroll
+        for (int j = 0; j < KEEP; ++j) {
+          const int p = pb + L.lp + j * L.ppi;
+          if (p < pe)
+            store4_stream(dx + ((size_t)n * HW + p) * C + c,
+                          dx4(kept_s[j], kept_g[j], k, a, b, rhw, relu));
+        }
+      } else {
+        // Backwards: the lines read last in pass 1 first, while L2 holds them.
+        const int last = pb + L.lp + (pe - 1 - pb - L.lp) / L.ppi * L.ppi;
+#pragma unroll 4
+        for (int p = last; p >= pb; p -= L.ppi) {
+          const size_t off = ((size_t)n * HW + p) * C + c;
+          store4_stream(dx + off, dx4(load_sum<true>(x, res, off), load4_last(g + off), k, a, b,
+                                      rhw, relu));
+        }
+      }
+    }
+  }
+
+  // dscale and dbias: block 0 adds all N * G partials in one fixed order.
+  if (blockIdx.x == 0) {
+    float4 db, ds;
+    image_sums(part, 0, items, C, sh1, sh2, L, db, ds);
+    if (threadIdx.x < L.C4) {
+      *reinterpret_cast<float4*>(dscale + c) = ds;
+      *reinterpret_cast<float4*>(dbias + c) = db;
+    }
+  }
+}
+
+// The held route keeps up to HELD pixels a lane in registers.
+constexpr int HELD = 8;
+
+template <typename T, int H>
+cudaError_t launch_route(const T* x, const T* res, const T* g, const float* mean,
+                         const float* inv, const float* scale, const float* bias, int N, int HW,
+                         int C, int relu, int grid, int G, int chunk, float* part, float* dscale,
+                         float* dbias, T* dx, cudaStream_t stream) {
+  void* args[] = {&x,    &res, &g,     &mean, &inv,    &scale, &bias,  &N,  &HW,
+                  &C,    &relu, &G,    &chunk, &part,  &dscale, &dbias, &dx};
+  // Refused (cudaErrorCooperativeLaunchTooLarge) when the grid exceeds the
+  // blocks the device holds at once.
+  const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(inb_kernel<T, H>),
+                                                      dim3(grid), dim3(NT), args, 0, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* res, const void* g, const void* mean, const void* inv,
-           const void* scale, const void* bias, void* part, void* s1, void* s2, void* dscale,
-           void* dbias, void* dx, int N, int HW, int C, int relu, int G, int chunk,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(res);
-  const T* gt = static_cast<const T*>(g);
-  const float* mp = static_cast<const float*>(mean);
-  const float* ip = static_cast<const float*>(inv);
-  const float* sp = static_cast<const float*>(scale);
-  const float* bp = static_cast<const float*>(bias);
-  float* pp = static_cast<float*>(part);
-  float* s1p = static_cast<float*>(s1);
-  float* s2p = static_cast<float*>(s2);
-  inb_partial<T><<<dim3(G, N), NT, 0, st>>>(xt, rt, gt, mp, ip, sp, bp, HW, C, relu, chunk, pp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  inb_finalize<<<C, 32, 0, st>>>(pp, N, G, C, s1p, s2p, static_cast<float*>(dscale),
-                                 static_cast<float*>(dbias));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dx == nullptr) return static_cast<int>(err);
-  const size_t total = (size_t)N * HW * (C / 4);
-  const size_t want = (total + NT - 1) / NT;
-  const unsigned blocks = (unsigned)(want < (1u << 20) ? want : (1u << 20));
-  inb_dx<T><<<blocks, NT, 0, st>>>(xt, rt, gt, mp, ip, sp, bp, s1p, s2p, N, HW, C, relu,
-                                    static_cast<T*>(dx));
-  return static_cast<int>(cudaGetLastError());
+           const void* scale, const void* bias, void* part, void* dscale, void* dbias, void* dx,
+           int N, int HW, int C, int relu, int held, int grid, int G, int chunk, void* stream) {
+  // Four channels a thread, at least one pixel lane per channel group; a
+  // chunk plan that covers every pixel of every image; on the held route
+  // one item per block and at most HELD pixels a lane.
+  if (N < 1 || HW < 1 || C % 4 != 0 || C < 4 || C / 4 > NT || grid < 1 || G < 1 || chunk < 1 ||
+      (long long)G * chunk < HW || (long long)(G - 1) * chunk >= HW ||
+      (held && ((long long)N * G > grid || chunk > HELD * (NT / (C / 4)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      (held ? launch_route<T, HELD> : launch_route<T, 0>)(
+          static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const T*>(g),
+          static_cast<const float*>(mean), static_cast<const float*>(inv),
+          static_cast<const float*>(scale), static_cast<const float*>(bias), N, HW, C, relu,
+          grid, G, chunk, static_cast<float*>(part), static_cast<float*>(dscale),
+          static_cast<float*>(dbias), static_cast<T*>(dx), static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The blocks of each route's kernel the current device holds at once.
+template <typename T>
+int resident(int* blocks) {
+  int dev = 0, sms = 0, stream_sm = 0, held_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&stream_sm, inb_kernel<T, 0>, NT, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&held_sm, inb_kernel<T, HELD>, NT, 0);
+  blocks[0] = sms * stream_sm;
+  blocks[1] = sms * held_sm;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -272,24 +385,31 @@ const char* stx_instance_norm_bwd_error_string(int err) {
 }
 
 // x, g, dx [N, H, W, C] (HW = H * W); res the same or NULL; mean/inv [N, C]
-// f32 from the forward; scale/bias [C] f32; part [N, G, C, 2] f32 scratch
-// for G chunks of `chunk` pixels; s1/s2 [N, C] f32 scratch; dscale/dbias [C]
-// f32 outputs. dx NULL skips the dx pass. C % 4 == 0.
+// f32 from the forward; scale/bias [C] f32; part [N, G, 2, C] f32 scratch for
+// G chunks of `chunk` pixels per image (G * chunk >= HW > (G - 1) * chunk);
+// dscale/dbias [C] f32 outputs. dx NULL skips pass 2. C % 4 == 0, C <= 2048;
+// `held` takes the held route; `grid` at most the blocks that
+// stx_in_bwd_resident_f32 reports for the route.
 int stx_in_bwd_f32(const void* x, const void* res, const void* g, const void* mean,
-                   const void* inv, const void* scale, const void* bias, void* part, void* s1,
-                   void* s2, void* dscale, void* dbias, void* dx, int N, int HW, int C,
-                   int relu, int G, int chunk, void* stream) {
-  return launch<float>(x, res, g, mean, inv, scale, bias, part, s1, s2, dscale, dbias, dx, N,
-                       HW, C, relu, G, chunk, stream);
+                   const void* inv, const void* scale, const void* bias, void* part,
+                   void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu, int held,
+                   int grid, int G, int chunk, void* stream) {
+  return launch<float>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N, HW, C,
+                       relu, held, grid, G, chunk, stream);
 }
 
 // As stx_in_bwd_f32 with x, res, g and dx in bf16.
 int stx_in_bwd_bf16(const void* x, const void* res, const void* g, const void* mean,
-                    const void* inv, const void* scale, const void* bias, void* part, void* s1,
-                    void* s2, void* dscale, void* dbias, void* dx, int N, int HW, int C,
-                    int relu, int G, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, res, g, mean, inv, scale, bias, part, s1, s2, dscale, dbias,
-                               dx, N, HW, C, relu, G, chunk, stream);
+                    const void* inv, const void* scale, const void* bias, void* part,
+                    void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu,
+                    int held, int grid, int G, int chunk, void* stream) {
+  return launch<__nv_bfloat16>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N,
+                               HW, C, relu, held, grid, G, chunk, stream);
 }
+
+// blocks[0], blocks[1]: the blocks of each dtype's streaming and held
+// kernels that the current device holds at once, the largest grid of each.
+int stx_in_bwd_resident_f32(int* blocks) { return resident<float>(blocks); }
+int stx_in_bwd_resident_bf16(int* blocks) { return resident<__nv_bfloat16>(blocks); }
 
 }  // extern "C"

@@ -4,10 +4,10 @@ The port of ``styletransfer_tpu/ops/pallas/conv3x3.py::conv3x3_valid``. Its
 kernels, on the route that :func:`valid_plan` names for the shape:
 
 - ``bf16_wgmma``: ``csrc/conv3x3_wgmma.cu`` (TMA ring, ``wgmma`` from shared
-  memory), for bf16 at every width up to 256, a tile being
-  ``floor(bm / W)`` whole rows of the image;
-- ``bf16_mma``: ``csrc/conv3x3.cu``'s ``mma.sync`` kernel, for bf16 rows
-  wider than 256 (images over 1,024 px);
+  memory), for bf16 at every width, a tile being ``floor(bm / seg)`` rows
+  of ``seg`` columns: whole rows up to 256 wide, segments of wider rows;
+- ``bf16_mma``: ``csrc/conv3x3.cu``'s ``mma.sync`` kernel, for bf16 where a
+  caller asks for it (``route="bf16_mma"``);
 - ``f32_fma``: ``csrc/conv3x3.cu``'s FMA kernel, for f32.
 
 The sources' headers say what bounds each kernel on the card and how it is
@@ -48,22 +48,61 @@ BLOCK_M = 128
 WGMMA_CONFIGS = ((256, 3), (128, 4))
 # Output channels per tile of every route.
 BLOCK_N = 128
+# A TMA box dimension is at most 256: the wgmma route's segments of a row.
+MAX_SEGMENT = 256
+# Rows over MAX_SEGMENT wide are cut into at most this many segments.
+MAX_SEGMENTS = 64
 
 
 class ValidPlan(NamedTuple):
     """How conv3x3_valid runs one shape: the route, the tile of ``bm``
     output positions, the ring's ``stages`` (wgmma only, else 0), the tiles
-    of one image (each writes its partial sums), and the blocks of the
-    grid."""
+    of one image (each writes its partial sums), the blocks of the grid,
+    and the wgmma route's ``segment``: the columns of a tile, W for tiles
+    of whole rows (0 on the other routes)."""
     route: str
     bm: int
     stages: int
     image_tiles: int
     blocks: int
+    segment: int = 0
 
     def __str__(self) -> str:
         stages = f" stages {self.stages}" if self.stages else ""
-        return f"{self.route} bm {self.bm}{stages} ({self.blocks} blocks)"
+        tile = (f" tile {self.bm // self.segment}x{self.segment}" if self.segment else "")
+        return f"{self.route} bm {self.bm}{stages}{tile} ({self.blocks} blocks)"
+
+
+def wgmma_plan(B: int, H: int, W: int, O: int, bm: int, stages: int,
+               segment: int) -> ValidPlan:
+    """The wgmma route's plan for tiles of ``floor(bm / segment)`` rows of
+    ``segment`` columns (``segment = W``: whole rows), on a persistent grid
+    of at most one block per SM. ``chip_smoke.py`` times several segments of
+    one shape with it."""
+    if not (1 <= segment <= min(W, MAX_SEGMENT, bm)) or (bm, stages) not in WGMMA_CONFIGS:
+        raise ValueError(f"no wgmma tile of {segment} columns at bm {bm}, stages {stages} for "
+                         f"width {W}")
+    image_tiles = math.ceil(H / (bm // segment)) * math.ceil(W / segment)
+    tiles = B * image_tiles * math.ceil(O / BLOCK_N)
+    return ValidPlan("bf16_wgmma", bm, stages, image_tiles, min(tiles, SMS), segment)
+
+
+def _wgmma_score(plan: ValidPlan, B: int, W: int, O: int) -> float:
+    """How much of its work a wgmma plan spends on the image: how full a
+    tile is (``rows * segment / bm``), times the share of its columns that
+    lie in the image (``W / (segs * segment)``, 1 for whole rows), times how
+    much of the card the tiles fill (``min(1, tiles / SMS)``), times the
+    halo tax ``segment / (segment + 2)``: a tile's three dx taps read
+    windows that span two columns more than it writes. The tax is the same
+    for every whole-row plan of a width; between segments it matches the
+    side-by-side times at 260 wide (``chip_smoke.py``, ``PERF.md`` §6: 20
+    segments of 13 columns, 96% full, were no faster than 10 of 26, 91%,
+    and 52 of 5, 99.6% full, were slower than 5 of 52, 81%)."""
+    rows = plan.bm // plan.segment
+    segs = math.ceil(W / plan.segment)
+    tiles = B * plan.image_tiles * math.ceil(O / BLOCK_N)
+    return (rows * plan.segment / plan.bm * W / (segs * plan.segment)
+            * min(1.0, tiles / SMS) * plan.segment / (plan.segment + 2))
 
 
 @functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
@@ -71,36 +110,42 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
                route: Optional[str] = None) -> ValidPlan:
     """The route and tile of conv3x3_valid for ``[B, H+2, W+2, C] -> O``.
 
-    bf16 takes the wgmma route wherever W <= 256: a tile is ``rows =
-    bm // W >= 1`` whole output rows, ``rows * W <= bm`` positions. TMA's
+    bf16 takes the wgmma route at every width; f32 takes ``f32_fma``. A
+    wgmma tile is ``rows = bm // segment >= 1`` output rows of ``segment``
+    columns, ``rows * segment <= bm`` positions (:func:`wgmma_plan`). TMA's
     16-byte strides need C and O to be multiples of 8, which
     :func:`conv3x3_valid` requires of every route (C % 32, O % 8); the
-    launch also needs 16-byte aligned tensors and raises without them. Of
-    the configurations of :data:`WGMMA_CONFIGS` with ``bm >= W`` it takes
-    the one with the largest ``rows * W / bm * min(1, tiles / SMS)`` (how
-    full a tile is, times how much of the card the tiles fill), the earlier
-    on a tie, on a persistent grid of at most one block per SM. At 75 wide
-    (300 px) that is bm 256: 3 rows, 225 of 256 positions.
-    Wider bf16 rows take ``bf16_mma``, f32 takes ``f32_fma``. ``route``
-    asks for a given route's plan instead (``chip_smoke.py`` times the two
-    bf16 routes side by side); it raises where that route cannot run."""
+    launch also needs 16-byte aligned tensors and raises without them.
+
+    Rows up to 256 wide take whole-row tiles (``segment = W``). A TMA box
+    dimension is at most 256, so a wider row is cut into ``segs`` segments
+    of ``segment = ceil(W / segs)`` columns, for every ``segs`` from
+    ``ceil(W / 256)`` up to :data:`MAX_SEGMENTS`. Of those tiles, on each
+    configuration of :data:`WGMMA_CONFIGS` that holds one, it takes the
+    plan of the largest :func:`_wgmma_score` (tile fill, times the share of
+    the segments' columns inside the image, times card fill, times a halo
+    tax for narrow segments), the earlier on a tie: fewer, wider segments
+    first, then the configurations in their order. At 75 wide (300 px) that
+    is bm 256, 3 whole rows (225 of 256 positions); at 260 wide (1040 px)
+    12 segments of 22 columns, 11 rows (242 of 256); at 1,008 wide (a
+    4032 px photo) 4 segments of 252, one row. ``route`` asks for a given route's plan instead (``chip_smoke.py``
+    times the two bf16 routes side by side); it raises where that route
+    cannot run."""
     n_tiles = math.ceil(O / BLOCK_N)
-    fits = [c for c in WGMMA_CONFIGS if W <= min(256, c[0])]
-    wgmma = dtype == torch.bfloat16 and bool(fits)
-    default = "bf16_wgmma" if wgmma else "f32_fma" if dtype == torch.float32 else "bf16_mma"
+    default = "bf16_wgmma" if dtype == torch.bfloat16 else "f32_fma"
     route = route or default
     if route != default and not (route == "bf16_mma" and dtype == torch.bfloat16):
         raise ValueError(f"route {route} cannot run {dtype} [{B}, {H + 2}, {W + 2}, {C}] -> {O}")
     if route == "bf16_wgmma":
-        def tiles(bm):
-            return B * math.ceil(H / (bm // W)) * n_tiles
-
-        def score(config):
-            bm = config[0]
-            return (bm // W) * W / bm * min(1.0, tiles(bm) / SMS)
-
-        bm, stages = max(fits, key=score)  # the first of equal scores
-        return ValidPlan(route, bm, stages, math.ceil(H / (bm // W)), min(tiles(bm), SMS))
+        if W <= MAX_SEGMENT:
+            segments = [W]
+        else:
+            widths = (math.ceil(W / k) for k in range(math.ceil(W / MAX_SEGMENT),
+                                                       MAX_SEGMENTS + 1))
+            segments = sorted(set(widths), reverse=True)
+        plans = [wgmma_plan(B, H, W, O, bm, stages, seg)
+                 for seg in segments for bm, stages in WGMMA_CONFIGS if seg <= bm]
+        return max(plans, key=lambda p: _wgmma_score(p, B, W, O))  # the first of equal scores
     image_tiles = math.ceil(H * W / BLOCK_M)
     return ValidPlan(route, BLOCK_M, 0, image_tiles, B * image_tiles * n_tiles)
 
@@ -179,7 +224,8 @@ def _launch(x, w, b, relu, plan):
     with torch.cuda.device(x.device):  # the library launches on the current device
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan.route == "bf16_wgmma":
-            err = lib.wgmma.stx_conv3x3_wgmma(*args, plan.bm, plan.stages, plan.blocks, stream)
+            err = lib.wgmma.stx_conv3x3_wgmma(*args, plan.bm, plan.stages, plan.segment,
+                                              plan.blocks, stream)
             error_string = lib.wgmma.stx_conv3x3_wgmma_error_string
         else:
             general = lib.general
@@ -211,7 +257,7 @@ def _library() -> _Libraries:
     for fn in (general.stx_conv3x3_f32, general.stx_conv3x3_bf16):
         fn.argtypes = [p] * 8 + [i] * 6 + [p]
         fn.restype = i
-    wgmma.stx_conv3x3_wgmma.argtypes = [p] * 8 + [i] * 9 + [p]
+    wgmma.stx_conv3x3_wgmma.argtypes = [p] * 8 + [i] * 10 + [p]
     wgmma.stx_conv3x3_wgmma.restype = i
     for fn in (general.stx_conv3x3_error_string, wgmma.stx_conv3x3_wgmma_error_string):
         fn.argtypes = [i]

@@ -14,7 +14,8 @@ fused_instance_norm`` (``_fused``, its custom VJP ``_fused_fwd`` /
   and ``gm`` the output gradient masked by the ReLU,
   ``dx = inv * scale * (gm - S1/HW - xhat * S2/HW)`` with
   ``S1 = sum_hw gm``, ``S2 = sum_hw gm * xhat``; ``dresidual = dx``;
-  ``dscale = sum_n S2``, ``dbias = sum_n S1``.
+  ``dscale = sum_n S2``, ``dbias = sum_n S1``. One cooperative launch per
+  call on the grid that :func:`bwd_plan` names.
 
 Both kernels are bound by bytes; their source headers say what the designs
 do about it. :func:`fused_instance_norm` is the differentiable entry point
@@ -27,7 +28,9 @@ tensors it launches the kernels or raises. ``fwd_launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,8 +42,15 @@ fwd_launches = 0
 bwd_launches = 0
 
 EPS = _in_pad.EPS
-# Elements of x that one block of the backward's reduction pass covers.
-_BWD_ELEMS_PER_BLOCK = 8192
+# The backward's chunks: at least this many elements of x per block, so that
+# an image's G chunk partials (G * 2 * C floats, read by each of its G
+# blocks) stay a few percent of the bytes a call moves.
+BWD_MIN_ELEMS = 16384
+# Threads of a block of the backward kernel (NT in csrc/instance_norm_bwd.cu).
+BWD_THREADS = 512
+# Pixels a thread keeps in registers on the backward's held route (HELD in
+# csrc/instance_norm_bwd.cu).
+BWD_HELD = 8
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -53,6 +63,50 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 def _sum(x: torch.Tensor, residual: Optional[torch.Tensor]) -> torch.Tensor:
     s = _wide(x)
     return s if residual is None else s + _wide(residual)
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel runs x [N, H, W, C]: its ``route`` (``held``:
+    one chunk per block, each thread's pixels kept in registers between the
+    passes; ``stream``: the chunk read again in pass 2), ``blocks`` in its
+    grid, each image cut into ``image_chunks`` chunks of ``chunk`` pixels
+    (chunk t of image n is item n * image_chunks + t; block b takes items
+    b, b + blocks, ...), and the f32 ``scratch`` of the chunk partials, [N,
+    image_chunks, 2, C]."""
+    route: str
+    blocks: int
+    image_chunks: int
+    chunk: int
+    scratch: Tuple[int, int, int, int]
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
+def bwd_plan(N: int, H: int, W: int, C: int, resident: int, held_resident: int) -> BwdPlan:
+    """The backward's route and grid for x [N, H, W, C] on a device that
+    holds ``resident`` blocks of the streaming kernel and ``held_resident``
+    of the held one at once (the occupancy API; the cooperative launch is
+    refused past them).
+
+    A block's threads cover ``lanes = BWD_THREADS // (C / 4)`` pixels at a
+    time. Where every image fits in chunks of ``BWD_HELD * lanes`` pixels on
+    one block each, all at once, the call takes the held route on those
+    chunks: one read of x and g. Otherwise it streams: an image takes ``G =
+    min(resident // N, ceil(H * W * C / BWD_MIN_ELEMS))`` chunks (at least
+    1, at most one a pixel) of ``ceil(H * W / G)`` pixels, and the grid is
+    one block per chunk, or ``resident`` blocks that take several chunks
+    each when the images outnumber them."""
+    if resident < 1:
+        raise ValueError(f"the device holds no block of the backward kernel ({resident})")
+    hw = H * W
+    G = math.ceil(hw / (BWD_HELD * (BWD_THREADS // (C // 4))))
+    if N * G <= held_resident:
+        chunk = math.ceil(hw / G)
+        G = math.ceil(hw / chunk)
+        return BwdPlan("held", N * G, G, chunk, (N, G, 2, C))
+    G = max(1, min(resident // N, math.ceil(hw * C / BWD_MIN_ELEMS), hw))
+    chunk = math.ceil(hw / G)
+    G = math.ceil(hw / chunk)
+    return BwdPlan("stream", min(N * G, resident), G, chunk, (N, G, 2, C))
 
 
 def forward_plain(
@@ -147,31 +201,67 @@ def backward(
     check_cuda_inputs(x, g, mean, inv, scale, bias, *extra)
     global bwd_launches
     lib = _library()
-    hw = H * W
-    groups = max(1, min(hw, -(-(hw * C) // _BWD_ELEMS_PER_BLOCK)))
-    chunk = -(-hw // groups)
-    groups = -(-hw // chunk)
     dev = x.device
-    part = torch.empty((N, groups, C, 2), dtype=torch.float32, device=dev)
-    s12 = torch.empty((2, N, C), dtype=torch.float32, device=dev)
+    plan = bwd_plan(N, H, W, C, *_resident(dev, x.dtype))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = _scratch(plan, dev, stream)
     dsb = torch.empty((2, C), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     fn = lib.stx_in_bwd_f32 if x.dtype == torch.float32 else lib.stx_in_bwd_bf16
     with torch.cuda.device(dev):  # the library launches on the current device
         err = fn(
             x.data_ptr(), None if residual is None else residual.data_ptr(), g.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            part.data_ptr(), s12[0].data_ptr(), s12[1].data_ptr(),
+            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), part,
             dsb[0].data_ptr(), dsb[1].data_ptr(), None if dx is None else dx.data_ptr(),
-            N, hw, C, int(relu), groups, chunk, torch.cuda.current_stream(dev).cuda_stream,
+            N, H * W, C, int(relu), int(plan.route == "held"), plan.blocks, plan.image_chunks,
+            plan.chunk, stream,
         )
     if err:
         raise RuntimeError(
-            "instance-norm backward kernel launch failed: "
+            f"instance-norm backward kernel launch failed ({plan}): "
             f"{lib.stx_instance_norm_bwd_error_string(err).decode()}"
         )
     bwd_launches += 1
     return dx, dsb[0], dsb[1]
+
+
+# Per device and stream: the backward's chunk partials, grown to the
+# largest plan so far. Launches on one stream run in order, so they share it;
+# every launch writes all of its partials before it reads any.
+_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# Per device index and dtype: the blocks of the backward's streaming and held
+# kernels the device holds at once.
+_RESIDENT: Dict[Tuple[int, torch.dtype], Tuple[int, int]] = {}
+
+
+def _scratch(plan: BwdPlan, device: torch.device, stream: int) -> int:
+    """Pointer to at least ``plan.scratch`` f32 partials on ``device``."""
+    need = math.prod(plan.scratch)
+    buf = _SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(need, dtype=torch.float32, device=device)
+        _SCRATCH[(device, stream)] = buf
+    return buf.data_ptr()
+
+
+def _resident(device: torch.device, dtype: torch.dtype) -> Tuple[int, int]:
+    """The blocks of the backward's streaming and held kernels for ``dtype``
+    that ``device`` holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, dtype)
+    if key not in _RESIDENT:
+        lib = _library()
+        fn = lib.stx_in_bwd_resident_f32 if dtype == torch.float32 else \
+            lib.stx_in_bwd_resident_bf16
+        found = (ctypes.c_int * 2)()
+        with torch.cuda.device(index):
+            err = fn(found)
+        if err:
+            raise RuntimeError("instance-norm backward occupancy query failed: "
+                               f"{lib.stx_instance_norm_bwd_error_string(err).decode()}")
+        _RESIDENT[key] = (found[0], found[1])
+    return _RESIDENT[key]
 
 
 class _FusedInstanceNorm(torch.autograd.Function):
@@ -216,7 +306,10 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_bwd_f32, lib.stx_in_bwd_bf16):
-            fn.argtypes = [p] * 13 + [i] * 6 + [p]
+            fn.argtypes = [p] * 11 + [i] * 8 + [p]
+            fn.restype = i
+        for fn in (lib.stx_in_bwd_resident_f32, lib.stx_in_bwd_resident_bf16):
+            fn.argtypes = [p]
             fn.restype = i
         lib.stx_instance_norm_bwd_error_string.argtypes = [i]
         lib.stx_instance_norm_bwd_error_string.restype = ctypes.c_char_p

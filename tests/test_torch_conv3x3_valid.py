@@ -60,18 +60,21 @@ def test_f32_takes_the_fma_route(shape):
 
 @pytest.mark.parametrize("W,route", [(1, "bf16_wgmma"), (48, "bf16_wgmma"), (64, "bf16_wgmma"),
                                      (128, "bf16_wgmma"), (200, "bf16_wgmma"),
-                                     (256, "bf16_wgmma"), (512, "bf16_mma")])
+                                     (256, "bf16_wgmma"), (512, "bf16_wgmma")])
 def test_the_wgmma_route_needs_whole_rows_in_a_tile(W, route):
-    # A tile is floor(bm / W) >= 1 whole rows: every width up to 256 has one
-    # (48 and 200 wide only partly fill theirs), wider rows go to mma.sync.
+    # Up to 256 wide a tile is floor(bm / W) >= 1 whole rows (48 and 200
+    # wide only partly fill theirs). A TMA box is at most 256 wide, so a
+    # wider row is cut into segments, a tile being whole rows of segments.
     plan = tc.valid_plan(2, 5, W, 64, 64, torch.bfloat16)
     assert plan.route == route
-    if route == "bf16_wgmma":
-        rows = plan.bm // W
-        assert W <= 256 and rows >= 1 and rows * W <= plan.bm
-        assert plan.image_tiles == -(-5 // rows)
+    rows = plan.bm // plan.segment
+    segs = -(-W // plan.segment)
+    assert rows >= 1 and rows * plan.segment <= plan.bm
+    assert plan.image_tiles == -(-5 // rows) * segs
+    if W <= 256:
+        assert plan.segment == W and segs == 1
     else:
-        assert W > 256 and plan.stages == 0
+        assert plan.segment <= 256 and segs >= 2 and segs * plan.segment >= W
 
 
 def test_every_wgmma_configuration_is_one_the_kernel_has():
@@ -105,37 +108,42 @@ def test_the_wrapper_refuses_channels_the_routes_cannot_stride(C, O):
 def test_the_cuda_test_shapes_reach_the_route_each_is_meant_for():
     # tests/test_torch_cuda.py holds each route's kernel against the plain
     # version on the card at _VALID_SHAPES; each names the bf16 route it
-    # exercises, and together they reach both bf16 routes and both wgmma
-    # configurations.
+    # exercises, forced where no plan takes it (mma.sync), and together
+    # they reach both bf16 routes, both wgmma configurations, and tiles of
+    # whole rows and of segments.
     from test_torch_cuda import _VALID_SHAPES
 
     reached = set()
-    for B, H, W, C, O, route in _VALID_SHAPES:
+    for B, H, W, C, O, route, forced in _VALID_SHAPES:
         plan = tc.valid_plan(B, H, W, C, O, torch.bfloat16)
-        assert plan.route == route, (B, H, W, C, O)
+        assert plan.route == ("bf16_wgmma" if forced else route), (B, H, W, C, O)
+        if forced:
+            plan = tc.valid_plan(B, H, W, C, O, torch.bfloat16, route=route)
         assert tc.valid_plan(B, H, W, C, O, torch.float32).route == "f32_fma"
-        reached.add((plan.route, plan.bm, plan.stages))
-    assert {r for r in reached if r[0] == "bf16_wgmma"} == {
+        reached.add((plan.route, plan.bm, plan.stages, plan.segment not in (0, W)))
+    assert {r[:3] for r in reached if r[0] == "bf16_wgmma"} == {
         ("bf16_wgmma",) + c for c in tc.WGMMA_CONFIGS}
+    assert {r[3] for r in reached if r[0] == "bf16_wgmma"} == {False, True}
     assert any(r[0] == "bf16_mma" for r in reached)
 
 
 def test_the_serving_forward_runs_every_residual_conv_on_the_wgmma_route():
     # The serving path's ten convs at 256 px, at 64 px (the CUDA serving
-    # test's size) and at 300 px (75-wide rows, partial tiles); only images
-    # over 1,024 px (rows over 256 wide) run them on the mma.sync route.
+    # test's size), at 300 px (75-wide rows, partial tiles) and over 1,024
+    # px (rows over 256 wide, cut into segments).
     for size, route in ((256, "bf16_wgmma"), (64, "bf16_wgmma"), (300, "bf16_wgmma"),
-                        (1028, "bf16_mma")):
+                        (1028, "bf16_wgmma")):
         H = size // 4
         for batch in (1, 2, 64):
             assert tc.valid_plan(batch, H, H, 128, 128, torch.bfloat16).route == route
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 64, 136), (3, 7, 32, 96, 72),
-                                   (2, 4, 75, 32, 16)])
+                                   (2, 4, 75, 32, 16), (1, 1, 260, 32, 8)])
 @pytest.mark.parametrize("relu", [False, True])
 def test_wrapper_on_cpu_matches_the_jax_kernel_at_the_new_routes_shapes(shape, relu):
-    # (2, 4, 75, 32, 16): a width whose rows only partly fill a wgmma tile.
+    # (2, 4, 75, 32, 16): a width whose rows only partly fill a wgmma tile;
+    # (1, 1, 260, 32, 8): rows wider than a TMA box, cut into segments.
     B, H, W, C, O = shape
     rng = np.random.default_rng(9)
     x = rng.standard_normal((B, H + 2, W + 2, C)).astype(np.float32)
@@ -158,7 +166,7 @@ def test_a_plan_on_a_given_route():
     assert mma.route == "bf16_mma" and mma.blocks == 64 * 32
     assert tc.valid_plan(1, 64, 64, 128, 128, torch.bfloat16, route="bf16_wgmma") == \
         tc.valid_plan(1, 64, 64, 128, 128, torch.bfloat16)
-    for route, dtype, W in (("bf16_wgmma", torch.bfloat16, 300), ("f32_fma", torch.bfloat16, 64),
+    for route, dtype, W in (("f32_fma", torch.bfloat16, 300), ("f32_fma", torch.bfloat16, 64),
                             ("bf16_mma", torch.float32, 64), ("bf16_wgmma", torch.float32, 64)):
         with pytest.raises(ValueError):
             tc.valid_plan(1, 8, W, 128, 128, dtype, route=route)
@@ -169,3 +177,82 @@ def test_launch_refuses_a_route_of_another_dtype():
     plan = tc.valid_plan(1, 2, 2, 32, 8, torch.bfloat16)
     with pytest.raises(ValueError):
         tc.launch(x, w, b, False, plan)  # on the CPU, and f32 against a bf16 route
+
+
+def _whole_row_plan(B, H, W, O):
+    """valid_plan's wgmma plan for W <= 256 before rows were cut into
+    segments: the configuration of the largest ``rows * W / bm * min(1,
+    tiles / SMS)``, the first on a tie."""
+    fits = [c for c in tc.WGMMA_CONFIGS if W <= c[0]]
+
+    def tiles(bm):
+        return B * -(-H // (bm // W)) * -(-O // tc.BLOCK_N)
+
+    bm, stages = max(fits, key=lambda c: (c[0] // W) * W / c[0] * min(1.0, tiles(c[0]) / tc.SMS))
+    return (bm, stages, -(-H // (bm // W)), min(tiles(bm), tc.SMS))
+
+
+@pytest.mark.parametrize("batch,size,want", [
+    (1, 256, (128, 4, 32, 32)), (4, 256, (128, 4, 32, 128)), (64, 256, (256, 3, 16, 132)),
+    (1, 300, (128, 4, 75, 75)), (64, 300, (256, 3, 25, 132)),
+])
+def test_whole_row_plans_stay_as_they_were(batch, size, want):
+    # The 256 px and 300 px numbers in PERF.md rest on these plans.
+    H = W = size // 4
+    plan = tc.valid_plan(batch, H, W, 128, 128, torch.bfloat16)
+    assert plan == tc.ValidPlan("bf16_wgmma", *want, W)
+    assert want == _whole_row_plan(batch, H, W, 128)
+
+
+def test_every_width_up_to_256_keeps_its_whole_row_plan():
+    for W in range(1, 257):
+        for B, H, O in ((1, 5, 64), (2, 64, 136), (64, 75, 128)):
+            plan = tc.valid_plan(B, H, W, 128, O, torch.bfloat16)
+            assert plan == tc.ValidPlan("bf16_wgmma", *_whole_row_plan(B, H, W, O), W), (B, H, W)
+
+
+@pytest.mark.parametrize("B,H,W", [(4, 260, 260), (1, 756, 1008), (2, 5, 257), (1, 3, 300),
+                                   (64, 260, 260), (1, 16, 4096)])
+def test_rows_wider_than_a_tma_box_are_cut_into_segments(B, H, W):
+    plan = tc.valid_plan(B, H, W, 128, 128, torch.bfloat16)
+    assert plan.route == "bf16_wgmma" and (plan.bm, plan.stages) in tc.WGMMA_CONFIGS
+    seg = plan.segment
+    segs, rows = -(-W // seg), plan.bm // seg
+    assert seg <= tc.MAX_SEGMENT and rows >= 1 and rows * seg <= plan.bm
+    assert segs * seg >= W and (segs - 1) * seg < W  # no segment lies wholly outside
+    assert plan.image_tiles == -(-H // rows) * segs
+    assert plan.blocks == min(B * plan.image_tiles, tc.SMS)
+    assert plan == tc.wgmma_plan(B, H, W, 128, plan.bm, plan.stages, seg)
+
+
+@pytest.mark.parametrize("B,H,W,want", [
+    # 1040 px at batch 4: 12 segments of 22 columns (264, 4 past the
+    # image), 11 rows: 242 of 256 positions, 24 row tiles.
+    (4, 260, 260, (256, 3, 24 * 12, tc.SMS, 22)),
+    # A 4032 x 3024 photo: 4 segments of 252, one row: 756 row tiles.
+    (1, 756, 1008, (256, 3, 756 * 4, tc.SMS, 252)),
+])
+def test_the_wide_serving_shapes_take_the_stated_tiles(B, H, W, want):
+    assert tc.valid_plan(B, H, W, 128, 128, torch.bfloat16) == tc.ValidPlan("bf16_wgmma", *want)
+
+
+def test_wgmma_plan_refuses_tiles_the_kernel_cannot_take():
+    for W, bm, stages, seg in ((300, 256, 3, 257), (100, 256, 3, 101), (300, 128, 4, 130),
+                               (300, 256, 4, 100), (300, 256, 3, 0)):
+        with pytest.raises(ValueError):
+            tc.wgmma_plan(1, 4, W, 128, bm, stages, seg)
+
+
+def test_the_ablation_script_edits_lines_the_kernel_has():
+    # scripts/torch_wgmma_ablation.py takes parts out of the kernel by
+    # replacing their text: each text must still be in the source.
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "torch_wgmma_ablation.py")
+    spec = importlib.util.spec_from_file_location("torch_wgmma_ablation", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    source = open(os.path.join(_CSRC, "conv3x3_wgmma.cu")).read()
+    edits = [old for variant in module.VARIANTS.values() for old, _ in variant]
+    assert len(edits) == 3 and all(old in source for old in edits)

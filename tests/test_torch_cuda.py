@@ -40,27 +40,38 @@ def _close(a, b, dtype):
     torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
 
 
-# (B, H, W, C, O, bf16 route): conv3x3_valid's shapes on the card and the
-# route each reaches in bf16 (valid_plan; every shape takes f32_fma in f32,
-# see tests/test_torch_conv3x3_valid.py). wgmma: whole rows per tile (16, 32
-# and 64 wide), at batch 9 the large tile; C = 64 and O = 136 (a second,
-# mostly empty channel tile); C = 96 (a last chunk of 32 channels) with a
-# last tile of 3 of its 4 rows below the image and O = 72. Partial tiles,
-# whose rows x W positions leave the last A rows stale: 7 wide (36 rows of
-# 252 positions, one tile holding the whole 9-row image), 75 wide as at 300
-# px (one row of 128 positions at batch 1, three of 256 at batch 4), and 75
-# wide with a ragged last row tile (10 rows in tiles of 3). mma.sync: rows
-# wider than 256.
+# (B, H, W, C, O, bf16 route, forced): conv3x3_valid's shapes on the card
+# and the route each runs in bf16 (every shape takes f32_fma in f32, see
+# tests/test_torch_conv3x3_valid.py). wgmma, on the route valid_plan names:
+# whole rows per tile (16, 32 and 64 wide), at batch 9 the large tile; C =
+# 64 and O = 136 (a second, mostly empty channel tile); C = 96 (a last chunk
+# of 32 channels) with a last tile of 3 of its 4 rows below the image and O
+# = 72. Partial tiles, whose rows x W positions leave the last A rows stale:
+# 7 wide (36 rows of 252 positions, one tile holding the whole 9-row image),
+# 75 wide as at 300 px (one row of 128 positions at batch 1, three of 256 at
+# batch 4), and 75 wide with a ragged last row tile (10 rows in tiles of 3).
+# Rows wider than a TMA box, cut into segments: 260 wide as at 1040 px (and
+# non-square, 7 rows), 1,008 wide as in a 4032 px photo, and 300 wide with a
+# last segment past the image (C = 64, O = 72). mma.sync, forced: no plan
+# reaches it, a caller asks for it with route="bf16_mma".
 _VALID_SHAPES = [
-    (2, 16, 16, 128, 128, "bf16_wgmma"), (3, 9, 7, 64, 136, "bf16_wgmma"),
-    (2, 64, 64, 128, 128, "bf16_wgmma"), (1, 32, 32, 128, 128, "bf16_wgmma"),
-    (2, 16, 16, 64, 136, "bf16_wgmma"), (3, 7, 32, 96, 72, "bf16_wgmma"),
-    (9, 64, 64, 128, 128, "bf16_wgmma"), (1, 8, 75, 128, 128, "bf16_wgmma"),
-    (4, 75, 75, 128, 128, "bf16_wgmma"), (32, 10, 75, 64, 64, "bf16_wgmma"),
-    (1, 3, 300, 64, 72, "bf16_mma"),
+    (2, 16, 16, 128, 128, "bf16_wgmma", False), (3, 9, 7, 64, 136, "bf16_wgmma", False),
+    (2, 64, 64, 128, 128, "bf16_wgmma", False), (1, 32, 32, 128, 128, "bf16_wgmma", False),
+    (2, 16, 16, 64, 136, "bf16_wgmma", False), (3, 7, 32, 96, 72, "bf16_wgmma", False),
+    (9, 64, 64, 128, 128, "bf16_wgmma", False), (1, 8, 75, 128, 128, "bf16_wgmma", False),
+    (4, 75, 75, 128, 128, "bf16_wgmma", False), (32, 10, 75, 64, 64, "bf16_wgmma", False),
+    (2, 7, 260, 128, 128, "bf16_wgmma", False), (1, 5, 1008, 128, 128, "bf16_wgmma", False),
+    (1, 3, 300, 64, 72, "bf16_wgmma", False), (1, 3, 300, 64, 72, "bf16_mma", True),
 ]
 _ROUTE_COUNTERS = {"f32_fma": "fma_launches", "bf16_mma": "mma_launches",
                    "bf16_wgmma": "wgmma_launches"}
+
+
+def _valid_plan(shape, dtype):
+    """The plan a shape of _VALID_SHAPES runs: the forced route in bf16."""
+    B, H, W, C, O, route, forced = shape
+    return conv3x3.valid_plan(B, H, W, C, O, dtype,
+                              route=route if forced and dtype == torch.bfloat16 else None)
 
 
 def _valid_inputs(cuda, dtype, shape, seed):
@@ -73,13 +84,15 @@ def _valid_inputs(cuda, dtype, shape, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [s[:5] for s in _VALID_SHAPES])
+@pytest.mark.parametrize("shape", _VALID_SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, relu):
     x, w, b = _valid_inputs(cuda, dtype, shape, 0)
-    route = conv3x3.valid_plan(*shape, dtype).route
+    plan = _valid_plan(shape, dtype)
+    route = plan.route
     before = conv3x3.launches, getattr(conv3x3, _ROUTE_COUNTERS[route])
-    out, s, ss = conv3x3.conv3x3_valid(x, w, b, relu)
+    out, s, ss = (conv3x3.launch(x, w, b, relu, plan) if shape[6] else
+                  conv3x3.conv3x3_valid(x, w, b, relu))
     torch.cuda.synchronize()
     assert (conv3x3.launches, getattr(conv3x3, _ROUTE_COUNTERS[route])) == (
         before[0] + 1, before[1] + 1)
@@ -94,10 +107,35 @@ def test_conv3x3_valid_repeats_bit_for_bit(cuda, shape):
     # The per-tile partial sums are added in a fixed order with no atomics:
     # two calls on the same inputs give the same bits, sums included.
     x, w, b = _valid_inputs(cuda, torch.bfloat16, shape, 10)
-    first = conv3x3.conv3x3_valid(x, w, b, True)
-    second = conv3x3.conv3x3_valid(x, w, b, True)
+    plan = _valid_plan(shape, torch.bfloat16)
+    first = conv3x3.launch(x, w, b, True, plan)
+    second = conv3x3.conv3x3_valid(x, w, b, True) if not shape[6] else \
+        conv3x3.launch(x, w, b, True, plan)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("W", [260, 1008])
+def test_every_segment_width_of_a_wide_row_matches_plain(cuda, W):
+    # Every segment count valid_plan weighs at this width, on both wgmma
+    # configurations: a last segment past the image, rows of one to 51
+    # segments' tiles; each repeats bit for bit.
+    shape = (1, 5, W, 128, 128)
+    x, w, b = _valid_inputs(cuda, torch.bfloat16, shape, 14)
+    pout, ps, pss = conv3x3.conv3x3_valid_plain(x, w, b, True)
+    for k in range(-(-W // conv3x3.MAX_SEGMENT), conv3x3.MAX_SEGMENTS + 1, 3):
+        for bm, stages in conv3x3.WGMMA_CONFIGS:
+            seg = -(-W // k)
+            if seg > bm:
+                continue
+            plan = conv3x3.wgmma_plan(1, 5, W, 128, bm, stages, seg)
+            out, s, ss = conv3x3.launch(x, w, b, True, plan)
+            again = conv3x3.launch(x, w, b, True, plan)
+            torch.cuda.synchronize()
+            _close(out, pout, torch.bfloat16)
+            torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-2)
+            torch.testing.assert_close(ss, pss, rtol=1e-4, atol=1e-2)
+            assert all(torch.equal(u, v) for u, v in zip((out, s, ss), again)), plan
 
 
 def test_the_two_bf16_routes_agree_on_the_residual_stage(cuda):
@@ -269,6 +307,95 @@ def test_fused_instance_norm_kernels_match_plain(cuda, dtype, case):
     _close(dx, pdx, dtype)
     torch.testing.assert_close(dscale, pdscale, rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(dbias, pdbias, rtol=1e-4, atol=1e-2)
+
+
+# The training forward's call shapes at batch 4, 256 px (in1 and up2_in,
+# in2 and up1_in, in3 and the residual blocks' norms).
+_TRAIN_SHAPES = [(4, 256, 256, 32), (4, 128, 128, 64), (4, 64, 64, 128)]
+
+
+def _rel_to_max(a, b):
+    """max |a - b| over max |b|: a sum's error against the sums' scale."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _TRAIN_SHAPES)
+@pytest.mark.parametrize("with_res,relu", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+def test_fused_instance_norm_backward_at_the_training_shapes(cuda, dtype, shape, with_res,
+                                                              relu):
+    # One launch per call; dx within the kernel tolerance of the plain
+    # version given the same statistics, dscale and dbias (sums over 4 x
+    # H x W pixels in another order) within 1e-5 of their largest value;
+    # bit-identical on repeat, and the same sums without the dx pass.
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    res = torch.randn(*shape, device=cuda, generator=g).to(dtype) if with_res else None
+    scale = torch.rand(shape[3], device=cuda, generator=g) + 0.5
+    bias = torch.randn(shape[3], device=cuda, generator=g)
+    gy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    _, mean, inv = fused_instance_norm.forward(x, scale, bias, res, relu)
+    before = fused_instance_norm.bwd_launches
+    first = fused_instance_norm.backward(gy, x, res, mean, inv, scale, bias, relu)
+    again = fused_instance_norm.backward(gy, x, res, mean, inv, scale, bias, relu)
+    sums_only = fused_instance_norm.backward(gy, x, res, mean, inv, scale, bias, relu,
+                                             need_dx=False)
+    torch.cuda.synchronize()
+    assert fused_instance_norm.bwd_launches == before + 3
+    pdx, pdscale, pdbias = fused_instance_norm.backward_plain(gy, x, res, mean, inv, scale,
+                                                              bias, relu)
+    _close(first[0], pdx, dtype)
+    assert _rel_to_max(first[1], pdscale) <= 1e-5
+    assert _rel_to_max(first[2], pdbias) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert sums_only[0] is None
+    assert torch.equal(sums_only[1], first[1]) and torch.equal(sums_only[2], first[2])
+
+
+def test_fused_instance_norm_backward_grid_fits_the_device(cuda):
+    # The cooperative launch is refused past the blocks the device holds at
+    # once: every plan of the training shapes stays within them.
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 4, 4, 4, device=cuda, dtype=dtype)
+        resident = fused_instance_norm._resident(x.device, dtype)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert min(resident) >= sms
+        for shape in _TRAIN_SHAPES + [(64, 64, 64, 128), (600, 4, 4, 8)]:
+            plan = fused_instance_norm.bwd_plan(*shape, *resident)
+            assert plan.blocks <= resident[plan.route == "held"]
+        # The 64 x 64 x 128 calls of a step (11 of 15) take the held route.
+        assert fused_instance_norm.bwd_plan(4, 64, 64, 128, *resident).route == "held"
+
+
+@pytest.mark.parametrize("shape", [(600, 4, 4, 8), (2, 64, 64, 128), (2, 9, 7, 128)])
+def test_fused_instance_norm_backward_on_each_route(cuda, shape):
+    # Streaming with each block taking several chunks (the images outnumber
+    # the resident blocks), and the held route with full and ragged chunks;
+    # the streaming route forced at the held shapes gives the same sums.
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(*shape, device=cuda, generator=g)
+    C = shape[3]
+    scale, bias = torch.rand(C, device=cuda, generator=g) + 0.5, torch.randn(C, device=cuda)
+    gy = torch.randn(*shape, device=cuda, generator=g)
+    _, mean, inv = fused_instance_norm.forward(x, scale, bias, None, True)
+    pdx, pdscale, pdbias = fused_instance_norm.backward_plain(gy, x, None, mean, inv, scale,
+                                                              bias, True)
+    key = (torch.cuda.current_device(), torch.float32)
+    resident = fused_instance_norm._resident(x.device, torch.float32)
+    routes = set()
+    try:
+        for held in (resident[1], 0):  # as planned, then no held block
+            fused_instance_norm._RESIDENT[key] = (resident[0], held)
+            routes.add(fused_instance_norm.bwd_plan(*shape, resident[0], held).route)
+            dx, dscale, dbias = fused_instance_norm.backward(gy, x, None, mean, inv, scale,
+                                                             bias, True)
+            torch.cuda.synchronize()
+            _close(dx, pdx, torch.float32)
+            assert _rel_to_max(dscale, pdscale) <= 1e-5 and _rel_to_max(dbias, pdbias) <= 1e-5
+    finally:
+        fused_instance_norm._RESIDENT[key] = resident
+    assert routes == ({"stream"} if shape[0] == 600 else {"held", "stream"})
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
