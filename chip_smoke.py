@@ -641,7 +641,7 @@ def fused_phase(torch, F, fin, dtype):
         check(all(torch.equal(u, v) for u, v in zip((dx, dscale, dbias), again))
               and sums_only[0] is None and torch.equal(sums_only[1], dscale)
               and torch.equal(sums_only[2], dbias) and launched == 3,
-              f"{names[1]} {tag} ({fin.bwd_plan(*shape, *fin._resident(x.device, dtype))}): "
+              f"{names[1]} {tag} ({fin.bwd_plan(*shape, fin._resident(x.device, dtype))}): "
               f"the repeat is bit-identical, need_dx=False gives the same dscale / dbias, "
               f"one launch per call ({launched} for 3 calls)")
         worst[names[1]] = max(worst[names[1]], err)
@@ -1423,6 +1423,11 @@ def main() -> int:
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
                 gatys_launches if kernel in GATYS_KERNELS else train_launches)
         e["launches"] = path[precision][kernel]
+    unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
+    if unused:
+        print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
+              file=sys.stderr)
+        return 1
     kind = torch.cuda.get_device_name(0)
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")

@@ -1,8 +1,7 @@
 """The fused-IN backward's plans on the GPU: the fifteen calls of a batch-4
 train step timed under several values of ``fused_instance_norm.
-BWD_MIN_ELEMS`` (the least elements of x per block on the streaming route,
-which sets how many blocks share an image), then with the held route
-turned off (every call streams), in f32 and bf16.
+BWD_MIN_ELEMS`` (the least elements of x per block, which sets how many
+blocks share an image), in f32 and bf16.
 
     python3 scripts/torch_in_bwd_plans.py
 
@@ -25,7 +24,7 @@ import chip_smoke  # noqa: E402
 from styletransfer_tpu_torch.ops import layers  # noqa: E402
 from styletransfer_tpu_torch.ops.cuda import fused_instance_norm as fin  # noqa: E402
 
-MIN_ELEMS = (4096, 8192, 16384, 32768, 65536)
+MIN_ELEMS = (8192, 16384, 32768)
 
 
 def main() -> int:
@@ -53,10 +52,8 @@ def main() -> int:
             calls.append((call, shape, args, count, bound_ms))
         step_bound = sum(b * n for *_, n, b in calls)
         resident = fin._resident(torch.device("cuda"), dtype)
-        key = (torch.cuda.current_device(), dtype)
-        for min_elems, held in [(m, True) for m in MIN_ELEMS] + [(chosen, False)]:
+        for min_elems in MIN_ELEMS:
             fin.BWD_MIN_ELEMS = min_elems
-            fin._RESIDENT[key] = resident if held else (resident[0], 0)
             fin.bwd_plan.cache_clear()
             total, plans = 0.0, []
             for call, shape, args, count, _ in calls:
@@ -66,15 +63,13 @@ def main() -> int:
                     ("fused_instance_norm_bwd", dn)]), f"{dn} {call} at {min_elems}: dx")
                 ms = chip_smoke.device_ms(torch, lambda: fin.backward(*args))
                 total += ms * count
-                plan = fin.bwd_plan(*shape, *fin._RESIDENT[key])
-                plans.append(f"{call} {plan.route} {plan.blocks} blocks of {plan.chunk} px "
+                plan = fin.bwd_plan(*shape, resident)
+                plans.append(f"{call} {plan.blocks} blocks, chunks of {plan.chunk} px "
                              f"{ms:.4f} ms")
-            setting = (f"BWD_MIN_ELEMS {min_elems}{' (the default)' if min_elems == chosen else ''}"
-                       + ("" if held else ", held route off"))
-            print(f"fused-IN backward {dn}, {setting}: 15 calls {total:.4f} ms, bound "
-                  f"{step_bound:.4f} ms ({step_bound / total:.3f} of it); {resident} blocks "
-                  f"resident (streaming, held); " + "; ".join(plans) + f" on {card}", flush=True)
-        fin._RESIDENT[key] = resident
+            print(f"fused-IN backward {dn}, BWD_MIN_ELEMS {min_elems}"
+                  f"{' (the default)' if min_elems == chosen else ''}: 15 calls {total:.4f} ms, "
+                  f"bound {step_bound:.4f} ms ({step_bound / total:.3f} of it); {resident} "
+                  f"blocks resident; " + "; ".join(plans) + f" on {card}", flush=True)
     fin.BWD_MIN_ELEMS = chosen
     fin.bwd_plan.cache_clear()
     return 0

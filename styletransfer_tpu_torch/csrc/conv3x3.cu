@@ -40,7 +40,6 @@ using conv3x3::ldmatrix_x4;
 using conv3x3::ldmatrix_x4_trans;
 using conv3x3::mma_bf16_16816;
 using conv3x3::smem_addr;
-using conv3x3::tile_sums_kernel;
 
 constexpr int BM = 128;  // output pixels per block (all in one image)
 constexpr int BN = 128;  // output channels per block
@@ -413,11 +412,9 @@ int launch(Kernel kernel, size_t smem, const void* x, const void* w, const void*
                               static_cast<float*>(psum), static_cast<float*>(psq), s, relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = B * O;
-  tile_sums_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(psum), static_cast<const float*>(psq),
-      static_cast<float*>(sums), static_cast<float*>(sumsqs), B, s.tiles, O);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(conv3x3::tile_sums(
+      static_cast<const float*>(psum), static_cast<const float*>(psq), static_cast<float*>(sums),
+      static_cast<float*>(sumsqs), B, s.tiles, O, st));
 }
 
 }  // namespace

@@ -52,9 +52,9 @@
 //   while the next tile computes; the per-tile column sums and sums of
 //   squares of the f32 values, added in a fixed order (each thread's rows,
 //   a butterfly over the lanes, then the eight consumer warps in order) and
-//   written per tile; tile_sums_kernel then adds each image's tiles in tile
-//   order (row tile by row tile, segment by segment). No atomics: a call is
-//   the same bit for bit from run to run.
+//   written per tile; tile_sums_kernel then adds each image's tiles in a
+//   fixed order (strided over 32 threads a channel, then a tree). No
+//   atomics: a call is the same bit for bit from run to run.
 // TMA fills what lies outside x or w with zeros: a last chunk of C that is
 // not full, rows below the image, columns right of it in the last segment,
 // weights past O. The TMA stores drop rows below the image, columns right of
@@ -381,11 +381,10 @@ int launch(const Launch& l) {
       tx, tw, to, static_cast<const float*>(l.bias), static_cast<float*>(l.psum),
       static_cast<float*>(l.psq), s, l.relu);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int n = l.B * l.O;
-  conv3x3::tile_sums_kernel<<<(n + 255) / 256, 256, 0, l.stream>>>(
+  return static_cast<int>(conv3x3::tile_sums(
       static_cast<const float*>(l.psum), static_cast<const float*>(l.psq),
-      static_cast<float*>(l.sums), static_cast<float*>(l.sumsqs), l.B, s.image_tiles, l.O);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(l.sums), static_cast<float*>(l.sumsqs), l.B, s.image_tiles, l.O,
+      l.stream));
 }
 
 }  // namespace

@@ -26,31 +26,29 @@
 // refused otherwise), so a grid-wide barrier can join the two reductions.
 // An image's pixels are cut into `G` chunks of `chunk` pixels (the wrapper's
 // plan, ops/cuda/fused_instance_norm.py::bwd_plan); chunk t of image n is
-// item n * G + t, and block b takes items b, b + grid, ... A thread owns
+// item n * G + t. All blocks but the last are workers: worker b takes items
+// b, b + workers, ... (one item each at the training shapes). A thread owns
 // four channels and one pixel lane of its block (NT / (C / 4) lanes).
-//   1. Pass 1: each thread strides over its item's pixels, keeping (S1,
-//      S2); the block adds its threads in a fixed tree and writes
+//   1. Pass 1: each worker thread strides over its item's pixels, keeping
+//      (S1, S2); the block adds its threads in a fixed tree and writes
 //      part[n, t, 0..1, c].
 //   2. cooperative_groups::this_grid().sync().
-//   3. Each block adds its image's G partials in the same fixed order (a
+//   3. Each worker adds its image's G partials in the same fixed order (a
 //      strided sum per thread, then the same tree), so every block of an
-//      image holds the same S1, S2 bit for bit.
-//   4. Pass 2 writes dx with streaming stores; 16-byte (f32) or 8-byte
-//      (bf16) accesses.
-//   5. Block 0 adds all N * G partials in one fixed order (the same strided
-//      sum and tree) into dbias and dscale (need_dx = false: steps 1-3 and
-//      5 only).
-// Two routes. Held (a call whose chunks of up to HELD pixels a lane fit on
-// the resident blocks at once, one each: the 64 x 64 x 128 calls of a
-// training step, 11 of 15): pass 1 issues all of a thread's loads at once
-// and keeps s and g in registers, so x and g are read once and pass 2
-// reads nothing but the partials. Streaming (wider images): pass 1 reads
-// the item forwards and pass 2 again backwards, the last-read lines first,
-// while L2 still holds them (marked first to evict); x, the residual and g
-// are read twice, the bound counts them once. Either way a call's time at
-// these sizes is mostly its chain of dependent steps (launch, loads,
-// barrier, partials, stores), not its bytes. The partials are G * 2 * C
-// floats per image, read by each of its G blocks.
+//      image holds the same S1, S2 bit for bit; meanwhile the last block
+//      adds all N * G partials in one fixed order into dbias and dscale, so
+//      no worker carries that tail.
+//   4. Pass 2 reads the item again backwards, the last-read lines first,
+//      while L2 still holds them (marked first to evict), and writes dx with
+//      streaming stores; 16-byte (f32) or 8-byte (bf16) accesses
+//      (need_dx = false: no pass 2).
+// x, the residual and g are read twice; the bound counts them once. The
+// partials are G * 2 * C floats per image, read by each of its G blocks.
+// At the training shapes a call's time is mostly its chain of dependent
+// steps (launch, loads, barrier, partials, stores), not its bytes: the
+// 64 x 64 x 128 calls (11 of 15 a step) take about 3.5x their bound.
+// Keeping each thread's pixels in registers between the passes (one read)
+// was slower there than this re-read from L2 (PERF.md, PR 8).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -216,12 +214,8 @@ __device__ __forceinline__ void add_terms(float4 s, float4 gg, const Chan4& k, i
   s1.w += gm; s2.w += gm * xh;
 }
 
-// KEEP = 0: the streaming route (pass 2 reads the item again). KEEP > 0:
-// the held route, one item per block whose pixels are at most KEEP per
-// lane: pass 1 keeps each lane's s and g in registers, and pass 2 reads
-// nothing but the image's partials.
-template <typename T, int KEEP>
-__global__ void __launch_bounds__(NT, KEEP > 0 ? 1 : 2)
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
 inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
            const float* __restrict__ mean, const float* __restrict__ inv,
            const float* __restrict__ scale, const float* __restrict__ bias, int N, int HW,
@@ -237,37 +231,19 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
   const bool lane = L.lp < L.ppi;  // threads past ppi * C4 own no pixels
   const int c = L.c4 * 4;
   const int items = N * G;
-  const float rhw = 1.f / (float)HW;
-  constexpr int KEPT = KEEP > 0 ? KEEP : 1;
-  float4 kept_s[KEPT], kept_g[KEPT];
+  const int workers = gridDim.x - 1;  // the last block adds dscale and dbias
 
   // Pass 1: the chunk partials of each item of this block.
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  for (int item = blockIdx.x; blockIdx.x < workers && item < items; item += workers) {
     const int n = item / G, t = item - n * G;
     const int pb = t * chunk, pe = min(HW, pb + chunk);
     float4 s1 = make_float4(0.f, 0.f, 0.f, 0.f), s2 = s1;
     if (lane) {
       const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
-      if constexpr (KEEP > 0) {
-        // Every load of the lane in flight at once, then the sums.
-#pragma unroll
-        for (int j = 0; j < KEEP; ++j) {
-          const int p = pb + L.lp + j * L.ppi;
-          if (p < pe) {
-            const size_t off = ((size_t)n * HW + p) * C + c;
-            kept_s[j] = load_sum<true>(x, res, off);
-            kept_g[j] = load4_last(g + off);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < KEEP; ++j)
-          if (pb + L.lp + j * L.ppi < pe) add_terms(kept_s[j], kept_g[j], k, relu, s1, s2);
-      } else {
 #pragma unroll 4
-        for (int p = pb + L.lp; p < pe; p += L.ppi) {
-          const size_t off = ((size_t)n * HW + p) * C + c;
-          add_terms(load_sum<false>(x, res, off), load4(g + off), k, relu, s1, s2);
-        }
+      for (int p = pb + L.lp; p < pe; p += L.ppi) {
+        const size_t off = ((size_t)n * HW + p) * C + c;
+        add_terms(load_sum<false>(x, res, off), load4(g + off), k, relu, s1, s2);
       }
     }
     block_sum(sh1, sh2, s1, s2, L);
@@ -281,98 +257,80 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
 
   cg::this_grid().sync();
 
-  // Pass 2: dx of each item, from the image's sums.
-  if (dx != nullptr) {
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int n = item / G, t = item - n * G;
-      float4 a, b;
-      image_sums(part, n, G, C, sh1, sh2, L, a, b);
-      if (!lane) continue;
-      const int pb = t * chunk, pe = min(HW, pb + chunk);
-      if (pb + L.lp >= pe) continue;
-      const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
-      if constexpr (KEEP > 0) {
-#pragma unroll
-        for (int j = 0; j < KEEP; ++j) {
-          const int p = pb + L.lp + j * L.ppi;
-          if (p < pe)
-            store4_stream(dx + ((size_t)n * HW + p) * C + c,
-                          dx4(kept_s[j], kept_g[j], k, a, b, rhw, relu));
-        }
-      } else {
-        // Backwards: the lines read last in pass 1 first, while L2 holds them.
-        const int last = pb + L.lp + (pe - 1 - pb - L.lp) / L.ppi * L.ppi;
-#pragma unroll 4
-        for (int p = last; p >= pb; p -= L.ppi) {
-          const size_t off = ((size_t)n * HW + p) * C + c;
-          store4_stream(dx + off, dx4(load_sum<true>(x, res, off), load4_last(g + off), k, a, b,
-                                      rhw, relu));
-        }
-      }
-    }
-  }
-
-  // dscale and dbias: block 0 adds all N * G partials in one fixed order.
-  if (blockIdx.x == 0) {
+  if (blockIdx.x == workers) {
+    // dscale and dbias: all N * G partials in one fixed order, while the
+    // other blocks write dx.
     float4 db, ds;
     image_sums(part, 0, items, C, sh1, sh2, L, db, ds);
     if (threadIdx.x < L.C4) {
       *reinterpret_cast<float4*>(dscale + c) = ds;
       *reinterpret_cast<float4*>(dbias + c) = db;
     }
+    return;
   }
-}
+  if (dx == nullptr) return;
 
-// The held route keeps up to HELD pixels a lane in registers.
-constexpr int HELD = 8;
-
-template <typename T, int H>
-cudaError_t launch_route(const T* x, const T* res, const T* g, const float* mean,
-                         const float* inv, const float* scale, const float* bias, int N, int HW,
-                         int C, int relu, int grid, int G, int chunk, float* part, float* dscale,
-                         float* dbias, T* dx, cudaStream_t stream) {
-  void* args[] = {&x,    &res, &g,     &mean, &inv,    &scale, &bias,  &N,  &HW,
-                  &C,    &relu, &G,    &chunk, &part,  &dscale, &dbias, &dx};
-  // Refused (cudaErrorCooperativeLaunchTooLarge) when the grid exceeds the
-  // blocks the device holds at once.
-  const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(inb_kernel<T, H>),
-                                                      dim3(grid), dim3(NT), args, 0, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  // Pass 2: dx of each item from the image's sums, the item read again
+  // backwards: the lines read last in pass 1 first, while L2 holds them.
+  const float rhw = 1.f / (float)HW;
+  for (int item = blockIdx.x; item < items; item += workers) {
+    const int n = item / G, t = item - n * G;
+    float4 a, b;
+    image_sums(part, n, G, C, sh1, sh2, L, a, b);
+    const int pb = t * chunk, pe = min(HW, pb + chunk);
+    if (!lane || pb + L.lp >= pe) continue;
+    const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
+    const int last = pb + L.lp + (pe - 1 - pb - L.lp) / L.ppi * L.ppi;
+#pragma unroll 4
+    for (int p = last; p >= pb; p -= L.ppi) {
+      const size_t off = ((size_t)n * HW + p) * C + c;
+      store4_stream(dx + off,
+                    dx4(load_sum<true>(x, res, off), load4_last(g + off), k, a, b, rhw, relu));
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* x, const void* res, const void* g, const void* mean, const void* inv,
            const void* scale, const void* bias, void* part, void* dscale, void* dbias, void* dx,
-           int N, int HW, int C, int relu, int held, int grid, int G, int chunk, void* stream) {
+           int N, int HW, int C, int relu, int grid, int G, int chunk, void* stream) {
   // Four channels a thread, at least one pixel lane per channel group; a
-  // chunk plan that covers every pixel of every image; on the held route
-  // one item per block and at most HELD pixels a lane.
-  if (N < 1 || HW < 1 || C % 4 != 0 || C < 4 || C / 4 > NT || grid < 1 || G < 1 || chunk < 1 ||
-      (long long)G * chunk < HW || (long long)(G - 1) * chunk >= HW ||
-      (held && ((long long)N * G > grid || chunk > HELD * (NT / (C / 4)))))
+  // chunk plan that covers every pixel of every image; a worker block and
+  // the sums block.
+  if (N < 1 || HW < 1 || C % 4 != 0 || C < 4 || C / 4 > NT || grid < 2 || G < 1 || chunk < 1 ||
+      (long long)G * chunk < HW || (long long)(G - 1) * chunk >= HW)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      (held ? launch_route<T, HELD> : launch_route<T, 0>)(
-          static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const T*>(g),
-          static_cast<const float*>(mean), static_cast<const float*>(inv),
-          static_cast<const float*>(scale), static_cast<const float*>(bias), N, HW, C, relu,
-          grid, G, chunk, static_cast<float*>(part), static_cast<float*>(dscale),
-          static_cast<float*>(dbias), static_cast<T*>(dx), static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  const T* gt = static_cast<const T*>(g);
+  const float* mp = static_cast<const float*>(mean);
+  const float* ip = static_cast<const float*>(inv);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bp = static_cast<const float*>(bias);
+  float* pp = static_cast<float*>(part);
+  float* dsp = static_cast<float*>(dscale);
+  float* dbp = static_cast<float*>(dbias);
+  T* dxp = static_cast<T*>(dx);
+  void* args[] = {&xt, &rt, &gt, &mp,  &ip, &sp, &bp,  &N,   &HW,  &C,
+                  &relu, &G, &chunk, &pp, &dsp, &dbp, &dxp};
+  // Refused (cudaErrorCooperativeLaunchTooLarge) when the grid exceeds the
+  // blocks the device holds at once.
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(inb_kernel<T>),
+                                                dim3(grid), dim3(NT), args, 0,
+                                                static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks of each route's kernel the current device holds at once.
+// The blocks of inb_kernel<T> the current device holds at once.
 template <typename T>
 int resident(int* blocks) {
-  int dev = 0, sms = 0, stream_sm = 0, held_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&stream_sm, inb_kernel<T, 0>, NT, 0);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&held_sm, inb_kernel<T, HELD>, NT, 0);
-  blocks[0] = sms * stream_sm;
-  blocks[1] = sms * held_sm;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inb_kernel<T>, NT, 0);
+  *blocks = sms * per_sm;
   return static_cast<int>(err);
 }
 
@@ -388,27 +346,27 @@ const char* stx_instance_norm_bwd_error_string(int err) {
 // f32 from the forward; scale/bias [C] f32; part [N, G, 2, C] f32 scratch for
 // G chunks of `chunk` pixels per image (G * chunk >= HW > (G - 1) * chunk);
 // dscale/dbias [C] f32 outputs. dx NULL skips pass 2. C % 4 == 0, C <= 2048;
-// `held` takes the held route; `grid` at most the blocks that
-// stx_in_bwd_resident_f32 reports for the route.
+// `grid` (the chunks' blocks and the sums block) at most the blocks that
+// stx_in_bwd_resident_f32 reports.
 int stx_in_bwd_f32(const void* x, const void* res, const void* g, const void* mean,
                    const void* inv, const void* scale, const void* bias, void* part,
-                   void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu, int held,
-                   int grid, int G, int chunk, void* stream) {
+                   void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu, int grid,
+                   int G, int chunk, void* stream) {
   return launch<float>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N, HW, C,
-                       relu, held, grid, G, chunk, stream);
+                       relu, grid, G, chunk, stream);
 }
 
 // As stx_in_bwd_f32 with x, res, g and dx in bf16.
 int stx_in_bwd_bf16(const void* x, const void* res, const void* g, const void* mean,
                     const void* inv, const void* scale, const void* bias, void* part,
                     void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu,
-                    int held, int grid, int G, int chunk, void* stream) {
+                    int grid, int G, int chunk, void* stream) {
   return launch<__nv_bfloat16>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N,
-                               HW, C, relu, held, grid, G, chunk, stream);
+                               HW, C, relu, grid, G, chunk, stream);
 }
 
-// blocks[0], blocks[1]: the blocks of each dtype's streaming and held
-// kernels that the current device holds at once, the largest grid of each.
+// The blocks of each dtype's kernel that the current device holds at once:
+// the largest grid a launch may have.
 int stx_in_bwd_resident_f32(int* blocks) { return resident<float>(blocks); }
 int stx_in_bwd_resident_bf16(int* blocks) { return resident<__nv_bfloat16>(blocks); }
 

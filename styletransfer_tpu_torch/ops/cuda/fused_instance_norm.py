@@ -48,9 +48,6 @@ EPS = _in_pad.EPS
 BWD_MIN_ELEMS = 16384
 # Threads of a block of the backward kernel (NT in csrc/instance_norm_bwd.cu).
 BWD_THREADS = 512
-# Pixels a thread keeps in registers on the backward's held route (HELD in
-# csrc/instance_norm_bwd.cu).
-BWD_HELD = 8
 
 Stats = Tuple[torch.Tensor, torch.Tensor]
 
@@ -66,14 +63,12 @@ def _sum(x: torch.Tensor, residual: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 class BwdPlan(NamedTuple):
-    """How the backward kernel runs x [N, H, W, C]: its ``route`` (``held``:
-    one chunk per block, each thread's pixels kept in registers between the
-    passes; ``stream``: the chunk read again in pass 2), ``blocks`` in its
-    grid, each image cut into ``image_chunks`` chunks of ``chunk`` pixels
-    (chunk t of image n is item n * image_chunks + t; block b takes items
-    b, b + blocks, ...), and the f32 ``scratch`` of the chunk partials, [N,
+    """How the backward kernel runs x [N, H, W, C]: ``blocks`` in its grid
+    (the chunks' workers and one block that adds dscale and dbias), each
+    image cut into ``image_chunks`` chunks of ``chunk`` pixels (chunk t of
+    image n is item n * image_chunks + t; worker b takes items b, b +
+    workers, ...), and the f32 ``scratch`` of the chunk partials, [N,
     image_chunks, 2, C]."""
-    route: str
     blocks: int
     image_chunks: int
     chunk: int
@@ -81,32 +76,23 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
-def bwd_plan(N: int, H: int, W: int, C: int, resident: int, held_resident: int) -> BwdPlan:
-    """The backward's route and grid for x [N, H, W, C] on a device that
-    holds ``resident`` blocks of the streaming kernel and ``held_resident``
-    of the held one at once (the occupancy API; the cooperative launch is
-    refused past them).
-
-    A block's threads cover ``lanes = BWD_THREADS // (C / 4)`` pixels at a
-    time. Where every image fits in chunks of ``BWD_HELD * lanes`` pixels on
-    one block each, all at once, the call takes the held route on those
-    chunks: one read of x and g. Otherwise it streams: an image takes ``G =
-    min(resident // N, ceil(H * W * C / BWD_MIN_ELEMS))`` chunks (at least
-    1, at most one a pixel) of ``ceil(H * W / G)`` pixels, and the grid is
-    one block per chunk, or ``resident`` blocks that take several chunks
+def bwd_plan(N: int, H: int, W: int, C: int, resident: int) -> BwdPlan:
+    """The backward's grid for x [N, H, W, C] on a device that holds
+    ``resident`` blocks of the kernel at once (the occupancy API; the
+    cooperative launch is refused past it). One block adds dscale and
+    dbias; of the ``resident - 1`` others, an image takes ``G = min((resident
+    - 1) // N, ceil(H * W * C / BWD_MIN_ELEMS))`` (at least 1, at most one a
+    pixel), each a chunk of ``ceil(H * W / G)`` pixels. The workers are one
+    block per chunk, or ``resident - 1`` blocks that take several chunks
     each when the images outnumber them."""
-    if resident < 1:
-        raise ValueError(f"the device holds no block of the backward kernel ({resident})")
+    if resident < 2:
+        raise ValueError(f"the device holds {resident} blocks of the backward kernel at once; "
+                         "it needs 2")
     hw = H * W
-    G = math.ceil(hw / (BWD_HELD * (BWD_THREADS // (C // 4))))
-    if N * G <= held_resident:
-        chunk = math.ceil(hw / G)
-        G = math.ceil(hw / chunk)
-        return BwdPlan("held", N * G, G, chunk, (N, G, 2, C))
-    G = max(1, min(resident // N, math.ceil(hw * C / BWD_MIN_ELEMS), hw))
+    G = max(1, min((resident - 1) // N, math.ceil(hw * C / BWD_MIN_ELEMS), hw))
     chunk = math.ceil(hw / G)
     G = math.ceil(hw / chunk)
-    return BwdPlan("stream", min(N * G, resident), G, chunk, (N, G, 2, C))
+    return BwdPlan(min(N * G, resident - 1) + 1, G, chunk, (N, G, 2, C))
 
 
 def forward_plain(
@@ -202,7 +188,7 @@ def backward(
     global bwd_launches
     lib = _library()
     dev = x.device
-    plan = bwd_plan(N, H, W, C, *_resident(dev, x.dtype))
+    plan = bwd_plan(N, H, W, C, _resident(dev, x.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     part = _scratch(plan, dev, stream)
     dsb = torch.empty((2, C), dtype=torch.float32, device=dev)
@@ -213,8 +199,7 @@ def backward(
             x.data_ptr(), None if residual is None else residual.data_ptr(), g.data_ptr(),
             mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), part,
             dsb[0].data_ptr(), dsb[1].data_ptr(), None if dx is None else dx.data_ptr(),
-            N, H * W, C, int(relu), int(plan.route == "held"), plan.blocks, plan.image_chunks,
-            plan.chunk, stream,
+            N, H * W, C, int(relu), plan.blocks, plan.image_chunks, plan.chunk, stream,
         )
     if err:
         raise RuntimeError(
@@ -229,9 +214,9 @@ def backward(
 # largest plan so far. Launches on one stream run in order, so they share it;
 # every launch writes all of its partials before it reads any.
 _SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-# Per device index and dtype: the blocks of the backward's streaming and held
-# kernels the device holds at once.
-_RESIDENT: Dict[Tuple[int, torch.dtype], Tuple[int, int]] = {}
+# Per device index and dtype: the blocks of the backward kernel the device
+# holds at once.
+_RESIDENT: Dict[Tuple[int, torch.dtype], int] = {}
 
 
 def _scratch(plan: BwdPlan, device: torch.device, stream: int) -> int:
@@ -244,23 +229,23 @@ def _scratch(plan: BwdPlan, device: torch.device, stream: int) -> int:
     return buf.data_ptr()
 
 
-def _resident(device: torch.device, dtype: torch.dtype) -> Tuple[int, int]:
-    """The blocks of the backward's streaming and held kernels for ``dtype``
-    that ``device`` holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs)."""
+def _resident(device: torch.device, dtype: torch.dtype) -> int:
+    """The blocks of the backward kernel for ``dtype`` that ``device`` holds
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the
+    SMs)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     key = (index, dtype)
     if key not in _RESIDENT:
         lib = _library()
         fn = lib.stx_in_bwd_resident_f32 if dtype == torch.float32 else \
             lib.stx_in_bwd_resident_bf16
-        found = (ctypes.c_int * 2)()
+        found = ctypes.c_int(0)
         with torch.cuda.device(index):
-            err = fn(found)
+            err = fn(ctypes.byref(found))
         if err:
             raise RuntimeError("instance-norm backward occupancy query failed: "
                                f"{lib.stx_instance_norm_bwd_error_string(err).decode()}")
-        _RESIDENT[key] = (found[0], found[1])
+        _RESIDENT[key] = found.value
     return _RESIDENT[key]
 
 
@@ -306,7 +291,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_bwd_f32, lib.stx_in_bwd_bf16):
-            fn.argtypes = [p] * 11 + [i] * 8 + [p]
+            fn.argtypes = [p] * 11 + [i] * 7 + [p]
             fn.restype = i
         for fn in (lib.stx_in_bwd_resident_f32, lib.stx_in_bwd_resident_bf16):
             fn.argtypes = [p]

@@ -187,61 +187,44 @@ _TRAIN_CALLS = [
 ]
 
 
-@pytest.mark.parametrize("resident,held_resident", [(132, 132), (264, 132), (528, 264),
-                                                   (264, 0)])
+@pytest.mark.parametrize("resident", [132, 264, 528])
 @pytest.mark.parametrize("call", _TRAIN_CALLS, ids=[c[0] for c in _TRAIN_CALLS])
-def test_backward_plan_at_the_training_shapes(call, resident, held_resident):
+def test_backward_plan_at_the_training_shapes(call, resident):
     _, (N, H, W, C), _ = call
-    plan = fin.bwd_plan(N, H, W, C, resident, held_resident)
+    plan = fin.bwd_plan(N, H, W, C, resident)
     G, chunk = plan.image_chunks, plan.chunk
-    lanes = fin.BWD_THREADS // (C // 4)
     # Every pixel in exactly one chunk, no chunk empty.
     assert G * chunk >= H * W > (G - 1) * chunk
+    # One worker block per chunk and the block that adds dscale and dbias,
+    # all resident at once (one launch, one grid-wide barrier).
+    assert plan.blocks == N * G + 1 <= resident
     assert plan.scratch == (N, G, 2, C)
-    fits = N * -(-H * W // (fin.BWD_HELD * lanes)) <= held_resident
-    if plan.route == "held":
-        # One chunk per block, all resident at once, at most BWD_HELD
-        # pixels a thread (the 64 x 64 x 128 calls: 128 blocks of 128 px).
-        assert fits and plan.blocks == N * G <= held_resident
-        assert chunk <= fin.BWD_HELD * lanes
-        assert H != 64 or (N, G, chunk) == (4, 32, 128)
-    else:
-        # Where the held chunks do not all fit at once: one chunk per
-        # block, chunks of at least BWD_MIN_ELEMS elements unless the
-        # blocks run out.
-        assert not fits and plan.route == "stream" and plan.blocks == N * G <= resident
-        assert chunk * C >= fin.BWD_MIN_ELEMS or G == resident // N
-    assert fin.bwd_plan(N, H, W, C, resident, held_resident) is plan  # cached
+    # Chunks of at least BWD_MIN_ELEMS elements, unless the device's blocks
+    # run out first.
+    assert chunk * C >= fin.BWD_MIN_ELEMS or G == (resident - 1) // N
+    assert fin.bwd_plan(N, H, W, C, resident) is plan  # cached
 
 
 def test_backward_plan_at_the_training_step():
-    # One block an SM of an H100 (132 SMs) on each route: 11 of the 15
-    # calls of a step take the held route on 128 blocks, the rest stream on
-    # 128 or 132.
-    plans = [(fin.bwd_plan(*shape, 132, 132), n) for _, shape, n in _TRAIN_CALLS]
-    assert sum(n for p, n in plans if p.route == "held") == 11
-    assert sum(n for _, n in plans) == 15
-    assert {p.blocks for p, _ in plans} <= {128, 132}
+    # At two blocks an SM of an H100 (132 SMs): the 64 x 64 x 128 calls (11
+    # of 15) on 128 workers of 128 pixels, the wider ones on 256 or 260.
+    plans = {name: fin.bwd_plan(*shape, 264) for name, shape, _ in _TRAIN_CALLS}
+    assert {name: (p.blocks - 1, p.chunk) for name, p in plans.items()} == {
+        "in1": (260, 1009), "in2": (256, 256), "in3": (128, 128), "res.in1": (128, 128),
+        "res.in2": (128, 128), "up1_in": (256, 256), "up2_in": (260, 1009)}
 
 
 @pytest.mark.parametrize("N,H,W,C,resident", [(300, 4, 4, 8, 264), (2, 1, 1, 4, 528),
                                               (1, 300, 5, 4, 132), (3, 7, 9, 1024, 2)])
 def test_backward_plan_at_odd_shapes(N, H, W, C, resident):
-    # More images than resident blocks: each block takes several chunks;
-    # one pixel; one image of 1,500 pixels; wide channels on few blocks.
-    for held_resident in (0, resident):
-        plan = fin.bwd_plan(N, H, W, C, resident, held_resident)
-        G, chunk = plan.image_chunks, plan.chunk
-        assert G * chunk >= H * W > (G - 1) * chunk and plan.scratch == (N, G, 2, C)
-        if plan.route == "held":
-            assert plan.blocks == N * G <= held_resident
-            assert chunk <= fin.BWD_HELD * (fin.BWD_THREADS // (C // 4))
-        else:
-            assert plan.blocks == min(N * G, resident)
-    assert fin.bwd_plan(300, 4, 4, 8, 264, 264).route == "stream"  # 300 blocks > 264
-    assert fin.bwd_plan(1, 300, 5, 4, 132, 132) == fin.BwdPlan("held", 1, 1, 1500, (1, 1, 2, 4))
+    # More images than workers: each takes several chunks; one pixel; one
+    # image of 1,500 pixels; wide channels on one worker.
+    plan = fin.bwd_plan(N, H, W, C, resident)
+    G, chunk = plan.image_chunks, plan.chunk
+    assert G * chunk >= H * W > (G - 1) * chunk and plan.scratch == (N, G, 2, C)
+    assert plan.blocks == min(N * G, resident - 1) + 1 <= resident
     with pytest.raises(ValueError):
-        fin.bwd_plan(N, H, W, C, 0, 0)
+        fin.bwd_plan(N, H, W, C, 1)
 
 
 def test_backward_constants_are_the_kernels():
@@ -250,4 +233,3 @@ def test_backward_constants_are_the_kernels():
     src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "styletransfer_tpu_torch", "csrc", "instance_norm_bwd.cu")).read()
     assert f"constexpr int NT = {fin.BWD_THREADS};" in src
-    assert f"constexpr int HELD = {fin.BWD_HELD};" in src
