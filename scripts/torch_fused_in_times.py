@@ -10,7 +10,7 @@ archive`` under ``build/``) and runs its ``chip_smoke.fused_phase`` in f32
 and bf16: the fused-IN forward and backward held against their plain
 versions and timed at each call shape of a batch-4 train step, with the
 step's totals. Run it once per tree, each in a fresh process, to compare
-trees in one session (parent, change, change, parent). Needs a CUDA GPU
+trees on one card (parent, change, change, parent). Needs a CUDA GPU
 and nvcc.
 """
 

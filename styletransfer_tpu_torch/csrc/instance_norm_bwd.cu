@@ -48,7 +48,7 @@
 // steps (launch, loads, barrier, partials, stores), not its bytes: the
 // 64 x 64 x 128 calls (11 of 15 a step) take about 3.5x their bound.
 // Keeping each thread's pixels in registers between the passes (one read)
-// was slower there than this re-read from L2 (PERF.md, PR 8).
+// was slower there than this re-read from L2 (PERF.md §6).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
