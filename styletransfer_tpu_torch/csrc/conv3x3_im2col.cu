@@ -3,34 +3,79 @@
 //
 // Replaces the TPU kernel styletransfer_tpu/ops/pallas/conv3x3.py
 // (conv3x3_im2col -> _im2col_kernel): the same function as conv3x3_flat.cu,
-// computed as [M, 9C] x [9C, O] with the im2col operand staged on chip. The
+// computed as [M, 9C] x [9C, O] with the im2col operand built on chip. The
 // port runs the 3x3 convs with few input channels (C < 32) on it: in the
-// Gatys tower that is conv1_1 (C = 3), where nine per-tap products of depth 3
-// would leave the multiply units idle and one product of depth 27 does not.
+// Gatys tower that is conv1_1 (C = 3 -> 64), where nine per-tap products of
+// depth 3 would leave the multiply units idle and one product of depth 27
+// does not. It runs once per Gatys closure, twice per train step.
 //
-// What bounds it on an H100: conv1_1 at 256 px is 0.23 GFLOP on 1 MB in and
-// 17 MB out (f32), so it moves more bytes than it computes: the output
-// write bounds it (about 5 us at 3.35 TB/s).
+// What bounds it on an H100: conv1_1 at 256 px, x [B, 258, 258, 3] -> 64,
+// reads 0.8 MB (f32) per image and writes 16.8 MB (f32) or 8.4 MB (bf16):
+// the output write bounds it, 5.2 us (f32) and 2.6 us (bf16) per image at
+// 3.35 TB/s. Its 0.23 GFLOP per image take 3.4 us on the CUDA cores at 67
+// TFLOP/s (f32; TF32 is off) and 0.23 us on the tensor cores (bf16).
 //
-// Design: a block owns BM = 128 output pixels of one image and BN output
-// channels. It walks K = 9*C in slices; for each it gathers the [BM, slice]
-// block of the im2col operand from the shifted input rows (column k = tap*C + c
-// of pixel (y, x) is xpad[y + dy, x + dx, c]) into shared memory, with the
-// matching [slice, BN] rows of w reshaped to [9C, O], and multiplies. For
-// C = 3 the whole operand (K = 27) is one slice. Columns past K and pixels
-// past the image are zero, so any C >= 1 and O >= 1 work.
+// Two routes; the wrapper (ops/cuda/conv3x3_flat.py::im2col_plan) names the
+// one a shape takes.
+//
+// band (C <= 4 where the span below fits in shared memory; every conv1_1):
+// a tile is BM = 256 consecutive positions of the Wp-wide output grid of one
+// image by 64 output channels (the two columns past W of each row are
+// computed and not stored). Its operand lies in the contiguous span of
+// BM + 2*Wp + 2 padded input pixels those positions touch, and for a fixed dy
+// the 3C columns dy*3C ... dy*3C + 3C - 1 of position q are the 3C
+// contiguous values from pixel q + dy*Wp on: the operand is read from the
+// span at fixed offsets, with no division in the inner loop. What the PR 3
+// design (the gather route below) lost its time to, and what this does:
+//   - the operand gathered one element at a time from device memory, with
+//     integer divisions per element: here the span comes in as one bulk
+//     copy (cp.async.bulk, 16-byte aligned, the few bytes past the last
+//     16-byte boundary loaded by threads), each input byte once per tile;
+//   - the weights reloaded by every block of 128 pixels: here a persistent
+//     grid (at most 2 blocks per SM) loads w and the bias into shared memory
+//     once per block and walks tiles;
+//   - no overlap inside a block: here the span of the block's next tile is
+//     in flight (a 2-stage ring, one mbarrier per stage) while this tile
+//     computes and stores;
+//   - narrow bf16 stores: here every warp store writes whole 128-byte lines.
+//   f32:  FMA on an 8-position x 8-channel register tile per thread (the
+//         channels cg*4 + {0..3} and 32 + cg*4 + {0..3}, so that 8 threads
+//         write one line). Per dy a thread reads its 10C-value window of the
+//         span once and uses it for all 3C columns: 27 x 64 FMAs per 90
+//         scalar and 54 float4 shared-memory reads at C = 3. Stores go from
+//         the registers: a warp store is 4 pixels x 128 bytes.
+//   bf16: mma.sync m16n8k16, K padded to 16 (32 at C = 3: two k16 steps).
+//         The math is 0.23 us at the tensor cores' peak, so the choice is by
+//         instructions and registers: the A fragments are built in registers
+//         from 2-byte reads of the span (offsets computed once per thread),
+//         the B fragments read as bf16 pairs packed once per block; wgmma
+//         would need A in a 64-row warpgroup layout or a staged copy of the
+//         operand for no gain in time. The tile goes through a shared-memory
+//         staging tile and out in 16-byte stores, 8 threads a pixel's line.
+// No atomics: two calls on the same inputs give the same bits.
+//
+// gather (every other shape: C > 4, or a span too large): the PR 3 design.
+// A block owns BM = 128 output pixels of one image and BN output channels.
+// It walks K = 9*C in slices; for each it gathers the [BM, slice] block of
+// the im2col operand from the shifted input rows (column k = tap*C + c of
+// pixel (y, x) is xpad[y + dy, x + dx, c]) into shared memory, with the
+// matching [slice, BN] rows of w reshaped to [9C, O], and multiplies. Columns
+// past K and pixels past the image are zero, so any C >= 1 and O >= 1 work.
 //   f32:  FMA on an 8 x TN register tile per thread (256 threads, slices of 16).
 //   bf16: mma.sync m16n8k16 with f32 accumulation (8 warps, each 32 pixels by
 //         BN / 2 channels; slices of 32), fragments read with ldmatrix.
 // The output is stored from the accumulators after the bias and ReLU, in
 // 16-byte groups (f32) or channel pairs (bf16) where O allows it.
 
-#include "conv3x3_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using conv3x3::f32_col;
+using conv3x3::smem_addr;
+using namespace hopper;
 
+// ----------------------------------------------------------- gather route
 constexpr int BM = 128;  // output pixels per block (all in one image)
 constexpr int NT = 256;  // threads per block
 
@@ -256,6 +301,406 @@ conv3x3_im2col_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
+// ------------------------------------------------------------- band route
+constexpr int BAND_BM = 256;  // positions of the Wp-wide output grid per tile
+constexpr int BAND_BN = 64;   // output channels per tile
+constexpr int BAND_NT = 256;  // threads per block
+constexpr int BAND_MAX_C = 4;
+constexpr int STAGING_LD = BAND_BN + 8;  // bf16 staging row pitch: conflict-free pair writes
+
+struct BandShape {
+  int Hp, Wp, C, O, H, W;
+  int M;            // H * Wp: positions of an image's output grid
+  int qtiles;       // tiles per image along the positions
+  int nchunks;      // 64-channel chunks of O
+  int tiles;        // B * qtiles * nchunks
+  int span;         // BAND_BM + 2 * Wp + 2: input pixels a tile reads
+  int stage_bytes;  // one stage of the ring: the span, 16 bytes of lead, 128-byte aligned
+  int wpitch;       // f32: floats per weight row; bf16: words per packed weight row
+};
+
+__host__ __device__ __forceinline__ int round_up(int v, int a) { return (v + a - 1) / a * a; }
+
+BandShape band_shape(int B, int Hp, int Wp, int C, int O, int elt) {
+  BandShape s;
+  s.Hp = Hp;
+  s.Wp = Wp;
+  s.C = C;
+  s.O = O;
+  s.H = Hp - 2;
+  s.W = Wp - 2;
+  s.M = s.H * Wp;
+  s.qtiles = (s.M + BAND_BM - 1) / BAND_BM;
+  s.nchunks = (O + BAND_BN - 1) / BAND_BN;
+  s.tiles = B * s.qtiles * s.nchunks;
+  s.span = BAND_BM + 2 * Wp + 2;
+  s.stage_bytes = round_up(s.span * C * elt + 16, 128);
+  s.wpitch = s.nchunks * BAND_BN + (elt == 2 ? 8 : 0);
+  return s;
+}
+
+// Dynamic shared memory of a band block: two mbarriers (128 bytes), the two
+// stages, the weights, the bias and, in bf16, the staging tile.
+// ops/cuda/conv3x3_flat.py::band_smem_bytes computes the same to route.
+size_t band_smem_bytes(const BandShape& s, int elt) {
+  const int ks = (9 * s.C + 15) / 16;
+  const size_t weights = elt == 2 ? (size_t)ks * 8 * s.wpitch * 4 : (size_t)9 * s.C * s.wpitch * 4;
+  const size_t staging = elt == 2 ? (size_t)BAND_BM * STAGING_LD * 2 : 0;
+  return 128 + 2 * (size_t)s.stage_bytes + weights + (size_t)s.nchunks * BAND_BN * 4 + staging;
+}
+
+// One bulk copy (no tensor map) of `bytes` (a multiple of 16) from global to
+// shared memory, both 16-byte aligned, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+struct BandTile {
+  int img, q0, n0;
+};
+
+__device__ __forceinline__ BandTile band_tile(int t, const BandShape& s) {
+  BandTile r;
+  r.n0 = (t % s.nchunks) * BAND_BN;
+  t /= s.nchunks;
+  r.q0 = (t % s.qtiles) * BAND_BM;
+  r.img = t / s.qtiles;
+  return r;
+}
+
+// Where tile `t`'s span lies: it starts `lead` elements into its stage (the
+// bulk copy starts at the 16-byte boundary at or before it), the bulk copy
+// is `bulk` bytes from element `from` of x, and the `tail` elements after
+// it (past the last 16-byte boundary of the span, clipped to the image) are
+// loaded by threads from element `from + bulk / elt`.
+struct Span {
+  size_t from;
+  int lead, bulk, tail;
+};
+
+template <typename T>
+__device__ __forceinline__ Span span_of(const BandTile& tl, const BandShape& s) {
+  const size_t image = (size_t)s.Hp * s.Wp * s.C;
+  const size_t e0 = (size_t)tl.img * image + (size_t)tl.q0 * s.C;
+  const size_t end = (size_t)(tl.img + 1) * image;
+  const size_t e1 = e0 + (size_t)s.span * s.C < end ? e0 + (size_t)s.span * s.C : end;
+  const size_t b0 = e0 * sizeof(T), b1 = e1 * sizeof(T);
+  const size_t a0 = b0 & ~(size_t)15, a1 = b1 & ~(size_t)15;
+  Span sp;
+  sp.from = a0 / sizeof(T);
+  sp.lead = static_cast<int>((b0 - a0) / sizeof(T));
+  sp.bulk = static_cast<int>(a1 - a0);
+  sp.tail = static_cast<int>((b1 - a1) / sizeof(T));
+  return sp;
+}
+
+// Thread 0 starts tile t's span into `stage`, counted on `bar`.
+template <typename T>
+__device__ __forceinline__ void issue_span(const T* x, int t, const BandShape& s,
+                                           unsigned char* stage, uint64_t* bar) {
+  const Span sp = span_of<T>(band_tile(t, s), s);
+  mbar_expect(bar, sp.bulk);
+  if (sp.bulk > 0) bulk_load(stage, x + sp.from, sp.bulk, bar);
+}
+
+// Every thread: wait for the tile's span in `stage` (the threads below the
+// tail count load the tail first) and return where it lies.
+template <typename T>
+__device__ __forceinline__ Span await_span(const T* x, const BandTile& tl, const BandShape& s,
+                                           T* stage, uint64_t* bar, int use) {
+  const Span sp = span_of<T>(tl, s);
+  if (static_cast<int>(threadIdx.x) < sp.tail) {
+    stage[sp.bulk / sizeof(T) + threadIdx.x] = x[sp.from + sp.bulk / sizeof(T) + threadIdx.x];
+    // The next bulk copy into this stage must see this write ordered before it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  mbar_wait(bar, use & 1);
+  __syncthreads();
+  return sp;
+}
+
+__device__ __forceinline__ void band_init_barriers(uint64_t* full) {
+  if (threadIdx.x == 0) {
+    mbar_init(full);
+    mbar_init(full + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(BAND_NT, 2)
+im2col_band_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias, float* __restrict__ out, BandShape s,
+                       int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stages = smem + 128;
+  float* ws = reinterpret_cast<float*>(stages + 2 * s.stage_bytes);  // [9C][wpitch]
+  float* bs = ws + 9 * C * s.wpitch;
+  const int tid = threadIdx.x;
+
+  band_init_barriers(full);
+  for (int i = tid; i < 9 * C * s.wpitch; i += BAND_NT) {
+    const int k = i / s.wpitch, n = i - k * s.wpitch;
+    ws[i] = n < s.O ? w[(size_t)k * s.O + n] : 0.f;
+  }
+  for (int n = tid; n < s.nchunks * BAND_BN; n += BAND_NT) bs[n] = n < s.O ? bias[n] : 0.f;
+  __syncthreads();
+
+  // Thread (pg, cg): positions pg*8 + {0..7} of the tile, channels
+  // cg*4 + {0..3} and 32 + cg*4 + {0..3} of its chunk.
+  const int pg = tid >> 3, cg = tid & 7;
+  int t = blockIdx.x;
+  if (tid == 0 && t < s.tiles) issue_span(x, t, s, stages, full);
+  for (int it = 0; t < s.tiles; t += gridDim.x, ++it) {
+    const int st = it & 1;
+    if (tid == 0 && t + (int)gridDim.x < s.tiles)
+      issue_span(x, t + gridDim.x, s, stages + (st ^ 1) * s.stage_bytes, full + (st ^ 1));
+    const BandTile tl = band_tile(t, s);
+    float* stage = reinterpret_cast<float*>(stages + st * s.stage_bytes);
+    const Span sp = await_span(x, tl, s, stage, full + st, it >> 1);
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    const float* base = stage + sp.lead + pg * 8 * C;
+    const float* wcol = ws + tl.n0 + cg * 4;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      float win[10 * C];  // pixels pg*8 .. pg*8 + 9 of row dy of the window
+      const float* r = base + dy * s.Wp * C;
+#pragma unroll
+      for (int e = 0; e < 10 * C; ++e) win[e] = r[e];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int k = (dy * 3 + dx) * C + c;
+          const float4 w0 = *reinterpret_cast<const float4*>(wcol + k * s.wpitch);
+          const float4 w1 = *reinterpret_cast<const float4*>(wcol + k * s.wpitch + 32);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float a = win[(i + dx) * C + c];
+            acc[i][0] = fmaf(a, w0.x, acc[i][0]);
+            acc[i][1] = fmaf(a, w0.y, acc[i][1]);
+            acc[i][2] = fmaf(a, w0.z, acc[i][2]);
+            acc[i][3] = fmaf(a, w0.w, acc[i][3]);
+            acc[i][4] = fmaf(a, w1.x, acc[i][4]);
+            acc[i][5] = fmaf(a, w1.y, acc[i][5]);
+            acc[i][6] = fmaf(a, w1.z, acc[i][6]);
+            acc[i][7] = fmaf(a, w1.w, acc[i][7]);
+          }
+        }
+    }
+
+    float bv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = bs[tl.n0 + (j >> 2) * 32 + cg * 4 + (j & 3)];
+    int q = tl.q0 + pg * 8;
+    int y = q / s.Wp, xx = q - y * s.Wp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i, ++q) {
+      if (q < s.M && xx < s.W) {
+        float* orow = out + (((size_t)tl.img * s.H + y) * s.W + xx) * s.O;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = tl.n0 + h * 32 + cg * 4;
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = conv3x3::bias_relu(acc[i][h * 4 + j], bv[h * 4 + j], relu);
+          if ((s.O & 3) == 0) {  // whole float4 groups: n < O implies n + 3 < O
+            if (n < s.O) *reinterpret_cast<float4*>(orow + n) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (n + j < s.O) orow[n + j] = v[j];
+          }
+        }
+      }
+      if (++xx == s.Wp) {
+        xx = 0;
+        ++y;
+      }
+    }
+    __syncthreads();  // every read of this stage is done before it is filled again
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(BAND_NT, 2)
+im2col_band_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                        BandShape s, int relu) {
+  constexpr int K = 9 * C, KS = (K + 15) / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stages = smem + 128;
+  // Weights as bf16 pairs along k: wp[kp][n] = (w[2kp][n], w[2kp + 1][n]).
+  uint32_t* wp = reinterpret_cast<uint32_t*>(stages + 2 * s.stage_bytes);
+  float* bs = reinterpret_cast<float*>(wp + KS * 8 * s.wpitch);
+  __nv_bfloat16* staging = reinterpret_cast<__nv_bfloat16*>(bs + s.nchunks * BAND_BN);
+  const unsigned short* wbits = reinterpret_cast<const unsigned short*>(w);
+  const int tid = threadIdx.x;
+
+  band_init_barriers(full);
+  for (int i = tid; i < KS * 8 * s.wpitch; i += BAND_NT) {
+    const int kp = i / s.wpitch, n = i - kp * s.wpitch;
+    const bool n_ok = n < s.O;
+    const uint32_t lo = (n_ok && 2 * kp < K) ? wbits[(size_t)(2 * kp) * s.O + n] : 0u;
+    const uint32_t hi = (n_ok && 2 * kp + 1 < K) ? wbits[(size_t)(2 * kp + 1) * s.O + n] : 0u;
+    wp[i] = lo | (hi << 16);
+  }
+  for (int n = tid; n < s.nchunks * BAND_BN; n += BAND_NT) bs[n] = n < s.O ? bias[n] : 0.f;
+  __syncthreads();
+
+  // Warp w: positions w*32 .. w*32 + 31 (two m16 tiles) by the chunk's 64
+  // channels (eight n8 tiles). Column k of the operand at position q is
+  // element q*C + off(k) of the span, off(k) = (k / 3C)*Wp*C + k % 3C; this
+  // thread's columns are ks*16 + h*8 + t4*2 + {0, 1}.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  int off[KS][2][2];
+  bool col_ok[KS][2][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = ks * 16 + h * 8 + t4 * 2 + e;
+        col_ok[ks][h][e] = k < K;
+        off[ks][h][e] = k < K ? (k / (3 * C)) * s.Wp * C + k % (3 * C) : 0;
+      }
+
+  int t = blockIdx.x;
+  if (tid == 0 && t < s.tiles) issue_span(x, t, s, stages, full);
+  for (int it = 0; t < s.tiles; t += gridDim.x, ++it) {
+    const int st = it & 1;
+    if (tid == 0 && t + (int)gridDim.x < s.tiles)
+      issue_span(x, t + gridDim.x, s, stages + (st ^ 1) * s.stage_bytes, full + (st ^ 1));
+    const BandTile tl = band_tile(t, s);
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(stages + st * s.stage_bytes);
+    const Span sp = await_span(x, tl, s, stage, full + st, it >> 1);
+    const unsigned short* band = reinterpret_cast<const unsigned short*>(stage) + sp.lead;
+
+    // A fragments (m16n8k16, row-major): a[mt][ks][h * 2 + rr] holds row
+    // g + 8 * rr of m tile mt, columns ks*16 + h*8 + t4*2 + {0, 1}.
+    uint32_t a[2][KS][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const unsigned short* r = band + (warp * 32 + mt * 16 + rr * 8 + g) * C;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t lo = col_ok[ks][h][0] ? r[off[ks][h][0]] : 0u;
+            const uint32_t hi = col_ok[ks][h][1] ? r[off[ks][h][1]] : 0u;
+            a[mt][ks][h * 2 + rr] = lo | (hi << 16);
+          }
+      }
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      // B fragment (col-major): column n = g of n tile nt, rows t4*2 + {0, 1}
+      // and t4*2 + 8 + {0, 1} of each k16 step.
+      const uint32_t* wn = wp + tl.n0 + nt * 8 + g;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t b0 = wn[(ks * 8 + t4) * s.wpitch];
+        const uint32_t b1 = wn[(ks * 8 + 4 + t4) * s.wpitch];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) conv3x3::mma_bf16_16816(acc[mt][nt], a[mt][ks], b0, b1);
+      }
+    }
+
+    // Bias, ReLU and the one rounding into the staging tile [position][64].
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + t4 * 2;
+      const float b0 = bs[tl.n0 + col], b1 = bs[tl.n0 + col + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = warp * 32 + mt * 16 + rr * 8 + g;
+          *reinterpret_cast<__nv_bfloat162*>(staging + row * STAGING_LD + col) =
+              __floats2bfloat162_rn(conv3x3::bias_relu(acc[mt][nt][rr * 2 + 0], b0, relu),
+                                    conv3x3::bias_relu(acc[mt][nt][rr * 2 + 1], b1, relu));
+        }
+    }
+    __syncthreads();
+    if ((s.O & 7) == 0) {
+      // 16-byte pieces: thread i stores piece i & 7 of positions i / 8 + 32j,
+      // so 8 threads write one position's 128-byte line.
+      const int piece = tid & 7, n = tl.n0 + piece * 8;
+      int q = tl.q0 + (tid >> 3);
+      int y = q / s.Wp, xx = q - y * s.Wp;
+#pragma unroll
+      for (int j = 0; j < BAND_BM / 32; ++j) {
+        if (q < s.M && xx < s.W && n < s.O) {
+          const int row = (tid >> 3) + 32 * j;
+          *reinterpret_cast<uint4*>(out + (((size_t)tl.img * s.H + y) * s.W + xx) * s.O + n) =
+              *reinterpret_cast<const uint4*>(staging + row * STAGING_LD + piece * 8);
+        }
+        q += 32;
+        xx += 32;
+        while (xx >= s.Wp) {
+          xx -= s.Wp;
+          ++y;
+        }
+      }
+    } else {
+      for (int i = tid; i < BAND_BM * BAND_BN; i += BAND_NT) {
+        const int row = i / BAND_BN, col = i % BAND_BN;
+        const int q = tl.q0 + row, y = q / s.Wp, xx = q - y * s.Wp, n = tl.n0 + col;
+        if (q < s.M && xx < s.W && n < s.O)
+          out[(((size_t)tl.img * s.H + y) * s.W + xx) * s.O + n] = staging[row * STAGING_LD + col];
+      }
+    }
+    __syncthreads();  // the stage and the staging tile are free again
+  }
+}
+
+template <int C>
+int band_f32(const void* x, const void* w, const void* bias, void* out, const BandShape& s,
+             int relu, int blocks, cudaStream_t st) {
+  static hopper::Granted granted;
+  const size_t bytes = band_smem_bytes(s, 4);
+  const cudaError_t err = hopper::allow_smem(im2col_band_f32_kernel<C>, bytes, &granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  im2col_band_f32_kernel<C><<<blocks, BAND_NT, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(out), s, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int band_bf16(const void* x, const void* w, const void* bias, void* out, const BandShape& s,
+              int relu, int blocks, cudaStream_t st) {
+  static hopper::Granted granted;
+  const size_t bytes = band_smem_bytes(s, 2);
+  const cudaError_t err = hopper::allow_smem(im2col_band_bf16_kernel<C>, bytes, &granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using bf16 = __nv_bfloat16;
+  im2col_band_bf16_kernel<C><<<blocks, BAND_NT, bytes, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), s, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Im2colShape make_shape(int Hp, int Wp, int C, int O) {
   Im2colShape s;
   s.Wp = Wp;
@@ -287,11 +732,21 @@ const char* stx_conv3x3_im2col_error_string(int err) {
 }
 
 // x [B, Hp, Wp, C] and w [3, 3, C, O] f32, bias [O] f32, out [B, Hp-2, Wp-2, O]
-// f32. Returns a cudaError_t (0 on success).
+// f32. band != 0 takes the band route on `blocks` persistent blocks (C <= 4),
+// else the gather route. Returns a cudaError_t (0 on success).
 int stx_conv3x3_im2col_f32(const void* x, const void* w, const void* bias, void* out, int B,
-                           int Hp, int Wp, int C, int O, int relu, void* stream) {
-  const Im2colShape s = make_shape(Hp, Wp, C, O);
+                           int Hp, int Wp, int C, int O, int relu, int band, int blocks,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (band) {
+    if (C < 1 || C > BAND_MAX_C || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const BandShape s = band_shape(B, Hp, Wp, C, O, 4);
+    if (C == 1) return band_f32<1>(x, w, bias, out, s, relu, blocks, st);
+    if (C == 2) return band_f32<2>(x, w, bias, out, s, relu, blocks, st);
+    if (C == 3) return band_f32<3>(x, w, bias, out, s, relu, blocks, st);
+    return band_f32<4>(x, w, bias, out, s, relu, blocks, st);
+  }
+  const Im2colShape s = make_shape(Hp, Wp, C, O);
   if (O > 64) return launch<float>(conv3x3_im2col_f32_kernel<8>, 128, x, w, bias, out, B, s, relu, st);
   if (O > 32) return launch<float>(conv3x3_im2col_f32_kernel<4>, 64, x, w, bias, out, B, s, relu, st);
   if (O > 16) return launch<float>(conv3x3_im2col_f32_kernel<2>, 32, x, w, bias, out, B, s, relu, st);
@@ -300,9 +755,18 @@ int stx_conv3x3_im2col_f32(const void* x, const void* w, const void* bias, void*
 
 // As stx_conv3x3_im2col_f32 with x, w and out in bf16 (bias stays f32).
 int stx_conv3x3_im2col_bf16(const void* x, const void* w, const void* bias, void* out, int B,
-                            int Hp, int Wp, int C, int O, int relu, void* stream) {
-  const Im2colShape s = make_shape(Hp, Wp, C, O);
+                            int Hp, int Wp, int C, int O, int relu, int band, int blocks,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (band) {
+    if (C < 1 || C > BAND_MAX_C || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const BandShape s = band_shape(B, Hp, Wp, C, O, 2);
+    if (C == 1) return band_bf16<1>(x, w, bias, out, s, relu, blocks, st);
+    if (C == 2) return band_bf16<2>(x, w, bias, out, s, relu, blocks, st);
+    if (C == 3) return band_bf16<3>(x, w, bias, out, s, relu, blocks, st);
+    return band_bf16<4>(x, w, bias, out, s, relu, blocks, st);
+  }
+  const Im2colShape s = make_shape(Hp, Wp, C, O);
   using bf16 = __nv_bfloat16;
   if (O > 64) return launch<bf16>(conv3x3_im2col_bf16_kernel<8>, 128, x, w, bias, out, B, s, relu, st);
   if (O > 32) return launch<bf16>(conv3x3_im2col_bf16_kernel<4>, 64, x, w, bias, out, B, s, relu, st);

@@ -13,7 +13,9 @@ in bf16).
   on a shared-memory span of shifted input rows) on the tile and channel
   split that :func:`flat_plan` picks for the shape;
 - :func:`conv3x3_im2col` launches ``csrc/conv3x3_im2col.cu`` (one product of
-  depth 9C on an im2col operand staged in shared memory);
+  depth 9C) on the route that :func:`im2col_plan` names for the shape: the
+  span of input pixels loaded once per tile on a persistent grid, or the
+  operand gathered per block;
 - :func:`conv3x3_same` is the zero-padded stride-1 conv of VGG
   (:class:`Conv3x3Same`, a ``torch.autograd.Function``) whose input
   gradient is the same function
@@ -111,6 +113,62 @@ def flat_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> Fla
     return FlatPlan(route, bm, bn, split, blocks(bm, bn) * split)
 
 
+# conv3x3_im2col's routes (csrc/conv3x3_im2col.cu). "band": a tile of
+# BAND_BM positions of the Wp-wide output grid by BAND_BN channels, whose
+# span of input pixels comes in as one bulk copy, on a persistent grid of at
+# most BAND_BLOCKS_PER_SM blocks an SM; it takes C <= BAND_MAX_C where its
+# shared memory fits two blocks an SM. "gather": the operand gathered per
+# block of GATHER_BM pixels, any shape.
+BAND_BM, BAND_BN, BAND_MAX_C, BAND_BLOCKS_PER_SM = 256, 64, 4, 2
+BAND_SMEM_MAX = 113 * 1024
+GATHER_BM = 128
+
+
+class Im2colPlan(NamedTuple):
+    """How conv3x3_im2col runs one shape: the route, the tile of ``bm``
+    positions by ``bn`` output channels, the tiles and the blocks of the
+    grid (on the band route each block walks tiles)."""
+    route: str
+    bm: int
+    bn: int
+    tiles: int
+    blocks: int
+
+    def __str__(self) -> str:
+        return f"{self.route} {self.bm}x{self.bn} ({self.tiles} tiles on {self.blocks} blocks)"
+
+
+def band_smem_bytes(W: int, C: int, O: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a band block (``band_smem_bytes`` in the
+    kernel's source): two mbarriers, two stages of the span (16 bytes of
+    lead, 128-byte aligned), the weights (bf16: packed in pairs along k, rows
+    padded by 8 words), the bias and, in bf16, the staging tile."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    chunks = math.ceil(O / BAND_BN)
+    stage = math.ceil(((BAND_BM + 2 * (W + 2) + 2) * C * elt + 16) / 128) * 128
+    if elt == 2:
+        weights = math.ceil(9 * C / 16) * 8 * (chunks * BAND_BN + 8) * 4
+        staging = BAND_BM * (BAND_BN + 8) * 2
+    else:
+        weights, staging = 9 * C * chunks * BAND_BN * 4, 0
+    return 128 + 2 * stage + weights + chunks * BAND_BN * 4 + staging
+
+
+@functools.lru_cache(maxsize=1024)  # a pure function, called on every launch
+def im2col_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> Im2colPlan:
+    """The route and grid of conv3x3_im2col for ``[B, H+2, W+2, C] -> O``:
+    the band route where it takes the shape (every VGG conv1_1, C = 3), the
+    gather route otherwise (its BN by O, as the kernel picks it)."""
+    if C <= BAND_MAX_C and band_smem_bytes(W, C, O, dtype) <= BAND_SMEM_MAX:
+        tiles = B * math.ceil(H * (W + 2) / BAND_BM) * math.ceil(O / BAND_BN)
+        return Im2colPlan("band", BAND_BM, BAND_BN, tiles,
+                          min(tiles, BAND_BLOCKS_PER_SM * SMS))
+    smallest = 16 if dtype == torch.float32 else 32
+    bn = 128 if O > 64 else 64 if O > 32 else max(32 if O > 16 else 16, smallest)
+    tiles = B * math.ceil(H * W / GATHER_BM) * math.ceil(O / bn)
+    return Im2colPlan("gather", GATHER_BM, bn, tiles, tiles)
+
+
 def conv3x3_flat_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
 ) -> torch.Tensor:
@@ -183,7 +241,9 @@ def conv3x3_im2col(
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_im2col_plain(x, w, b, relu)
-    out = _launch("im2col", x, w, b, relu)
+    B, Hp, Wp, C = x.shape
+    plan = im2col_plan(B, Hp - 2, Wp - 2, C, w.shape[3], x.dtype)
+    out = _launch("im2col", x, w, b, relu, plan)
     im2col_launches += 1
     return out
 
@@ -250,8 +310,9 @@ def _function(kind: str, dtype: torch.dtype) -> Tuple[Callable, Callable]:
         lib = _build.library(f"conv3x3_{kind}")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, key)
-        # flat also takes its plan: bm, bn, split, the workspace and counters.
-        fn.argtypes = ([p, p, p, p] + [i] * 6 + ([i, i, i, p, p] if kind == "flat" else [])
+        # flat also takes its plan: bm, bn, split, the workspace and counters;
+        # im2col its route (band or not) and blocks.
+        fn.argtypes = ([p, p, p, p] + [i] * 6 + ([i, i, i, p, p] if kind == "flat" else [i, i])
                        + [p])
         fn.restype = i
         err_string = getattr(lib, f"stx_conv3x3_{kind}_error_string")
@@ -276,7 +337,7 @@ def _split_buffers(plan: FlatPlan, device: torch.device, stream: int) -> Tuple[i
 
 
 def _launch(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            relu: bool, plan: FlatPlan = None) -> torch.Tensor:
+            relu: bool, plan) -> torch.Tensor:
     check_cuda_inputs(x, w, b)
     fn, err_string = _function(kind, x.dtype)
     B, Hp, Wp, C = x.shape
@@ -286,8 +347,10 @@ def _launch(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):  # the library launches on the current device
         args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, Hp, Wp, C, O,
                 int(relu)]
-        if plan is not None:
+        if kind == "flat":
             args += [plan.bm, plan.bn, plan.split, *_split_buffers(plan, x.device, stream)]
+        else:
+            args += [int(plan.route == "band"), plan.blocks]
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"conv3x3_{kind} kernel launch failed: {err_string(err).decode()}")

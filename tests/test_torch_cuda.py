@@ -494,6 +494,55 @@ def test_conv3x3_flat_repeats_bit_for_bit(cuda, dtype, shape):
     assert torch.equal(first, second)
 
 
+# (B, H, W, C, O): conv3x3_im2col's band route (see im2col_plan in
+# tests/test_torch_conv3x3_flat.py) on VGG conv1_1 at 256 px, as a Gatys
+# closure (batch 1) and a train step or a 4-image Gatys directory (batch 4)
+# run it; then what the route distinguishes: C = 1, 2 and 4, odd widths, an
+# image smaller than one tile, O = 3 (a mostly empty chunk, element stores),
+# O = 130 (three chunks, element stores in bf16) and 136 (a last chunk of 8
+# channels), and a row wider than a tile (W = 300).
+_CONV1_1_SHAPES = [(1, 256, 256, 3, 64), (4, 256, 256, 3, 64)]
+_BAND_SHAPES = _CONV1_1_SHAPES + [
+    (2, 9, 7, 1, 3), (1, 13, 33, 2, 64), (3, 11, 5, 4, 130), (1, 1, 1, 3, 64),
+    (2, 21, 300, 3, 136), (1, 40, 37, 3, 64),
+]
+
+
+def _im2col_inputs(cuda, dtype, shape, seed):
+    B, H, W, C, O = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, H + 2, W + 2, C, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, O, device=cuda, generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(O, device=cuda, generator=g)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BAND_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_im2col_band_route_matches_plain(cuda, dtype, shape, relu):
+    assert conv3x3_flat.im2col_plan(*shape, dtype).route == "band"
+    x, w, b = _im2col_inputs(cuda, dtype, shape, 11)
+    before = conv3x3_flat.im2col_launches
+    out = conv3x3_flat.conv3x3_im2col(x, w, b, relu)
+    torch.cuda.synchronize()
+    assert conv3x3_flat.im2col_launches == before + 1
+    assert out.shape == shape[:3] + shape[4:] and out.dtype == dtype
+    _close(out, conv3x3_flat.conv3x3_im2col_plain(x, w, b, relu), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _CONV1_1_SHAPES + _STAT_FREE_SHAPES[:6])
+def test_conv3x3_im2col_repeats_bit_for_bit(cuda, dtype, shape):
+    # No atomics on either route: two calls on the same inputs give the same
+    # bits.
+    x, w, b = _im2col_inputs(cuda, dtype, shape, 12)
+    first = conv3x3_flat.conv3x3_im2col(x, w, b, True)
+    second = conv3x3_flat.conv3x3_im2col(x, w, b, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,O", [(3, 64), (64, 128), (64, 3)])
 def test_conv3x3_same_and_its_input_gradient_match_the_cpu(cuda, dtype, C, O):
