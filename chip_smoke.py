@@ -35,7 +35,9 @@ It imports nothing of JAX. Phases:
    (conv3x3_flat, conv3x3_im2col) at each of the ten conv shapes of a 256 px
    Gatys closure (the tower's five forward convs and their five input
    gradients), in f32 and bf16, with conv3x3_flat's plan (route, tile and
-   split) for each shape and a bit-identical repeat of each call;
+   split) and conv3x3_im2col's plan (route and grid) for each shape and a
+   bit-identical repeat of each call, and conv3x3_im2col at conv1_1 of 4
+   images (a train step's and a Gatys directory's call);
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
@@ -216,6 +218,9 @@ GATYS_TARGETS = {"conv3x3_im2col": 2, "conv3x3_flat": 7}
 # loss (relative) and the pixel gradient (relative L2): the sums run in
 # another order, and a ReLU whose input lies within rounding of 0 may switch.
 GATYS_PARITY_SIZE = 64
+# conv3x3_im2col is also checked and timed at conv1_1 of this many 256 px
+# images: a train step's batch and a 4-image Gatys directory.
+IM2COL_BATCH = 4
 GATYS_PARITY_LOSS_RTOL = 1e-5
 GATYS_PARITY_GRAD_REL_L2 = 1e-3
 
@@ -796,9 +801,11 @@ def stat_free_phase(torch, F, cf, dtype):
               f"{nbytes / 1e6:.1f} MB): flat {flat_ms:.4f} ms (plain "
               f"{times['conv3x3_flat'][1]:.4f}; {cf.flat_plan(1, H, H, C, O, dtype)}; "
               f"{flops / flat_ms / 1e9:.1f} TFLOP/s), im2col {times['conv3x3_im2col'][0]:.4f} ms "
-              f"(plain {times['conv3x3_im2col'][1]:.4f}), library {library_ms:.4f} ms, bound "
+              f"(plain {times['conv3x3_im2col'][1]:.4f}; {cf.im2col_plan(1, H, H, C, O, dtype)}), "
+              f"library {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}); the closure runs {routed} "
               f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    im2col_at_batch(torch, F, cf, dtype, IM2COL_BATCH)
     entries = []
     for name in names:
         t = total[name]
@@ -813,6 +820,43 @@ def stat_free_phase(torch, F, cf, dtype):
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": t["library_ms"], "shape": calls})
     return entries
+
+
+def im2col_at_batch(torch, F, cf, dtype, batch):
+    """conv3x3_im2col at conv1_1 of a batch of 256 px images (a train step's
+    and a Gatys directory's call), held against its plain version with a
+    bit-identical repeat, with its plan and device times beside the plain
+    version's, ``F.conv2d``'s and the bound."""
+    dn = str(dtype).split(".")[1]
+    _, H, C, O = _GATYS_CONVS[0]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    interior = torch.randn(batch, H, H, C, device="cuda", generator=g).to(dtype)
+    x = F.pad(interior, (0, 0, 1, 1, 1, 1)).contiguous()
+    w = (torch.randn(3, 3, C, O, device="cuda", generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(O, device="cuda", generator=g) * 0.1
+    rtol, atol = TOL[("conv3x3_im2col", dn)]
+    out = cf.conv3x3_im2col(x, w, b)
+    again = cf.conv3x3_im2col(x, w, b)
+    torch.cuda.synchronize()
+    pout = cf.conv3x3_im2col_plain(x, w, b)
+    err = max_err(out, pout)
+    plan = cf.im2col_plan(batch, H, H, C, O, dtype)
+    check(allclose(torch, out, pout, rtol, atol) and torch.equal(out, again),
+          f"conv3x3_im2col {dn} conv1_1 [{batch},{H + 2},{H + 2},{C}] -> {O} ({plan}): "
+          f"max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g}); the repeat is "
+          f"bit-identical")
+    ms = device_ms(torch, lambda: cf.conv3x3_im2col(x, w, b), iters=10)
+    plain_ms = device_ms(torch, lambda: cf.conv3x3_im2col_plain(x, w, b), iters=5)
+    xc = interior.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, b.to(dtype), padding=1), iters=10)
+    flops = 2.0 * batch * H * H * 9 * C * O
+    nbytes = (x.numel() + w.numel() + batch * H * H * O) * x.element_size() + O * 4
+    bound_ms, bound_by = bound(flops, nbytes, dn)
+    print(f"conv3x3_im2col {dn} conv1_1 at batch {batch}: kernel_ms {ms:.4f} "
+          f"({bound_ms / ms:.3f} of the bound) plain_ms {plain_ms:.4f} library_ms "
+          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) max_abs_err {err:.3g}; "
+          f"{plan}", flush=True)
 
 
 def write_inputs(np):

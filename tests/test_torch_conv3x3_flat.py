@@ -29,11 +29,16 @@ def _inputs(C, O, seed=0, H=9, W=7, B=2):
     return x, w, b
 
 
+# (C, O, H, W): the VGG channel pairs, then what im2col_plan distinguishes:
+# C = 1 and 4 (the band route's smallest and largest C) with O = 3 (a mostly
+# empty chunk) and 130 (three chunks), odd widths, an image of one pixel and
+# C = 5 (the gather route).
 @pytest.mark.parametrize("kernel", ["flat", "im2col"])
-@pytest.mark.parametrize("C,O", [(3, 64), (16, 8), (64, 3)])
+@pytest.mark.parametrize("C,O,H,W", [(3, 64, 9, 7), (16, 8, 9, 7), (64, 3, 9, 7), (1, 3, 9, 7),
+                                     (4, 130, 5, 33), (3, 64, 1, 1), (5, 13, 6, 5)])
 @pytest.mark.parametrize("relu", [False, True])
-def test_plain_matches_the_jax_kernel_in_interpret_mode(kernel, C, O, relu):
-    x, w, b = _inputs(C, O)
+def test_plain_matches_the_jax_kernel_in_interpret_mode(kernel, C, O, H, W, relu):
+    x, w, b = _inputs(C, O, H=H, W=W)
     jfn = {"flat": pconv.conv3x3_flat, "im2col": pconv.conv3x3_im2col}[kernel]
     want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), relu=relu,
                           interpret=True))
@@ -42,7 +47,7 @@ def test_plain_matches_the_jax_kernel_in_interpret_mode(kernel, C, O, relu):
     got = getattr(tc, f"conv3x3_{kernel}")(*args, relu)
     assert (tc.flat_launches, tc.im2col_launches) == counts  # CPU: the plain version
     assert torch.equal(got, getattr(tc, f"conv3x3_{kernel}_plain")(*args, relu))
-    assert got.shape == want.shape == (2, 9, 7, O) and got.dtype == torch.float32
+    assert got.shape == want.shape == (2, H, W, O) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
@@ -189,3 +194,87 @@ def test_the_cuda_test_shapes_reach_every_flat_plan(dtype):
         plan = tc.flat_plan(*shape, dtype)
         reached.add((plan.bm, plan.bn, plan.split > 1))
     assert reached == want
+
+
+# conv3x3_im2col's plan: the band route for C <= 4 where its shared memory
+# fits two blocks an SM (every VGG conv1_1), the gather route otherwise.
+_CONV1_1 = [(b, 256, 256, 3, 64) for b in (1, 4, 16)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", _CONV1_1)
+def test_conv1_1_takes_the_band_route_at_every_batch(dtype, shape):
+    B = shape[0]
+    plan = tc.im2col_plan(*shape, dtype)
+    tiles = B * 258 * 1  # 256 rows of the 258-wide grid, 256 positions a tile; one chunk
+    assert plan == ("band", 256, 64, tiles, min(tiles, 2 * tc.SMS))
+    assert str(plan) == f"band 256x64 ({tiles} tiles on {min(tiles, 2 * tc.SMS)} blocks)"
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_the_cuda_test_shapes_take_the_routes_named(dtype):
+    # tests/test_torch_cuda.py holds conv3x3_im2col against its plain
+    # version at _STAT_FREE_SHAPES (among them conv1_1 at 16 px: band) and
+    # at _BAND_SHAPES (all band).
+    from test_torch_cuda import _BAND_SHAPES, _STAT_FREE_SHAPES
+
+    want = {(1, 18, 18, 3, 64): ("band", 256, 64, 2, 2),
+            (2, 16, 16, 64, 64): ("gather", 128, 64, 4, 4),
+            (1, 16, 16, 64, 3): ("gather", 128, 16 if dtype == torch.float32 else 32, 2, 2),
+            (1, 8, 8, 128, 256): ("gather", 128, 128, 2, 2),
+            (2, 9, 7, 5, 13): ("gather", 128, 16 if dtype == torch.float32 else 32, 2, 2),
+            (1, 11, 6, 40, 72): ("gather", 128, 128, 1, 1),
+            (4, 64, 64, 128, 256): ("gather", 128, 128, 256, 256),
+            (1, 64, 64, 256, 128): ("gather", 128, 128, 32, 32),
+            (1, 64, 64, 128, 256): ("gather", 128, 128, 64, 64),
+            (3, 128, 128, 64, 64): ("gather", 128, 64, 384, 384),
+            (16, 64, 64, 64, 3): ("gather", 128, 16 if dtype == torch.float32 else 32, 512, 512),
+            (1, 40, 40, 44, 64): ("gather", 128, 64, 13, 13),
+            (1, 30, 30, 37, 130): ("gather", 128, 128, 16, 16)}
+    assert {s: tuple(tc.im2col_plan(*s, dtype)) for s in _STAT_FREE_SHAPES} == want
+    assert all(tc.im2col_plan(*s, dtype).route == "band" for s in _BAND_SHAPES)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_every_shape_gets_an_im2col_route(dtype):
+    for B in (1, 3):
+        for H, W in ((1, 1), (7, 9), (256, 256), (300, 1000), (1008, 1344), (3024, 4032)):
+            for C in (1, 2, 3, 4, 5, 16, 31, 64):
+                for O in (1, 3, 64, 65, 130, 256):
+                    plan = tc.im2col_plan(B, H, W, C, O, dtype)
+                    assert 1 <= plan.blocks <= plan.tiles
+                    if plan.route == "band":
+                        assert C <= tc.BAND_MAX_C
+                        assert tc.band_smem_bytes(W, C, O, dtype) <= tc.BAND_SMEM_MAX
+                        assert plan.blocks == min(plan.tiles, tc.BAND_BLOCKS_PER_SM * tc.SMS)
+                        assert plan.tiles == B * -(-H * (W + 2) // 256) * -(-O // 64)
+                    else:
+                        assert plan.route == "gather" and plan.blocks == plan.tiles
+                        assert (C > tc.BAND_MAX_C
+                                or tc.band_smem_bytes(W, C, O, dtype) > tc.BAND_SMEM_MAX)
+                        assert plan.tiles == B * -(-H * W // 128) * -(-O // plan.bn)
+    # A photo's conv1_1 span does not fit two blocks an SM: the gather route.
+    assert tc.im2col_plan(1, 3024, 4032, 3, 64, dtype).route == "gather"
+
+
+def test_the_im2col_plan_is_cached():
+    tc.im2col_plan.cache_clear()
+    first = tc.im2col_plan(1, 256, 256, 3, 64, torch.float32)
+    assert tc.im2col_plan(1, 256, 256, 3, 64, torch.float32) is first
+    info = tc.im2col_plan.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+
+
+def test_the_band_constants_match_the_kernel_source():
+    # band_smem_bytes mirrors the kernel's own (csrc/conv3x3_im2col.cu):
+    # the same tile, chunk and largest C.
+    source = open(tc.__file__.replace("ops/cuda/conv3x3_flat.py", "csrc/conv3x3_im2col.cu")).read()
+    for name, value in (("BAND_BM", tc.BAND_BM), ("BAND_BN", tc.BAND_BN),
+                        ("BAND_MAX_C", tc.BAND_MAX_C)):
+        assert f"constexpr int {name} = {value};" in source
+    assert "constexpr int STAGING_LD = BAND_BN + 8;" in source
+    # conv1_1 at 256 px: two stages of (256 + 2 * 258 + 2) * 3 values (+16
+    # bytes, 128-aligned), 27 x 64 weights (bf16: 16 packed rows of 72
+    # words), 64 biases (and, in bf16, a 256 x 72 staging tile).
+    assert tc.band_smem_bytes(256, 3, 64, torch.float32) == 128 + 2 * 9344 + 6912 + 256
+    assert tc.band_smem_bytes(256, 3, 64, torch.bfloat16) == 128 + 2 * 4736 + 4608 + 256 + 36864
