@@ -67,6 +67,8 @@ _BAND = {
          "for (int mt = 0; mt < 2; ++mt) if (relu == 12345) conv3x3::mma_bf16_16816("),
     ],
     "no store": [("if (q < s.M && xx < s.W) {", "if (q < s.M && xx < s.W && relu == 12345) {"),
+                 ("          if (x0 < x1)\n            bulk_store(",
+                  "          if (x0 < x1 && relu == 12345)\n            bulk_store("),
                  ("if (q < s.M && xx < s.W && n < s.O) {",
                   "if (q < s.M && xx < s.W && n < s.O && relu == 12345) {")],
 }
@@ -148,7 +150,8 @@ def main() -> int:
             out = torch.empty(B, H, W, O, device="cuda", dtype=dtype)
             plan = conv3x3_flat.im2col_plan(B, H, W, C, O, dtype)
             for route, variants in VARIANTS.items():
-                band = int(route == "band")
+                band = route == "band"
+                route_arg = (2 if plan.bulk_store else 1) if band else 0
                 row = []
                 for name in variants:
                     key = "kernel" if name == "kernel" else f"{route}/{name}"
@@ -156,7 +159,7 @@ def main() -> int:
 
                     def call():
                         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B,
-                                 H + 2, W + 2, C, O, 0, band, plan.blocks,
+                                 H + 2, W + 2, C, O, 0, route_arg, plan.blocks,
                                  torch.cuda.current_stream().cuda_stream)
                         if err:
                             raise RuntimeError(f"variant {key!r} failed to launch: {err}")

@@ -37,13 +37,18 @@
 //   - no overlap inside a block: here the span of the block's next tile is
 //     in flight (a 2-stage ring, one mbarrier per stage) while this tile
 //     computes and stores;
-//   - narrow bf16 stores: here every warp store writes whole 128-byte lines.
+//   - narrow bf16 stores: here every store writes whole 128-byte lines.
 //   f32:  FMA on an 8-position x 8-channel register tile per thread (the
 //         channels cg*4 + {0..3} and 32 + cg*4 + {0..3}, so that 8 threads
 //         write one line). Per dy a thread reads its 10C-value window of the
 //         span once and uses it for all 3C columns: 27 x 64 FMAs per 90
-//         scalar and 54 float4 shared-memory reads at C = 3. Stores go from
-//         the registers: a warp store is 4 pixels x 128 bytes.
+//         scalar and 54 float4 shared-memory reads at C = 3. Where each
+//         block has one tile (batch 1 at 256 px) stores go from the
+//         registers: a warp store is 4 pixels x 128 bytes. Where blocks walk
+//         more than one tile, the tile goes through a staging tile and out
+//         by bulk copies (one per output row it touches, O <= 64 channels a
+//         multiple of 4), left in flight while the block computes its next
+//         tile: the plan's route 2.
 //   bf16: mma.sync m16n8k16, K padded to 16 (32 at C = 3: two k16 steps).
 //         The math is 0.23 us at the tensor cores' peak, so the choice is by
 //         instructions and registers: the A fragments are built in registers
@@ -317,11 +322,12 @@ struct BandShape {
   int span;         // BAND_BM + 2 * Wp + 2: input pixels a tile reads
   int stage_bytes;  // one stage of the ring: the span, 16 bytes of lead, 128-byte aligned
   int wpitch;       // f32: floats per weight row; bf16: words per packed weight row
+  int bulk_out;     // f32: the tile goes out by bulk copies from a staging tile [BAND_BM][O]
 };
 
 __host__ __device__ __forceinline__ int round_up(int v, int a) { return (v + a - 1) / a * a; }
 
-BandShape band_shape(int B, int Hp, int Wp, int C, int O, int elt) {
+BandShape band_shape(int B, int Hp, int Wp, int C, int O, int elt, int bulk_out) {
   BandShape s;
   s.Hp = Hp;
   s.Wp = Wp;
@@ -336,6 +342,7 @@ BandShape band_shape(int B, int Hp, int Wp, int C, int O, int elt) {
   s.span = BAND_BM + 2 * Wp + 2;
   s.stage_bytes = round_up(s.span * C * elt + 16, 128);
   s.wpitch = s.nchunks * BAND_BN + (elt == 2 ? 8 : 0);
+  s.bulk_out = bulk_out;
   return s;
 }
 
@@ -345,7 +352,9 @@ BandShape band_shape(int B, int Hp, int Wp, int C, int O, int elt) {
 size_t band_smem_bytes(const BandShape& s, int elt) {
   const int ks = (9 * s.C + 15) / 16;
   const size_t weights = elt == 2 ? (size_t)ks * 8 * s.wpitch * 4 : (size_t)9 * s.C * s.wpitch * 4;
-  const size_t staging = elt == 2 ? (size_t)BAND_BM * STAGING_LD * 2 : 0;
+  const size_t staging = elt == 2    ? (size_t)BAND_BM * STAGING_LD * 2
+                         : s.bulk_out ? (size_t)BAND_BM * s.O * 4
+                                      : 0;
   return 128 + 2 * (size_t)s.stage_bytes + weights + (size_t)s.nchunks * BAND_BN * 4 + staging;
 }
 
@@ -356,6 +365,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from shared to global memory,
+// both 16-byte aligned, in the issuing thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
 }
 
 struct BandTile {
@@ -440,6 +456,7 @@ im2col_band_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   unsigned char* stages = smem + 128;
   float* ws = reinterpret_cast<float*>(stages + 2 * s.stage_bytes);  // [9C][wpitch]
   float* bs = ws + 9 * C * s.wpitch;
+  float* staging = bs + s.nchunks * BAND_BN;  // [BAND_BM][O] where bulk_out
   const int tid = threadIdx.x;
 
   band_init_barriers(full);
@@ -501,34 +518,69 @@ im2col_band_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float bv[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) bv[j] = bs[tl.n0 + (j >> 2) * 32 + cg * 4 + (j & 3)];
-    int q = tl.q0 + pg * 8;
-    int y = q / s.Wp, xx = q - y * s.Wp;
+    if (s.bulk_out) {
+      // Through the staging tile [position][O], then one bulk copy per output
+      // row the tile touches, issued by thread 0 and left in flight while the
+      // block goes on to its next tile.
+      if (tid == 0) bulk_wait_read<0>();
+      __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 8; ++i, ++q) {
-      if (q < s.M && xx < s.W) {
-        float* orow = out + (((size_t)tl.img * s.H + y) * s.W + xx) * s.O;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int n = tl.n0 + h * 32 + cg * 4;
-          float v[4];
+          const int n = h * 32 + cg * 4;
+          if (n < s.O)
+            *reinterpret_cast<float4*>(staging + (pg * 8 + i) * s.O + n) = make_float4(
+                conv3x3::bias_relu(acc[i][h * 4 + 0], bv[h * 4 + 0], relu),
+                conv3x3::bias_relu(acc[i][h * 4 + 1], bv[h * 4 + 1], relu),
+                conv3x3::bias_relu(acc[i][h * 4 + 2], bv[h * 4 + 2], relu),
+                conv3x3::bias_relu(acc[i][h * 4 + 3], bv[h * 4 + 3], relu));
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        const int qend = min(tl.q0 + BAND_BM, s.M);
+        for (int y = tl.q0 / s.Wp; y * s.Wp < qend; ++y) {
+          const int x0 = max(tl.q0 - y * s.Wp, 0), x1 = min(qend - y * s.Wp, s.W);
+          if (x0 < x1)
+            bulk_store(out + (((size_t)tl.img * s.H + y) * s.W + x0) * s.O,
+                       staging + (y * s.Wp + x0 - tl.q0) * s.O, (x1 - x0) * s.O * 4);
+        }
+        bulk_commit();
+      }
+    } else {
+      int q = tl.q0 + pg * 8;
+      int y = q / s.Wp, xx = q - y * s.Wp;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = conv3x3::bias_relu(acc[i][h * 4 + j], bv[h * 4 + j], relu);
-          if ((s.O & 3) == 0) {  // whole float4 groups: n < O implies n + 3 < O
-            if (n < s.O) *reinterpret_cast<float4*>(orow + n) = make_float4(v[0], v[1], v[2], v[3]);
-          } else {
+      for (int i = 0; i < 8; ++i, ++q) {
+        if (q < s.M && xx < s.W) {
+          float* orow = out + (((size_t)tl.img * s.H + y) * s.W + xx) * s.O;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = tl.n0 + h * 32 + cg * 4;
+            float v[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              if (n + j < s.O) orow[n + j] = v[j];
+              v[j] = conv3x3::bias_relu(acc[i][h * 4 + j], bv[h * 4 + j], relu);
+            if ((s.O & 3) == 0) {  // whole float4 groups: n < O implies n + 3 < O
+              if (n < s.O)
+                *reinterpret_cast<float4*>(orow + n) = make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (n + j < s.O) orow[n + j] = v[j];
+            }
           }
         }
-      }
-      if (++xx == s.Wp) {
-        xx = 0;
-        ++y;
+        if (++xx == s.Wp) {
+          xx = 0;
+          ++y;
+        }
       }
     }
     __syncthreads();  // every read of this stage is done before it is filled again
   }
+  if (tid == 0) bulk_wait<0>();  // the staging tile stays until the last copy is done
 }
 
 template <int C>
@@ -732,15 +784,19 @@ const char* stx_conv3x3_im2col_error_string(int err) {
 }
 
 // x [B, Hp, Wp, C] and w [3, 3, C, O] f32, bias [O] f32, out [B, Hp-2, Wp-2, O]
-// f32. band != 0 takes the band route on `blocks` persistent blocks (C <= 4),
-// else the gather route. Returns a cudaError_t (0 on success).
+// f32. route 0 takes the gather route; 1 the band route on `blocks`
+// persistent blocks (C <= 4), storing from the registers; 2 (f32, O <= 64, a
+// multiple of 4) the band route with bulk stores from a staging tile.
+// Returns a cudaError_t (0 on success).
 int stx_conv3x3_im2col_f32(const void* x, const void* w, const void* bias, void* out, int B,
-                           int Hp, int Wp, int C, int O, int relu, int band, int blocks,
+                           int Hp, int Wp, int C, int O, int relu, int route, int blocks,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (band) {
-    if (C < 1 || C > BAND_MAX_C || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const BandShape s = band_shape(B, Hp, Wp, C, O, 4);
+  if (route) {
+    // Bulk stores need a pixel's O channels to be one 16-byte multiple.
+    if (C < 1 || C > BAND_MAX_C || blocks < 1 || (route == 2 && (O > BAND_BN || O % 4)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const BandShape s = band_shape(B, Hp, Wp, C, O, 4, route == 2);
     if (C == 1) return band_f32<1>(x, w, bias, out, s, relu, blocks, st);
     if (C == 2) return band_f32<2>(x, w, bias, out, s, relu, blocks, st);
     if (C == 3) return band_f32<3>(x, w, bias, out, s, relu, blocks, st);
@@ -755,12 +811,13 @@ int stx_conv3x3_im2col_f32(const void* x, const void* w, const void* bias, void*
 
 // As stx_conv3x3_im2col_f32 with x, w and out in bf16 (bias stays f32).
 int stx_conv3x3_im2col_bf16(const void* x, const void* w, const void* bias, void* out, int B,
-                            int Hp, int Wp, int C, int O, int relu, int band, int blocks,
+                            int Hp, int Wp, int C, int O, int relu, int route, int blocks,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (band) {
-    if (C < 1 || C > BAND_MAX_C || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const BandShape s = band_shape(B, Hp, Wp, C, O, 2);
+  if (route) {
+    if (C < 1 || C > BAND_MAX_C || blocks < 1 || route != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const BandShape s = band_shape(B, Hp, Wp, C, O, 2, 0);
     if (C == 1) return band_bf16<1>(x, w, bias, out, s, relu, blocks, st);
     if (C == 2) return band_bf16<2>(x, w, bias, out, s, relu, blocks, st);
     if (C == 3) return band_bf16<3>(x, w, bias, out, s, relu, blocks, st);

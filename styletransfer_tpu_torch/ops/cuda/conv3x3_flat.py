@@ -127,22 +127,27 @@ GATHER_BM = 128
 class Im2colPlan(NamedTuple):
     """How conv3x3_im2col runs one shape: the route, the tile of ``bm``
     positions by ``bn`` output channels, the tiles and the blocks of the
-    grid (on the band route each block walks tiles)."""
+    grid (on the band route each block walks tiles), and whether the band
+    route's tiles go out by bulk stores from a staging tile."""
     route: str
     bm: int
     bn: int
     tiles: int
     blocks: int
+    bulk_store: bool = False
 
     def __str__(self) -> str:
-        return f"{self.route} {self.bm}x{self.bn} ({self.tiles} tiles on {self.blocks} blocks)"
+        bulk = " bulk stores" if self.bulk_store else ""
+        return (f"{self.route} {self.bm}x{self.bn}{bulk} "
+                f"({self.tiles} tiles on {self.blocks} blocks)")
 
 
-def band_smem_bytes(W: int, C: int, O: int, dtype: torch.dtype) -> int:
+def band_smem_bytes(W: int, C: int, O: int, dtype: torch.dtype, bulk_store: bool = False) -> int:
     """Dynamic shared memory of a band block (``band_smem_bytes`` in the
     kernel's source): two mbarriers, two stages of the span (16 bytes of
     lead, 128-byte aligned), the weights (bf16: packed in pairs along k, rows
-    padded by 8 words), the bias and, in bf16, the staging tile."""
+    padded by 8 words), the bias and the staging tile (bf16; f32 with bulk
+    stores)."""
     elt = 2 if dtype == torch.bfloat16 else 4
     chunks = math.ceil(O / BAND_BN)
     stage = math.ceil(((BAND_BM + 2 * (W + 2) + 2) * C * elt + 16) / 128) * 128
@@ -150,7 +155,8 @@ def band_smem_bytes(W: int, C: int, O: int, dtype: torch.dtype) -> int:
         weights = math.ceil(9 * C / 16) * 8 * (chunks * BAND_BN + 8) * 4
         staging = BAND_BM * (BAND_BN + 8) * 2
     else:
-        weights, staging = 9 * C * chunks * BAND_BN * 4, 0
+        weights = 9 * C * chunks * BAND_BN * 4
+        staging = BAND_BM * O * 4 if bulk_store else 0
     return 128 + 2 * stage + weights + chunks * BAND_BN * 4 + staging
 
 
@@ -158,11 +164,19 @@ def band_smem_bytes(W: int, C: int, O: int, dtype: torch.dtype) -> int:
 def im2col_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> Im2colPlan:
     """The route and grid of conv3x3_im2col for ``[B, H+2, W+2, C] -> O``:
     the band route where it takes the shape (every VGG conv1_1, C = 3), the
-    gather route otherwise (its BN by O, as the kernel picks it)."""
+    gather route otherwise (its BN by O, as the kernel picks it).
+
+    In f32 the band route stores from the registers where each block has one
+    tile, and through a staging tile by bulk stores, left in flight while
+    the block computes its next tile, where blocks walk more than one (and
+    a pixel's O <= 64 channels are a 16-byte multiple): at conv1_1 the
+    staging made batch 4 and 16 faster and batch 1 slower (PERF.md, PR 9)."""
     if C <= BAND_MAX_C and band_smem_bytes(W, C, O, dtype) <= BAND_SMEM_MAX:
         tiles = B * math.ceil(H * (W + 2) / BAND_BM) * math.ceil(O / BAND_BN)
-        return Im2colPlan("band", BAND_BM, BAND_BN, tiles,
-                          min(tiles, BAND_BLOCKS_PER_SM * SMS))
+        blocks = min(tiles, BAND_BLOCKS_PER_SM * SMS)
+        bulk = (dtype == torch.float32 and tiles > blocks and O <= BAND_BN and O % 4 == 0
+                and band_smem_bytes(W, C, O, dtype, True) <= BAND_SMEM_MAX)
+        return Im2colPlan("band", BAND_BM, BAND_BN, tiles, blocks, bulk)
     smallest = 16 if dtype == torch.float32 else 32
     bn = 128 if O > 64 else 64 if O > 32 else max(32 if O > 16 else 16, smallest)
     tiles = B * math.ceil(H * W / GATHER_BM) * math.ceil(O / bn)
@@ -311,7 +325,7 @@ def _function(kind: str, dtype: torch.dtype) -> Tuple[Callable, Callable]:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, key)
         # flat also takes its plan: bm, bn, split, the workspace and counters;
-        # im2col its route (band or not) and blocks.
+        # im2col its route (0 gather, 1 band, 2 band with bulk stores) and blocks.
         fn.argtypes = ([p, p, p, p] + [i] * 6 + ([i, i, i, p, p] if kind == "flat" else [i, i])
                        + [p])
         fn.restype = i
@@ -350,7 +364,7 @@ def _launch(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if kind == "flat":
             args += [plan.bm, plan.bn, plan.split, *_split_buffers(plan, x.device, stream)]
         else:
-            args += [int(plan.route == "band"), plan.blocks]
+            args += [0 if plan.route == "gather" else 2 if plan.bulk_store else 1, plan.blocks]
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"conv3x3_{kind} kernel launch failed: {err_string(err).decode()}")

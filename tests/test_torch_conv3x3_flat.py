@@ -197,7 +197,8 @@ def test_the_cuda_test_shapes_reach_every_flat_plan(dtype):
 
 
 # conv3x3_im2col's plan: the band route for C <= 4 where its shared memory
-# fits two blocks an SM (every VGG conv1_1), the gather route otherwise.
+# fits two blocks an SM (every VGG conv1_1), the gather route otherwise; in
+# f32 the band route's bulk stores where blocks walk more than one tile.
 _CONV1_1 = [(b, 256, 256, 3, 64) for b in (1, 4, 16)]
 
 
@@ -207,8 +208,12 @@ def test_conv1_1_takes_the_band_route_at_every_batch(dtype, shape):
     B = shape[0]
     plan = tc.im2col_plan(*shape, dtype)
     tiles = B * 258 * 1  # 256 rows of the 258-wide grid, 256 positions a tile; one chunk
-    assert plan == ("band", 256, 64, tiles, min(tiles, 2 * tc.SMS))
-    assert str(plan) == f"band 256x64 ({tiles} tiles on {min(tiles, 2 * tc.SMS)} blocks)"
+    blocks = min(tiles, 2 * tc.SMS)
+    # f32 stores through a staging tile where blocks walk more than one tile.
+    bulk = dtype == torch.float32 and B > 1
+    assert plan == ("band", 256, 64, tiles, blocks, bulk)
+    assert str(plan) == (f"band 256x64{' bulk stores' if bulk else ''} "
+                         f"({tiles} tiles on {blocks} blocks)")
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -218,7 +223,7 @@ def test_the_cuda_test_shapes_take_the_routes_named(dtype):
     # at _BAND_SHAPES (all band).
     from test_torch_cuda import _BAND_SHAPES, _STAT_FREE_SHAPES
 
-    want = {(1, 18, 18, 3, 64): ("band", 256, 64, 2, 2),
+    want = {(1, 18, 18, 3, 64): ("band", 256, 64, 2, 2, False),
             (2, 16, 16, 64, 64): ("gather", 128, 64, 4, 4),
             (1, 16, 16, 64, 3): ("gather", 128, 16 if dtype == torch.float32 else 32, 2, 2),
             (1, 8, 8, 128, 256): ("gather", 128, 128, 2, 2),
@@ -231,8 +236,12 @@ def test_the_cuda_test_shapes_take_the_routes_named(dtype):
             (16, 64, 64, 64, 3): ("gather", 128, 16 if dtype == torch.float32 else 32, 512, 512),
             (1, 40, 40, 44, 64): ("gather", 128, 64, 13, 13),
             (1, 30, 30, 37, 130): ("gather", 128, 128, 16, 16)}
+    want = {s: p if len(p) == 6 else p + (False,) for s, p in want.items()}
     assert {s: tuple(tc.im2col_plan(*s, dtype)) for s in _STAT_FREE_SHAPES} == want
     assert all(tc.im2col_plan(*s, dtype).route == "band" for s in _BAND_SHAPES)
+    # Both f32 store routes of the band kernel are among the card's shapes.
+    assert ({tc.im2col_plan(*s, torch.float32).bulk_store for s in _BAND_SHAPES}
+            == {False, True})
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -248,8 +257,13 @@ def test_every_shape_gets_an_im2col_route(dtype):
                         assert tc.band_smem_bytes(W, C, O, dtype) <= tc.BAND_SMEM_MAX
                         assert plan.blocks == min(plan.tiles, tc.BAND_BLOCKS_PER_SM * tc.SMS)
                         assert plan.tiles == B * -(-H * (W + 2) // 256) * -(-O // 64)
+                        assert plan.bulk_store == (
+                            dtype == torch.float32 and plan.tiles > plan.blocks and O <= 64
+                            and O % 4 == 0 and tc.band_smem_bytes(W, C, O, dtype, True)
+                            <= tc.BAND_SMEM_MAX)
                     else:
                         assert plan.route == "gather" and plan.blocks == plan.tiles
+                        assert not plan.bulk_store
                         assert (C > tc.BAND_MAX_C
                                 or tc.band_smem_bytes(W, C, O, dtype) > tc.BAND_SMEM_MAX)
                         assert plan.tiles == B * -(-H * W // 128) * -(-O // plan.bn)
@@ -277,4 +291,7 @@ def test_the_band_constants_match_the_kernel_source():
     # bytes, 128-aligned), 27 x 64 weights (bf16: 16 packed rows of 72
     # words), 64 biases (and, in bf16, a 256 x 72 staging tile).
     assert tc.band_smem_bytes(256, 3, 64, torch.float32) == 128 + 2 * 9344 + 6912 + 256
+    # f32 with bulk stores: a 256 x 64 f32 staging tile as well.
+    assert tc.band_smem_bytes(256, 3, 64, torch.float32, True) == (
+        128 + 2 * 9344 + 6912 + 256 + 65536)
     assert tc.band_smem_bytes(256, 3, 64, torch.bfloat16) == 128 + 2 * 4736 + 4608 + 256 + 36864

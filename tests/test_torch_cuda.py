@@ -500,11 +500,14 @@ def test_conv3x3_flat_repeats_bit_for_bit(cuda, dtype, shape):
 # run it; then what the route distinguishes: C = 1, 2 and 4, odd widths, an
 # image smaller than one tile, O = 3 (a mostly empty chunk, element stores),
 # O = 130 (three chunks, element stores in bf16) and 136 (a last chunk of 8
-# channels), and a row wider than a tile (W = 300).
+# channels), and a row wider than a tile (W = 300). In f32 conv1_1 at batch
+# 4 and the last two walk more than one tile a block, so their tiles go out
+# by bulk stores: O = 36 with an odd width, and 5-wide images of 9 rows (a
+# bulk copy per row).
 _CONV1_1_SHAPES = [(1, 256, 256, 3, 64), (4, 256, 256, 3, 64)]
 _BAND_SHAPES = _CONV1_1_SHAPES + [
     (2, 9, 7, 1, 3), (1, 13, 33, 2, 64), (3, 11, 5, 4, 130), (1, 1, 1, 3, 64),
-    (2, 21, 300, 3, 136), (1, 40, 37, 3, 64),
+    (2, 21, 300, 3, 136), (1, 40, 37, 3, 64), (9, 61, 125, 1, 36), (300, 9, 5, 4, 8),
 ]
 
 
