@@ -117,8 +117,8 @@ def flat_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> Fla
 # BAND_BM positions of the Wp-wide output grid by BAND_BN channels, whose
 # span of input pixels comes in as one bulk copy, on a persistent grid of at
 # most BAND_BLOCKS_PER_SM blocks an SM; it takes C <= BAND_MAX_C where its
-# shared memory fits two blocks an SM. "gather": the operand gathered per
-# block of GATHER_BM pixels, any shape.
+# shared memory (BAND_SMEM_MAX) lets two blocks share an SM. "gather": the
+# operand gathered per block of GATHER_BM pixels, any shape.
 BAND_BM, BAND_BN, BAND_MAX_C, BAND_BLOCKS_PER_SM = 256, 64, 4, 2
 BAND_SMEM_MAX = 113 * 1024
 GATHER_BM = 128
@@ -177,8 +177,7 @@ def im2col_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> I
         bulk = (dtype == torch.float32 and tiles > blocks and O <= BAND_BN and O % 4 == 0
                 and band_smem_bytes(W, C, O, dtype, True) <= BAND_SMEM_MAX)
         return Im2colPlan("band", BAND_BM, BAND_BN, tiles, blocks, bulk)
-    smallest = 16 if dtype == torch.float32 else 32
-    bn = 128 if O > 64 else 64 if O > 32 else max(32 if O > 16 else 16, smallest)
+    bn = 128 if O > 64 else 64 if O > 32 else 32 if O > 16 or dtype == torch.bfloat16 else 16
     tiles = B * math.ceil(H * W / GATHER_BM) * math.ceil(O / bn)
     return Im2colPlan("gather", GATHER_BM, bn, tiles, tiles)
 
@@ -351,7 +350,7 @@ def _split_buffers(plan: FlatPlan, device: torch.device, stream: int) -> Tuple[i
 
 
 def _launch(kind: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            relu: bool, plan) -> torch.Tensor:
+            relu: bool, plan: "FlatPlan | Im2colPlan") -> torch.Tensor:
     check_cuda_inputs(x, w, b)
     fn, err_string = _function(kind, x.dtype)
     B, Hp, Wp, C = x.shape
