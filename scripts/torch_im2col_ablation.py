@@ -6,7 +6,7 @@ copies of its source with one part taken out.
 Builds ``csrc/conv3x3_im2col.cu`` as it is and with parts of one route
 taken out, each into its own library under ``build/ablation/``:
 
-- the gather route (PR 3's design; run here at C = 3, which the plan now
+- the gather route (the first design; run here at C = 3, which the plan
   sends to the band route): no operand gather (no input loads and no index
   arithmetic: the operand is zeros), no math (no FMAs in f32, no mma.sync
   in bf16), no output store (the store sits behind a test that no call

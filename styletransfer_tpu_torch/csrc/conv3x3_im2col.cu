@@ -25,7 +25,7 @@
 // BM + 2*Wp + 2 padded input pixels those positions touch, and for a fixed dy
 // the 3C columns dy*3C ... dy*3C + 3C - 1 of position q are the 3C
 // contiguous values from pixel q + dy*Wp on: the operand is read from the
-// span at fixed offsets, with no division in the inner loop. What the PR 3
+// span at fixed offsets, with no division in the inner loop. What the first
 // design (the gather route below) lost its time to, and what this does:
 //   - the operand gathered one element at a time from device memory, with
 //     integer divisions per element: here the span comes in as one bulk
@@ -59,7 +59,7 @@
 //         staging tile and out in 16-byte stores, 8 threads a pixel's line.
 // No atomics: two calls on the same inputs give the same bits.
 //
-// gather (every other shape: C > 4, or a span too large): the PR 3 design.
+// gather (every other shape: C > 4, or a span too large): the first design.
 // A block owns BM = 128 output pixels of one image and BN output channels.
 // It walks K = 9*C in slices; for each it gathers the [BM, slice] block of
 // the im2col operand from the shifted input rows (column k = tap*C + c of

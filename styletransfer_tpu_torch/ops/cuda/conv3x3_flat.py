@@ -170,7 +170,7 @@ def im2col_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> I
     tile, and through a staging tile by bulk stores, left in flight while
     the block computes its next tile, where blocks walk more than one (and
     a pixel's O <= 64 channels are a 16-byte multiple): at conv1_1 the
-    staging made batch 4 and 16 faster and batch 1 slower (PERF.md, PR 9)."""
+    staging made batch 4 and 16 faster and batch 1 slower (PERF.md §6)."""
     if C <= BAND_MAX_C and band_smem_bytes(W, C, O, dtype) <= BAND_SMEM_MAX:
         tiles = B * math.ceil(H * (W + 2) / BAND_BM) * math.ceil(O / BAND_BN)
         blocks = min(tiles, BAND_BLOCKS_PER_SM * SMS)
