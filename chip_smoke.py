@@ -5,6 +5,7 @@
     python3 chip_smoke.py --convs       # phases 1-2 and conv3x3_valid only
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
+    python3 chip_smoke.py --video       # phases 1-2 and the video / zero-padding phase only
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -67,8 +68,29 @@ It imports nothing of JAX. Phases:
    targets 1 + 4 (style) and 1 + 3 (content) per run, no cuDNN conv may run,
    the losses must be finite and fall and the PNGs must be written; then one
    f32 closure on a 64 px image, card against the port's CPU run;
-9. print one JSON line with each kernel's error, launches and times, and as
-   the last line ``{"ok": true, "device": {...}}``.
+9. the video and zero-padding slice (also alone with ``--video``):
+   conv3x3_flat at the zero-padded forward's residual shape ([64, 66, 66,
+   128] -> 128, f32 and bf16: against its plain version, a bit-identical
+   repeat, its plan, times beside F.conv2d); ``video_st`` training
+   (``engines.video.video_train``, one epoch of 4 synthetic 48-frame 256 px
+   clips at batch 4 in chunks of 16, f32 and bf16, with step checkpoints:
+   per frame step 15 fused-IN forwards and backwards, 2 conv3x3_im2col and
+   12 conv3x3_flat, 15 fused-IN forwards per preview; finite losses; the
+   step state and the epoch checkpoint; ms per frame step); one f32 scan
+   step of 3 frames (the third padded) on 2 clips at 64 px, card against
+   the port's CPU run; ``convert-video`` of a 48-frame GIF from that
+   checkpoint (48 frames written, 10 conv3x3_valid and 15 IN-pad per frame,
+   the first frames against the port's CPU run) and ``convert-dir`` of
+   clips of 24, 40 and 48 frames at batch 2 (each clip's frame count; each
+   clip exactly its lane of the group's clips stylized together, its first
+   frame against its own convert-video), f32 and bf16; and the zero-padded
+   forward from a reference ``.pth`` through ``process_dir(pad_mode=
+   "zeros")`` on the 64 PNGs (per forward 10 conv3x3_flat after 10 zero-pad
+   copies and 15 fused-IN forwards, no serving kernel; against the port's
+   CPU run; img/s);
+10. print one JSON line with each kernel's error, launches and times (and
+   each kernel's launches on the video-slice paths), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -1376,6 +1398,493 @@ def gatys_parity(torch, np):
           f"L2 {rel_grad:.3g} (limit {GATYS_PARITY_GRAD_REL_L2})")
 
 
+# The video path (video_st): training on the synthetic corpus (VIDEO_CLIPS
+# clips of VIDEO_FRAMES 256 px frames, batch VIDEO_BATCH, chunks of
+# VIDEO_CHUNK frames, one epoch), convert-video of a VIDEO_FRAMES-frame GIF,
+# convert-dir of clips of DIR_FRAMES frames at batch DIR_BATCH. Per frame
+# step: the transform net's stacked forward and backward (15 fused-IN
+# forwards and backwards) and the VGG tower of a train step; per stylized
+# frame: one serving forward (10 conv3x3_valid, 15 IN-pad).
+VIDEO_CLIPS = 4
+VIDEO_FRAMES = 48
+VIDEO_BATCH = 4
+VIDEO_CHUNK = 16
+VIDEO_PER_STEP = {"fused_instance_norm_fwd": NORMS_PER_FORWARD,
+                  "fused_instance_norm_bwd": NORMS_PER_FORWARD, **VGG_PER_STEP}
+DIR_FRAMES = (24, 40, 48)
+DIR_BATCH = 2
+# Served video frames compared with the port's CPU run: the first frames of
+# the clip (the carry runs through them).
+VIDEO_CPU_FRAMES = 4
+# One f32 scan step on the card against the port's CPU run: 2 clips at 64
+# px, 3 frames, the third padded. The metrics (relative) and each parameter
+# after the step (relative L2). A bias ahead of an instance norm (every
+# conv's but conv_out's, every norm's but up2_in's) is a per-channel shift
+# that the next norm cancels: its gradient is rounding noise, which Adam
+# turns into steps of about lr of either sign, so those biases are held to
+# 2 lr per step instead.
+VIDEO_PARITY_SIZE = 64
+VIDEO_PARITY_METRIC_RTOL = 1e-5
+VIDEO_PARITY_PARAM_REL_L2 = 1e-3
+# The zero-padded forward (a reference .pth): per forward 10 conv3x3_flat
+# (the residual convs, each after a zero-pad copy) and 15 fused-IN forwards.
+ZEROS_PER_FORWARD = {"conv3x3_flat": 10, "fused_instance_norm_fwd": NORMS_PER_FORWARD}
+
+
+class _VideoLossLog(logging.Handler):
+    """Collects the losses video_train logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.train = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("Epoch:") and "Batch Loss:" in msg:
+            self.train.append(float(msg.rsplit(":", 1)[1]))
+
+
+def _frames_checked(np, label, got, want, precision):
+    """uint8 frames against the port's CPU run, in MAIN_TOL's 1/255 steps."""
+    diff = np.abs(np.stack(got).astype(np.int32) - np.stack(want).astype(np.int32))
+    max_steps, mean_steps = MAIN_TOL[precision]
+    check(int(diff.max()) <= max_steps and float(diff.mean()) <= mean_steps,
+          f"{label}: max {int(diff.max())}/255, mean {float(diff.mean()):.4f}/255 over "
+          f"{len(got)} frames (limits {max_steps}, {mean_steps})")
+
+
+def _write_clip(np, path, frames, seed):
+    """A GIF of a synthetic image moving 2 px per frame (Pillow)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch.data import coco
+
+    base = np.round(coco.synthetic_image(seed, SIZE) * 255).astype(np.uint8)
+    imgs = [Image.fromarray(np.roll(base, 2 * i, axis=1)) for i in range(frames)]
+    imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=42, loop=0)
+
+
+def video_train_path(torch, np):
+    """video_st training through engines.video.video_train, f32 and bf16:
+    launches per frame step, finite losses, the step state and the epoch
+    checkpoint, wall and steady ms per frame step. Returns each precision's
+    launch counts and the f32 run's models directory."""
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.data import video as video_data
+    from styletransfer_tpu_torch.engines import video
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    launches, steps = {}, VIDEO_FRAMES * (VIDEO_CLIPS // VIDEO_BATCH)
+    previews = len({i // VIDEO_CHUNK for i in range(VIDEO_FRAMES) if i % 50 == 0})
+    for precision in ("f32", "bf16"):
+        models = os.path.join(WORK, f"models_video_{precision}")
+        loader = video_data.VideoDataset(video_dir=os.path.join(WORK, "no_videos"),
+                                         batch_size=VIDEO_BATCH, synthetic_count=VIDEO_CLIPS)
+        params = transformer.init_video_params(seed=0, device="cuda")
+        log = _VideoLossLog()
+        get_logger().addHandler(log)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            video.video_train(style, style_name="smoke", epochs=1, batch_size=VIDEO_BATCH,
+                              vgg_params=vgg_params, params=params, video_loader=loader,
+                              chunk_size=VIDEO_CHUNK, max_frames=VIDEO_FRAMES,
+                              runs_dir=os.path.join(WORK, "runs_video"), models_path=models,
+                              precision=precision,
+                              step_checkpoint_every=VIDEO_CHUNK, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            get_logger().removeHandler(log)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches[precision] = counts
+        want = {k: 0 for k in counts}
+        for k, n in VIDEO_PER_STEP.items():
+            want[k] = n * steps
+        want["fused_instance_norm_fwd"] += NORMS_PER_FORWARD * previews
+        for k, n in VGG_STYLE_TARGETS.items():
+            want[k] += n
+        check(counts == want,
+              f"video train {precision}: {steps} frame steps and {previews} preview launched "
+              f"{counts} (want {VIDEO_PER_STEP} per frame step, 15 fused-IN forwards per "
+              f"preview, {VGG_STYLE_TARGETS} for the style targets)")
+        check(len(log.train) == len(range(0, steps, 20))
+              and all(math.isfinite(v) for v in log.train),
+              f"video train {precision}: logged losses {['%.4f' % v for v in log.train]} "
+              f"all finite")
+        state = ckpt.load_step_state("video_st", "smoke", models,
+                                     extra_keys=("batch_in_epoch", "chunk_in_batch"))
+        check(state is not None and (state["epoch"], state["iteration"]) == (1, steps)
+              and int(state["opt_state"]["0"]["count"]) == steps,
+              f"video train {precision}: step state at epoch 1, iteration {steps}, Adam count "
+              f"{steps}")
+        trained, epoch = ckpt.load_latest_transformer("video_st", "smoke", models, device="cuda")
+        check(epoch == 0 and all(torch.equal(a, b) for a, b in
+                                 zip(trained.parameters(), params.parameters())),
+              f"video train {precision}: the epoch checkpoint holds the trained parameters")
+        # Steady state: one more chunk of frame steps on the card.
+        cd = torch.bfloat16 if precision == "bf16" else None
+        opt, scan_step = video.make_scan_train_step(
+            vgg_params, vgg.style_gram_targets(vgg_params, torch.from_numpy(style).cuda()),
+            compute_dtype=cd)
+        optimizer = opt(params)
+        readers = [video_data.SyntheticFrameReader(s) for s in range(VIDEO_BATCH)]
+        frames = torch.from_numpy(np.stack([np.concatenate([r.next_frame() for r in readers])
+                                            for _ in range(VIDEO_CHUNK)])).cuda()
+        valid = np.ones(VIDEO_CHUNK, bool)
+        mask = video.freeze_mask(params, False)
+        scan_step(params, optimizer, frames[:2], valid[:2], frames[0], frames[0], mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        *_, metrics = scan_step(params, optimizer, frames, valid, frames[0], frames[0], mask)
+        float(metrics["total"][-1])
+        torch.cuda.synchronize()
+        steady = (time.perf_counter() - t1) * 1e3 / VIDEO_CHUNK
+        print(f"video train {precision}: video_train {steps} frame steps at batch {VIDEO_BATCH}, "
+              f"{SIZE} px in {wall:.3f} s = {wall * 1e3 / steps:.2f} ms per frame step (incl. "
+              f"VGG targets, frame synthesis, previews, checkpoints); steady chunk of "
+              f"{VIDEO_CHUNK}: {steady:.2f} ms per frame step = "
+              f"{VIDEO_BATCH * 1e3 / steady:.1f} frames/s", flush=True)
+    return launches, os.path.join(WORK, "models_video_f32")
+
+
+def video_parity(torch, np):
+    """One f32 scan step of 3 frames (the third padded) on 2 clips at 64 px:
+    the card against the port's CPU run."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import video
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils import images
+
+    def img(i):
+        return images.normalize(coco.synthetic_image(i, VIDEO_PARITY_SIZE)).astype(np.float32)
+
+    style = torch.from_numpy(img(40_000)[None])
+    frames = torch.from_numpy(np.stack([np.stack([np.roll(img(40_001 + c), 2 * t, axis=1)
+                                                  for c in range(2)]) for t in range(3)]))
+    valid = np.array([True, True, False])
+    cpu_params = transformer.init_video_params(seed=1, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = transformer.params_from_jax(transformer.params_to_tree(cpu_params), device=dev)
+        vgg_params = vgg.init_params(seed=0, device=dev)
+        opt, step = video.make_scan_train_step(vgg_params,
+                                               vgg.style_gram_targets(vgg_params, style.to(dev)))
+        x = frames.to(dev)
+        *_, metrics = step(params, opt(params), x, valid, x[0], x[0],
+                           video.freeze_mask(params, False))
+        runs[dev] = ({k: v.cpu().numpy() for k, v in metrics.items()},
+                     {n: p.detach().cpu().numpy() for n, p in params.named_parameters()})
+    (mg, pg), (mc, pc) = runs["cuda"], runs["cpu"]
+    worst = max(float(np.max(np.abs(mg[k][:2] - mc[k][:2]) / np.abs(mc[k][:2]))) for k in mc)
+    check(worst <= VIDEO_PARITY_METRIC_RTOL and all(float(v[2]) == 0.0 for v in mg.values()),
+          f"video parity f32: metrics card {({k: v.tolist() for k, v in mg.items()})} vs CPU "
+          f"{({k: v.tolist() for k, v in mc.items()})}: worst relative difference {worst:.3g} "
+          f"(limit {VIDEO_PARITY_METRIC_RTOL}); the padded frame's are 0")
+    lr = 1e-3
+    worst, worst_name, noise = 0.0, "", 0.0
+    for name, ref in pc.items():
+        if name.endswith(".bias") and name not in ("conv_out.bias", "up2_in.bias"):
+            noise = max(noise, float(np.abs(pg[name] - ref).max()))
+            continue
+        rel = float(np.linalg.norm(pg[name] - ref) / np.linalg.norm(ref))
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= VIDEO_PARITY_PARAM_REL_L2 and noise <= 2 * lr * 2,
+          f"video parity f32: every parameter after the step within relative L2 "
+          f"{VIDEO_PARITY_PARAM_REL_L2} of the CPU run (worst {worst:.3g}, {worst_name}); "
+          f"the biases that a norm cancels within {2 * lr * 2} (worst {noise:.3g})")
+
+
+def _recording(video):
+    """Wraps video._open_video_writer so that each output's frames are kept
+    (by path) as they are written. Returns (frames by path, restore)."""
+    seen = {}
+    real = video._open_video_writer
+
+    class Recorder:
+        def __init__(self, writer, frames):
+            self.writer, self.frames = writer, frames
+
+        def append_data(self, frame):
+            self.frames.append(frame.copy())
+            self.writer.append_data(frame)
+
+        def close(self):
+            self.writer.close()
+
+    def opener(base, fps, logger):
+        writer, path = real(base, fps, logger)
+        return Recorder(writer, seen.setdefault(path, [])), path
+
+    video._open_video_writer = opener
+    return seen, lambda: setattr(video, "_open_video_writer", real)
+
+
+def video_serve_path(torch, np, models):
+    """convert-video of a VIDEO_FRAMES-frame clip and convert-dir of clips of
+    DIR_FRAMES frames at batch DIR_BATCH, from the video checkpoint, f32 and
+    bf16: frame counts, launches per frame, the first frames against the
+    port's CPU run, each clip of the directory as its lane of the group
+    stylized together and (its first frame) against its own convert-video,
+    frames/s. Returns the launch counts by precision and command."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.data import video as video_data
+    from styletransfer_tpu_torch.engines import video
+    from styletransfer_tpu_torch.utils import images
+
+    root = os.path.join(WORK, "video_serve")
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    clip = os.path.join(root, "clip.gif")
+    _write_clip(np, clip, VIDEO_FRAMES, 50_000)
+    for i, n in enumerate(DIR_FRAMES):
+        _write_clip(np, os.path.join(clips, f"c{i}.gif"), n, 50_001 + i)
+    reader = video_data.ImageioFrameReader(clip, normalized=False)
+    first = np.stack([reader.next_frame()[0] for _ in range(VIDEO_CPU_FRAMES)])
+    reader.close()
+    cpu_params, _ = ckpt.load_latest_transformer("video_st", "smoke", models, device="cpu")
+    params, _ = ckpt.load_latest_transformer("video_st", "smoke", models, device="cuda")
+    seen, restore = _recording(video)
+    launches = {}
+    try:
+        for precision in ("f32", "bf16"):
+            route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+            reset_counts()
+            t0 = time.perf_counter()
+            out = video.process_video(clip, "smoke", out_dir=os.path.join(root, f"v_{precision}"),
+                                      models_path=models, precision=precision, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            launches[(precision, "convert_video")] = counts
+            want = {k: 0 for k in counts}
+            want.update({"conv3x3_valid": 10 * VIDEO_FRAMES,
+                         f"conv3x3_valid.{route}": 10 * VIDEO_FRAMES,
+                         "instance_norm_pad": 15 * VIDEO_FRAMES})
+            check(counts == want, f"convert-video {precision}: {VIDEO_FRAMES} frames launched "
+                  f"{counts} (want 10 conv3x3_valid on {route} and 15 IN-pad per frame)")
+            with Image.open(out) as im:
+                n_file = im.n_frames
+            check(len(seen[out]) == VIDEO_FRAMES and n_file == VIDEO_FRAMES,
+                  f"convert-video {precision}: {len(seen[out])} frames written, {n_file} in "
+                  f"{os.path.basename(out)}")
+            ref = images.to_uint8_on_device(torch.from_numpy(
+                video.stylize_clip(cpu_params, first, precision=precision))).numpy()
+            _frames_checked(np, f"convert-video {precision}: card vs CPU on the first "
+                            f"{VIDEO_CPU_FRAMES} frames", seen[out][:VIDEO_CPU_FRAMES],
+                            list(ref), precision)
+            single = {}
+            for name in sorted(os.listdir(clips)):
+                path = video.process_video(os.path.join(clips, name), "smoke",
+                                           out_dir=os.path.join(root, f"one_{precision}_{name}"),
+                                           models_path=models, precision=precision,
+                                           device="cuda")
+                single[name] = seen[path]
+            reset_counts()
+            t1 = time.perf_counter()
+            outs = video.process_video_dir(clips, "smoke", out_dir=os.path.join(root, f"d_{precision}"),
+                                           batch_size=DIR_BATCH, models_path=models,
+                                           precision=precision, device="cuda")
+            torch.cuda.synchronize()
+            dir_wall = time.perf_counter() - t1
+            counts = read_counts()
+            launches[(precision, "convert_dir")] = counts
+            forwards = sum(max(DIR_FRAMES[g:g + DIR_BATCH])
+                           for g in range(0, len(DIR_FRAMES), DIR_BATCH))
+            want = {k: 0 for k in counts}
+            want.update({"conv3x3_valid": 10 * forwards,
+                         f"conv3x3_valid.{route}": 10 * forwards,
+                         "instance_norm_pad": 15 * forwards})
+            check(counts == want, f"convert-dir {precision}: {forwards} forwards launched "
+                  f"{counts} (want 10 conv3x3_valid on {route} and 15 IN-pad per forward)")
+            check([len(seen[p]) for p in outs] == list(DIR_FRAMES),
+                  f"convert-dir {precision}: {[len(seen[p]) for p in outs]} frames written "
+                  f"(want {list(DIR_FRAMES)})")
+            names = sorted(os.listdir(clips))
+            for g in range(0, len(names), DIR_BATCH):
+                # The group's clips as lanes of one batch, an ended clip
+                # repeating its last frame: the frames convert-dir wrote
+                # are exactly these lanes' stylized frames.
+                group = names[g:g + DIR_BATCH]
+                decoded = [np.concatenate(list(video_data.iterate_on_video_batches(
+                    [video_data.ImageioFrameReader(os.path.join(clips, n), normalized=False)])))
+                    for n in group]
+                steps = max(len(d) for d in decoded)
+                lanes = np.stack([np.concatenate([d, np.repeat(d[-1:], steps - len(d), 0)])
+                                  for d in decoded], axis=1)
+                want = images.to_uint8_on_device(torch.from_numpy(
+                    video.stylize_clip(params, lanes, precision))).numpy()
+                for j, n in enumerate(group):
+                    got = np.stack(seen[outs[g + j]])
+                    diff = int(np.abs(got.astype(np.int32)
+                                      - want[:len(got), j].astype(np.int32)).max())
+                    check(diff == 0, f"convert-dir {precision} {n}: its frames are lane {j} of "
+                          f"the group's clips stylized at batch {len(group)} (max diff "
+                          f"{diff}/255)")
+            for path, name in zip(outs, sorted(os.listdir(clips))):
+                # Against the clip alone (batch 1): the first frame within the
+                # serving limits. Later frames only printed: a library conv
+                # may sum in another order at another batch size (about 1e-6
+                # apart in f32), and the recurrence carries that on from frame
+                # to frame (scripts/torch_video_lanes.py, PERF.md §6, PR 10).
+                _frames_checked(np, f"convert-dir {precision} {name}: first frame against its "
+                                f"own convert-video", seen[path][:1], single[name][:1],
+                                precision)
+                diff = np.abs(np.stack(seen[path]).astype(np.int32)
+                              - np.stack(single[name]).astype(np.int32))
+                print(f"convert-dir {precision} {name}: the whole clip against its own "
+                      f"convert-video: max {int(diff.max())}/255, mean {float(diff.mean()):.4f}"
+                      f"/255; max per frame {[int(d.max()) for d in diff]}", flush=True)
+            # Steady state: the stylizer alone on a decoded chunk of frames.
+            reader = video_data.ImageioFrameReader(clip, normalized=False)
+            chunk = torch.from_numpy(np.stack([reader.next_frame() for _ in range(24)])).cuda()
+            reader.close()
+            cd = torch.bfloat16 if precision == "bf16" else None
+            carry = chunk[0].float()
+            video._stylize_chunk(params, chunk[:2], carry, cd)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            video._stylize_chunk(params, chunk, carry, cd)[-1].sum().item()
+            steady = (time.perf_counter() - t2) * 1e3 / len(chunk)
+            print(f"video serve {precision}: convert-video {VIDEO_FRAMES} frames in {wall:.3f} s "
+                  f"= {VIDEO_FRAMES / wall:.1f} frames/s (incl. checkpoint load, GIF decode and "
+                  f"encode); convert-dir {sum(DIR_FRAMES)} frames of {len(DIR_FRAMES)} clips at "
+                  f"batch {DIR_BATCH} in {dir_wall:.3f} s = {sum(DIR_FRAMES) / dir_wall:.1f} "
+                  f"frames/s; the stylizer alone, batch 1: {steady:.3f} ms per frame = "
+                  f"{1e3 / steady:.1f} frames/s", flush=True)
+    finally:
+        restore()
+    return launches
+
+
+def zeros_path(torch, np, in_dir, imgs):
+    """Zero padding from a reference .pth: process_dir(pad_mode="zeros") of
+    the 64 serving PNGs, f32 and bf16, with per forward 10 conv3x3_flat
+    (each after a zero-pad copy) and 15 fused-IN forwards and no serving
+    kernel; the first two outputs against the port's CPU run; img/s of the
+    forward. Returns each precision's launch counts and img/s."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.ops.cuda import conv3x3_flat
+
+    models = os.path.join(WORK, "models_pth")
+    os.makedirs(models)
+    torch.save(transformer.export_torch_state_dict(transformer.init_params(seed=4, device="cpu")),
+               os.path.join(models, "fast_st_ref_epoch0.pth"))
+    cpu_params, _ = ckpt.load_latest_transformer("fast_st", "ref", models, device="cpu")
+    params, _ = ckpt.load_latest_transformer("fast_st", "ref", models, device="cuda")
+    pads = [0]
+    zero_pad = conv3x3_flat._zero_pad
+
+    def counting_pad(t):
+        pads[0] += 1
+        return zero_pad(t)
+
+    launches, rates = {}, {}
+    conv3x3_flat._zero_pad = counting_pad
+    try:
+        for precision in ("f32", "bf16"):
+            reset_counts()
+            pads[0] = 0
+            t0 = time.perf_counter()
+            paths = fast.process_dir(in_dir, "ref", out_dir=os.path.join(WORK, f"zeros_{precision}"),
+                                     batch_size=BATCH, models_path=models, precision=precision,
+                                     pad_mode="zeros", device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            launches[precision] = counts
+            want = {k: 0 for k in counts}
+            want.update(ZEROS_PER_FORWARD)
+            check(counts == want and pads[0] == 10,
+                  f"zeros path {precision}: one forward launched {counts} and {pads[0]} zero-pad "
+                  f"copies (want {ZEROS_PER_FORWARD} and 10 copies; no conv3x3_valid, no IN-pad)")
+            outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+            check(outs.shape == (BATCH, SIZE, SIZE, 3),
+                  f"zeros path {precision}: {len(paths)} PNGs {outs.shape}")
+            ref = fast.make_serve_fn(precision, "zeros")(cpu_params, torch.from_numpy(imgs[:2]))
+            _frames_checked(np, f"zeros path {precision}: card vs CPU on 2 images", list(outs[:2]),
+                            list(ref.numpy()), precision)
+            serve = fast.make_serve_fn(precision, "zeros")
+            batch = torch.from_numpy(imgs).cuda()
+            ms = time_ms(torch, lambda: serve(params, batch), iters=10, warmup=2)
+            rates[precision] = BATCH / (ms / 1e3)
+            print(f"zeros path {precision}: process_dir {BATCH} images from a .pth in "
+                  f"{wall:.3f} s; serve_fn batch {BATCH}: {ms:.3f} ms = "
+                  f"{rates[precision]:.1f} img/s", flush=True)
+    finally:
+        conv3x3_flat._zero_pad = zero_pad
+    return launches, rates
+
+
+def residual_flat_phase(torch, F, cf, dtype):
+    """conv3x3_flat at the zero-padded forward's residual shape, x [64, 66,
+    66, 128] -> 128: against the plain version, a bit-identical repeat, its
+    plan, and device times of the kernel, the plain version and F.conv2d
+    (padding 1 on the interior). Returns its JSON entry."""
+    dn = str(dtype).split(".")[1]
+    H, C = SIZE // 4, 128
+    g = torch.Generator(device="cuda").manual_seed(12)
+    interior = torch.randn(BATCH, H, H, C, device="cuda", generator=g).to(dtype)
+    x = F.pad(interior, (0, 0, 1, 1, 1, 1)).contiguous()
+    w = (torch.randn(3, 3, C, C, device="cuda", generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(C, device="cuda", generator=g) * 0.1
+    rtol, atol = TOL[("conv3x3_flat", dn)]
+    out = cf.conv3x3_flat(x, w, b)
+    again = cf.conv3x3_flat(x, w, b)
+    torch.cuda.synchronize()
+    pout = cf.conv3x3_flat_plain(x, w, b)
+    err = max_err(out, pout)
+    plan = cf.flat_plan(BATCH, H, H, C, C, dtype)
+    tag = f"conv3x3_flat {dn} zeros residual [{BATCH},{H + 2},{H + 2},{C}] -> {C} ({plan})"
+    check(allclose(torch, out, pout, rtol, atol) and torch.equal(out, again),
+          f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g}); the repeat is "
+          f"bit-identical")
+    ms = device_ms(torch, lambda: cf.conv3x3_flat(x, w, b), iters=10)
+    plain_ms = device_ms(torch, lambda: cf.conv3x3_flat_plain(x, w, b), iters=5)
+    xc = interior.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, b.to(dtype), padding=1), iters=10)
+    flops = 2.0 * BATCH * H * H * 9 * C * C
+    nbytes = (x.numel() + w.numel() + BATCH * H * H * C) * x.element_size() + C * 4
+    bound_ms, bound_by = bound(flops, nbytes, dn)
+    print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({bound_by}) achieved {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the bound", flush=True)
+    return {"name": f"conv3x3_flat_residual.{dn}", "route": "cuda",
+            "source": SOURCES["conv3x3_flat"][0], "replaces": SOURCES["conv3x3_flat"][1],
+            "plan": str(plan), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"x[{BATCH},{H + 2},{H + 2},{C}] w[3,3,{C},{C}] (zero-padded forward's "
+                     f"residual convs, {SIZE} px)"}
+
+
+def video_phase(torch, np, F, cf, in_dir, imgs):
+    """The video and zero-padding slice: conv3x3_flat at the residual shape,
+    video training, the scan-step parity, convert-video and convert-dir,
+    the zero-padded forward from a .pth. Returns (entries, launches by
+    precision and path, zeros img/s)."""
+    entries = [residual_flat_phase(torch, F, cf, dtype)
+               for dtype in (torch.float32, torch.bfloat16)]
+    train, models = video_train_path(torch, np)
+    video_parity(torch, np)
+    serve = video_serve_path(torch, np, models)
+    zeros, rates = zeros_path(torch, np, in_dir, imgs)
+    launches = {p: {"video_train": train[p], "convert_video": serve[(p, "convert_video")],
+                    "convert_dir": serve[(p, "convert_dir")], "zeros": zeros[p]}
+                for p in ("f32", "bf16")}
+    return entries, launches, rates
+
+
 def main() -> int:
     try:
         import torch
@@ -1423,6 +1932,11 @@ def main() -> int:
                 conv_phase(torch, F, conv3x3, dtype)
             print(card)
             return 0
+        if sys.argv[1:] == ["--video"]:
+            in_dir, imgs = write_inputs(np)
+            video_phase(torch, np, F, conv3x3_flat, in_dir, imgs)
+            print(card)
+            return 0
         if sys.argv[1:] == ["--norms"]:
             norms = []
             for dtype in (torch.float32, torch.bfloat16):
@@ -1445,6 +1959,9 @@ def main() -> int:
         step_rate = step_rates(torch, np)
         gatys_launches = gatys_path(torch, np, F)
         gatys_parity(torch, np)
+        video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
+                                                                 in_dir, imgs)
+        entries += video_entries
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1462,6 +1979,13 @@ def main() -> int:
         if kernel == "conv3x3_valid_mma":  # forced only: no serving run takes it
             e["launches"] = sum(c["conv3x3_valid.bf16_mma"] for c in serve_launches.values())
             continue
+        # The launches of each video-slice path in this precision.
+        counter = {"conv3x3_flat_residual": "conv3x3_flat"}.get(kernel, kernel)
+        e["video_launches"] = {path: counts[counter] for path, counts in
+                               video_launches[precision].items()}
+        if kernel == "conv3x3_flat_residual":  # the zero-padded forward from a .pth
+            e["launches"] = video_launches[precision]["zeros"]["conv3x3_flat"]
+            continue
         if kernel == "conv3x3_valid":  # the route of the 256 px serving run
             kernel = "conv3x3_valid." + ("f32_fma" if precision == "f32" else "bf16_wgmma")
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
@@ -1475,6 +1999,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")
+    print(f"zeros path img/s at batch {BATCH}, 256 px: f32 {zeros_rates['f32']:.1f}, "
+          f"bf16 {zeros_rates['bf16']:.1f} on {card}")
     print("training img/s at 256 px: " + ", ".join(
         f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")

@@ -19,8 +19,10 @@ leaves are ExtType code 1 holding ``msgpack((shape, dtype name, raw C-order
 bytes))`` (code 3 is a numpy scalar in the same encoding).
 
 Discovery picks among ``.msgpack``, ``.orbax`` and reference ``.pth`` files
-exactly as the JAX package does; loading a ``.pth`` or ``.orbax`` checkpoint
-comes with a later slice of the port and raises here.
+exactly as the JAX package does. A ``.pth`` (a state dict that the original
+reference wrote with ``torch.save``) loads through
+``transformer.import_torch_state_dict``; loading an ``.orbax`` checkpoint
+raises here (orbax needs JAX).
 """
 
 from __future__ import annotations
@@ -154,14 +156,26 @@ def save(params: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """Read a torch ``.pth`` state dict into numpy arrays (CPU)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
 def load(path: str) -> Dict[str, Any]:
-    """Read a ``.msgpack`` checkpoint into nested dicts of numpy arrays."""
+    """Read a ``.msgpack`` checkpoint, or a reference ``.pth`` state dict of
+    the transform net, into nested dicts of numpy arrays (the JAX parameter
+    tree's layout)."""
     import msgpack
 
+    if path.endswith(".pth"):
+        from styletransfer_tpu_torch.models import transformer
+
+        return transformer.import_torch_state_dict(load_torch_state_dict(path))
     if not path.endswith(CKPT_SUFFIX):
         raise NotImplementedError(
-            f"{os.path.basename(path)}: only .msgpack checkpoints are read by this "
-            "slice of the port (.pth and orbax come later)"
+            f"{os.path.basename(path)}: orbax checkpoints need JAX; the port reads "
+            ".msgpack and .pth"
         )
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
@@ -216,7 +230,8 @@ def load_latest_transformer(
     device=constants.DEFAULT_DEVICE,
 ):
     """Load the latest transform-net weights for (model, style) onto
-    ``device``. Returns ``(TransformerNet, epoch)``."""
+    ``device``, from a ``.msgpack`` or a reference ``.pth`` file. Returns
+    ``(TransformerNet, epoch)``."""
     from styletransfer_tpu_torch.models import transformer
 
     path, epoch = find_latest(model_name, style_name, models_path)
@@ -241,18 +256,21 @@ def save_step_state(
     style_name: str,
     models_path: Optional[str] = None,
     extra: Optional[Dict[str, int]] = None,
+    arrays: Optional[Mapping[str, Any]] = None,
 ) -> str:
     """Atomically save mid-training state: ``params`` (module or tree),
     ``opt_state`` (an optax-layout tree, :func:`adam_state_to_tree`), the
-    position, and ``extra`` integer run flags (e.g. ``batch_in_epoch``).
-    The layout is the JAX package's, so either package resumes it."""
+    position, ``extra`` integer run flags (e.g. ``batch_in_epoch``) and
+    ``arrays`` (e.g. the video trainer's recurrent carry frames; tensors or
+    numpy arrays). The layout is the JAX package's, so either package
+    resumes it."""
     state = {
         "params": _as_tree(params),
         "opt_state": opt_state,
         "epoch": np.int64(epoch),
         "iteration": np.int64(iteration),
         "extra": {k: np.int64(v) for k, v in (extra or {}).items()},
-        "arrays": {},
+        "arrays": dict(arrays or {}),
     }
     path = step_state_path(model_name, style_name, models_path)
     save(state, path)
@@ -264,14 +282,15 @@ def load_step_state(
     style_name: str,
     models_path: Optional[str] = None,
     extra_keys: Tuple[str, ...] = (),
+    array_keys: Tuple[str, ...] = (),
 ) -> Optional[Dict[str, Any]]:
     """The saved step state, or None when there is none.
 
     Returns ``{"params", "opt_state"}`` as trees of numpy arrays, ``epoch``
     and ``iteration`` as ints, ``extra`` with every key of ``extra_keys``
     (0 where the file lacks it: a state written before the key existed) and
-    ``arrays`` (empty entries dropped; {} for a state that predates the
-    field)."""
+    ``arrays``: the stored entries named in ``array_keys`` (empty ones
+    dropped; {} for a state that predates the field)."""
     path = step_state_path(model_name, style_name, models_path)
     if not os.path.isfile(path):
         return None
@@ -283,7 +302,8 @@ def load_step_state(
         "iteration": int(raw["iteration"]),
         "extra": {**{k: 0 for k in extra_keys},
                   **{k: int(v) for k, v in raw.get("extra", {}).items()}},
-        "arrays": {k: v for k, v in raw.get("arrays", {}).items() if np.size(v)},
+        "arrays": {k: v for k, v in raw.get("arrays", {}).items()
+                   if k in array_keys and np.size(v)},
     }
     get_logger().info("Restored step state from %s (epoch %d, iteration %d)",
                       path, state["epoch"], state["iteration"])

@@ -2,14 +2,16 @@
 
 The same contract as the JAX package's CLI for the commands the port has
 (``fast_st train``, ``convert-image`` and ``convert-dir``; the one-shot
-``gatys_st``), plus ``--device``.
+``gatys_st``; ``video_st train``, ``convert-video`` and ``convert-dir``),
+plus ``--device``.
 """
 
 import click
 
-from styletransfer_tpu_torch.clis import fast_st, gatys_st
+from styletransfer_tpu_torch.clis import fast_st, gatys_st, video_st
 
 
-@click.group(commands={"fast_st": fast_st.fast_st, "gatys_st": gatys_st.gatys_st})
+@click.group(commands={"fast_st": fast_st.fast_st, "gatys_st": gatys_st.gatys_st,
+                       "video_st": video_st.video_st})
 def cli():
     """Style Transfer (PyTorch / CUDA)"""

@@ -18,6 +18,12 @@ _precision_option = click.option(
     "--precision", default="f32", type=click.Choice(["f32", "bf16"]),
     help="Activation precision",
 )
+_pad_mode_option = click.option(
+    "--pad-mode", default="reflect", type=click.Choice(["reflect", "zeros"]),
+    help="Conv padding. Use 'zeros' for checkpoints trained by the ORIGINAL "
+         "reference code (its pinned torch 1.1.0 silently used zero padding "
+         "despite the 'reflection' string)",
+)
 
 
 @click.group()
@@ -68,18 +74,19 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
 @click.option("--size", default=None, type=int,
               help="Working resolution (default 256; the net is fully convolutional)")
 @_precision_option
+@_pad_mode_option
 @_device_option
-def convert_image(image_path, style_name, out_dir, size, precision, device):
+def convert_image(image_path, style_name, out_dir, size, precision, pad_mode, device):
     """
     Converts the image at `image-path` using the network trained with
-    `style-name` (latest `data/models/fast_st_{style}_epoch{e}.msgpack`) and
-    saves the result in `out-dir`.
+    `style-name` (latest `data/models/fast_st_{style}_epoch{e}.msgpack`, or a
+    reference `.pth`) and saves the result in `out-dir`.
     """
     from styletransfer_tpu_torch.engines import fast
 
     fast.process_image(
         image_path=image_path, style_name=style_name, out_dir=out_dir,
-        size=size, precision=precision, device=device,
+        size=size, precision=precision, pad_mode=pad_mode, device=device,
     )
 
 
@@ -92,8 +99,10 @@ def convert_image(image_path, style_name, out_dir, size, precision, device):
 @click.option("--size", default=None, type=int,
               help="Working resolution (default 256; the net is fully convolutional)")
 @_precision_option
+@_pad_mode_option
 @_device_option
-def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, device):
+def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, pad_mode,
+                device):
     """
     Converts every image in `input-dir` (png/jpg/jpeg/bmp/webp) with the
     network trained with `style-name`, in batches; outputs are saved as
@@ -103,5 +112,6 @@ def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, dev
 
     fast.process_dir(
         input_dir=input_dir, style_name=style_name, batch_size=batch_size,
-        out_dir=out_dir, size=size, precision=precision, device=device,
+        out_dir=out_dir, size=size, precision=precision, pad_mode=pad_mode,
+        device=device,
     )

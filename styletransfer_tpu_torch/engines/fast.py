@@ -305,19 +305,22 @@ def static_train(
     return params
 
 
-def make_serve_fn(precision: str = "f32") -> Callable:
+def make_serve_fn(precision: str = "f32", pad_mode: str = "reflect") -> Callable:
     """The uint8-in / uint8-out serving forward: ``serve_fn(params, batch_u8)``
     with ``batch_u8`` [B, H, W, 3] uint8 on the params' device.
 
     f32 runs in full f32: TF32 is switched off for cuDNN convs and matmuls
     (both default differently), so the output stays within 1/255 of the
-    f32 reference."""
+    f32 reference. ``pad_mode="zeros"`` serves checkpoints that the original
+    reference trained (see ``transformer.apply``)."""
     compute_dtype = _compute_dtype(precision)
+    if pad_mode not in ("reflect", "zeros"):
+        raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     layers.disable_tf32()
 
     def serve_fn(params: transformer.TransformerNet, batch_u8: torch.Tensor) -> torch.Tensor:
         x = img_utils.maybe_normalize_on_device(batch_u8)
-        y = transformer.apply(params, x, compute_dtype=compute_dtype)
+        y = transformer.apply(params, x, compute_dtype=compute_dtype, pad_mode=pad_mode)
         return img_utils.to_uint8_on_device(y)
 
     return serve_fn
@@ -337,6 +340,7 @@ def process_image(
     models_path: Optional[str] = None,
     size: Optional[int] = None,
     precision: str = "f32",
+    pad_mode: str = "reflect",
     device=constants.DEFAULT_DEVICE,
 ) -> str:
     """Stylize one image with the latest trained weights for ``style_name``
@@ -348,7 +352,7 @@ def process_image(
         os.path.join(constants.PROJECT_ROOT_PATH, image_path),
         size=size or constants.IMSIZE,
     )
-    serve_fn = make_serve_fn(precision)
+    serve_fn = make_serve_fn(precision, pad_mode)
     out_u8 = serve_fn(params, torch.from_numpy(np.array(input_u8)).to(dev)).cpu().numpy()[0]
 
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
@@ -368,6 +372,7 @@ def process_dir(
     models_path: Optional[str] = None,
     size: Optional[int] = None,
     precision: str = "f32",
+    pad_mode: str = "reflect",
     device=constants.DEFAULT_DEVICE,
 ) -> List[str]:
     """Stylize every image in a directory with batched inference.
@@ -384,7 +389,7 @@ def process_dir(
     if not files:
         raise FileNotFoundError(f"No images ({'/'.join(IMAGE_EXTS)}) in {in_dir}")
     params = _load_params(params, style_name, models_path, dev)
-    serve_fn = make_serve_fn(precision)
+    serve_fn = make_serve_fn(precision, pad_mode)
     sz = size or constants.IMSIZE
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)

@@ -15,8 +15,17 @@ the pad-early forward (``_apply_padearly`` there) on two CUDA kernels:
 
 The other convs (9x9 conv1, stride-2 conv2/conv3, the phase-form upsample
 convs and the space-to-depth conv_out) run as ``F.conv2d``, as the JAX
-package leaves them to XLA. On CPU tensors the kernels' wrappers compute
-their plain PyTorch versions, which the tests hold against the JAX forward.
+package leaves them to XLA. With ``pad_mode="zeros"`` (the reference's own
+checkpoints) the forward is the stacked one, its ten residual convs on
+``conv3x3_flat`` (``conv3x3_same``: a zero-padded 3x3 conv with no
+statistics) wherever no weight gradient is asked for. On CPU tensors the
+kernels' wrappers compute their plain PyTorch versions, which the tests hold
+against the JAX forward.
+
+Reference ``.pth`` state dicts (``nn.Sequential`` keys, OIHW kernels) cross
+with :func:`import_torch_state_dict` / :func:`export_torch_state_dict`, and
+:func:`init_video_params` builds the 6-channel video net, warm-started from
+a fast_st net where one is given.
 
 Architecture (identical to the reference):
 - conv 9x9 s1 (3 or 6)->32, IN, ReLU; conv 3x3 s2 32->64, IN, ReLU;
@@ -37,6 +46,7 @@ from torch import nn
 from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.ops import layers
 from styletransfer_tpu_torch.ops.cuda.conv3x3 import conv3x3_valid
+from styletransfer_tpu_torch.ops.cuda.conv3x3_flat import conv3x3_same
 from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
 
@@ -140,6 +150,25 @@ def params_from_jax(tree: Mapping[str, Any], device=constants.DEFAULT_DEVICE) ->
     return TransformerNet(convs, norms, blocks)
 
 
+def init_video_params(
+    seed: int = 0,
+    fast_params=None,
+    device=constants.DEFAULT_DEVICE,
+) -> TransformerNet:
+    """The 6-channel video net: input [current frame, previous stylized
+    frame] on channels. Given ``fast_params`` (a trained 3-channel net, as a
+    module or a JAX-layout tree) every layer but the first conv is copied
+    from it: the reference's state-dict surgery drops exactly ``0.weight``
+    and ``0.bias``, so the first instance norm is warm-started too."""
+    params = init_params(seed, in_channels=6, device=device)
+    if fast_params is not None:
+        tree = fast_params if isinstance(fast_params, Mapping) else params_to_tree(fast_params)
+        warm = params_from_jax(tree, device=device)
+        warm.conv1 = params.conv1
+        params = warm
+    return params
+
+
 def params_to_tree(params: nn.Module) -> Dict[str, Any]:
     """The JAX parameter tree of ``params``: nested dicts of numpy arrays."""
     tree: Dict[str, Any] = {}
@@ -161,12 +190,21 @@ def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding):
     return fused_instance_norm(x, norm.scale, norm.bias, relu=True)
 
 
+def _res_conv(x, p: Conv, cd, padding):
+    """A residual 3x3 128->128 conv. Zero-padded with no weight gradient to
+    take (the serving forward), it runs on ``conv3x3_flat``; otherwise as
+    ``F.conv2d``, since ``conv3x3_same`` has no weight-gradient kernel."""
+    if padding == "zeros" and not (torch.is_grad_enabled() and p.kernel.requires_grad):
+        return conv3x3_same(x, p.kernel.to(x.dtype), p.bias)
+    return layers.conv2d(x, p.kernel, p.bias, 1, compute_dtype=cd, padding=padding)
+
+
 def _residual_block(x, p: ResidualBlock, cd, padding):
     """conv-IN-ReLU-conv, then IN of (out + the block's input): the residual
     add is inside the second norm's kernel."""
-    out = _conv_in_relu(x, p.conv1, p.in1, 1, cd, padding)
-    out = layers.conv2d(out, p.conv2.kernel, p.conv2.bias, 1, compute_dtype=cd,
-                        padding=padding)
+    out = _res_conv(x, p.conv1, cd, padding)
+    out = fused_instance_norm(out, p.in1.scale, p.in1.bias, relu=True)
+    out = _res_conv(out, p.conv2, cd, padding)
     return fused_instance_norm(out, p.in2.scale, p.in2.bias, residual=x)
 
 
@@ -180,10 +218,12 @@ def apply_stacked(
     ``_apply_stacked`` with ``use_pallas=True``.
 
     Each conv pads its own input (``pad_mode`` "reflect" or "zeros") and
-    runs as ``F.conv2d``; all 15 instance norms run on the fused-IN kernels
-    and their backward (``ops/cuda/fused_instance_norm.py``). This is the
-    training forward; in exact arithmetic it equals the pad-early
-    :func:`apply` (the two differ by about 1e-6 in f32)."""
+    runs as ``F.conv2d``, except the ten residual convs of a zero-padded
+    forward that takes no weight gradient, which run on ``conv3x3_flat``;
+    all 15 instance norms run on the fused-IN kernels and their backward
+    (``ops/cuda/fused_instance_norm.py``). This is the training forward; in
+    exact arithmetic it equals the pad-early :func:`apply` (the two differ
+    by about 1e-6 in f32)."""
     if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     in_dtype = x.dtype
@@ -247,7 +287,8 @@ def apply(
 
     ``pad_mode="zeros"`` zero-pads every conv, as the reference's own
     checkpoints were trained (see the JAX ``apply``); it runs the stacked
-    form (:func:`apply_stacked`), since zero padding belongs to the conv.
+    form (:func:`apply_stacked`), since zero padding belongs to the conv:
+    per forward 10 ``conv3x3_flat`` and 15 fused-IN forward launches.
     """
     if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
@@ -289,3 +330,70 @@ def apply(
     out = layers.conv2d(layers.space_to_depth(y, 4), kp, None, 1, compute_dtype=cd)
     out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
     return out.to(in_dtype)
+
+
+# The reference's nn.Sequential indices -> the port's parameter names: (index,
+# name, kind) of the convs and instance norms outside the residual blocks,
+# and the module index of each residual block (keys "{idx}.conv1",
+# "{idx}.insn1", "{idx}.conv2", "{idx}.insn2").
+_SEQ_MAP = [
+    ("0", "conv1", "conv"), ("1", "in1", "in"),
+    ("3", "conv2", "conv"), ("4", "in2", "in"),
+    ("6", "conv3", "conv"), ("7", "in3", "in"),
+    ("15", "up1_conv", "conv"), ("16", "up1_in", "in"),
+    ("19", "up2_conv", "conv"), ("20", "up2_in", "in"),
+    ("22", "conv_out", "conv"),
+]
+_RES_SEQ_IDX = ("9", "10", "11", "12", "13")
+
+
+def import_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference ``ImageTransformNet`` / ``VideoTransformNet`` state dict
+    (torch ``nn.Sequential`` keys, OIHW kernels; tensors or arrays) as the
+    JAX parameter tree (HWIO kernels, numpy), for :func:`params_from_jax`."""
+    def arr(key):
+        v = state_dict[key]
+        return np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+
+    def conv(prefix):
+        return {"kernel": np.ascontiguousarray(arr(f"{prefix}.weight").transpose(2, 3, 1, 0)),
+                "bias": arr(f"{prefix}.bias")}
+
+    def norm(prefix):
+        return {"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")}
+
+    tree: Dict[str, Any] = {name: conv(idx) if kind == "conv" else norm(idx)
+                            for idx, name, kind in _SEQ_MAP}
+    for i, idx in enumerate(_RES_SEQ_IDX):
+        tree[f"res{i + 1}"] = {"conv1": conv(f"{idx}.conv1"), "in1": norm(f"{idx}.insn1"),
+                               "conv2": conv(f"{idx}.conv2"), "in2": norm(f"{idx}.insn2")}
+    return tree
+
+
+def export_torch_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`import_torch_state_dict`: ``params`` (a module
+    or a JAX-layout tree) as a reference state dict of CPU tensors, which
+    ``torch.save`` writes as the reference's ``.pth``."""
+    tree = params if isinstance(params, Mapping) else params_to_tree(params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a))
+
+    def put(prefix, p, kind):
+        if kind == "conv":
+            out[f"{prefix}.weight"] = t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+            out[f"{prefix}.bias"] = t(p["bias"])
+        else:
+            out[f"{prefix}.weight"] = t(p["scale"])
+            out[f"{prefix}.bias"] = t(p["bias"])
+
+    for idx, name, kind in _SEQ_MAP:
+        put(idx, tree[name], kind)
+    for i, idx in enumerate(_RES_SEQ_IDX):
+        r = tree[f"res{i + 1}"]
+        put(f"{idx}.conv1", r["conv1"], "conv")
+        put(f"{idx}.insn1", r["in1"], "in")
+        put(f"{idx}.conv2", r["conv2"], "conv")
+        put(f"{idx}.insn2", r["in2"], "in")
+    return out

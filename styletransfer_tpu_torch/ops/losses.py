@@ -1,14 +1,16 @@
 """Loss functions: Gram/style, content, feature reconstruction and total
 variation, on NHWC tensors.
 
-The port of ``styletransfer_tpu/ops/losses.py`` (the temporal loss comes with
-the video slice). Normalizations are the reference's:
+The port of ``styletransfer_tpu/ops/losses.py``. Normalizations are the
+reference's:
 - Gram matrices are normalized by C*H*W (not the batch);
 - the style loss is the MSE between the input Grams and the style Gram
   broadcast over the batch;
 - the content loss is a plain MSE over features;
 - the feature-reconstruction loss is MSE^2 / (B*C*H*W);
-- total variation is the anisotropic L1 sum scaled by 1e-6.
+- total variation is the anisotropic L1 sum scaled by 1e-6;
+- the temporal loss is ||s_t - s_{t-1}|| / (||c_t - c_{t-1}|| + 1), times its
+  weight, with Frobenius norms over the whole batch tensor.
 
 Every loss reduces in f32, whatever the features' dtype.
 """
@@ -79,3 +81,19 @@ def total_variation_loss(image: torch.Tensor, regularization_factor: float = 1e-
     dw = (x[:, :, :-1, :] - x[:, :, 1:, :]).abs().sum()
     dh = (x[:, :-1, :, :] - x[:, 1:, :, :]).abs().sum()
     return regularization_factor * (dw + dh)
+
+
+def temporal_loss(
+    old_content: torch.Tensor,
+    old_stylized: torch.Tensor,
+    current_content: torch.Tensor,
+    current_stylized: torch.Tensor,
+    temporal_weight: float = 1.0,
+) -> torch.Tensor:
+    """Temporal consistency: the change of the stylized stream relative to
+    the change of the content stream, ``||s_t - s_{t-1}||_F /
+    (||c_t - c_{t-1}||_F + 1) * w``, norms over the full batch tensor (as
+    ``torch.Tensor.norm()``)."""
+    ds = (current_stylized.float() - old_stylized.float()).norm()
+    dc = (current_content.float() - old_content.float()).norm()
+    return ds / (dc + 1.0) * temporal_weight

@@ -1,8 +1,9 @@
 """Image loading / saving with the reference's transform semantics.
 
-The port of what fast_st training and serving and Gatys need from
+The port of what fast_st, video and Gatys need from
 ``styletransfer_tpu/utils/images.py``: the shared center-crop +
-bilinear-resize recipe (host side, PIL), normalized float and uint8 loading,
+bilinear-resize recipe (host side, PIL), normalized float and uint8 loading
+(of image files and of decoded video frames),
 atomic saving (of uint8 arrays and of model-space float images), the numpy
 normalize / denormalize and preview helpers, and the on-device normalize /
 denormalize steps that let serving move uint8 both ways. Layout is NHWC.
@@ -85,6 +86,19 @@ def save_image(image: np.ndarray, path: str) -> None:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     save_uint8(to_uint8(image), path)
+
+
+def from_array(frame: np.ndarray, size: int = constants.IMSIZE) -> np.ndarray:
+    """A decoded HWC uint8 frame (e.g. of a video) as :func:`load_image`
+    gives an image: ``[1, size, size, 3]`` float32, normalized."""
+    return normalize(center_crop_resize(Image.fromarray(frame).convert("RGB"), size))[None, ...]
+
+
+def from_array_uint8(frame: np.ndarray, size: int = constants.IMSIZE) -> np.ndarray:
+    """A decoded HWC frame as ``[1, size, size, 3]`` uint8, cropped and
+    resized as :func:`from_array`, not normalized: the video serving input."""
+    img = _center_crop_resize_pil(Image.fromarray(frame).convert("RGB"), size)
+    return np.asarray(img, dtype=np.uint8)[None, ...]
 
 
 def load_image_uint8(image_path: str, size: int = constants.IMSIZE) -> np.ndarray:

@@ -89,10 +89,86 @@ def test_load_latest_transformer(tmp_path, jax_params):
     _assert_trees_equal(tt.params_to_tree(params), jax_params)
 
 
-def test_pth_checkpoints_wait_for_a_later_slice(tmp_path):
-    (tmp_path / "fast_st_wave_epoch1.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=".pth"):
+def _save_pth(params_tree, path):
+    """A reference checkpoint as the original code wrote it: torch.save of
+    the state dict (OIHW tensors under nn.Sequential keys)."""
+    import torch
+
+    torch.save(tt.export_torch_state_dict(params_tree), str(path))
+
+
+def test_pth_checkpoints_wait_for_a_later_slice(tmp_path, jax_params):
+    """(The name predates .pth loading.) A models directory holding only a
+    reference .pth loads through the layout converter, as the JAX package
+    loads it."""
+    _save_pth(jax_params, tmp_path / "fast_st_wave_epoch1.pth")
+    params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+    assert epoch == 1
+    _assert_trees_equal(tt.params_to_tree(params), jax_params)
+    want, jepoch = jckpt.load_latest_transformer("fast_st", "wave",
+                                                 jt.init_params(jax.random.PRNGKey(0)),
+                                                 str(tmp_path))
+    assert jepoch == 1
+    _assert_trees_equal(tckpt.load(str(tmp_path / "fast_st_wave_epoch1.pth")),
+                        jax.device_get(want))
+    (tmp_path / "fast_st_wave_epoch2.orbax").mkdir()
+    with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+
+
+def test_msgpack_wins_over_pth_at_equal_epochs(tmp_path, jax_params):
+    other = jax.device_get(jt.init_params(jax.random.PRNGKey(9)))
+    _save_pth(other, tmp_path / "fast_st_wave_epoch3.pth")
+    jckpt.save_epoch(jax_params, "fast_st", "wave", 3, str(tmp_path))
+    params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+    assert epoch == 3
+    _assert_trees_equal(tt.params_to_tree(params), jax_params)
+    _save_pth(other, tmp_path / "fast_st_wave_epoch4.pth")  # a later .pth wins
+    params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+    assert epoch == 4
+    _assert_trees_equal(tt.params_to_tree(params), other)
+
+
+def test_load_torch_state_dict_matches_jax(tmp_path, jax_params):
+    path = tmp_path / "net.pth"
+    _save_pth(jax_params, path)
+    got, want = tckpt.load_torch_state_dict(str(path)), jckpt.load_torch_state_dict(str(path))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_step_state_carry_arrays_cross(tmp_path, jax_params, writer):
+    """The video trainer's carry frames ride the step state's ``arrays``:
+    either package reads what the other wrote."""
+    import optax
+    import torch
+
+    carry = {"old_content": np.arange(24, dtype=np.float32).reshape(1, 2, 4, 3),
+             "old_stylized": -np.ones((1, 2, 4, 3), np.float32)}
+    opt_state = optax.adam(1e-3).init(jax_params)
+    extra = {"batch_in_epoch": 2, "chunk_in_batch": 5}
+    if writer == "jax":
+        jckpt.save_step_state(jax_params, opt_state, 1, 30, "video_st", "w", str(tmp_path),
+                              extra=extra, arrays=carry)
+    else:
+        params = tt.params_from_jax(jax_params, device="cpu")
+        tree = {"0": {"count": np.asarray(0, np.int32), "mu": jax_params, "nu": jax_params},
+                "1": {}}
+        tckpt.save_step_state(params, tree, 1, 30, "video_st", "w", str(tmp_path), extra=extra,
+                              arrays={k: torch.from_numpy(v) for k, v in carry.items()})
+    keys = ("old_content", "old_stylized")
+    got = tckpt.load_step_state("video_st", "w", str(tmp_path), extra_keys=tuple(extra),
+                                array_keys=keys)
+    jgot = jckpt.load_step_state(jax_params, opt_state, "video_st", "w", str(tmp_path),
+                                 extra_keys=tuple(extra), array_keys=keys)
+    assert got["extra"] == extra and {k: int(v) for k, v in jgot["extra"].items()} == extra
+    for k in keys:
+        np.testing.assert_array_equal(got["arrays"][k], carry[k])
+        np.testing.assert_array_equal(jgot["arrays"][k], carry[k])
+    assert tckpt.load_step_state("video_st", "w", str(tmp_path))["arrays"] == {}
 
 
 def test_epoch_checkpoint_checks_agree_with_jax(tmp_path, jax_params):

@@ -618,3 +618,56 @@ def test_serve_on_the_kernels_matches_the_cpu(cuda, precision, steps):
             instance_norm.launches - before[2]) == (10, 10, 15)
     want = serve(params, batch)
     assert int((got.int() - want.int()).abs().max()) <= steps
+
+
+@pytest.mark.parametrize("precision,steps", [("f32", 1), ("bf16", 16)])
+def test_zeros_serve_on_the_kernels_matches_the_cpu(cuda, precision, steps):
+    """pad_mode="zeros" (a reference .pth): per forward 10 conv3x3_flat (the
+    residual convs, through conv3x3_same) and 15 fused-IN forwards, neither
+    conv3x3_valid nor IN-pad."""
+    from styletransfer_tpu_torch.engines import fast
+
+    params = transformer.init_params(seed=2, device="cpu")
+    params_gpu = transformer.params_from_jax(transformer.params_to_tree(params), device=cuda)
+    batch = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, size=(2, 64, 64, 3), dtype=np.uint8))
+    serve = fast.make_serve_fn(precision, "zeros")
+
+    def counts():
+        return (conv3x3_flat.flat_launches, conv3x3_flat.im2col_launches,
+                fused_instance_norm.fwd_launches, fused_instance_norm.bwd_launches,
+                conv3x3.launches, instance_norm.launches)
+
+    before = counts()
+    got = serve(params_gpu, batch.to(cuda)).cpu()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (10, 0, 15, 0, 0, 0)
+    want = serve(params, batch)
+    assert int((got.int() - want.int()).abs().max()) <= steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_flat_at_the_zeros_residual_shape(cuda, dtype):
+    """The residual conv of a zero-padded 256 px forward at batch 64:
+    x [64, 66, 66, 128] -> 128, against the plain version, and repeated."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.nn.functional.pad(torch.randn(64, 64, 64, 128, device=cuda, generator=g),
+                                (0, 0, 1, 1, 1, 1)).to(dtype)
+    w = (torch.randn(3, 3, 128, 128, device=cuda, generator=g) / 34).to(dtype)
+    b = torch.randn(128, device=cuda, generator=g)
+    out = conv3x3_flat.conv3x3_flat(x, w, b)
+    again = conv3x3_flat.conv3x3_flat(x, w, b)
+    torch.cuda.synchronize()
+    _close(out, conv3x3_flat.conv3x3_flat_plain(x, w, b), dtype)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_stylize_clip_on_the_kernels_matches_the_cpu(cuda, pad_mode):
+    from styletransfer_tpu_torch.engines import video
+
+    params = transformer.init_video_params(seed=3, device="cpu")
+    params_gpu = transformer.params_from_jax(transformer.params_to_tree(params), device=cuda)
+    frames = np.random.default_rng(2).integers(0, 256, size=(3, 2, 64, 64, 3), dtype=np.uint8)
+    got = video.stylize_clip(params_gpu, frames, pad_mode=pad_mode)
+    want = video.stylize_clip(params, frames, pad_mode=pad_mode)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -61,6 +61,7 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch.engines.fast, styletransfer_tpu_torch.ckpt\n"
         "import styletransfer_tpu_torch.engines.gatys, styletransfer_tpu_torch.ops.lbfgs\n"
         "import styletransfer_tpu_torch.utils.profiling\n"
+        "import styletransfer_tpu_torch.engines.video, styletransfer_tpu_torch.data.video\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
@@ -116,3 +117,26 @@ def test_train_cli_defaults_to_cuda_and_fails_without_a_gpu(no_gpu, tmp_path, mo
     assert result.exit_code != 0
     assert "no CUDA GPU" in str(result.exception)
     assert not (tmp_path / "runs").exists() and not (tmp_path / "data").exists()
+
+
+def test_video_entry_points_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import video
+    from styletransfer_tpu_torch.models import transformer
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        transformer.init_video_params()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        video.video_train(None)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        video.process_video("clip.gif", "tst")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        video.process_video_dir(str(tmp_path), "tst")
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    for args in (["train", "style.png", "-e", "1"], ["convert-video", "clip.gif", "tst"],
+                 ["convert-dir", "clips", "tst"]):
+        result = CliRunner().invoke(cli, ["video_st", *args])
+        assert result.exit_code != 0
+        assert "no CUDA GPU" in str(result.exception), args
+    assert os.listdir(tmp_path) == []

@@ -125,3 +125,38 @@ def test_convert_dir_cli_bf16(tmp_path, monkeypatch, models_dir, image_dir):
     assert result.exit_code == 0, result.output
     assert sorted(os.listdir(tmp_path / "out")) == [
         f"converted_fast_st_tst_pic{i}.png" for i in range(3)]
+
+
+def test_convert_image_cli_zeros_from_a_pth(tmp_path, monkeypatch, jax_params, image_dir):
+    """A models directory holding only a reference .pth, served with
+    --pad-mode zeros: the output of the JAX command on the same file."""
+    (tmp_path / "models").mkdir()
+    torch.save(tt.export_torch_state_dict(jax_params),
+               str(tmp_path / "models" / "fast_st_ref_epoch0.pth"))
+    _project(tmp_path, monkeypatch, str(tmp_path / "models"), image_dir)
+    result = CliRunner().invoke(tcli, [
+        "fast_st", "convert-image", "imgs/pic1.png", "ref", "--size", str(SIZE),
+        "--pad-mode", "zeros", "--device", "cpu"])
+    assert result.exit_code == 0, result.output
+    out = tmp_path / "results" / "converted_fast_st_ref.png"
+    want = jfast.process_image(os.path.join(image_dir, "pic1.png"), "ref",
+                               out_dir=str(tmp_path / "jax"),
+                               models_path=str(tmp_path / "models"), size=SIZE,
+                               pad_mode="zeros")
+    assert np.abs(_read(out) - _read(want)).max() <= 1
+    reflect = tfast.process_image("imgs/pic1.png", "ref", out_dir="reflect/", size=SIZE,
+                                  device="cpu")
+    assert np.abs(_read(out) - _read(reflect)).max() > 1  # the padding mode was used
+
+
+@pytest.mark.parametrize("precision,steps", [("f32", 1), ("bf16", 8)])
+def test_zeros_serve_fn_matches_jax(jax_params, precision, steps):
+    batch = np.random.default_rng(4).integers(0, 256, size=(2, SIZE, SIZE, 3), dtype=np.uint8)
+    want = np.asarray(jax.jit(jfast.make_serve_fn(precision, "zeros"))(jax_params,
+                                                                       jnp.asarray(batch)))
+    got = tfast.make_serve_fn(precision, "zeros")(tt.params_from_jax(jax_params, device="cpu"),
+                                                  torch.from_numpy(batch))
+    assert got.dtype == torch.uint8
+    assert np.abs(got.numpy().astype(np.int32) - want.astype(np.int32)).max() <= steps
+    with pytest.raises(ValueError, match="pad_mode"):
+        tfast.make_serve_fn(precision, "circular")

@@ -120,3 +120,67 @@ def test_zeros_pad_mode_waits_for_a_later_slice(jax_params, port_params):
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
     with pytest.raises(ValueError, match="pad_mode"):
         tt.apply(port_params, torch.zeros(1, 16, 16, 3), pad_mode="circular")
+
+
+@pytest.mark.parametrize("in_channels", [3, 6])
+def test_torch_state_dict_round_trips_and_matches_the_jax_importer(tmp_path, in_channels):
+    """export -> torch.save -> torch.load -> import gives the parameters
+    back; the file holds the reference's keys and OIHW shapes, and the JAX
+    importer reads the same tree from it."""
+    want = jax.device_get(jt.init_params(jax.random.PRNGKey(4), in_channels=in_channels))
+    sd = tt.export_torch_state_dict(tt.params_from_jax(want, device="cpu"))
+    jsd = jt.export_torch_state_dict(want)
+    assert set(sd) == set(jsd) and "9.insn1.weight" in sd and "13.insn2.bias" in sd
+    for k, v in jsd.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    assert tuple(sd["0.weight"].shape) == (32, in_channels, 9, 9)
+    path = str(tmp_path / "net.pth")
+    torch.save(sd, path)
+    loaded = torch.load(path, weights_only=True)
+    got = tt.import_torch_state_dict(loaded)
+    jgot = jax.device_get(jt.import_torch_state_dict(loaded))
+    for tree in (got, jgot):
+        assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(want)
+    for g, j, w in zip(*(jax.tree_util.tree_leaves(t) for t in (got, jgot, want))):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(j, w)
+    assert tt.export_torch_state_dict(got).keys() == sd.keys()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_zeros_forward_on_pth_weights_matches_jax(tmp_path, monkeypatch, bf16):
+    """A reference .pth through each package's importer, then apply with
+    pad_mode="zeros": the port's residual convs go through conv3x3_same
+    (its plain version here)."""
+    tree = jax.device_get(jt.init_params(jax.random.PRNGKey(6)))
+    path = str(tmp_path / "fast_st_ref_epoch0.pth")
+    torch.save({k: torch.from_numpy(np.array(v))
+                for k, v in jt.export_torch_state_dict(tree).items()}, path)
+    loaded = torch.load(path, weights_only=True)
+    jparams = jt.import_torch_state_dict(loaded)
+    params = tt.params_from_jax(tt.import_torch_state_dict(loaded), device="cpu")
+    x = np.random.default_rng(7).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    jcd, tcd = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+    want = np.asarray(jt.apply(jparams, jnp.asarray(x), compute_dtype=jcd, pad_mode="zeros"))
+    calls = []
+    same = tt.conv3x3_same
+    monkeypatch.setattr(tt, "conv3x3_same", lambda *a: calls.append(a[0].shape) or same(*a))
+    got = tt.apply(params, torch.from_numpy(x), compute_dtype=tcd, pad_mode="zeros")
+    assert len(calls) == 10 and all(c == (2, 8, 8, 128) for c in calls)
+    if bf16:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=BF16_ATOL)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_zeros_training_forward_keeps_the_weight_gradient(port_params):
+    """With gradients on, the zero-padded residual convs stay on F.conv2d:
+    conv3x3_same has no weight gradient."""
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 16, 16, 3))
+                         .astype(np.float32))
+    params = tt.params_from_jax(tt.params_to_tree(port_params), device="cpu")
+    tt.apply_stacked(params, x, pad_mode="zeros").square().mean().backward()
+    assert float(params.res3.conv2.kernel.grad.abs().sum()) > 0
+    with torch.no_grad():
+        served = tt.apply_stacked(params, x, pad_mode="zeros")
+    np.testing.assert_allclose(served.numpy(), tt.apply(params, x, pad_mode="zeros").numpy())
