@@ -303,13 +303,17 @@ def test_process_video_writes_every_frame(tmp_path, cpu_video_params, recorded):
 
 def test_process_video_dir_ragged_groups_and_unreadable_clips(tmp_path, cpu_video_params,
                                                               recorded):
-    """Clips of 3, 4 and 2 frames at batch 2: a lockstep group (a, b) and a
-    ragged one (c); each clip's frames as processing it alone; an unreadable
-    file is skipped and an empty clip writes nothing."""
+    """Clips of 3, 4 and 2 frames at batch 2, with a clip that opens but
+    yields no frame (ae: frame 0 truncated) and a file that does not open
+    (broken): groups (a, ae), (b, broken: skipped), (c). The empty clip
+    rides a zero lane and writes nothing; each clip's frames are as
+    processing it alone."""
     in_dir = tmp_path / "clips"
     in_dir.mkdir()
     for name, n, seed in (("a", 3, 1), ("b", 4, 2), ("c", 2, 3)):
         _write_gif(str(in_dir / f"{name}.gif"), n, seed)
+    data = open(_write_gif(str(tmp_path / "whole.gif"), 2, 4), "rb").read()
+    (in_dir / "ae.gif").write_bytes(data[:int(len(data) * 0.45)])
     (in_dir / "broken.gif").write_bytes(b"not a gif at all")
     (in_dir / "notes.txt").write_text("not a video")
     outs = video.process_video_dir(str(in_dir), style_name="sty", out_dir=str(tmp_path / "res"),
@@ -319,6 +323,8 @@ def test_process_video_dir_ragged_groups_and_unreadable_clips(tmp_path, cpu_vide
         "video_st_sty_a.gif", "video_st_sty_b.gif", "video_st_sty_c.gif"]
     assert [_gif_frames(p) for p in outs] == [3, 4, 2]
     assert [len(recorded[p]) for p in outs] == [3, 4, 2]
+    assert sorted(os.listdir(tmp_path / "res")) == [
+        "video_st_sty_a.gif", "video_st_sty_b.gif", "video_st_sty_c.gif"]
     single = video.process_video(str(in_dir / "a.gif"), style_name="sty",
                                  out_dir=str(tmp_path / "single"), params=cpu_video_params,
                                  chunk_size=3, device="cpu")
