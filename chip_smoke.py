@@ -1732,7 +1732,7 @@ def video_serve_path(torch, np, models):
                 # serving limits. Later frames only printed: a library conv
                 # may sum in another order at another batch size (about 1e-6
                 # apart in f32), and the recurrence carries that on from frame
-                # to frame (scripts/torch_video_lanes.py, PERF.md §6, PR 10).
+                # to frame (scripts/torch_video_lanes.py).
                 _frames_checked(np, f"convert-dir {precision} {name}: first frame against its "
                                 f"own convert-video", seen[path][:1], single[name][:1],
                                 precision)
