@@ -5,7 +5,7 @@
     python3 chip_smoke.py --convs       # phases 1-2 and conv3x3_valid only
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
-    python3 chip_smoke.py --video       # phases 1-2 and the video / zero-padding phase only
+    python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -38,7 +38,12 @@ It imports nothing of JAX. Phases:
    gradients), in f32 and bf16, with conv3x3_flat's plan (route, tile and
    split) and conv3x3_im2col's plan (route and grid) for each shape and a
    bit-identical repeat of each call, and conv3x3_im2col at conv1_1 of 4
-   images (a train step's and a Gatys directory's call);
+   images (a train step's and a Gatys directory's call); and conv_direct
+   (not a TPU kernel: the fixed-order conv that takes over the six convs the
+   JAX package leaves to XLA, in the video stylizer) at those six convs of a
+   256 px forward, at batch 64 and 1, against its plain version, with a
+   bit-identical repeat, lanes bit for bit as each image alone, and times
+   beside F.conv2d;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
@@ -48,7 +53,13 @@ It imports nothing of JAX. Phases:
    in bf16, whose 75-wide residual convs take the bf16_wgmma route too, and
    four of them at 1040 px in bf16, whose 260-wide residual convs take the
    bf16_wgmma route on segments of rows (one image against the same forward
-   on the convs' and instance norms' plain versions);
+   on the convs' and instance norms' plain versions); then multi-style
+   inference: IN-pad with per-image [N, C] affines at the fifteen call
+   shapes (against the plain version; a [C] affine and its row repeated as
+   [N, C] give the same bits), ``fast_st convert-image-multi`` by index and
+   by blend on a seeded 4-style checkpoint (10 conv3x3_valid and 15 IN-pad
+   launches each; against the port's CPU run within the serving limits),
+   and a mixed batch of 64 (launches, finite output, img/s);
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
@@ -79,15 +90,19 @@ It imports nothing of JAX. Phases:
    step state and the epoch checkpoint; ms per frame step); one f32 scan
    step of 3 frames (the third padded) on 2 clips at 64 px, card against
    the port's CPU run; ``convert-video`` of a 48-frame GIF from that
-   checkpoint (48 frames written, 10 conv3x3_valid and 15 IN-pad per frame,
-   the first frames against the port's CPU run) and ``convert-dir`` of
-   clips of 24, 40 and 48 frames at batch 2 (each clip's frame count; each
-   clip exactly its lane of the group's clips stylized together, its first
-   frame against its own convert-video), f32 and bf16; and the zero-padded
+   checkpoint (48 frames written, 6 conv_direct, 10 conv3x3_valid and 15
+   IN-pad per frame and no cuDNN conv, the first frames against the port's
+   CPU run) and ``convert-dir`` of clips of 24, 40 and 48 frames at batch 2
+   (each clip's frame count; each clip exactly, 0/255 over the whole clip,
+   its own convert-video), f32 and bf16, reflect and zero padding (per
+   frame 6 conv_direct, 10 conv3x3_flat and 15 fused-IN forwards);
+   ``stylize_clip`` of 64 clips of 8 frames, each lane bit for bit the same
+   at batch 1, 2, 4 and 64; and the zero-padded
    forward from a reference ``.pth`` through ``process_dir(pad_mode=
    "zeros")`` on the 64 PNGs (per forward 10 conv3x3_flat after 10 zero-pad
    copies and 15 fused-IN forwards, no serving kernel; against the port's
-   CPU run; img/s);
+   CPU run; img/s); with ``--video`` also conv_direct's phase and the
+   multi-style phase;
 10. print one JSON line with each kernel's error, launches and times (and
    each kernel's launches on the video-slice paths), and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -148,6 +163,8 @@ TOL = {
     ("conv3x3_flat", "bfloat16"): (2 ** -7, 1e-3),
     ("conv3x3_im2col", "float32"): (1e-4, 1e-4),
     ("conv3x3_im2col", "bfloat16"): (2 ** -7, 1e-3),
+    ("conv_direct", "float32"): (1e-4, 1e-4),
+    ("conv_direct", "bfloat16"): (2 ** -7, 1e-3),
 }
 # The statistics (mean, inv) of the forward: f32 means and variances over up
 # to 65,536 pixels, summed in another order.
@@ -190,6 +207,11 @@ SOURCES = {
                      "styletransfer_tpu/ops/pallas/conv3x3.py:133"),
     "conv3x3_im2col": ("styletransfer_tpu_torch/csrc/conv3x3_im2col.cu",
                        "styletransfer_tpu/ops/pallas/conv3x3.py:86"),
+    # Not the port of a TPU kernel: the convs that the JAX package leaves to
+    # XLA (jax.lax.conv_general_dilated in its layers.conv2d), summed in a
+    # fixed order for the video stylizer.
+    "conv_direct": ("styletransfer_tpu_torch/csrc/conv_direct.cu",
+                    "styletransfer_tpu/ops/layers.py:93"),
 }
 # conv3x3_valid's kernel on each route of valid_plan.
 ROUTE_SOURCES = {"f32_fma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
@@ -326,7 +348,7 @@ def allclose(torch, a, b, rtol, atol) -> bool:
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
     from styletransfer_tpu_torch.ops.cuda import (
-        conv3x3, conv3x3_flat, fused_instance_norm, instance_norm)
+        conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
             "conv3x3_valid.f32_fma": (conv3x3, "fma_launches"),
@@ -336,7 +358,8 @@ def counters():
             "fused_instance_norm_fwd": (fused_instance_norm, "fwd_launches"),
             "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches"),
             "conv3x3_flat": (conv3x3_flat, "flat_launches"),
-            "conv3x3_im2col": (conv3x3_flat, "im2col_launches")}
+            "conv3x3_im2col": (conv3x3_flat, "im2col_launches"),
+            "conv_direct": (conv_direct, "launches")}
 
 
 def reset_counts() -> None:
@@ -763,6 +786,95 @@ _GATYS_CONVS = [
 ]
 
 
+# The video stylizer's six library convs at 256 px, on conv_direct: (name,
+# input [H, W, C] pre-padded, K, stride, O). Timed at the serving batch
+# (BATCH) beside F.conv2d, and at batch 1 (convert-video).
+DIRECT_CONVS = [("conv1", (SIZE + 8, SIZE + 8, 6), 9, 1, 32),
+                ("conv2", (SIZE + 2, SIZE + 2, 32), 3, 2, 64),
+                ("conv3", (SIZE // 2 + 2, SIZE // 2 + 2, 64), 3, 2, 128),
+                ("up1", (SIZE // 4 + 2, SIZE // 4 + 2, 128), 3, 1, 256),
+                ("up2", (SIZE // 2 + 2, SIZE // 2 + 2, 64), 3, 1, 128),
+                ("conv_out", (SIZE // 4 + 2, SIZE // 4 + 2, 512), 3, 1, 48)]
+
+
+def direct_phase(torch, F, cdm, dtype):
+    """conv_direct at the six library convs of a 256 px video forward, at
+    batch BATCH and 1: against its plain version, a bit-identical repeat,
+    lanes 0, 1 and BATCH - 1 bit for bit as each image alone, device times
+    of the kernel, the plain version and F.conv2d, and the bound. Returns
+    its JSON entry with the six convs' totals at batch BATCH."""
+    name = "conv_direct"
+    dn = str(dtype).split(".")[1]
+    rtol, atol = TOL[(name, dn)]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+             "ms1": 0.0, "library_ms1": 0.0}
+    worst = 0.0
+    for conv, (H, W, C), K, stride, O in DIRECT_CONVS:
+        for batch in (BATCH, 1):
+            x = torch.randn(batch, H, W, C, device="cuda", generator=g).to(dtype)
+            w = (torch.randn(K, K, C, O, device="cuda", generator=g) * (K * K * C) ** -0.5
+                 ).to(dtype)
+            b = torch.randn(O, device="cuda", generator=g) * 0.1
+            out = cdm.conv_direct(x, w, b, stride)
+            again = cdm.conv_direct(x, w, b, stride)
+            torch.cuda.synchronize()
+            Ho, Wo = out.shape[1], out.shape[2]
+            plan = cdm.direct_plan(batch, Ho, Wo, O)
+            tag = f"{name} {dn} {conv} x[{batch},{H},{W},{C}] w[{K},{K},{C},{O}] /{stride} ({plan})"
+            lanes = [j for j in (0, 1, batch - 1) if j < batch]
+            alone = all(torch.equal(out[j:j + 1], cdm.conv_direct(x[j:j + 1], w, b, stride))
+                        for j in lanes)
+            check(torch.equal(out, again) and alone,
+                  f"{tag}: the repeat and lanes {lanes} alone are bit-identical")
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            ms = device_ms(torch, lambda: cdm.conv_direct(x, w, b, stride), iters=5)
+            library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, b.to(dtype), stride=stride),
+                                   iters=5)
+            flops = 2.0 * batch * Ho * Wo * K * K * C * O
+            if batch == 1:
+                total["ms1"] += ms
+                total["library_ms1"] += library_ms
+                print(f"{tag}: kernel_ms {ms:.4f} library_ms {library_ms:.4f}, "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+                continue
+            pout = cdm.conv_direct_plain(x, w, b, stride)
+            err = max_err(out, pout)
+            worst = max(worst, err)
+            check(allclose(torch, out, pout, rtol, atol),
+                  f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+            # As the host issues it: the plain version's image-by-image
+            # library convs may wait for the card.
+            plain_ms = time_ms(torch, lambda: cdm.conv_direct_plain(x, w, b, stride), iters=2,
+                               warmup=1)
+            nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() + O * 4
+            bound_ms, bound_by = bound(flops, nbytes, dn)
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["library_ms"] += library_ms
+            total["ops_ms"] += flops / PEAK_FLOPS[dn] * 1e3
+            total["bytes_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
+            print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) achieved "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound", flush=True)
+    bound_ms = max(total["ops_ms"], total["bytes_ms"])
+    print(f"{name} {dn}: the six convs of a forward at batch {BATCH}: kernel_ms "
+          f"{total['ms']:.4f} library_ms {total['library_ms']:.4f} bound_ms {bound_ms:.4f}; "
+          f"at batch 1: kernel_ms {total['ms1']:.4f} library_ms {total['library_ms1']:.4f}",
+          flush=True)
+    return {"name": f"{name}.{dn}", "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "max_abs_err": worst, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
+            "library_ms": total["library_ms"], "batch1_ms": total["ms1"],
+            "batch1_library_ms": total["library_ms1"],
+            "note": "not a TPU kernel: the convs the JAX package leaves to XLA",
+            "shape": f"the six library convs of a {SIZE} px video forward at batch {BATCH} "
+                     f"(conv1 6->32 9x9, conv2/conv3 stride 2, up1/up2 phase form, conv_out "
+                     f"space-to-depth)"}
+
+
 def stat_free_phase(torch, F, cf, dtype):
     """conv3x3_flat and conv3x3_im2col against their plain versions on the
     ten conv shapes of a 256 px Gatys closure (conv1_2 also with ReLU), on
@@ -1030,6 +1142,127 @@ def main_path(torch, np, in_dir, imgs):
           f"{float(diff.float().mean()):.4f}/255 (limits {max_steps}, {mean_steps}); process_dir "
           f"{WIDEST_BATCH} images in {wall:.3f} s")
     return launches, rates
+
+
+# Multi-style inference (models/multistyle.py): a net of MULTI_STYLES styles
+# whose affines are drawn apart from a seed; convert-image-multi by index
+# and by blend; a mixed batch of BATCH images timed.
+MULTI_STYLES = 4
+MULTI_BLEND = "0.5,0.25,0,0.25"
+
+
+def multistyle_phase(torch, np, instance_norm, in_dir):
+    """Multi-style inference: IN-pad with per-image [N, C] affines at the
+    fifteen call shapes of a 256 px forward at batch BATCH in f32 and bf16
+    (against the plain version; a [C] affine and the same row repeated as
+    [N, C] give the same bits); ``fast_st convert-image-multi`` on the card
+    by index and by blend, each with 10 conv3x3_valid and 15 IN-pad
+    launches, against the port's CPU run within MAIN_TOL; a mixed batch of
+    BATCH images: launches, finite output, img/s. Returns the multi-style
+    runs' launch counts by precision."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle
+    from styletransfer_tpu_torch.utils import images
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        rtol, atol = TOL[("instance_norm_pad", dn)]
+        worst, per_image_ms, shared_ms = 0.0, 0.0, 0.0
+        for call, div, C, pad, rp, relu, mode, with_stats, count in _IN_CALLS:
+            H = SIZE // div
+            x = (torch.randn(BATCH, H, H, C, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+            scale = torch.rand(BATCH, C, device="cuda", generator=g) + 0.5
+            bias = torch.randn(BATCH, C, device="cuda", generator=g)
+            res = None
+            if rp is not None:
+                res = torch.randn(BATCH, H + 2 * rp, H + 2 * rp, C, device="cuda",
+                                  generator=g).to(dtype)
+            stats = None
+            if with_stats:
+                stats = (x.float().sum(dim=(1, 2)), (x.float() ** 2).sum(dim=(1, 2)))
+            rest = (res, rp or 0, relu, pad, mode, stats)
+            out = instance_norm.instance_norm_pad(x, scale, bias, *rest)
+            pout = instance_norm.instance_norm_pad_plain(x, scale, bias, *rest)
+            err = max_err(out, pout)
+            worst = max(worst, err)
+            one = instance_norm.instance_norm_pad(x, scale[3], bias[3], *rest)
+            rows = instance_norm.instance_norm_pad(x, scale[3].expand(BATCH, C).contiguous(),
+                                                   bias[3].expand(BATCH, C).contiguous(), *rest)
+            check(allclose(torch, out, pout, rtol, atol) and torch.equal(one, rows),
+                  f"instance_norm_pad {dn} [N, C] affines {call} [{BATCH},{H},{H},{C}]: "
+                  f"max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g}); a [C] affine "
+                  f"and its row repeated as [N, C] give the same bits")
+            per_image_ms += count * device_ms(
+                torch, lambda: instance_norm.instance_norm_pad(x, scale, bias, *rest), iters=5)
+            shared_ms += count * device_ms(
+                torch, lambda: instance_norm.instance_norm_pad(x, scale[3], bias[3], *rest),
+                iters=5)
+        print(f"instance_norm_pad {dn}: the 15 calls of a forward at batch {BATCH}: device_ms "
+              f"{per_image_ms:.4f} with [N, C] affines, {shared_ms:.4f} with [C]", flush=True)
+
+    root = os.path.join(WORK, "multistyle")
+    models = os.path.join(root, "data", "models")
+    params = multistyle.init_params(seed=5, num_styles=MULTI_STYLES, device="cpu")
+    cpu_g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() == 2:  # the [S, C] affines: styles drawn apart
+                p.add_(torch.randn(p.shape, generator=cpu_g) * 0.3)
+    ckpt.save(params, ckpt.checkpoint_path(engine.MODEL_NAME, "smoke", 0, models))
+    image = os.path.join(in_dir, "img000.png")
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    launches = {}
+    try:
+        for precision in ("f32", "bf16"):
+            route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+            for args, tag in ((["--style-index", "2"], "style2"),
+                              (["--blend", MULTI_BLEND], "blend")):
+                common = ["fast_st", "convert-image-multi", image, "smoke", "--num-styles",
+                          str(MULTI_STYLES), "--precision", precision, *args]
+                reset_counts()
+                cli.main(common + ["-o", f"card_{precision}/", "--device", "cuda"],
+                         standalone_mode=False)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = {k: 0 for k in counts}
+                want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10,
+                             "instance_norm_pad": 15})
+                check(counts == want, f"convert-image-multi {precision} {tag}: launched "
+                      f"{counts} (want 10 conv3x3 on {route} and 15 IN-pad)")
+                launches[(precision, tag)] = counts
+                cli.main(common + ["-o", f"cpu_{precision}/", "--device", "cpu"],
+                         standalone_mode=False)
+                name = f"converted_fast_multi_st_smoke_{tag}.png"
+                got = np.asarray(Image.open(os.path.join(root, f"card_{precision}", name)))
+                want_png = np.asarray(Image.open(os.path.join(root, f"cpu_{precision}", name)))
+                _frames_checked(np, f"convert-image-multi {precision} {tag}: card vs CPU",
+                                [got], [want_png], precision)
+    finally:
+        constants.PROJECT_ROOT_PATH = saved_root
+    card = multistyle.params_from_jax(ckpt.load(ckpt.checkpoint_path(
+        engine.MODEL_NAME, "smoke", 0, models)), device="cuda")
+    imgs = np.stack([np.asarray(Image.open(os.path.join(in_dir, f)))
+                     for f in sorted(os.listdir(in_dir))])
+    x = images.maybe_normalize_on_device(torch.from_numpy(imgs).cuda())
+    idx = torch.arange(BATCH, device="cuda") % MULTI_STYLES
+    for precision, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        reset_counts()
+        y = engine.stylize(card, x, idx, cd)
+        counts = read_counts()
+        check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15
+              and y.shape == x.shape and bool(torch.isfinite(y).all()),
+              f"multi-style {precision}: a batch of {BATCH} images of {MULTI_STYLES} mixed "
+              f"styles: 10 conv3x3 and 15 IN-pad launches, output {tuple(y.shape)} finite")
+        ms = time_ms(torch, lambda: engine.stylize(card, x, idx, cd), iters=10, warmup=2)
+        print(f"multi-style {precision}: stylize batch {BATCH}, {MULTI_STYLES} styles mixed: "
+              f"{ms:.3f} ms = {BATCH / (ms / 1e3):.1f} img/s", flush=True)
+    return launches
 
 
 class _LossLog(logging.Handler):
@@ -1429,6 +1662,11 @@ VIDEO_PARITY_PARAM_REL_L2 = 1e-3
 # The zero-padded forward (a reference .pth): per forward 10 conv3x3_flat
 # (the residual convs, each after a zero-pad copy) and 15 fused-IN forwards.
 ZEROS_PER_FORWARD = {"conv3x3_flat": 10, "fused_instance_norm_fwd": NORMS_PER_FORWARD}
+# stylize_clip of LANE_FRAMES frames of max(LANE_BATCHES) clips, and of its
+# first lanes at each smaller batch; the lanes of LANE_SINGLES also alone.
+LANE_BATCHES = (1, 2, 4, 64)
+LANE_FRAMES = 8
+LANE_SINGLES = (1, 3, 63)
 
 
 class _VideoLossLog(logging.Handler):
@@ -1624,13 +1862,14 @@ def _recording(video):
     return seen, lambda: setattr(video, "_open_video_writer", real)
 
 
-def video_serve_path(torch, np, models):
+def video_serve_path(torch, np, F, models):
     """convert-video of a VIDEO_FRAMES-frame clip and convert-dir of clips of
     DIR_FRAMES frames at batch DIR_BATCH, from the video checkpoint, f32 and
-    bf16: frame counts, launches per frame, the first frames against the
-    port's CPU run, each clip of the directory as its lane of the group
-    stylized together and (its first frame) against its own convert-video,
-    frames/s. Returns the launch counts by precision and command."""
+    bf16, with reflect and with zero padding: frame counts, launches per
+    frame (no cuDNN conv: the six library convs run on conv_direct), the
+    first frames against the port's CPU run, every clip of the directory
+    exactly (0/255, the whole clip) its own convert-video, frames/s.
+    Returns the launch counts by (pad mode, precision, command)."""
     from PIL import Image
 
     from styletransfer_tpu_torch import ckpt
@@ -1645,122 +1884,147 @@ def video_serve_path(torch, np, models):
     _write_clip(np, clip, VIDEO_FRAMES, 50_000)
     for i, n in enumerate(DIR_FRAMES):
         _write_clip(np, os.path.join(clips, f"c{i}.gif"), n, 50_001 + i)
+    names = sorted(os.listdir(clips))
     reader = video_data.ImageioFrameReader(clip, normalized=False)
     first = np.stack([reader.next_frame()[0] for _ in range(VIDEO_CPU_FRAMES)])
     reader.close()
     cpu_params, _ = ckpt.load_latest_transformer("video_st", "smoke", models, device="cpu")
     params, _ = ckpt.load_latest_transformer("video_st", "smoke", models, device="cuda")
     seen, restore = _recording(video)
+    library_conv, conv_calls = F.conv2d, [0]
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    def per_frame(precision, pad_mode):
+        if pad_mode == "zeros":
+            return {"conv_direct": 6, **ZEROS_PER_FORWARD}
+        route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+        return {"conv_direct": 6, "conv3x3_valid": 10, f"conv3x3_valid.{route}": 10,
+                "instance_norm_pad": 15}
+
+    def run(label, fn, frames, precision, pad_mode):
+        reset_counts()
+        conv_calls[0] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: 0 for k in counts}
+        want.update({k: n * frames for k, n in per_frame(precision, pad_mode).items()})
+        check(counts == want and conv_calls[0] == 0,
+              f"{label}: {frames} forwards launched {counts} and {conv_calls[0]} cuDNN convs "
+              f"(want {per_frame(precision, pad_mode)} per forward, no cuDNN conv)")
+        return out, counts, wall
+
     launches = {}
+    F.conv2d = counting_conv2d
     try:
-        for precision in ("f32", "bf16"):
-            route = "f32_fma" if precision == "f32" else "bf16_wgmma"
-            reset_counts()
-            t0 = time.perf_counter()
-            out = video.process_video(clip, "smoke", out_dir=os.path.join(root, f"v_{precision}"),
-                                      models_path=models, precision=precision, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-            launches[(precision, "convert_video")] = counts
-            want = {k: 0 for k in counts}
-            want.update({"conv3x3_valid": 10 * VIDEO_FRAMES,
-                         f"conv3x3_valid.{route}": 10 * VIDEO_FRAMES,
-                         "instance_norm_pad": 15 * VIDEO_FRAMES})
-            check(counts == want, f"convert-video {precision}: {VIDEO_FRAMES} frames launched "
-                  f"{counts} (want 10 conv3x3_valid on {route} and 15 IN-pad per frame)")
-            with Image.open(out) as im:
-                n_file = im.n_frames
-            check(len(seen[out]) == VIDEO_FRAMES and n_file == VIDEO_FRAMES,
-                  f"convert-video {precision}: {len(seen[out])} frames written, {n_file} in "
-                  f"{os.path.basename(out)}")
-            ref = images.to_uint8_on_device(torch.from_numpy(
-                video.stylize_clip(cpu_params, first, precision=precision))).numpy()
-            _frames_checked(np, f"convert-video {precision}: card vs CPU on the first "
-                            f"{VIDEO_CPU_FRAMES} frames", seen[out][:VIDEO_CPU_FRAMES],
-                            list(ref), precision)
-            single = {}
-            for name in sorted(os.listdir(clips)):
-                path = video.process_video(os.path.join(clips, name), "smoke",
-                                           out_dir=os.path.join(root, f"one_{precision}_{name}"),
-                                           models_path=models, precision=precision,
-                                           device="cuda")
-                single[name] = seen[path]
-            reset_counts()
-            t1 = time.perf_counter()
-            outs = video.process_video_dir(clips, "smoke", out_dir=os.path.join(root, f"d_{precision}"),
-                                           batch_size=DIR_BATCH, models_path=models,
-                                           precision=precision, device="cuda")
-            torch.cuda.synchronize()
-            dir_wall = time.perf_counter() - t1
-            counts = read_counts()
-            launches[(precision, "convert_dir")] = counts
-            forwards = sum(max(DIR_FRAMES[g:g + DIR_BATCH])
-                           for g in range(0, len(DIR_FRAMES), DIR_BATCH))
-            want = {k: 0 for k in counts}
-            want.update({"conv3x3_valid": 10 * forwards,
-                         f"conv3x3_valid.{route}": 10 * forwards,
-                         "instance_norm_pad": 15 * forwards})
-            check(counts == want, f"convert-dir {precision}: {forwards} forwards launched "
-                  f"{counts} (want 10 conv3x3_valid on {route} and 15 IN-pad per forward)")
-            check([len(seen[p]) for p in outs] == list(DIR_FRAMES),
-                  f"convert-dir {precision}: {[len(seen[p]) for p in outs]} frames written "
-                  f"(want {list(DIR_FRAMES)})")
-            names = sorted(os.listdir(clips))
-            for g in range(0, len(names), DIR_BATCH):
-                # The group's clips as lanes of one batch, an ended clip
-                # repeating its last frame: the frames convert-dir wrote
-                # are exactly these lanes' stylized frames.
-                group = names[g:g + DIR_BATCH]
-                decoded = [np.concatenate(list(video_data.iterate_on_video_batches(
-                    [video_data.ImageioFrameReader(os.path.join(clips, n), normalized=False)])))
-                    for n in group]
-                steps = max(len(d) for d in decoded)
-                lanes = np.stack([np.concatenate([d, np.repeat(d[-1:], steps - len(d), 0)])
-                                  for d in decoded], axis=1)
-                want = images.to_uint8_on_device(torch.from_numpy(
-                    video.stylize_clip(params, lanes, precision))).numpy()
-                for j, n in enumerate(group):
-                    got = np.stack(seen[outs[g + j]])
-                    diff = int(np.abs(got.astype(np.int32)
-                                      - want[:len(got), j].astype(np.int32)).max())
-                    check(diff == 0, f"convert-dir {precision} {n}: its frames are lane {j} of "
-                          f"the group's clips stylized at batch {len(group)} (max diff "
-                          f"{diff}/255)")
-            for path, name in zip(outs, sorted(os.listdir(clips))):
-                # Against the clip alone (batch 1): the first frame within the
-                # serving limits. Later frames only printed: a library conv
-                # may sum in another order at another batch size (about 1e-6
-                # apart in f32), and the recurrence carries that on from frame
-                # to frame (scripts/torch_video_lanes.py).
-                _frames_checked(np, f"convert-dir {precision} {name}: first frame against its "
-                                f"own convert-video", seen[path][:1], single[name][:1],
-                                precision)
-                diff = np.abs(np.stack(seen[path]).astype(np.int32)
-                              - np.stack(single[name]).astype(np.int32))
-                print(f"convert-dir {precision} {name}: the whole clip against its own "
-                      f"convert-video: max {int(diff.max())}/255, mean {float(diff.mean()):.4f}"
-                      f"/255; max per frame {[int(d.max()) for d in diff]}", flush=True)
-            # Steady state: the stylizer alone on a decoded chunk of frames.
-            reader = video_data.ImageioFrameReader(clip, normalized=False)
-            chunk = torch.from_numpy(np.stack([reader.next_frame() for _ in range(24)])).cuda()
-            reader.close()
-            cd = torch.bfloat16 if precision == "bf16" else None
-            carry = chunk[0].float()
-            video._stylize_chunk(params, chunk[:2], carry, cd)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            video._stylize_chunk(params, chunk, carry, cd)[-1].sum().item()
-            steady = (time.perf_counter() - t2) * 1e3 / len(chunk)
-            print(f"video serve {precision}: convert-video {VIDEO_FRAMES} frames in {wall:.3f} s "
-                  f"= {VIDEO_FRAMES / wall:.1f} frames/s (incl. checkpoint load, GIF decode and "
-                  f"encode); convert-dir {sum(DIR_FRAMES)} frames of {len(DIR_FRAMES)} clips at "
-                  f"batch {DIR_BATCH} in {dir_wall:.3f} s = {sum(DIR_FRAMES) / dir_wall:.1f} "
-                  f"frames/s; the stylizer alone, batch 1: {steady:.3f} ms per frame = "
-                  f"{1e3 / steady:.1f} frames/s", flush=True)
+        for pad_mode in ("reflect", "zeros"):
+            for precision in ("f32", "bf16"):
+                tag = f"{precision} {pad_mode}"
+                out, counts, wall = run(
+                    f"convert-video {tag}",
+                    lambda: video.process_video(
+                        clip, "smoke", out_dir=os.path.join(root, f"v_{precision}_{pad_mode}"),
+                        models_path=models, precision=precision, pad_mode=pad_mode,
+                        device="cuda"),
+                    VIDEO_FRAMES, precision, pad_mode)
+                launches[(pad_mode, precision, "convert_video")] = counts
+                with Image.open(out) as im:
+                    n_file = im.n_frames
+                check(len(seen[out]) == VIDEO_FRAMES and n_file == VIDEO_FRAMES,
+                      f"convert-video {tag}: {len(seen[out])} frames written, {n_file} in "
+                      f"{os.path.basename(out)}")
+                ref = images.to_uint8_on_device(torch.from_numpy(video.stylize_clip(
+                    cpu_params, first, precision=precision, pad_mode=pad_mode))).numpy()
+                _frames_checked(np, f"convert-video {tag}: card vs CPU on the first "
+                                f"{VIDEO_CPU_FRAMES} frames", seen[out][:VIDEO_CPU_FRAMES],
+                                list(ref), precision)
+                single = {}
+                for name in names:
+                    path = video.process_video(
+                        os.path.join(clips, name), "smoke",
+                        out_dir=os.path.join(root, f"one_{precision}_{pad_mode}_{name}"),
+                        models_path=models, precision=precision, pad_mode=pad_mode,
+                        device="cuda")
+                    single[name] = seen[path]
+                forwards = sum(max(DIR_FRAMES[g:g + DIR_BATCH])
+                               for g in range(0, len(DIR_FRAMES), DIR_BATCH))
+                outs, counts, dir_wall = run(
+                    f"convert-dir {tag}",
+                    lambda: video.process_video_dir(
+                        clips, "smoke", out_dir=os.path.join(root, f"d_{precision}_{pad_mode}"),
+                        batch_size=DIR_BATCH, models_path=models, precision=precision,
+                        pad_mode=pad_mode, device="cuda"),
+                    forwards, precision, pad_mode)
+                launches[(pad_mode, precision, "convert_dir")] = counts
+                check([len(seen[p]) for p in outs] == list(DIR_FRAMES),
+                      f"convert-dir {tag}: {[len(seen[p]) for p in outs]} frames written "
+                      f"(want {list(DIR_FRAMES)})")
+                for path, name in zip(outs, names):
+                    # Each lane is the clip stylized alone, bit for bit: every op
+                    # of the stylizer sums in an order its plan fixes without
+                    # the batch (scripts/torch_video_lanes.py).
+                    diff = np.abs(np.stack(seen[path]).astype(np.int32)
+                                  - np.stack(single[name]).astype(np.int32))
+                    check(int(diff.max()) == 0,
+                          f"convert-dir {tag} {name}: all {len(diff)} frames against its own "
+                          f"convert-video: max {int(diff.max())}/255 (want 0); max per frame "
+                          f"{[int(d.max()) for d in diff]}")
+                # Steady state: the stylizer alone on a decoded chunk of frames.
+                reader = video_data.ImageioFrameReader(clip, normalized=False)
+                chunk = torch.from_numpy(np.stack([reader.next_frame() for _ in range(24)]))
+                reader.close()
+                chunk = chunk.cuda()
+                cd = torch.bfloat16 if precision == "bf16" else None
+                carry = chunk[0].float()
+                video._stylize_chunk(params, chunk[:2], carry, cd, pad_mode)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                video._stylize_chunk(params, chunk, carry, cd, pad_mode)[-1].sum().item()
+                steady = (time.perf_counter() - t2) * 1e3 / len(chunk)
+                print(f"video serve {tag}: convert-video {VIDEO_FRAMES} frames in {wall:.3f} s "
+                      f"= {VIDEO_FRAMES / wall:.1f} frames/s (incl. checkpoint load, GIF decode "
+                      f"and encode); convert-dir {sum(DIR_FRAMES)} frames of {len(DIR_FRAMES)} "
+                      f"clips at batch {DIR_BATCH} in {dir_wall:.3f} s = "
+                      f"{sum(DIR_FRAMES) / dir_wall:.1f} frames/s; the stylizer alone, batch 1: "
+                      f"{steady:.3f} ms per frame = {1e3 / steady:.1f} frames/s", flush=True)
     finally:
+        F.conv2d = library_conv
         restore()
+    lane_batches(torch, np, params)
     return launches
+
+
+def lane_batches(torch, np, params):
+    """stylize_clip of LANE_CLIPS clips of LANE_FRAMES frames in one batch,
+    and of its first lanes at the smaller batches of LANE_BATCHES: each lane
+    is bit for bit the same at every batch (f32 and bf16, reflect and
+    zeros)."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import video
+
+    frames = np.stack([np.stack([np.roll(np.round(coco.synthetic_image(60_000 + c, SIZE) * 255)
+                                         .astype(np.uint8), 2 * t, axis=1)
+                                 for c in range(max(LANE_BATCHES))])
+                       for t in range(LANE_FRAMES)])  # [T, B, H, W, 3]
+    for pad_mode in ("reflect", "zeros"):
+        for precision in ("f32", "bf16"):
+            runs = {b: video.stylize_clip(params, frames[:, :b], precision, pad_mode)
+                    for b in LANE_BATCHES}
+            alone = {j: video.stylize_clip(params, frames[:, j], precision, pad_mode)
+                     for j in LANE_SINGLES}
+            same = all(np.array_equal(runs[b][:, j], runs[max(LANE_BATCHES)][:, j])
+                       for b in LANE_BATCHES for j in range(b))
+            same &= all(np.array_equal(alone[j], runs[max(LANE_BATCHES)][:, j])
+                        for j in LANE_SINGLES)
+            check(same and all(np.isfinite(r).all() for r in runs.values()),
+                  f"stylize_clip {precision} {pad_mode}: {LANE_FRAMES} frames of lanes "
+                  f"{list(LANE_SINGLES)} alone and every lane at batch {list(LANE_BATCHES)} "
+                  f"are bit-identical")
 
 
 def zeros_path(torch, np, in_dir, imgs):
@@ -1829,8 +2093,9 @@ def zeros_path(torch, np, in_dir, imgs):
 def residual_flat_phase(torch, F, cf, dtype):
     """conv3x3_flat at the zero-padded forward's residual shape, x [64, 66,
     66, 128] -> 128: against the plain version, a bit-identical repeat, its
-    plan, and device times of the kernel, the plain version and F.conv2d
-    (padding 1 on the interior). Returns its JSON entry."""
+    plan, and device times of the kernel and F.conv2d (padding 1 on the
+    interior), and the plain version's as the host issues it. Returns its
+    JSON entry."""
     dn = str(dtype).split(".")[1]
     H, C = SIZE // 4, 128
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -1850,7 +2115,9 @@ def residual_flat_phase(torch, F, cf, dtype):
           f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g}); the repeat is "
           f"bit-identical")
     ms = device_ms(torch, lambda: cf.conv3x3_flat(x, w, b), iters=10)
-    plain_ms = device_ms(torch, lambda: cf.conv3x3_flat_plain(x, w, b), iters=5)
+    # As the host issues it: the plain version's image-by-image library
+    # convs may wait for the card.
+    plain_ms = time_ms(torch, lambda: cf.conv3x3_flat_plain(x, w, b), iters=5)
     xc = interior.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, b.to(dtype), padding=1), iters=10)
@@ -1877,10 +2144,12 @@ def video_phase(torch, np, F, cf, in_dir, imgs):
                for dtype in (torch.float32, torch.bfloat16)]
     train, models = video_train_path(torch, np)
     video_parity(torch, np)
-    serve = video_serve_path(torch, np, models)
+    serve = video_serve_path(torch, np, F, models)
     zeros, rates = zeros_path(torch, np, in_dir, imgs)
-    launches = {p: {"video_train": train[p], "convert_video": serve[(p, "convert_video")],
-                    "convert_dir": serve[(p, "convert_dir")], "zeros": zeros[p]}
+    launches = {p: {"video_train": train[p], "zeros": zeros[p],
+                    **{f"{cmd}{'' if pad == 'reflect' else '_zeros'}": serve[(pad, p, cmd)]
+                       for pad in ("reflect", "zeros")
+                       for cmd in ("convert_video", "convert_dir")}}
                 for p in ("f32", "bf16")}
     return entries, launches, rates
 
@@ -1902,7 +2171,7 @@ def main() -> int:
 
         from styletransfer_tpu_torch.ops import layers
         from styletransfer_tpu_torch.ops.cuda import (
-            _build, conv3x3, conv3x3_flat, fused_instance_norm, instance_norm)
+            _build, conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm)
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -1933,8 +2202,11 @@ def main() -> int:
             print(card)
             return 0
         if sys.argv[1:] == ["--video"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                direct_phase(torch, F, conv_direct, dtype)
             in_dir, imgs = write_inputs(np)
             video_phase(torch, np, F, conv3x3_flat, in_dir, imgs)
+            multistyle_phase(torch, np, instance_norm, in_dir)
             print(card)
             return 0
         if sys.argv[1:] == ["--norms"]:
@@ -1951,9 +2223,11 @@ def main() -> int:
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
+            entries.append(direct_phase(torch, F, conv_direct, dtype))
         check_routes(instance_norm, entries)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
+        multi_launches = multistyle_phase(torch, np, instance_norm, in_dir)
         train_launches = train_path(torch, np, in_dir)
         parity_phase(torch, np)
         step_rate = step_rates(torch, np)
@@ -1986,6 +2260,13 @@ def main() -> int:
         if kernel == "conv3x3_flat_residual":  # the zero-padded forward from a .pth
             e["launches"] = video_launches[precision]["zeros"]["conv3x3_flat"]
             continue
+        if kernel == "conv_direct":  # the video stylizer: convert-video, reflect
+            e["launches"] = video_launches[precision]["convert_video"]["conv_direct"]
+            continue
+        if kernel == "instance_norm_pad":  # also with [N, C] affines (multi-style)
+            e["multistyle_launches"] = {f"{tag}": counts["instance_norm_pad"] for
+                                        (p, tag), counts in multi_launches.items()
+                                        if p == precision}
         if kernel == "conv3x3_valid":  # the route of the 256 px serving run
             kernel = "conv3x3_valid." + ("f32_fma" if precision == "f32" else "bf16_wgmma")
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else

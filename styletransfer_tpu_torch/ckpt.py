@@ -228,14 +228,24 @@ def load_latest_transformer(
     style_name: str,
     models_path: Optional[str] = None,
     device=constants.DEFAULT_DEVICE,
+    template: Optional[Any] = None,
 ):
     """Load the latest transform-net weights for (model, style) onto
     ``device``, from a ``.msgpack`` or a reference ``.pth`` file. Returns
-    ``(TransformerNet, epoch)``."""
+    ``(TransformerNet, epoch)``. With a ``template`` (a TransformerNet, e.g.
+    a multi-style one with [S, C] affines) the checkpoint must hold its
+    parameter names and shapes, else ValueError."""
     from styletransfer_tpu_torch.models import transformer
 
     path, epoch = find_latest(model_name, style_name, models_path)
     params = transformer.params_from_jax(load(path), device=device)
+    if template is not None:
+        want = {k: tuple(v.shape) for k, v in template.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in params.state_dict().items()}
+        if got != want:
+            diff = sorted(k for k in want.keys() | got.keys() if want.get(k) != got.get(k))
+            raise ValueError(f"{path} does not match the template at {diff[0]}: "
+                             f"{got.get(diff[0])} in the file, {want.get(diff[0])} wanted")
     get_logger().info("Loaded %s (epoch %d)", path, epoch)
     return params, epoch
 

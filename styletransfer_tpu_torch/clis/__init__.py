@@ -1,7 +1,8 @@
 """Command-line interface: ``python -m styletransfer_tpu_torch <group> <task>``.
 
 The same contract as the JAX package's CLI for the commands the port has
-(``fast_st train``, ``convert-image`` and ``convert-dir``; the one-shot
+(``fast_st train``, ``convert-image``, ``convert-dir`` and
+``convert-image-multi``; the one-shot
 ``gatys_st``; ``video_st train``, ``convert-video`` and ``convert-dir``),
 plus ``--device``.
 """

@@ -1,9 +1,11 @@
 """``fast_st`` CLI: feed-forward style transfer training and inference.
 
-The JAX package's ``train``, ``convert-image`` and ``convert-dir`` commands,
-with the same arguments and output names, plus ``--device`` (default
-``cuda``; there is no silent fallback to the CPU). ``train`` does not take
-the JAX command's ``--packed``, ``--distributed`` and ``--global-batch`` yet.
+The JAX package's ``train``, ``convert-image``, ``convert-dir`` and
+``convert-image-multi`` commands, with the same arguments and output names,
+plus ``--device`` (default ``cuda``; there is no silent fallback to the
+CPU). ``train`` does not take the JAX command's ``--packed``,
+``--distributed`` and ``--global-batch`` yet; ``train-multi`` is not ported
+yet.
 """
 
 import os
@@ -114,4 +116,31 @@ def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, pad
         input_dir=input_dir, style_name=style_name, batch_size=batch_size,
         out_dir=out_dir, size=size, precision=precision, pad_mode=pad_mode,
         device=device,
+    )
+
+
+@fast_st.command("convert-image-multi")
+@click.argument("image-path")
+@click.argument("name")
+@click.option("--style-index", default=0, help="Which trained style to apply")
+@click.option("--blend", default=None,
+              help="Comma-separated style weights (overrides --style-index), e.g. '0.5,0.5'")
+@click.option("-o", "--out-dir", default="results/")
+@click.option("--num-styles", required=True, type=int,
+              help="Number of styles the checkpoint was trained with")
+@_precision_option
+@_device_option
+def convert_image_multi(image_path, name, style_index, blend, out_dir, num_styles, precision,
+                        device):
+    """
+    Stylize an image with a multi-style network trained by `train-multi`
+    (latest `data/models/fast_multi_st_{name}_epoch{e}.msgpack`), selecting
+    a style by index or blending several; saves
+    `converted_fast_multi_st_{name}_{style<i>|blend}.png` in `out-dir`.
+    """
+    from styletransfer_tpu_torch.engines import multistyle
+
+    multistyle.process_image(
+        image_path=image_path, name=name, num_styles=num_styles, style_index=style_index,
+        blend=blend, out_dir=out_dir, precision=precision, device=device,
     )

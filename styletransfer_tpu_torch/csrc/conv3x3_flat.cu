@@ -45,15 +45,16 @@
 //         shifted rows (the m16n8k16 A fragment is the wgmma one). B, the
 //         weights [tap][k][n] with n contiguous, is read by descriptor, N-major
 //         in TMA's 128-byte swizzle. Blocks start their chunk loop at
-//         different chunks, so that they do not all fetch one chunk's weights
-//         at once.
+//         different chunks (by the tile's place in its image), so that they
+//         do not all fetch one chunk's weights at once.
 // The wrapper (ops/cuda/conv3x3_flat.py::flat_plan) picks BM and BN per
 // shape and, where even its smallest tile gives fewer blocks than SMs, splits
 // the chunks over `split` blocks. The blocks of a split write their f32
 // partial tiles to a workspace; the last to finish (a counter per tile, the
 // only atomic) adds them in split order, then adds the bias, applies the
 // ReLU and rounds once. So a call is one kernel launch and its result is the
-// same bit for bit from run to run.
+// same bit for bit from run to run; and since the plan's tile and split do
+// not depend on the batch, an image's result does not either.
 
 #include "hopper.cuh"
 
@@ -353,8 +354,10 @@ conv3x3_flat_bf16_kernel(const __grid_constant__ CUtensorMap tx,
   const __nv_bfloat16* xb = x + (size_t)img * s.rows * s.C;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   // Blocks start their chunks at different places, so that they do not all
-  // read the same weights at once (the sums keep one order per block).
-  const int rot = blockIdx.x % s.chunks;
+  // read the same weights at once. The place is the tile's within its image,
+  // not the block's index: an output's order of sums is then the same at
+  // every batch and in every lane.
+  const int rot = (blockIdx.x - img * s.tiles) % s.chunks;
   const int chunk0 = blockIdx.z * s.chunks;
 
   auto load = [&](int kc, int stage) {

@@ -12,6 +12,9 @@
 //                                       with res_f32 == 1 it stays f32, as
 //                                       fused_instance_norm's _kernel adds)
 //   out = pad(relu?((s - mean) * rsqrt(var + eps) * scale + bias))
+// scale and bias are [C], or [N, C] (one affine per image: multi-style
+// inference, styletransfer_tpu/models/multistyle.py), read at an image
+// stride of 0 or C.
 // The same kernel at pad 0 with res_f32 == 1 is the forward of
 // fused_instance_norm (_pallas_forward -> _kernel / _kernel_with_res) for the
 // training forward: mean and inv go back to the caller, which keeps them for
@@ -150,7 +153,8 @@ struct Params {
   const void* x;    // [N, H, W, C]
   const void* res;  // [N, H + 2 rp, W + 2 rp, C] or NULL
   const float *sums, *sumsqs;  // [N, C] or NULL
-  const float *scale, *bias;   // [C]
+  const float *scale, *bias;   // [C] or [N, C]
+  int affine_stride;           // 0 for [C], C for [N, C]
   void* out;                   // [N, H + 2 pad, W + 2 pad, C]
   float *mean, *inv;           // [N, C]
   int H, W, C, rp, res_f32, pad, edge, relu;
@@ -283,7 +287,7 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
       const float var = fmaxf(p.sumsqs[n * C + i] / HW - m * m, 0.f);
       const float iv = 1.f / sqrtf(var + p.eps);
       mu[i] = m;
-      mul[i] = iv * p.scale[i];
+      mul[i] = iv * p.scale[n * p.affine_stride + i];
       if (k == 0) {
         p.mean[n * C + i] = m;
         p.inv[n * C + i] = iv;
@@ -375,7 +379,7 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
       }
       const float iv = 1.f / sqrtf(a[2] / a[0] + p.eps);
       mu[i] = a[1];
-      mul[i] = iv * p.scale[i];
+      mul[i] = iv * p.scale[n * p.affine_stride + i];
       if (k == 0) {
         p.mean[n * C + i] = a[1];
         p.inv[n * C + i] = iv;
@@ -392,7 +396,7 @@ __global__ void __launch_bounds__(NT, 2) in_kernel(const Params p) {
     for (int j = 0; j < VEC; ++j) {
       m[j] = mu[c + j];
       sc[j] = mul[c + j];
-      b[j] = p.bias[c + j];
+      b[j] = p.bias[n * p.affine_stride + c + j];
     }
     const int pad = p.pad, Wo = W + 2 * pad, Ho = H + 2 * pad;
     const int o0 = r0 == 0 ? 0 : r0 + pad, o1 = r1 == H ? Ho : r1 + pad;
@@ -484,9 +488,10 @@ cudaError_t by_residual(int route, const Params& p, int N, int cluster, cudaStre
 
 template <typename T>
 int launch(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
-           const void* sumsqs, const void* scale, const void* bias, void* out, void* mean,
-           void* inv, int N, int H, int W, int C, int pad, int edge, int relu, float eps,
-           int route, int ctas, int cluster, int rows, int vec, void* stream, int* clusters) {
+           const void* sumsqs, const void* scale, const void* bias, int affine_stride, void* out,
+           void* mean, void* inv, int N, int H, int W, int C, int pad, int edge, int relu,
+           float eps, int route, int ctas, int cluster, int rows, int vec, void* stream,
+           int* clusters) {
   Params p;
   p.x = x;
   p.res = res;
@@ -494,6 +499,7 @@ int launch(const void* x, const void* res, int res_pad, int res_f32, const void*
   p.sumsqs = static_cast<const float*>(sumsqs);
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
+  p.affine_stride = affine_stride;
   p.out = out;
   p.mean = static_cast<float*>(mean);
   p.inv = static_cast<float*>(inv);
@@ -514,6 +520,7 @@ int launch(const void* x, const void* res, int res_pad, int res_f32, const void*
   // image's blocks (one block on ROUTE_SUMS), whole channel groups.
   if (N < 1 || H < 1 || W < 1 || C < 4 || C > 1024 || C % vec != 0 || C / vec > NT ||
       rows < 1 || ctas < 1 || (long)rows * ctas < H || (route == ROUTE_SUMS) != given ||
+      (affine_stride != 0 && affine_stride != C) ||
       route < ROUTE_SUMS || route > ROUTE_L2 || cluster != (route == ROUTE_SUMS ? 1 : ctas) ||
       cluster > MAX_CLUSTER || (!edge && pad >= (H < W ? H : W)) ||
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(res) |
@@ -540,7 +547,8 @@ const char* stx_instance_norm_error_string(int err) {
 
 // x [N, H, W, C]; res [N, H+2*res_pad, W+2*res_pad, C] or NULL, its interior
 // added in f32 (res_f32 = 1) or rounded to x's type (res_f32 = 0); sums/sumsqs
-// [N, C] f32 or NULL; scale/bias [C] f32; mean/inv [N, C] f32 outputs; out
+// [N, C] f32 or NULL; scale/bias [C] f32 (affine_stride 0) or [N, C] f32
+// (affine_stride C); mean/inv [N, C] f32 outputs; out
 // [N, H+2*pad, W+2*pad, C]. The plan (ops/cuda/instance_norm.py::in_plan):
 // route (0 given sums, 1 band re-read from L2),
 // ctas blocks of `rows` image rows per image in clusters of `cluster`
@@ -549,24 +557,24 @@ const char* stx_instance_norm_error_string(int err) {
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for a shape or
 // plan the kernel does not take).
 int stx_in_pad_f32(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
-                   const void* sumsqs, const void* scale, const void* bias, void* out, void* mean,
-                   void* inv, int N, int H, int W, int C, int pad, int edge, int relu, float eps,
-                   int route, int ctas, int cluster, int rows, int vec, void* stream,
-                   int* clusters) {
-  return launch<float>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, mean, inv, N, H,
-                       W, C, pad, edge, relu, eps, route, ctas, cluster, rows, vec, stream,
-                       clusters);
+                   const void* sumsqs, const void* scale, const void* bias, int affine_stride,
+                   void* out, void* mean, void* inv, int N, int H, int W, int C, int pad,
+                   int edge, int relu, float eps, int route, int ctas, int cluster, int rows,
+                   int vec, void* stream, int* clusters) {
+  return launch<float>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, affine_stride, out,
+                       mean, inv, N, H, W, C, pad, edge, relu, eps, route, ctas, cluster, rows,
+                       vec, stream, clusters);
 }
 
 // As stx_in_pad_f32 with x, res and out in bf16.
 int stx_in_pad_bf16(const void* x, const void* res, int res_pad, int res_f32, const void* sums,
-                    const void* sumsqs, const void* scale, const void* bias, void* out,
-                    void* mean, void* inv, int N, int H, int W, int C, int pad, int edge,
-                    int relu, float eps, int route, int ctas, int cluster, int rows, int vec,
-                    void* stream, int* clusters) {
-  return launch<__nv_bfloat16>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias, out, mean,
-                               inv, N, H, W, C, pad, edge, relu, eps, route, ctas, cluster, rows,
-                               vec, stream, clusters);
+                    const void* sumsqs, const void* scale, const void* bias, int affine_stride,
+                    void* out, void* mean, void* inv, int N, int H, int W, int C, int pad,
+                    int edge, int relu, float eps, int route, int ctas, int cluster, int rows,
+                    int vec, void* stream, int* clusters) {
+  return launch<__nv_bfloat16>(x, res, res_pad, res_f32, sums, sumsqs, scale, bias,
+                               affine_stride, out, mean, inv, N, H, W, C, pad, edge, relu, eps,
+                               route, ctas, cluster, rows, vec, stream, clusters);
 }
 
 }  // extern "C"

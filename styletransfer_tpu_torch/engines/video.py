@@ -378,12 +378,17 @@ def _stylize_chunk(params: transformer.TransformerNet, frames: torch.Tensor,
                    old_stylized: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
                    pad_mode: str = "reflect") -> torch.Tensor:
     """Stylize a [T,B,H,W,3] chunk (uint8 or model-space frames) frame by
-    frame, each output the next frame's carry. Returns [T,B,H,W,3] f32."""
+    frame, each output the next frame's carry. Returns [T,B,H,W,3] f32.
+
+    The forward runs with ``fixed_order=True``: every op sums in an order
+    that does not depend on the batch, so each lane is bit for bit the clip
+    stylized alone (the recurrence would carry any difference on)."""
     outs = []
     for t in range(frames.shape[0]):
         frame = img_utils.maybe_normalize_on_device(frames[t])
         old_stylized = transformer.apply(params, torch.cat([frame, old_stylized], dim=-1),
-                                         compute_dtype=compute_dtype, pad_mode=pad_mode)
+                                         compute_dtype=compute_dtype, pad_mode=pad_mode,
+                                         fixed_order=True)
         outs.append(old_stylized)
     return torch.stack(outs)
 
@@ -527,7 +532,8 @@ def process_video_dir(
     device=constants.DEFAULT_DEVICE,
 ) -> List[str]:
     """Stylize every video in a directory, ``batch_size`` clips at a time,
-    one carry lane each (lanes never mix: every op is per image). Clips that
+    one carry lane each: each clip's frames are bit for bit those of the
+    clip stylized alone (``_stylize_chunk``). Clips that
     end early keep feeding their last frame and their outputs are dropped; a
     clip that yields no frame rides a zero lane and writes no file;
     a clip that cannot be opened is skipped with a warning. Outputs are
@@ -562,6 +568,9 @@ def process_video_dir(
                 logger.warning("Skipping unreadable video %s (%s)", f, exc)
         if not group:
             continue
+        # A ragged last group runs at its own size: the JAX engine pads it to
+        # batch_size to keep one compiled program and one summation order,
+        # and here a lane's result does not depend on the batch size.
         nb = len(group)
         counts = [0] * nb  # real frames read per lane
         done = [False] * nb

@@ -15,7 +15,10 @@ the pad-early forward (``_apply_padearly`` there) on two CUDA kernels:
 
 The other convs (9x9 conv1, stride-2 conv2/conv3, the phase-form upsample
 convs and the space-to-depth conv_out) run as ``F.conv2d``, as the JAX
-package leaves them to XLA. With ``pad_mode="zeros"`` (the reference's own
+package leaves them to XLA; with ``fixed_order=True`` (the video stylizer)
+they run on ``conv_direct`` instead, whose sums do not depend on the batch,
+so that every image of a batch comes out bit for bit as it would alone.
+With ``pad_mode="zeros"`` (the reference's own
 checkpoints) the forward is the stacked one, its ten residual convs on
 ``conv3x3_flat`` (``conv3x3_same``: a zero-padded 3x3 conv with no
 statistics) wherever no weight gradient is asked for. On CPU tensors the
@@ -47,6 +50,7 @@ from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.ops import layers
 from styletransfer_tpu_torch.ops.cuda.conv3x3 import conv3x3_valid
 from styletransfer_tpu_torch.ops.cuda.conv3x3_flat import conv3x3_same
+from styletransfer_tpu_torch.ops.cuda.conv_direct import conv_direct
 from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
 
@@ -185,26 +189,43 @@ def num_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
-def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding):
-    x = layers.conv2d(x, conv.kernel, conv.bias, stride, compute_dtype=cd, padding=padding)
+def _conv(x, kernel, bias, stride, cd, padding="valid", fixed_order=False):
+    """A conv that the JAX package leaves to XLA: ``layers.conv2d`` (cuDNN
+    on the card), or with ``fixed_order`` the padding (reflect or zeros, by
+    k // 2), then ``conv_direct``, whose sums for an image do not depend on
+    the batch (forward only)."""
+    if not fixed_order:
+        return layers.conv2d(x, kernel, bias, stride, compute_dtype=cd, padding=padding)
+    if cd is not None:
+        x = x.to(cd)
+    pad = kernel.shape[0] // 2
+    if padding == "reflect":
+        x = layers.reflect_pad(x, pad)
+    elif padding == "zeros":
+        x = layers.zero_pad(x, pad)
+    return conv_direct(x.contiguous(), kernel.to(x.dtype), bias, stride)
+
+
+def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding, fixed_order):
+    x = _conv(x, conv.kernel, conv.bias, stride, cd, padding, fixed_order)
     return fused_instance_norm(x, norm.scale, norm.bias, relu=True)
 
 
-def _res_conv(x, p: Conv, cd, padding):
+def _res_conv(x, p: Conv, cd, padding, fixed_order):
     """A residual 3x3 128->128 conv. Zero-padded with no weight gradient to
     take (the serving forward), it runs on ``conv3x3_flat``; otherwise as
-    ``F.conv2d``, since ``conv3x3_same`` has no weight-gradient kernel."""
+    :func:`_conv`, since ``conv3x3_same`` has no weight-gradient kernel."""
     if padding == "zeros" and not (torch.is_grad_enabled() and p.kernel.requires_grad):
         return conv3x3_same(x, p.kernel.to(x.dtype), p.bias)
-    return layers.conv2d(x, p.kernel, p.bias, 1, compute_dtype=cd, padding=padding)
+    return _conv(x, p.kernel, p.bias, 1, cd, padding, fixed_order)
 
 
-def _residual_block(x, p: ResidualBlock, cd, padding):
+def _residual_block(x, p: ResidualBlock, cd, padding, fixed_order):
     """conv-IN-ReLU-conv, then IN of (out + the block's input): the residual
     add is inside the second norm's kernel."""
-    out = _res_conv(x, p.conv1, cd, padding)
+    out = _res_conv(x, p.conv1, cd, padding, fixed_order)
     out = fused_instance_norm(out, p.in1.scale, p.in1.bias, relu=True)
-    out = _res_conv(out, p.conv2, cd, padding)
+    out = _res_conv(out, p.conv2, cd, padding, fixed_order)
     return fused_instance_norm(out, p.in2.scale, p.in2.bias, residual=x)
 
 
@@ -213,6 +234,7 @@ def apply_stacked(
     x: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
     pad_mode: str = "reflect",
+    fixed_order: bool = False,
 ) -> torch.Tensor:
     """The stacked forward, differentiable: the port of the JAX
     ``_apply_stacked`` with ``use_pallas=True``.
@@ -223,29 +245,32 @@ def apply_stacked(
     all 15 instance norms run on the fused-IN kernels and their backward
     (``ops/cuda/fused_instance_norm.py``). This is the training forward; in
     exact arithmetic it equals the pad-early :func:`apply` (the two differ
-    by about 1e-6 in f32)."""
+    by about 1e-6 in f32). ``fixed_order=True`` (forward only: it raises
+    where a gradient is wanted) runs the ``F.conv2d`` convs on
+    ``conv_direct`` instead, so that an image's output does not depend on
+    the batch."""
     if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     in_dtype = x.dtype
     cd = compute_dtype
     if cd is not None:
         x = x.to(cd)
-    x = _conv_in_relu(x, params.conv1, params.in1, 1, cd, pad_mode)
-    x = _conv_in_relu(x, params.conv2, params.in2, 2, cd, pad_mode)
-    x = _conv_in_relu(x, params.conv3, params.in3, 2, cd, pad_mode)
+    fo = fixed_order
+    x = _conv_in_relu(x, params.conv1, params.in1, 1, cd, pad_mode, fo)
+    x = _conv_in_relu(x, params.conv2, params.in2, 2, cd, pad_mode, fo)
+    x = _conv_in_relu(x, params.conv3, params.in3, 2, cd, pad_mode, fo)
     for i in range(NUM_RESIDUAL_BLOCKS):
-        x = _residual_block(x, getattr(params, f"res{i + 1}"), cd, pad_mode)
+        x = _residual_block(x, getattr(params, f"res{i + 1}"), cd, pad_mode, fo)
     x = layers.upsample_nearest(x, 2)
-    x = _conv_in_relu(x, params.up1_conv, params.up1_in, 1, cd, pad_mode)
+    x = _conv_in_relu(x, params.up1_conv, params.up1_in, 1, cd, pad_mode, fo)
     x = layers.upsample_nearest(x, 2)
-    x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode)
-    out = layers.conv2d(x, params.conv_out.kernel, params.conv_out.bias, 1, compute_dtype=cd,
-                        padding=pad_mode)
+    x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode, fo)
+    out = _conv(x, params.conv_out.kernel, params.conv_out.bias, 1, cd, pad_mode, fo)
     return out.to(in_dtype)
 
 
-def _conv_valid(x, p: Conv, stride, cd):
-    return layers.conv2d(x, p.kernel, p.bias, stride, compute_dtype=cd)
+def _conv_valid(x, p: Conv, stride, cd, fixed_order):
+    return _conv(x, p.kernel, p.bias, stride, cd, fixed_order=fixed_order)
 
 
 def _conv3x3(y, p: Conv, cd):
@@ -260,12 +285,12 @@ def _in_pad(h, p: InstanceNorm, pad, relu=True, residual=None, res_pad=0,
                              relu=relu, pad=pad, mode=mode, stats=stats)
 
 
-def _conv_phase_up(y_padded, p: Conv, cd):
+def _conv_phase_up(y_padded, p: Conv, cd, fixed_order):
     """Phase-form ``upsample x2 -> reflect-pad 1 -> conv3x3``: one VALID conv
     on the small grid (input edge-padded by 1), output [B, h, w, 4*Cout] with
     channel order (py, px, o)."""
     kp = layers.upsample_phase_kernel(p.kernel)
-    return layers.conv2d(y_padded, kp, p.bias.repeat(4), 1, compute_dtype=cd)
+    return _conv(y_padded, kp, p.bias.repeat(4), 1, cd, fixed_order=fixed_order)
 
 
 @torch.no_grad()
@@ -274,6 +299,7 @@ def apply(
     x: torch.Tensor,
     compute_dtype: Optional[torch.dtype] = None,
     pad_mode: str = "reflect",
+    fixed_order: bool = False,
 ) -> torch.Tensor:
     """Forward pass, forward only: NHWC in (3 or 6 channels), NHWC out.
 
@@ -289,22 +315,33 @@ def apply(
     checkpoints were trained (see the JAX ``apply``); it runs the stacked
     form (:func:`apply_stacked`), since zero padding belongs to the conv:
     per forward 10 ``conv3x3_flat`` and 15 fused-IN forward launches.
+
+    ``fixed_order=True`` runs the six convs that would go to ``F.conv2d``
+    (cuDNN, whose summation order follows the batch size) on
+    ``conv_direct``; every other op of the forward is per image and sums in
+    an order its plan fixes without the batch. So each image of the batch
+    comes out bit for bit as it would alone: the video stylizer's lanes
+    need this, image serving does not pay for it.
+
+    The instance-norm ``scale``/``bias`` may be [C] or per image [B, C]
+    (multi-style, ``models/multistyle.py``).
     """
     if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     if pad_mode == "zeros":
-        return apply_stacked(params, x, compute_dtype, pad_mode="zeros")
+        return apply_stacked(params, x, compute_dtype, pad_mode="zeros", fixed_order=fixed_order)
     in_dtype = x.dtype
     cd = compute_dtype
     if cd is not None:
         x = x.to(cd)
 
+    fo = fixed_order
     x = layers.reflect_pad(x, 4)
-    h = _conv_valid(x, params.conv1, 1, cd)
+    h = _conv_valid(x, params.conv1, 1, cd, fo)
     y = _in_pad(h, params.in1, pad=1)                              # [B,H+2,W+2,32]
-    h = _conv_valid(y, params.conv2, 2, cd)
+    h = _conv_valid(y, params.conv2, 2, cd, fo)
     y = _in_pad(h, params.in2, pad=1)
-    h = _conv_valid(y, params.conv3, 2, cd)
+    h = _conv_valid(y, params.conv3, 2, cd, fo)
     y = _in_pad(h, params.in3, pad=1)
 
     for i in range(NUM_RESIDUAL_BLOCKS):
@@ -321,13 +358,13 @@ def apply(
     # Decoder in 2x2 phase form; the phase output is reassembled
     # (depth_to_space) before the IN kernel, whose statistics over the
     # reassembled tensor are the statistics pooled over the phases.
-    h = _conv_phase_up(y, params.up1_conv, cd)                     # [B,h,w,4*64]
+    h = _conv_phase_up(y, params.up1_conv, cd, fo)                 # [B,h,w,4*64]
     y = _in_pad(layers.depth_to_space(h, 2), params.up1_in, pad=1, mode="edge")
-    h = _conv_phase_up(y, params.up2_conv, cd)                     # [B,2h,2w,4*32]
+    h = _conv_phase_up(y, params.up2_conv, cd, fo)                 # [B,2h,2w,4*32]
     y = _in_pad(layers.depth_to_space(h, 2), params.up2_in, pad=4)  # conv_out is 9x9
     # Final 9x9 32->3 conv in 4x4 space-to-depth phase form (3x3, 512->48).
     kp = layers.phase_conv_kernel(params.conv_out.kernel, 4)
-    out = layers.conv2d(layers.space_to_depth(y, 4), kp, None, 1, compute_dtype=cd)
+    out = _conv(layers.space_to_depth(y, 4), kp, None, 1, cd, fixed_order=fo)
     out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
     return out.to(in_dtype)
 

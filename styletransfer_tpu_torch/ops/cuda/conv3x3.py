@@ -52,6 +52,10 @@ BLOCK_N = 128
 MAX_SEGMENT = 256
 # Rows over MAX_SEGMENT wide are cut into at most this many segments.
 MAX_SEGMENTS = 64
+# The batch at which valid_plan scores the card's fill: the plan's tile, and
+# so the order of each image's sums, is the same at every batch (the CLIs'
+# default batch of training and of video convert-dir).
+PLAN_BATCH = 4
 
 
 class ValidPlan(NamedTuple):
@@ -110,6 +114,13 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
                route: Optional[str] = None) -> ValidPlan:
     """The route and tile of conv3x3_valid for ``[B, H+2, W+2, C] -> O``.
 
+    B sizes the grid and nothing else: the route, the tile (``bm``,
+    ``stages``, ``segment``) and so ``image_tiles`` are functions of
+    ``(H, W, C, O, dtype)`` alone. The wgmma tile is chosen by its score at
+    a batch of :data:`PLAN_BATCH`, whatever B is, because an image's sums
+    are added tile by tile: another tile would add them in another order,
+    and an image's bits would depend on the batch it rides in.
+
     bf16 takes the wgmma route at every width; f32 takes ``f32_fma``. A
     wgmma tile is ``rows = bm // segment >= 1`` output rows of ``segment``
     columns, ``rows * segment <= bm`` positions (:func:`wgmma_plan`). TMA's
@@ -124,13 +135,14 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
     configuration of :data:`WGMMA_CONFIGS` that holds one, it takes the
     plan of the largest :func:`_wgmma_score` (tile fill, times the share of
     the segments' columns inside the image, times card fill, times a halo
-    tax for narrow segments), the earlier on a tie: fewer, wider segments
-    first, then the configurations in their order. At 75 wide (300 px) that
-    is bm 256, 3 whole rows (225 of 256 positions); at 260 wide (1040 px)
-    12 segments of 22 columns, 11 rows (242 of 256); at 1,008 wide (a
-    4032 px photo) 4 segments of 252, one row. ``route`` asks for a given route's plan instead (``chip_smoke.py``
-    times the two bf16 routes side by side); it raises where that route
-    cannot run."""
+    tax for narrow segments) at :data:`PLAN_BATCH`, the earlier on a tie:
+    fewer, wider segments first, then the configurations in their order. At
+    64 wide (256 px) that is bm 128, 4 stages, 2 whole rows; at 75 wide
+    (300 px) bm 256, 3 whole rows (225 of 256 positions); at 260 wide
+    (1040 px) 12 segments of 22 columns, 11 rows (242 of 256); at 1,008
+    wide (a 4032 px photo) 4 segments of 252, one row. ``route`` asks for a
+    given route's plan instead (``chip_smoke.py`` times the two bf16 routes
+    side by side); it raises where that route cannot run."""
     n_tiles = math.ceil(O / BLOCK_N)
     default = "bf16_wgmma" if dtype == torch.bfloat16 else "f32_fma"
     route = route or default
@@ -143,9 +155,10 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
             widths = (math.ceil(W / k) for k in range(math.ceil(W / MAX_SEGMENT),
                                                        MAX_SEGMENTS + 1))
             segments = sorted(set(widths), reverse=True)
-        plans = [wgmma_plan(B, H, W, O, bm, stages, seg)
+        plans = [wgmma_plan(PLAN_BATCH, H, W, O, bm, stages, seg)
                  for seg in segments for bm, stages in WGMMA_CONFIGS if seg <= bm]
-        return max(plans, key=lambda p: _wgmma_score(p, B, W, O))  # the first of equal scores
+        best = max(plans, key=lambda p: _wgmma_score(p, PLAN_BATCH, W, O))  # the first of ties
+        return wgmma_plan(B, H, W, O, best.bm, best.stages, best.segment)
     image_tiles = math.ceil(H * W / BLOCK_M)
     return ValidPlan(route, BLOCK_M, 0, image_tiles, B * image_tiles * n_tiles)
 
@@ -153,13 +166,21 @@ def valid_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype,
 def conv3x3_valid_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: f32 conv of the (f32-exact) inputs, + bias,
-    ReLU, the sums of the f32 result, then the cast to ``x.dtype``."""
-    acc = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
-    acc = acc.permute(0, 2, 3, 1) + b.float()
-    if relu:
-        acc = torch.relu(acc)
-    return acc.to(x.dtype), acc.sum(dim=(1, 2)), (acc * acc).sum(dim=(1, 2))
+    """Plain PyTorch version, image by image (so that an image's result does
+    not depend on the batch here either): f32 conv of the (f32-exact)
+    inputs, + bias, ReLU, the sums of the f32 result, then the cast to
+    ``x.dtype``."""
+    wc = w.float().permute(3, 2, 0, 1)
+    outs, sums, sumsqs = [], [], []
+    for i in range(x.shape[0]):
+        acc = F.conv2d(x[i:i + 1].float().permute(0, 3, 1, 2), wc)
+        acc = acc.permute(0, 2, 3, 1) + b.float()
+        if relu:
+            acc = torch.relu(acc)
+        outs.append(acc.to(x.dtype))
+        sums.append(acc.sum(dim=(1, 2)))
+        sumsqs.append((acc * acc).sum(dim=(1, 2)))
+    return torch.cat(outs), torch.cat(sums), torch.cat(sumsqs)
 
 
 def _check(x, w, b) -> None:

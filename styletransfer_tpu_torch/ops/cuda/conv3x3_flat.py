@@ -70,6 +70,12 @@ FLAT_ROUTES = {
 }
 # The most blocks one tile's channel chunks are split over.
 MAX_SPLIT = 8
+# The batch at which flat_plan counts blocks: the tile and the split, and so
+# the order of each output's sums, are the same at every batch (the CLIs'
+# default batch of training and of video convert-dir). A split planned for
+# one image would cost 12-55% at batch 4 and 64; planned for 4, a lone
+# image (a Gatys closure) may fill only part of the card (PERF.md §6).
+PLAN_BATCH = 4
 
 
 class FlatPlan(NamedTuple):
@@ -90,27 +96,31 @@ class FlatPlan(NamedTuple):
 def flat_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> FlatPlan:
     """The tile and split of conv3x3_flat for ``[B, H+2, W+2, C] -> O``.
 
-    The first tile of the route's list for O that gives at least :data:`SMS`
-    blocks; if none does, the last (smallest) tile with its channel chunks
-    split over the fewest blocks that reach :data:`SMS` (a divisor of the
-    chunk count, at most :data:`MAX_SPLIT`; the largest such divisor if none
+    B sizes the grid and nothing else: the tile and the split are chosen
+    for a batch of :data:`PLAN_BATCH`, whatever B is, since a split adds an
+    output's partial sums in another order, and an image's bits would
+    otherwise depend on the batch it rides in. For that batch: the first
+    tile of the route's list for O that gives at least :data:`SMS` blocks;
+    if none does, the last (smallest) tile with its channel chunks split
+    over the fewest blocks that reach :data:`SMS` (a divisor of the chunk
+    count, at most :data:`MAX_SPLIT`; the largest such divisor if none
     reaches it)."""
     route, bk, tiles = FLAT_ROUTES[dtype]
     narrow = bk // 2  # 4 in f32, 8 in bf16: one float4 or one n8 tile
     group = tiles["wide"] if O > 64 else tiles["mid"] if O > narrow else tiles["narrow"]
     positions = H * (W + 2)  # the Wp-wide output grid
 
-    def blocks(bm, bn):
-        return B * math.ceil(positions / bm) * math.ceil(O / bn)
+    def blocks(bm, bn, batch=PLAN_BATCH):
+        return batch * math.ceil(positions / bm) * math.ceil(O / bn)
 
     for bm, bn in group:
         if blocks(bm, bn) >= SMS:
-            return FlatPlan(route, bm, bn, 1, blocks(bm, bn))
+            return FlatPlan(route, bm, bn, 1, blocks(bm, bn, B))
     bm, bn = group[-1]
     chunks = math.ceil(C / bk)
     splits = [d for d in range(1, MAX_SPLIT + 1) if chunks % d == 0]
     split = next((d for d in splits if blocks(bm, bn) * d >= SMS), splits[-1])
-    return FlatPlan(route, bm, bn, split, blocks(bm, bn) * split)
+    return FlatPlan(route, bm, bn, split, blocks(bm, bn, B) * split)
 
 
 # conv3x3_im2col's routes (csrc/conv3x3_im2col.cu). "band": a tile of
@@ -185,13 +195,18 @@ def im2col_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> I
 def conv3x3_flat_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
 ) -> torch.Tensor:
-    """Plain PyTorch version: an f32 VALID conv of the (f32-exact) inputs,
-    + bias in f32, ReLU, then one cast to ``x.dtype``."""
-    acc = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
-    acc = acc.permute(0, 2, 3, 1) + b.float()
-    if relu:
-        acc = torch.relu(acc)
-    return acc.to(x.dtype).contiguous()
+    """Plain PyTorch version, image by image (so that an image's result does
+    not depend on the batch here either): an f32 VALID conv of the
+    (f32-exact) inputs, + bias in f32, ReLU, then one cast to ``x.dtype``."""
+    wc = w.float().permute(3, 2, 0, 1)
+    outs = []
+    for i in range(x.shape[0]):
+        acc = F.conv2d(x[i:i + 1].float().permute(0, 3, 1, 2), wc)
+        acc = acc.permute(0, 2, 3, 1) + b.float()
+        if relu:
+            acc = torch.relu(acc)
+        outs.append(acc.to(x.dtype))
+    return torch.cat(outs).contiguous()
 
 
 def conv3x3_im2col_plain(

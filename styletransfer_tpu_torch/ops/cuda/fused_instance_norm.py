@@ -140,6 +140,17 @@ def backward_plain(
     return dx.to(x.dtype), s2.sum(dim=0), s1.sum(dim=0)
 
 
+def _check(x, scale, bias, residual) -> None:
+    """IN-pad's checks, and [C] affines only: the backward kernel adds
+    dscale and dbias over the images, so a per-image [N, C] affine (which
+    the forward kernel would take) has no gradient here yet."""
+    _in_pad.check(x, scale, bias, residual)
+    if scale.dim() != 1:
+        raise NotImplementedError(
+            "fused_instance_norm takes [C] affines: per-image [N, C] affines need a "
+            "[N, C] dscale / dbias from the backward (multi-style training is not ported)")
+
+
 def forward(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -150,7 +161,7 @@ def forward(
     """``(out, mean, inv)``: the forward kernel on CUDA tensors, the plain
     version on CPU tensors. ``x`` [N, H, W, C] f32 or bf16, ``residual`` the
     same shape and dtype or None, ``scale``/``bias`` [C] f32."""
-    _in_pad.check(x, scale, bias, residual)
+    _check(x, scale, bias, residual)
     if x.device.type == "cpu":
         return forward_plain(x, scale, bias, residual, relu)
     global fwd_launches
@@ -173,7 +184,7 @@ def backward(
     """``(dx, dscale, dbias)`` from the forward's saved inputs and
     statistics: the backward kernel on CUDA tensors, the plain version on
     CPU tensors. ``need_dx=False`` skips the dx pass (dx is None)."""
-    _in_pad.check(x, scale, bias, residual)
+    _check(x, scale, bias, residual)
     N, H, W, C = x.shape
     if tuple(g.shape) != tuple(x.shape) or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {tuple(x.shape)}, got {g.dtype} {tuple(g.shape)}")

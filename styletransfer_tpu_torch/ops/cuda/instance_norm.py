@@ -10,7 +10,8 @@ one launch per call, one image per thread-block cluster, on the route that
 on CUDA tensors and computes :func:`instance_norm_pad_plain` on CPU
 tensors. ``launches`` counts the kernel's launches by this wrapper;
 :func:`launch` is shared with the training forward
-(``fused_instance_norm.py``), which counts its own.
+(``fused_instance_norm.py``), which counts its own. The affine is [C], or
+[N, C] for one per image (multi-style inference, ``models/multistyle.py``).
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def instance_norm_pad_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: s = x + residual interior (in x's dtype), the
     statistics (exact two-pass, or one-pass clamped from ``stats``), the
-    affine and ReLU in f32, the padding, then the cast to ``x.dtype``."""
+    affine ([C], or [N, C]: one per image) and ReLU in f32, the padding,
+    then the cast to ``x.dtype``."""
     s = x
     if residual is not None:
         h, w = x.shape[1], x.shape[2]
@@ -108,6 +110,8 @@ def instance_norm_pad_plain(
         mean = stats[0][:, None, None, :] / n
         var = torch.clamp(stats[1][:, None, None, :] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + EPS)
+    if scale.dim() == 2:
+        scale, bias = scale[:, None, None, :], bias[:, None, None, :]
     out = (s.float() - mean) * inv * scale + bias
     if relu:
         out = torch.relu(out)
@@ -123,8 +127,11 @@ def check(x, scale, bias, residual=None, res_pad=0, pad=0, mode="reflect", stats
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("scale", scale), ("bias", bias)):
-        if tuple(t.shape) != (C,) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 [{C}], got {t.dtype} {tuple(t.shape)}")
+        if tuple(t.shape) not in ((C,), (N, C)) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{C}] or [{N}, {C}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if scale.shape != bias.shape:
+        raise ValueError(f"scale {tuple(scale.shape)} and bias {tuple(bias.shape)} differ")
     if residual is not None:
         want = (N, H + 2 * res_pad, W + 2 * res_pad, C)
         if tuple(residual.shape) != want or residual.dtype != x.dtype:
@@ -158,7 +165,8 @@ def instance_norm_pad(
     """IN(x + residual interior)(+ReLU), written padded by ``pad``.
 
     ``x`` [N, H, W, C] f32 or bf16; ``residual`` [N, H+2r, W+2r, C] with
-    ``r = res_pad`` (its interior is added); ``scale``/``bias`` [C] f32;
+    ``r = res_pad`` (its interior is added); ``scale``/``bias`` [C] f32, or
+    [N, C] f32 for an affine per image (multi-style);
     ``mode`` "reflect" or "edge"; ``stats`` = (sums, sumsqs) [N, C] f32 of
     the input, as conv3x3 emits them, or None to compute the exact centered
     variance. Returns [N, H+2p, W+2p, C] in ``x.dtype``.
@@ -204,7 +212,8 @@ def launch(
             None if stats is None else stats[1].data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             mean_inv[0].data_ptr(), mean_inv[1].data_ptr())
-    _call(x.dtype, dev, ptrs, res_pad, res_f32, (N, H, W, C), pad, mode, relu, plan, None)
+    _call(x.dtype, dev, ptrs, res_pad, res_f32, (N, H, W, C), pad, mode, relu, plan, None,
+          C if scale.dim() == 2 else 0)
     return out, mean_inv
 
 
@@ -222,12 +231,14 @@ def max_active_clusters(x: torch.Tensor, plan: InPlan) -> int:
     return found.value
 
 
-def _call(dtype, dev, ptrs, res_pad, res_f32, shape, pad, mode, relu, plan, clusters) -> None:
+def _call(dtype, dev, ptrs, res_pad, res_f32, shape, pad, mode, relu, plan, clusters,
+          affine_stride=0) -> None:
     lib = _library()
     fn = lib.stx_in_pad_f32 if dtype == torch.float32 else lib.stx_in_pad_bf16
     N, H, W, C = shape
     with torch.cuda.device(dev):  # the library launches on the current device
-        err = fn(ptrs[0], ptrs[1], res_pad, int(res_f32), *ptrs[2:], N, H, W, C, pad,
+        err = fn(ptrs[0], ptrs[1], res_pad, int(res_f32), *ptrs[2:6], affine_stride,
+                 *ptrs[6:], N, H, W, C, pad,
                  int(mode == "edge"), int(relu), EPS, ROUTES[plan.route], plan.ctas,
                  plan.cluster, plan.rows, plan.vec,
                  torch.cuda.current_stream(dev).cuda_stream, clusters)
@@ -243,7 +254,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_pad_f32, lib.stx_in_pad_bf16):
-            fn.argtypes = [p, p, i, i, p, p, p, p, p, p, p,
+            fn.argtypes = [p, p, i, i, p, p, p, p, i, p, p, p,
                            i, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p, p]
             fn.restype = i
         lib.stx_instance_norm_error_string.argtypes = [i]

@@ -53,6 +53,11 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return _pad(x, pad, "reflect")
 
 
+def zero_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad the spatial dims of an NHWC tensor by ``pad`` per side."""
+    return F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
+
+
 def edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge (replicate) padding of the spatial dims.
 

@@ -43,6 +43,7 @@ _GROUPS = (
     ("conv3x3 kernel", ("conv3x3_", "tile_sums_kernel")),
     ("IN kernel (IN-pad / fused-IN forward)", ("::in_kernel<",)),
     ("fused-IN backward kernel", ("::inb_kernel<",)),
+    ("conv_direct kernel", ("::direct_kernel<",)),
     ("cuDNN convolutions", ("conv", "cudnn", "implicit", "winograd", "fft", "fprop", "dgrad",
                             "wgrad", "pointwise_mult_and_sum")),
     ("matrix-vector products and solves (L-BFGS history)", ("gemv", "trsm")),

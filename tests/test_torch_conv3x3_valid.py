@@ -28,25 +28,25 @@ def test_the_residual_stage_takes_the_wgmma_route_in_bf16(batch):
     assert plan.bm % 64 == 0 and plan.image_tiles == 64 // (plan.bm // 64)
     tiles = batch * plan.image_tiles
     assert plan.blocks == min(tiles, tc.SMS)
-    # The larger tile (fewer bytes from L2 per output) once its 16 tiles per
-    # image fill the card.
-    assert plan.bm == (256 if batch * 16 >= tc.SMS else 128)
+    # The tile is scored at a batch of PLAN_BATCH (4), whatever the batch:
+    # two whole rows of 128 positions, whose 32 tiles per image fill more
+    # of the card there than 16 larger ones would.
+    assert (plan.bm, plan.stages) == (128, 4)
 
 
 @pytest.mark.parametrize("batch", [1, 64])
 def test_a_75_wide_stage_takes_the_mma_route(batch):
     # convert-image --size 300: the residual stage is 75 x 75, whose rows do
-    # not tile a block. It runs on the wgmma kernel all the same: at batch 64
-    # a tile is 3 whole rows, 225 of 256 positions, 25 tiles per image; at
-    # batch 1 the 128-position tile of one row, whose 75 tiles fill more of
-    # the card than 25 larger ones would.
+    # not tile a block. It runs on the wgmma kernel all the same, at every
+    # batch on the tile scored at a batch of PLAN_BATCH (4): 3 whole rows,
+    # 225 of 256 positions, 25 tiles per image.
     plan = tc.valid_plan(batch, 75, 75, 128, 128, torch.bfloat16)
     assert plan.route == "bf16_wgmma"
+    assert (plan.bm, plan.stages, plan.image_tiles) == (256, 3, 25)
     if batch == 64:
-        assert (plan.bm, plan.stages, plan.image_tiles) == (256, 3, 25)
         assert plan.blocks == tc.SMS and batch * plan.image_tiles == 1600
     else:
-        assert (plan.bm, plan.stages, plan.image_tiles, plan.blocks) == (128, 4, 75, 75)
+        assert plan.blocks == 25
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 64, 128, 128), (64, 64, 64, 128, 128),
@@ -182,22 +182,24 @@ def test_launch_refuses_a_route_of_another_dtype():
 def _whole_row_plan(B, H, W, O):
     """valid_plan's wgmma plan for W <= 256 before rows were cut into
     segments: the configuration of the largest ``rows * W / bm * min(1,
-    tiles / SMS)``, the first on a tie."""
+    tiles / SMS)`` with the tiles of a batch of PLAN_BATCH, the first on a
+    tie; the grid from B's tiles."""
     fits = [c for c in tc.WGMMA_CONFIGS if W <= c[0]]
 
-    def tiles(bm):
-        return B * -(-H // (bm // W)) * -(-O // tc.BLOCK_N)
+    def tiles(bm, batch=tc.PLAN_BATCH):
+        return batch * -(-H // (bm // W)) * -(-O // tc.BLOCK_N)
 
     bm, stages = max(fits, key=lambda c: (c[0] // W) * W / c[0] * min(1.0, tiles(c[0]) / tc.SMS))
-    return (bm, stages, -(-H // (bm // W)), min(tiles(bm), tc.SMS))
+    return (bm, stages, -(-H // (bm // W)), min(tiles(bm, B), tc.SMS))
 
 
 @pytest.mark.parametrize("batch,size,want", [
-    (1, 256, (128, 4, 32, 32)), (4, 256, (128, 4, 32, 128)), (64, 256, (256, 3, 16, 132)),
-    (1, 300, (128, 4, 75, 75)), (64, 300, (256, 3, 25, 132)),
+    (1, 256, (128, 4, 32, 32)), (4, 256, (128, 4, 32, 128)), (64, 256, (128, 4, 32, 132)),
+    (1, 300, (256, 3, 25, 25)), (64, 300, (256, 3, 25, 132)),
 ])
 def test_whole_row_plans_stay_as_they_were(batch, size, want):
-    # The 256 px and 300 px numbers in PERF.md rest on these plans.
+    # The 256 px and 300 px numbers in PERF.md rest on these plans: those
+    # of batch 4 at 256 px and batch 64 at 300 px, now at every batch.
     H = W = size // 4
     plan = tc.valid_plan(batch, H, W, 128, 128, torch.bfloat16)
     assert plan == tc.ValidPlan("bf16_wgmma", *want, W)

@@ -15,8 +15,8 @@ import torch
 
 from styletransfer_tpu_torch.models import transformer
 from styletransfer_tpu_torch.ops import layers
-from styletransfer_tpu_torch.ops.cuda import (conv3x3, conv3x3_flat, fused_instance_norm,
-                                             instance_norm)
+from styletransfer_tpu_torch.ops.cuda import (conv3x3, conv3x3_flat, conv_direct,
+                                             fused_instance_norm, instance_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,13 +43,15 @@ def _close(a, b, dtype):
 # (B, H, W, C, O, bf16 route, forced): conv3x3_valid's shapes on the card
 # and the route each runs in bf16 (every shape takes f32_fma in f32, see
 # tests/test_torch_conv3x3_valid.py). wgmma, on the route valid_plan names:
-# whole rows per tile (16, 32 and 64 wide), at batch 9 the large tile; C =
-# 64 and O = 136 (a second, mostly empty channel tile); C = 96 (a last chunk
-# of 32 channels) with a last tile of 3 of its 4 rows below the image and O
-# = 72. Partial tiles, whose rows x W positions leave the last A rows stale:
-# 7 wide (36 rows of 252 positions, one tile holding the whole 9-row image),
-# 75 wide as at 300 px (one row of 128 positions at batch 1, three of 256 at
-# batch 4), and 75 wide with a ragged last row tile (10 rows in tiles of 3).
+# whole rows per tile (16, 32 and 64 wide); C = 64 and O = 136 (a second,
+# mostly empty channel tile); C = 96 (a last chunk of 32 channels) with a
+# last tile of 3 of its 4 rows below the image and O = 72. Partial tiles,
+# whose rows x W positions leave the last A rows stale: 7 wide (36 rows of
+# 252 positions, one tile holding the whole 9-row image), 75 wide (one row
+# of 128 positions on 8 rows; three rows of 256 at the 300 px shape), 75
+# wide on 10 rows (one row a tile), and 75 wide on 64 rows in tiles of 3,
+# the last of one row. (The plan scores its tile at a batch of 4 whatever
+# the batch: tests/test_torch_plan_invariance.py.)
 # Rows wider than a TMA box, cut into segments: 260 wide as at 1040 px (and
 # non-square, 7 rows), 1,008 wide as in a 4032 px photo, and 300 wide with a
 # last segment past the image (C = 64, O = 72). mma.sync, forced: no plan
@@ -60,6 +62,7 @@ _VALID_SHAPES = [
     (2, 16, 16, 64, 136, "bf16_wgmma", False), (3, 7, 32, 96, 72, "bf16_wgmma", False),
     (9, 64, 64, 128, 128, "bf16_wgmma", False), (1, 8, 75, 128, 128, "bf16_wgmma", False),
     (4, 75, 75, 128, 128, "bf16_wgmma", False), (32, 10, 75, 64, 64, "bf16_wgmma", False),
+    (2, 64, 75, 64, 64, "bf16_wgmma", False),
     (2, 7, 260, 128, 128, "bf16_wgmma", False), (1, 5, 1008, 128, 128, "bf16_wgmma", False),
     (1, 3, 300, 64, 72, "bf16_wgmma", False), (1, 3, 300, 64, 72, "bf16_mma", True),
 ]
@@ -455,6 +458,9 @@ _STAT_FREE_SHAPES = [
     (2, 9, 7, 5, 13), (1, 11, 6, 40, 72),
     (4, 64, 64, 128, 256), (1, 64, 64, 256, 128), (1, 64, 64, 128, 256), (3, 128, 128, 64, 64),
     (16, 64, 64, 64, 3), (1, 40, 40, 44, 64), (1, 30, 30, 37, 130),
+    # O <= 4 on the narrow tile unsplit (flat_plan plans tiles and splits for
+    # a batch of 4, whatever the batch).
+    (1, 260, 260, 8, 3),
 ]
 
 
@@ -671,3 +677,183 @@ def test_stylize_clip_on_the_kernels_matches_the_cpu(cuda, pad_mode):
     got = video.stylize_clip(params_gpu, frames, pad_mode=pad_mode)
     want = video.stylize_clip(params, frames, pad_mode=pad_mode)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+# conv_direct at the video stylizer's library convs at 256 px (batch 2):
+# (input [H, W, C] pre-padded, K, stride, O). The pad-early forward's conv1
+# (6 channels), conv2, conv3, the phase-form up1 and up2 and the
+# space-to-depth conv_out; the stacked (zeros) forward's 3-channel conv1,
+# upsampled 3x3 convs and 9x9 conv_out; odd shapes: a 2x2 kernel at stride
+# 2, channel counts no tile divides, a last pixel tile in part.
+_DIRECT_SHAPES = [
+    ((264, 264, 6), 9, 1, 32), ((258, 258, 32), 3, 2, 64), ((130, 130, 64), 3, 2, 128),
+    ((66, 66, 128), 3, 1, 256), ((130, 130, 64), 3, 1, 128), ((66, 66, 512), 3, 1, 48),
+    ((264, 264, 3), 9, 1, 32), ((130, 130, 128), 3, 1, 64), ((258, 258, 64), 3, 1, 32),
+    ((264, 264, 32), 9, 1, 3),
+    ((9, 11, 5), 2, 2, 7), ((7, 6, 12), 3, 1, 130), ((13, 17, 6), 3, 1, 6),
+]
+
+
+def _direct_inputs(cuda, dtype, shape, batch=2, seed=9):
+    (H, W, C), K, stride, O = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(batch, H, W, C, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(K, K, C, O, device=cuda, generator=g) * (K * K * C) ** -0.5).to(dtype)
+    b = torch.randn(O, device=cuda, generator=g) * 0.1
+    return x, w, b, stride
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _DIRECT_SHAPES)
+def test_conv_direct_matches_plain_and_repeats_bit_for_bit(cuda, dtype, shape):
+    x, w, b, stride = _direct_inputs(cuda, dtype, shape)
+    before = conv_direct.launches
+    out = conv_direct.conv_direct(x, w, b, stride)
+    again = conv_direct.conv_direct(x, w, b, stride)
+    torch.cuda.synchronize()
+    assert conv_direct.launches == before + 2
+    _close(out, conv_direct.conv_direct_plain(x, w, b, stride), dtype)
+    assert torch.equal(out, again)
+    nobias = conv_direct.conv_direct(x, w, None, stride)
+    _close(nobias, conv_direct.conv_direct_plain(x, w, None, stride), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _DIRECT_SHAPES[:6])
+def test_conv_direct_lane_is_the_image_alone(cuda, dtype, shape):
+    x, w, b, stride = _direct_inputs(cuda, dtype, shape, batch=4, seed=10)
+    many = conv_direct.conv_direct(x, w, b, stride)
+    for i in range(4):
+        assert torch.equal(many[i:i + 1], conv_direct.conv_direct(x[i:i + 1], w, b, stride))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    ((3, 16, 16, 32), 1, True, None, "reflect", False),
+    ((3, 16, 16, 128), 1, False, 1, "edge", False),
+    ((3, 12, 12, 128), 1, True, None, "reflect", True),
+    ((2, 64, 64, 64), 4, True, None, "reflect", False),
+])
+def test_instance_norm_per_image_affines_match_plain(cuda, dtype, case):
+    """IN-pad with [N, C] affines against the plain version; with each
+    image's row equal to a [C] affine it gives that call's bits."""
+    (N, H, W, C), pad, relu, rp, mode, with_stats = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn(N, H, W, C, device=cuda, generator=g) * 3 + 1).to(dtype)
+    scale = torch.rand(N, C, device=cuda, generator=g) + 0.5
+    bias = torch.randn(N, C, device=cuda, generator=g)
+    res = None
+    if rp is not None:
+        res = torch.randn(N, H + 2 * rp, W + 2 * rp, C, device=cuda, generator=g).to(dtype)
+    stats = (x.float().sum(dim=(1, 2)), (x.float() ** 2).sum(dim=(1, 2))) if with_stats else None
+    args = (res, rp or 0, relu, pad, mode, stats)
+    out = instance_norm.instance_norm_pad(x, scale, bias, *args)
+    torch.cuda.synchronize()
+    _close(out, instance_norm.instance_norm_pad_plain(x, scale, bias, *args), dtype)
+    one = instance_norm.instance_norm_pad(x, scale[1], bias[1], *args)
+    same = instance_norm.instance_norm_pad(x, scale[1].expand(N, C).contiguous(),
+                                           bias[1].expand(N, C).contiguous(), *args)
+    assert torch.equal(one, same)
+
+
+def _frames_of(video):
+    """Wraps video._open_video_writer so that each output's frames are kept
+    by path. Returns (frames by path, restore)."""
+    seen, real = {}, video._open_video_writer
+
+    class Recorder:
+        def __init__(self, writer, frames):
+            self.writer, self.frames = writer, frames
+
+        def append_data(self, frame):
+            self.frames.append(np.array(frame))
+            self.writer.append_data(frame)
+
+        def close(self):
+            self.writer.close()
+
+    def opener(base, fps, logger):
+        writer, path = real(base, fps, logger)
+        return Recorder(writer, seen.setdefault(path, [])), path
+
+    video._open_video_writer = opener
+    return seen, lambda: setattr(video, "_open_video_writer", real)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("batch", [2, 4])
+def test_convert_dir_lanes_are_each_clip_alone(cuda, tmp_path, precision, pad_mode, batch):
+    """Five clips of 2 to 6 frames (a ragged last group at batch 2 and 4):
+    each clip's frames from convert-dir are bit for bit its own
+    convert-video's, over the whole clip (the port of
+    tests/test_video_io.py's contract)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import video
+
+    clips = tmp_path / "clips"
+    clips.mkdir()
+    for i, n in enumerate((3, 6, 2, 5, 4)):
+        base = np.round(coco.synthetic_image(70 + i, 256) * 255).astype(np.uint8)
+        imgs = [Image.fromarray(np.roll(base, 3 * t, axis=1)) for t in range(n)]
+        imgs[0].save(clips / f"c{i}.gif", save_all=True, append_images=imgs[1:], duration=42)
+    params = transformer.init_video_params(seed=5, device=cuda)
+    seen, restore = _frames_of(video)
+    try:
+        outs = video.process_video_dir(str(clips), "lanes", out_dir=str(tmp_path / "dir"),
+                                       batch_size=batch, params=params, chunk_size=4,
+                                       precision=precision, pad_mode=pad_mode, device=cuda)
+        for i, out in enumerate(outs):
+            alone = video.process_video(str(clips / f"c{i}.gif"), "lanes",
+                                        out_dir=str(tmp_path / f"one{i}"), params=params,
+                                        chunk_size=3, precision=precision, pad_mode=pad_mode,
+                                        device=cuda)
+            assert len(seen[out]) == len(seen[alone]) == (3, 6, 2, 5, 4)[i]
+            np.testing.assert_array_equal(np.stack(seen[out]), np.stack(seen[alone]))
+    finally:
+        restore()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_stylize_clip_lanes_are_bit_identical_at_every_batch(cuda, precision, pad_mode):
+    from styletransfer_tpu_torch.engines import video
+
+    params = transformer.init_video_params(seed=6, device=cuda)
+    frames = np.random.default_rng(8).integers(0, 256, size=(4, 4, 256, 256, 3), dtype=np.uint8)
+    four = video.stylize_clip(params, frames, precision, pad_mode)
+    two = video.stylize_clip(params, frames[:, 2:], precision, pad_mode)
+    for j in range(4):
+        one = video.stylize_clip(params, frames[:, j], precision, pad_mode)
+        assert np.array_equal(four[:, j], one)
+    assert np.array_equal(four[:, 2:], two)
+
+
+@pytest.mark.parametrize("precision,steps", [("f32", 1), ("bf16", 16)])
+def test_multistyle_on_the_kernels_matches_the_cpu(cuda, precision, steps):
+    """A mixed batch by index and by blend: 10 conv3x3_valid and 15 IN-pad
+    launches (per-image affines) per forward, against the port's CPU run."""
+    from styletransfer_tpu_torch.models import multistyle
+    from styletransfer_tpu_torch.utils import images
+
+    params = multistyle.init_params(seed=1, num_styles=3, device="cpu")
+    with torch.no_grad():
+        for m in params.modules():
+            if isinstance(m, transformer.InstanceNorm):
+                m.scale.add_(torch.randn(m.scale.shape, generator=torch.Generator().manual_seed(
+                    m.scale.shape[1])) * 0.3)
+    params_gpu = multistyle.params_from_jax(transformer.params_to_tree(params), device=cuda)
+    x = images.maybe_normalize_on_device(torch.from_numpy(
+        np.random.default_rng(3).integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8)))
+    cd = torch.bfloat16 if precision == "bf16" else None
+    idx = torch.tensor([2, 0, 1])
+    w = torch.tensor([[0.5, 0.5, 0.0], [0.2, 0.3, 0.5], [0.0, 0.0, 1.0]])
+    for fn, arg in ((multistyle.apply, idx), (multistyle.apply_blend, w)):
+        before = conv3x3.launches, instance_norm.launches
+        got = fn(params_gpu, x.to(cuda), arg.to(cuda), cd)
+        assert (conv3x3.launches - before[0], instance_norm.launches - before[1]) == (10, 15)
+        want = fn(params, x, arg, cd)
+        u8 = images.to_uint8_on_device
+        assert int((u8(got.cpu()).int() - u8(want).int()).abs().max()) <= steps

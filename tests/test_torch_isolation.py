@@ -62,6 +62,9 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch.engines.gatys, styletransfer_tpu_torch.ops.lbfgs\n"
         "import styletransfer_tpu_torch.utils.profiling\n"
         "import styletransfer_tpu_torch.engines.video, styletransfer_tpu_torch.data.video\n"
+        "import styletransfer_tpu_torch.engines.multistyle\n"
+        "import styletransfer_tpu_torch.models.multistyle\n"
+        "import styletransfer_tpu_torch.ops.cuda.conv_direct\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
@@ -139,4 +142,22 @@ def test_video_entry_points_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
         result = CliRunner().invoke(cli, ["video_st", *args])
         assert result.exit_code != 0
         assert "no CUDA GPU" in str(result.exception), args
+    assert os.listdir(tmp_path) == []
+
+
+def test_multistyle_entry_points_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        multistyle.init_params(0, num_styles=2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        engine.process_image("img.png", "duo", num_styles=2)
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    result = CliRunner().invoke(cli, ["fast_st", "convert-image-multi", "img.png", "duo",
+                                      "--num-styles", "2"])
+    assert result.exit_code != 0
+    assert "no CUDA GPU" in str(result.exception)
     assert os.listdir(tmp_path) == []

@@ -184,3 +184,20 @@ def test_zeros_training_forward_keeps_the_weight_gradient(port_params):
     with torch.no_grad():
         served = tt.apply_stacked(params, x, pad_mode="zeros")
     np.testing.assert_allclose(served.numpy(), tt.apply(params, x, pad_mode="zeros").numpy())
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_fixed_order_forward_matches_jax(jax_params, port_params, jax_apply, pad_mode, stacked):
+    """``fixed_order=True`` (the video stylizer) runs the library convs on
+    conv_direct: the same forward, held to JAX as the default forward is,
+    in both forms; forward only."""
+    x = np.random.default_rng(9).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jt.apply(jax_params, jnp.asarray(x), pad_mode=pad_mode))
+    fn = tt.apply_stacked if stacked else tt.apply
+    with torch.no_grad():
+        got = fn(port_params, torch.from_numpy(x), pad_mode=pad_mode, fixed_order=True)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    if stacked:
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn(port_params, torch.from_numpy(x), pad_mode=pad_mode, fixed_order=True)
