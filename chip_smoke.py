@@ -6,6 +6,7 @@
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
     python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
+    python3 chip_smoke.py --multi       # phases 1-2, [N, C] fused IN, train-multi, daemons
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -103,9 +104,27 @@ It imports nothing of JAX. Phases:
    copies and 15 fused-IN forwards, no serving kernel; against the port's
    CPU run; img/s); with ``--video`` also conv_direct's phase and the
    multi-style phase;
-10. print one JSON line with each kernel's error, launches and times (and
-   each kernel's launches on the video-slice paths), and as the last line
-   ``{"ok": true, "device": {...}}``.
+10. the multi-style training and serving slice (also alone with
+   ``--multi``, after the fused IN with [N, C] affines): in phase 3 the
+   fused-IN forward and backward with per-image [N, C] affines at the 15
+   call shapes of a batch-4 train step (against the plain versions; with
+   every row equal, dx bit for bit the [C] call's; device ms beside the
+   [C] calls and the bound); ``engines.multistyle.train`` at batch 4 with 4
+   seeded styles for a few steps in f32 and bf16 (per step 15 fused-IN
+   forwards and 15 backwards, all with [N, C] affines, and the VGG
+   kernels; the preview on the serving kernels; finite losses; the step
+   state; [4, C] affines in the epoch checkpoint, which ``convert-image-
+   multi`` serves by index and blend, card against CPU); one f32
+   multi-style step card against CPU (undrawn styles' rows unchanged); the
+   multi-style step beside the single-style step in turns; ``fast_st
+   serve`` in process at batch 8 on 64 requests of 256 px and four of 512
+   px, STATS (device_rtt_ms), a malformed line, RELOAD to a newer epoch,
+   f32 and bf16, and ``serve-multi`` from the trained checkpoint with
+   indices and blends mixed (launches, PNGs against the port's CPU
+   forward, requests/s);
+11. print one JSON line with each kernel's error, launches and times (and
+   each kernel's launches on the video-slice paths, on train-multi and in
+   the daemons), and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -118,6 +137,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -356,7 +376,11 @@ def counters():
             "conv3x3_valid.bf16_wgmma": (conv3x3, "wgmma_launches"),
             "instance_norm_pad": (instance_norm, "launches"),
             "fused_instance_norm_fwd": (fused_instance_norm, "fwd_launches"),
+            "fused_instance_norm_fwd.per_image": (fused_instance_norm,
+                                                  "fwd_per_image_launches"),
             "fused_instance_norm_bwd": (fused_instance_norm, "bwd_launches"),
+            "fused_instance_norm_bwd.per_image": (fused_instance_norm,
+                                                  "bwd_per_image_launches"),
             "conv3x3_flat": (conv3x3_flat, "flat_launches"),
             "conv3x3_im2col": (conv3x3_flat, "im2col_launches"),
             "conv_direct": (conv_direct, "launches")}
@@ -2154,6 +2178,487 @@ def video_phase(torch, np, F, cf, in_dir, imgs):
     return entries, launches, rates
 
 
+# The multi-style slice: S styles, the training path's batch, steps and
+# cadence; the daemons at batch DAEMON_BATCH on DAEMON_REQUESTS requests of
+# SIZE px and a second bucket of DAEMON_SIZE2 px.
+TRAIN_STYLES = 4
+DAEMON_BATCH = 8
+DAEMON_REQUESTS = 64
+DAEMON_SIZE2 = 512
+# Requests of each daemon held against the port's CPU forward (per bucket).
+DAEMON_CHECKED = 2
+# The multi-style step, card against the port's CPU run: one f32 step of
+# make_train_step at this size on two images (styles 1 and 3 of 4 drawn).
+MULTI_PARITY_SIZE = 64
+ADAM_LR = 1e-3
+
+
+def fused_affine_phase(torch, fin, dtype):
+    """The fused instance norm's forward and backward with per-image [N, C]
+    affines (rows drawn apart) at the fifteen call shapes of a batch-4,
+    256 px train step, against their plain versions (dscale and dbias [N, C]
+    within GRAD_SUMS_RTOL of their largest value); with every row equal, dx
+    is bit for bit the [C] call's. Device ms of the fifteen calls beside the
+    same calls with a [C] affine, and their bound (the [C] call's bytes plus
+    2 N C floats of affines, and 2 N C more of dscale and dbias written).
+    Returns the totals."""
+    dn = str(dtype).split(".")[1]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tot = {k: 0.0 for k in ("fwd_ms", "fwd_shared_ms", "fwd_bound_ms", "bwd_ms",
+                            "bwd_shared_ms", "bwd_bound_ms")}
+    worst = 0.0
+    for call, H, C, with_res, relu, count in _FUSED_CALLS:
+        shape = (TRAIN_BATCH, H, H, C)
+        N = TRAIN_BATCH
+        x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+        res = torch.randn(*shape, device="cuda", generator=g).to(dtype) if with_res else None
+        scale = torch.rand(N, C, device="cuda", generator=g) + 0.5
+        bias = torch.randn(N, C, device="cuda", generator=g)
+        gy = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+        out, mean, inv = fin.forward(x, scale, bias, res, relu)
+        dx, dscale, dbias = fin.backward(gy, x, res, mean, inv, scale, bias, relu)
+        pout, pmean, pinv = fin.forward_plain(x, scale, bias, res, relu)
+        pdx, pdscale, pdbias = fin.backward_plain(gy, x, res, mean, inv, scale, bias, relu)
+        tag = f"{dn} {call} [{N},{H},{H},{C}] [N, C] affines"
+        rtol, atol = TOL[("fused_instance_norm_fwd", dn)]
+        err = max(max_err(out, pout), max_err(dx, pdx))
+        worst = max(worst, err)
+        check(allclose(torch, out, pout, rtol, atol)
+              and allclose(torch, mean, pmean, *STATS_TOL) and allclose(torch, inv, pinv,
+                                                                      *STATS_TOL),
+              f"fused_instance_norm_fwd {tag}: out max_abs_err {max_err(out, pout):.3g}")
+        rel = max(max_err(dscale, pdscale) / float(pdscale.abs().max()),
+                  max_err(dbias, pdbias) / float(pdbias.abs().max()))
+        check(tuple(dscale.shape) == tuple(dbias.shape) == (N, C)
+              and allclose(torch, dx, pdx, rtol, atol) and rel <= GRAD_SUMS_RTOL,
+              f"fused_instance_norm_bwd {tag}: dx max_abs_err {max_err(dx, pdx):.3g}; "
+              f"dscale / dbias [N, C] {rel:.3g} of the largest (limit {GRAD_SUMS_RTOL})")
+        rows = scale[1].expand(N, C).contiguous(), bias[1].expand(N, C).contiguous()
+        shared = fin.backward(gy, x, res, mean, inv, scale[1], bias[1], relu)
+        per_row = fin.backward(gy, x, res, mean, inv, *rows, relu)
+        check(torch.equal(shared[0], per_row[0]),
+              f"fused_instance_norm_bwd {tag}: with every row equal, dx is bit for bit the "
+              f"[C] call's")
+        ins = x.numel() * (2 if with_res else 1) * x.element_size()
+        chan = 2 * N * C * 4 + 2 * N * C * 4  # scale, bias [N, C]; mean, inv
+        fb, _ = bound(8.0 * x.numel(), ins + out.numel() * x.element_size() + chan, dn)
+        bb, _ = bound(16.0 * x.numel(),
+                      ins + 2 * gy.numel() * x.element_size() + chan + 2 * N * C * 4, dn)
+        s1, b1 = scale[1], bias[1]
+        for key, fn in (
+                ("fwd_ms", lambda: fin.forward(x, scale, bias, res, relu)),
+                ("fwd_shared_ms", lambda: fin.forward(x, s1, b1, res, relu)),
+                ("bwd_ms", lambda: fin.backward(gy, x, res, mean, inv, scale, bias, relu)),
+                ("bwd_shared_ms", lambda: fin.backward(gy, x, res, mean, inv, s1, b1, relu))):
+            tot[key] += count * device_ms(torch, fn)
+        tot["fwd_bound_ms"] += count * fb
+        tot["bwd_bound_ms"] += count * bb
+    print(f"fused_instance_norm {dn} [N, C] affines, all 15 calls of one train step: fwd "
+          f"device_ms {tot['fwd_ms']:.4f} ([C]: {tot['fwd_shared_ms']:.4f}; bound "
+          f"{tot['fwd_bound_ms']:.4f}), bwd device_ms {tot['bwd_ms']:.4f} ([C]: "
+          f"{tot['bwd_shared_ms']:.4f}; bound {tot['bwd_bound_ms']:.4f}); max_abs_err "
+          f"{worst:.3g}", flush=True)
+    return tot
+
+
+def _style_stack(np):
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.utils import images
+
+    return np.stack([images.normalize(coco.synthetic_image(20_000 + s, SIZE))
+                     for s in range(TRAIN_STYLES)]).astype(np.float32)
+
+
+def multistyle_train_path(torch, np, in_dir):
+    """Multi-style training: engines.multistyle.train for TRAIN_STEPS steps at
+    batch 4, S = TRAIN_STYLES seeded synthetic styles, 256 px, f32 and bf16,
+    with step checkpoints. Per step 15 fused-IN forwards and 15 backwards,
+    all with [N, C] affines, and the single-style path's VGG convs; 15
+    fused-IN forwards per eval forward; a preview on the serving forward (10
+    conv3x3_valid, 15 IN-pad). Then the epoch checkpoint ([4, C] affines)
+    through ``fast_st convert-image-multi`` by index and by blend, card
+    against CPU. Returns (launches by precision, the models directory)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle, vgg
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    styles = _style_stack(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    _, image_every, eval_every = TRAIN_CADENCE
+    root = os.path.join(WORK, "multistyle_train")
+    models = os.path.join(root, "data", "models")
+    launches = {}
+    for precision in ("f32", "bf16"):
+        name = f"smoke_{precision}"
+        test_loader, train_loader = coco.get_coco_loader(
+            batch_size=TRAIN_BATCH, test_limit=20, image_dir=os.path.join(WORK, "no_images"))
+        previews = len(range(0, TRAIN_STEPS, image_every))
+        eval_forwards = len(test_loader) * len(range(0, TRAIN_STEPS, eval_every))
+        log = _LossLog()
+        logger = get_logger()
+        logger.addHandler(log)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            params = engine.train(
+                styles, style_name=name, epochs=1, batch_size=TRAIN_BATCH,
+                vgg_params=vgg_params, train_loader=train_loader, test_loader=test_loader,
+                log_cadence=TRAIN_CADENCE, runs_dir=os.path.join(root, f"runs_{precision}"),
+                models_path=models, max_steps_per_epoch=TRAIN_STEPS, step_checkpoint_every=3,
+                precision=precision, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches[precision] = counts
+        route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+        fwd = NORMS_PER_FORWARD * (TRAIN_STEPS + eval_forwards)
+        want = {k: 0 for k in counts}
+        want.update({"fused_instance_norm_fwd": fwd, "fused_instance_norm_fwd.per_image": fwd,
+                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
+                     "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD * TRAIN_STEPS,
+                     "conv3x3_valid": 10 * previews, f"conv3x3_valid.{route}": 10 * previews,
+                     "instance_norm_pad": NORMS_PER_FORWARD * previews})
+        for k in GATYS_KERNELS:
+            want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+                       + VGG_STYLE_TARGETS[k])
+        check(counts == want,
+              f"multi-style training {precision}: {TRAIN_STEPS} steps, {previews} previews, "
+              f"{eval_forwards} eval forwards launched {counts} (want {want}: per step 15 "
+              f"fused-IN forwards and 15 backwards with [N, C] affines)")
+        check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train)
+              and len(log.test) == 1 and math.isfinite(log.test[0]),
+              f"multi-style training {precision}: logged losses "
+              f"{['%.4f' % v for v in log.train]}, eval {log.test}, all finite")
+        state = ckpt.load_step_state(engine.MODEL_NAME, name, models,
+                                     extra_keys=("batch_in_epoch",))
+        check(state is not None and (state["epoch"], state["iteration"]) == (1, TRAIN_STEPS)
+              and int(state["opt_state"]["0"]["count"]) == TRAIN_STEPS
+              and state["extra"]["batch_in_epoch"] == 0,
+              f"multi-style training {precision}: step state at epoch 1, iteration "
+              f"{TRAIN_STEPS}, Adam count {TRAIN_STEPS}")
+        tree = ckpt.load(ckpt.checkpoint_path(engine.MODEL_NAME, name, 0, models))
+        check(tree["in1"]["scale"].shape == (TRAIN_STYLES, 32)
+              and tree["res3"]["in2"]["bias"].shape == (TRAIN_STYLES, 128)
+              and np.array_equal(tree["up2_in"]["scale"], params.up2_in.scale.detach().cpu().numpy()),
+              f"multi-style training {precision}: the epoch checkpoint holds the trained "
+              f"[{TRAIN_STYLES}, C] affines")
+        print(f"multi-style training {precision}: train {TRAIN_STEPS} steps at batch "
+              f"{TRAIN_BATCH}, {TRAIN_STYLES} styles in {wall:.3f} s (incl. VGG targets, eval, "
+              f"previews, checkpoints)", flush=True)
+    # The f32 epoch checkpoint through convert-image-multi, card against CPU.
+    image = os.path.join(in_dir, "img001.png")
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    try:
+        for args, tag in ((["--style-index", "3"], "style3"), (["--blend", MULTI_BLEND],
+                                                               "blend")):
+            common = ["fast_st", "convert-image-multi", image, "smoke_f32", "--num-styles",
+                      str(TRAIN_STYLES), *args]
+            reset_counts()
+            cli.main(common + ["-o", "card/", "--device", "cuda"], standalone_mode=False)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15,
+                  f"the trained checkpoint through convert-image-multi {tag}: 10 conv3x3 and "
+                  f"15 IN-pad launches")
+            cli.main(common + ["-o", "cpu/", "--device", "cpu"], standalone_mode=False)
+            fname = f"converted_fast_multi_st_smoke_f32_{tag}.png"
+            got = np.asarray(Image.open(os.path.join(root, "card", fname)))
+            want_png = np.asarray(Image.open(os.path.join(root, "cpu", fname)))
+            _frames_checked(np, f"trained checkpoint, convert-image-multi {tag}: card vs CPU",
+                            [got], [want_png], "f32")
+    finally:
+        constants.PROJECT_ROOT_PATH = saved_root
+    return launches, models
+
+
+def multistyle_parity(torch, np):
+    """One f32 multi-style make_train_step on two MULTI_PARITY_SIZE px images
+    (styles 1 and 3 of TRAIN_STYLES drawn): the card against the port's CPU
+    run from the same seeded parameters. Losses within PARITY_LOSS_RTOL,
+    gradients within PARITY_GRAD_REL_L2 (relative L2), biases that a norm
+    cancels (gradients of rounding noise) within 2 lr after the Adam step;
+    the rows of styles 0 and 2 hold exactly their old values on the card."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle, transformer, vgg
+
+    rng = np.random.default_rng(14)
+    styles = torch.from_numpy(rng.standard_normal(
+        (TRAIN_STYLES, MULTI_PARITY_SIZE, MULTI_PARITY_SIZE, 3)).astype(np.float32) * 0.5)
+    batch = torch.from_numpy(rng.standard_normal(
+        (2, MULTI_PARITY_SIZE, MULTI_PARITY_SIZE, 3)).astype(np.float32))
+    start = multistyle.init_params(seed=6, num_styles=TRAIN_STYLES, device="cpu")
+    with torch.no_grad():
+        for p in start.parameters():
+            if p.dim() == 2:
+                p.add_(torch.from_numpy(rng.normal(0, 0.2, tuple(p.shape)).astype(np.float32)))
+    tree = transformer.params_to_tree(start)
+    idx = np.array([1, 3])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = multistyle.params_from_jax(tree, device=dev)
+        v = vgg.init_params(seed=0, device=dev)
+        step = engine.make_train_step(v, engine.stack_style_grams(v, styles.to(dev)))
+        opt = fast.make_optimizer(params)
+        metrics = step(params, opt, batch.to(dev), idx)
+        runs[dev] = ({k: float(m) for k, m in metrics.items()},
+                     {n: p.grad.detach().cpu() for n, p in params.named_parameters()},
+                     {n: p.detach().cpu() for n, p in params.named_parameters()})
+    (mg, gg, pg), (mc, gc, pc) = runs["cuda"], runs["cpu"]
+    worst_loss = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc)
+    check(worst_loss <= PARITY_LOSS_RTOL,
+          f"multi-style parity f32: loss components card {mg} vs CPU {mc}: worst relative "
+          f"difference {worst_loss:.3g} (limit {PARITY_LOSS_RTOL})")
+    scale = max(float(g.norm()) for g in gc.values())
+    worst, worst_name = 0.0, ""
+    for name, g in gc.items():
+        if g.dim() == 2:
+            old = torch.from_numpy(np.asarray(_tree_at(tree, name)))
+            check(torch.equal(pg[name][0], old[0]) and torch.equal(pg[name][2], old[2]),
+                  f"multi-style parity: {name} rows of the undrawn styles 0 and 2 hold their "
+                  f"old values")
+        if float(g.norm()) < 1e-6 * scale:
+            err = float((pg[name] - pc[name]).abs().max())
+            check(err <= 2 * ADAM_LR, f"multi-style parity f32: {name} (a gradient of "
+                  f"rounding noise) within 2 lr after the step ({err:.3g})")
+            continue
+        rel = float((gg[name] - g).norm()) / float(g.norm())
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= PARITY_GRAD_REL_L2,
+          f"multi-style parity f32: every parameter gradient within relative L2 "
+          f"{PARITY_GRAD_REL_L2} of the CPU run (worst {worst:.3g}, {worst_name})")
+    return worst_loss, worst
+
+
+def _tree_at(tree, name):
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
+def multistyle_step_rates(torch, np):
+    """Steady-state multi-style train steps at TRAIN_BATCH beside the
+    single-style step of the same run, f32 and bf16 (ms per step: host clock
+    around 10 steps ending in a synchronize, after 3 warm-up steps)."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle, transformer, vgg
+
+    styles = torch.from_numpy(_style_stack(np)).cuda()
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    grams = engine.stack_style_grams(vgg_params, styles)
+    single_grams = {k: v[:1] for k, v in grams.items()}
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=g)
+    draws = np.random.default_rng(0)
+    out = {}
+    for precision in ("f32", "bf16"):
+        cd = torch.bfloat16 if precision == "bf16" else None
+        for kind in ("single", "multi", "multi", "single"):
+            if kind == "single":
+                params = transformer.init_params(seed=0, device="cuda")
+                step = fast.make_train_step(vgg_params, single_grams, compute_dtype=cd)
+                run = lambda: step(params, opt, x)  # noqa: E731
+            else:
+                params = multistyle.init_params(seed=0, num_styles=TRAIN_STYLES, device="cuda")
+                step = engine.make_train_step(vgg_params, grams, compute_dtype=cd)
+                run = lambda: step(params, opt, x,  # noqa: E731
+                                   draws.integers(0, TRAIN_STYLES, TRAIN_BATCH))
+            opt = fast.make_optimizer(params)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                m = run()
+            loss = float(m["total"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 10
+            check(math.isfinite(loss), f"{kind}-style train step {precision}: loss finite")
+            out.setdefault((precision, kind), []).append(ms)
+        print(f"train step {precision} batch {TRAIN_BATCH} at {SIZE} px, in turns: single-style "
+              f"{out[(precision, 'single')]} ms, multi-style ({TRAIN_STYLES} styles) "
+              f"{out[(precision, 'multi')]} ms", flush=True)
+    return out
+
+
+class _Stamped:
+    """A stdout for a daemon: keeps its lines, and the time of READY and of
+    the last line."""
+
+    def __init__(self):
+        self.lines, self.buf, self.ready, self.last = [], "", None, None
+
+    def write(self, text):
+        self.buf += text
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append(line)
+            self.last = time.perf_counter()
+            if line == "READY":
+                self.ready = self.last
+
+    def flush(self):
+        pass
+
+
+def _drive(loop, lines, **kw):
+    """Run a daemon's loop on scripted stdin lines in this process."""
+    import io
+
+    out = _Stamped()
+    n = loop(stdin=io.StringIO("".join(f"{ln}\n" for ln in lines)), stdout=out, **kw)
+    return n, out
+
+
+def daemon_path(torch, np, in_dir, multi_models):
+    """The stdin daemons in process, at batch DAEMON_BATCH: ``fast_st serve``
+    (serve_loop) on DAEMON_REQUESTS requests of SIZE px and a few of
+    DAEMON_SIZE2 px, STATS, a malformed line, RELOAD to a newer epoch, f32
+    and bf16; then ``serve-multi`` from the multi-style training path's
+    checkpoint with indices and blends mixed. Every request answers OK, the
+    first DAEMON_CHECKED of each bucket lie within MAIN_TOL of the port's CPU
+    forward. Returns (launches by daemon and precision, requests/s)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, constants
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle, transformer
+    from styletransfer_tpu_torch.utils import images
+
+    root = os.path.join(WORK, "daemon")
+    models = os.path.join(root, "data", "models")
+    for epoch in (0, 1):
+        ckpt.save(transformer.init_params(seed=epoch, device="cpu"),
+                  ckpt.checkpoint_path("fast_st", "smoke", epoch, models))
+    names = sorted(os.listdir(in_dir))
+    big = names[:4]
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    launches, rates = {}, {}
+    try:
+        for precision in ("f32", "bf16"):
+            cd = torch.bfloat16 if precision == "bf16" else None
+            epoch0 = transformer.params_from_jax(ckpt.load(ckpt.checkpoint_path(
+                "fast_st", "smoke", 0, models)), device="cpu")
+            lines = ([os.path.join(in_dir, n) for n in names[:DAEMON_REQUESTS]]
+                     + [f"{os.path.join(in_dir, n)}\tbig_{precision}/{n}\t{DAEMON_SIZE2}"
+                        for n in big]
+                     + ["STATS", f"{in_dir}/img000.png\ta\tb\tc\td", "RELOAD",
+                        f"{in_dir}/img000.png\tafter_{precision}.png"])
+            reset_counts()
+            n, out = _drive(fast.serve_loop, lines, style_name="smoke",
+                            out_dir=f"fast_{precision}/", params=transformer.params_from_jax(
+                                transformer.params_to_tree(epoch0), device="cuda"),
+                            models_path=models, precision=precision,
+                            batch_size=DAEMON_BATCH, sizes=[SIZE, DAEMON_SIZE2],
+                            device="cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            answers = out.lines[1:]
+            served = len(lines) - 3
+            ok = [a for a in answers if a.startswith("OK ") and a.endswith(".png")]
+            stats = [a for a in answers if a.startswith("OK STATS")]
+            check(out.lines[0] == "READY" and len(answers) == len(lines)
+                  and len(ok) == served and "OK RELOAD epoch=1" in answers
+                  and len(stats) == 1 and re.search(r"device_rtt_ms=[0-9.]+", stats[0])
+                  and answers[-3].startswith(f"ERR {in_dir}/img000.png: expected "),
+                  f"fast_st serve {precision}: READY, {served} OK, STATS with device_rtt_ms "
+                  f"({stats}), ERR for a malformed line, OK RELOAD epoch=1, in request order")
+            calls = counts["conv3x3_valid"] // 10
+            check(calls >= 2 + served // DAEMON_BATCH and counts["conv3x3_valid"] == 10 * calls
+                  and counts["instance_norm_pad"] == 15 * calls,
+                  f"fast_st serve {precision}: {calls} forwards (warm-ups included), 10 "
+                  f"conv3x3 and 15 IN-pad launches each")
+            launches[("serve", precision)] = counts
+            rates[("serve", precision)] = served / (out.last - out.ready)
+            # Against the port's CPU forward: the first images of each bucket,
+            # epoch 0 before RELOAD and epoch 1 after it.
+            serve_cpu = fast.make_serve_fn(precision)
+            epoch1, _ = ckpt.load_latest_transformer("fast_st", "smoke", models, device="cpu")
+            checks = [(answers[i][3:], names[i], SIZE, epoch0) for i in range(DAEMON_CHECKED)]
+            checks += [(answers[DAEMON_REQUESTS + i][3:], big[i], DAEMON_SIZE2, epoch0)
+                       for i in range(DAEMON_CHECKED)]
+            checks.append((answers[-1][3:], names[0], SIZE, epoch1))
+            for path, name, size, params in checks:
+                x = torch.from_numpy(np.array(images.load_image_uint8(
+                    os.path.join(in_dir, name), size=size)))
+                want = serve_cpu(params, x).numpy()[0]
+                got = np.asarray(Image.open(path))
+                _frames_checked(np, f"fast_st serve {precision} {size} px {name}: card vs CPU",
+                                [got], [want], precision)
+            print(f"fast_st serve {precision}: {served} requests at batch {DAEMON_BATCH} "
+                  f"({DAEMON_REQUESTS} at {SIZE} px, {len(big)} at {DAEMON_SIZE2} px) at "
+                  f"{rates[('serve', precision)]:.1f} requests/s after READY (incl. decode "
+                  f"and PNG encode); {stats[0]}", flush=True)
+
+        # serve-multi from the trained checkpoint (train-multi's f32 run).
+        specs = ["0", "1", "2", "3", MULTI_BLEND, "0.25,0.25,0.25,0.25"]
+        mlines = [f"{os.path.join(in_dir, n)}\t\t{specs[i % len(specs)]}"
+                  for i, n in enumerate(names[:DAEMON_REQUESTS])]
+        for precision in ("f32", "bf16"):
+            reset_counts()
+            n, out = _drive(engine.serve_loop, mlines, name="smoke_f32",
+                            num_styles=TRAIN_STYLES, out_dir=f"multi_{precision}/",
+                            models_path=multi_models, precision=precision,
+                            batch_size=DAEMON_BATCH, device="cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            answers = out.lines[1:]
+            check(out.lines[0] == "READY" and len(answers) == len(mlines)
+                  and all(a.startswith("OK ") for a in answers),
+                  f"fast_st serve-multi {precision}: READY and {len(mlines)} OK, indices and "
+                  f"blends mixed")
+            calls = counts["conv3x3_valid"] // 10
+            check(calls >= 1 + len(mlines) // DAEMON_BATCH
+                  and counts["conv3x3_valid"] == 10 * calls
+                  and counts["instance_norm_pad"] == 15 * calls,
+                  f"fast_st serve-multi {precision}: {calls} forwards, 10 conv3x3 and 15 "
+                  f"IN-pad launches each")
+            launches[("serve_multi", precision)] = counts
+            rates[("serve_multi", precision)] = len(mlines) / (out.last - out.ready)
+            cpu_params = engine.load_params("smoke_f32", TRAIN_STYLES, multi_models, "cpu")
+            cd = torch.bfloat16 if precision == "bf16" else None
+            parse = engine._make_style_parser(TRAIN_STYLES)
+            for i in range(DAEMON_CHECKED + 3):
+                w, _ = parse(specs[i % len(specs)])
+                x = images.maybe_normalize_on_device(torch.from_numpy(np.array(
+                    images.load_image_uint8(os.path.join(in_dir, names[i])))))
+                want = images.to_uint8_on_device(multistyle.apply_blend(
+                    cpu_params, x, torch.from_numpy(w)[None], cd)).numpy()[0]
+                got = np.asarray(Image.open(answers[i][3:]))
+                _frames_checked(np, f"fast_st serve-multi {precision} style "
+                                f"{specs[i % len(specs)]}: card vs CPU", [got], [want],
+                                precision)
+            print(f"fast_st serve-multi {precision}: {len(mlines)} requests at batch "
+                  f"{DAEMON_BATCH}, {TRAIN_STYLES} styles by index and blend mixed, at "
+                  f"{rates[('serve_multi', precision)]:.1f} requests/s after READY", flush=True)
+    finally:
+        constants.PROJECT_ROOT_PATH = saved_root
+    return launches, rates
+
+
+def multistyle_slice(torch, np, in_dir):
+    """This slice's phases: multi-style training, its card-vs-CPU step, its
+    step beside the single-style one, and the daemons. Returns (train-multi
+    launches by precision, daemon launches, daemon requests/s)."""
+    train, multi_models = multistyle_train_path(torch, np, in_dir)
+    multistyle_parity(torch, np)
+    multistyle_step_rates(torch, np)
+    daemon_launches, daemon_rates = daemon_path(torch, np, in_dir, multi_models)
+    return train, daemon_launches, daemon_rates
+
+
 def main() -> int:
     try:
         import torch
@@ -2214,14 +2719,24 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 norms.append(in_phase(torch, instance_norm, dtype))
                 fused_phase(torch, F, fused_instance_norm, dtype)
+                fused_affine_phase(torch, fused_instance_norm, dtype)
             check_routes(instance_norm, norms)
             print(card)
             return 0
+        if sys.argv[1:] == ["--multi"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                fused_affine_phase(torch, fused_instance_norm, dtype)
+            in_dir, _ = write_inputs(np)
+            multistyle_slice(torch, np, in_dir)
+            print(card)
+            return 0
         entries = []
+        per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
             entries += conv_phase(torch, F, conv3x3, dtype)
             entries.append(in_phase(torch, instance_norm, dtype))
             entries += fused_phase(torch, F, fused_instance_norm, dtype)
+            per_image[dtype] = fused_affine_phase(torch, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
             entries.append(direct_phase(torch, F, conv_direct, dtype))
         check_routes(instance_norm, entries)
@@ -2231,6 +2746,7 @@ def main() -> int:
         train_launches = train_path(torch, np, in_dir)
         parity_phase(torch, np)
         step_rate = step_rates(torch, np)
+        train_multi, daemon_launches, daemon_rates = multistyle_slice(torch, np, in_dir)
         gatys_launches = gatys_path(torch, np, F)
         gatys_parity(torch, np)
         video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
@@ -2267,6 +2783,16 @@ def main() -> int:
             e["multistyle_launches"] = {f"{tag}": counts["instance_norm_pad"] for
                                         (p, tag), counts in multi_launches.items()
                                         if p == precision}
+        if kernel in TRAINING_KERNELS:  # also with [N, C] affines (train-multi)
+            e["train_multi_launches"] = train_multi[precision][kernel]
+            totals = per_image[torch.float32 if precision == "f32" else torch.bfloat16]
+            part = "fwd" if kernel.endswith("fwd") else "bwd"
+            e["per_image_step_ms"] = totals[f"{part}_ms"]
+            e["per_image_step_shared_ms"] = totals[f"{part}_shared_ms"]
+            e["per_image_step_bound_ms"] = totals[f"{part}_bound_ms"]
+        if kernel in SERVING_KERNELS:  # the stdin daemons
+            e["daemon_launches"] = {f"{d}": counts[kernel] for (d, p), counts in
+                                    daemon_launches.items() if p == precision}
         if kernel == "conv3x3_valid":  # the route of the 256 px serving run
             kernel = "conv3x3_valid." + ("f32_fma" if precision == "f32" else "bf16_wgmma")
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
@@ -2282,6 +2808,8 @@ def main() -> int:
           f"bf16 {rates['bf16']:.1f} on {card}")
     print(f"zeros path img/s at batch {BATCH}, 256 px: f32 {zeros_rates['f32']:.1f}, "
           f"bf16 {zeros_rates['bf16']:.1f} on {card}")
+    print("daemons requests/s at batch %d: " % DAEMON_BATCH + ", ".join(
+        f"{d} {p} {r:.1f}" for (d, p), r in daemon_rates.items()) + f" on {card}")
     print("training img/s at 256 px: " + ", ".join(
         f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")

@@ -1,11 +1,12 @@
 """``fast_st`` CLI: feed-forward style transfer training and inference.
 
-The JAX package's ``train``, ``convert-image``, ``convert-dir`` and
-``convert-image-multi`` commands, with the same arguments and output names,
-plus ``--device`` (default ``cuda``; there is no silent fallback to the
-CPU). ``train`` does not take the JAX command's ``--packed``,
-``--distributed`` and ``--global-batch`` yet; ``train-multi`` is not ported
-yet.
+The JAX package's ``train``, ``train-multi``, ``convert-image``,
+``convert-dir``, ``convert-image-multi``, ``serve`` and ``serve-multi``
+commands, with the same arguments and output names, plus ``--device``
+(default ``cuda``; there is no silent fallback to the CPU). ``train`` and
+``train-multi`` do not take the JAX commands' ``--packed``,
+``--distributed`` and ``--global-batch`` yet; the daemons serve stdin on one
+device (no ``--tcp`` / ``--http`` yet).
 """
 
 import os
@@ -63,6 +64,47 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
     style_image = images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, style_image_path))
     fast.static_train(
         style_image, style_name=style_name, epochs=epochs, batch_size=batch_size,
+        style_weight=style_weight, content_weight=content_weight,
+        step_checkpoint_every=step_checkpoint_every, precision=precision, device=device,
+    )
+
+
+@fast_st.command("train-multi")
+@click.argument("style-image-paths", nargs=-1, required=True)
+@click.option("-n", "--name", default="multi", help="Name for the multi-style model")
+@click.option("-e", "--epochs", default=50, help="How many epochs the training will take")
+@click.option("-b", "--batch-size", default=4, help="Batch size for training")
+@click.option("-cw", "--content-weight", default=1,
+              help="The weight we will assign to the content loss during the optimization")
+@click.option("-sw", "--style-weight", default=100_000,
+              help="The weight we will assign to the style loss during the optimization")
+@click.option("--step-checkpoint-every", default=None, type=int,
+              help="Also save mid-epoch resumable state every N steps")
+@click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
+              help="Activation precision (params/optimizer stay f32)")
+@_device_option
+def train_multi(style_image_paths, name, epochs, batch_size, content_weight, style_weight,
+                step_checkpoint_every, precision, device):
+    """
+    Train ONE network on MULTIPLE styles (conditional instance norm).
+
+    Pass several style image paths; at inference select a style by index or
+    blend styles (`convert-image-multi`, `serve-multi`). Checkpoints are
+    saved as `fast_multi_st_{name}_epoch{e}.msgpack`.
+    """
+    import numpy as np
+
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.engines import multistyle
+    from styletransfer_tpu_torch.utils import images
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    constants.resolve_device(device)
+    stack = np.concatenate([images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, p))
+                            for p in style_image_paths], axis=0)
+    get_logger().info("Training multi-style network '%s' on %d styles", name, len(stack))
+    multistyle.train(
+        stack, style_name=name, epochs=epochs, batch_size=batch_size,
         style_weight=style_weight, content_weight=content_weight,
         step_checkpoint_every=step_checkpoint_every, precision=precision, device=device,
     )
@@ -143,4 +185,82 @@ def convert_image_multi(image_path, name, style_index, blend, out_dir, num_style
     multistyle.process_image(
         image_path=image_path, name=name, num_styles=num_styles, style_index=style_index,
         blend=blend, out_dir=out_dir, precision=precision, device=device,
+    )
+
+
+_out_dir_option = click.option(
+    "-o", "--out-dir", default="results/",
+    help="Default results directory for requests without an explicit output path")
+_size_option = click.option(
+    "--size", default=None, type=int,
+    help="Working resolution (default 256); all requests are resized to it")
+
+
+@fast_st.command()
+@click.argument("style-name")
+@_out_dir_option
+@_size_option
+@click.option("--sizes", default=None, metavar="S1,S2,...",
+              help="Multi-resolution serving buckets (e.g. 256,512): each is warmed before "
+                   "READY, and a request's optional third field picks its bucket "
+                   "(INPUT<TAB>OUTPUT<TAB>512; absent = the first listed). Overrides --size.")
+@_precision_option
+@_pad_mode_option
+@click.option("-b", "--batch-size", default=1, type=click.IntRange(min=1),
+              help="Dynamic batching: serve up to N already-queued requests per device call "
+                   "(lone requests keep single-request latency; with --sizes, a group runs "
+                   "one call per bucket present)")
+@_device_option
+def serve(style_name, out_dir, size, sizes, precision, pad_mode, batch_size, device):
+    """
+    Warm-process stylization daemon: runs the serving forward once per
+    bucket (which builds the kernels), prints `READY`, then stylizes one
+    image per stdin line until EOF or a blank line. Each line is
+    `INPUT_PATH` or `INPUT_PATH<TAB>OUTPUT_PATH`; each response line is
+    `OK <output_path>` or `ERR <input>: <reason>`. A `RELOAD` line swaps in
+    the latest checkpoint; a `STATS` line answers the latency summary.
+    """
+    from styletransfer_tpu_torch.clis import common
+    from styletransfer_tpu_torch.engines import fast
+
+    fast.serve_loop(
+        style_name=style_name, out_dir=out_dir, size=size, precision=precision,
+        pad_mode=pad_mode, batch_size=batch_size, sizes=common.parse_sizes_option(sizes),
+        device=device,
+    )
+
+
+@fast_st.command("serve-multi")
+@click.argument("name")
+@click.option("--num-styles", required=True, type=int,
+              help="Number of styles the checkpoint was trained with")
+@_out_dir_option
+@_size_option
+@click.option("--sizes", default=None, metavar="S1,S2,...",
+              help="Multi-resolution serving buckets (e.g. 256,512): each is warmed before "
+                   "READY, and a request's optional fourth field picks its bucket "
+                   "(INPUT<TAB>OUTPUT<TAB>STYLE<TAB>512; absent = the first listed). "
+                   "Overrides --size.")
+@_precision_option
+@click.option("-b", "--batch-size", default=1, type=click.IntRange(min=1),
+              help="Dynamic batching: serve up to N already-queued requests per device call "
+                   "(mixed styles and blends batch together: the style is per-image data)")
+@_device_option
+def serve_multi(name, num_styles, out_dir, size, sizes, precision, batch_size, device):
+    """
+    Warm-process MULTI-STYLE daemon for a network trained by `train-multi`:
+    prints `READY`, then stylizes one image per stdin line until EOF or a
+    blank line, each request picking its own style or blend as data.
+
+    Each line is `INPUT[<TAB>OUTPUT[<TAB>STYLE]]` where STYLE is an index
+    (`2`) or comma-separated blend weights (`0.3,0.7`); leave OUTPUT empty
+    (two TABs) to use the default naming. Responses: `OK <output_path>` or
+    `ERR <input>: <reason>`. A `RELOAD` line swaps in the latest checkpoint.
+    """
+    from styletransfer_tpu_torch.clis import common
+    from styletransfer_tpu_torch.engines import multistyle
+
+    multistyle.serve_loop(
+        name=name, num_styles=num_styles, out_dir=out_dir, size=size, precision=precision,
+        batch_size=batch_size, sizes=common.parse_sizes_option(sizes), device=device,
     )

@@ -10,7 +10,10 @@
 //   S1     = sum_hw gm,   S2 = sum_hw gm * xhat       (per image and channel, f32)
 //   dx     = inv * scale * (gm - S1 / HW - xhat * S2 / HW)   (in x's type;
 //            it is also dresidual)
-//   dscale = sum_n S2,    dbias = sum_n S1           (f32)
+//   dscale = sum_n S2,    dbias = sum_n S1           (f32; [C] affines)
+//   dscale[n] = S2[n],    dbias[n] = S1[n]           (f32; [N, C] affines, one
+//            row per image: multi-style training, where the rows then add
+//            into each style's parameters)
 // The mask is computed with explicitly rounded operations (no fused
 // multiply-add), so it is bit for bit the mask of the plain PyTorch version
 // given the same statistics.
@@ -37,7 +40,10 @@
 //      strided sum per thread, then the same tree), so every block of an
 //      image holds the same S1, S2 bit for bit; meanwhile the last block
 //      adds all N * G partials in one fixed order into dbias and dscale, so
-//      no worker carries that tail.
+//      no worker carries that tail. With [N, C] affines (affine_stride C:
+//      image n reads its own row in load_chan) there is no sum over the
+//      images: the block of chunk 0 of image n stores that image's S1, S2
+//      as dbias[n], dscale[n], and the last block has nothing to add.
 //   4. Pass 2 reads the item again backwards, the last-read lines first,
 //      while L2 still holds them (marked first to evict), and writes dx with
 //      streaming stores; 16-byte (f32) or 8-byte (bf16) accesses
@@ -127,14 +133,16 @@ struct Chan4 {
   float4 mu, iv, ga, be;
 };
 
+// Image n's statistics and affine for channels c..c+3: the affine row
+// n * affine_stride (0: one [C] affine for all images; C: [N, C]).
 __device__ __forceinline__ Chan4 load_chan(const float* mean, const float* inv,
-                                           const float* scale, const float* bias, int n,
-                                           int C, int c) {
+                                           const float* scale, const float* bias,
+                                           int affine_stride, int n, int C, int c) {
   Chan4 k;
   k.mu = load4(mean + (size_t)n * C + c);
   k.iv = load4(inv + (size_t)n * C + c);
-  k.ga = load4(scale + c);
-  k.be = load4(bias + c);
+  k.ga = load4(scale + (size_t)n * affine_stride + c);
+  k.be = load4(bias + (size_t)n * affine_stride + c);
   return k;
 }
 
@@ -218,8 +226,9 @@ template <typename T>
 __global__ void __launch_bounds__(NT, 2)
 inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
            const float* __restrict__ mean, const float* __restrict__ inv,
-           const float* __restrict__ scale, const float* __restrict__ bias, int N, int HW,
-           int C, int relu, int G, int chunk, float* __restrict__ part,
+           const float* __restrict__ scale, const float* __restrict__ bias,
+           int affine_stride, int N, int HW, int C, int relu, int G, int chunk,
+           float* __restrict__ part,
            float* __restrict__ dscale, float* __restrict__ dbias, T* __restrict__ dx) {
   __shared__ float4 sh1[NT];
   __shared__ float4 sh2[NT];
@@ -239,7 +248,7 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
     const int pb = t * chunk, pe = min(HW, pb + chunk);
     float4 s1 = make_float4(0.f, 0.f, 0.f, 0.f), s2 = s1;
     if (lane) {
-      const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
+      const Chan4 k = load_chan(mean, inv, scale, bias, affine_stride, n, C, c);
 #pragma unroll 4
       for (int p = pb + L.lp; p < pe; p += L.ppi) {
         const size_t off = ((size_t)n * HW + p) * C + c;
@@ -257,9 +266,11 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
 
   cg::this_grid().sync();
 
+  const bool per_image = affine_stride != 0;
   if (blockIdx.x == workers) {
-    // dscale and dbias: all N * G partials in one fixed order, while the
-    // other blocks write dx.
+    // dscale and dbias of a [C] affine: all N * G partials in one fixed
+    // order, while the other blocks write dx.
+    if (per_image) return;
     float4 db, ds;
     image_sums(part, 0, items, C, sh1, sh2, L, db, ds);
     if (threadIdx.x < L.C4) {
@@ -268,18 +279,26 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
     }
     return;
   }
-  if (dx == nullptr) return;
+  if (dx == nullptr && !per_image) return;
 
   // Pass 2: dx of each item from the image's sums, the item read again
   // backwards: the lines read last in pass 1 first, while L2 holds them.
+  // With [N, C] affines the block of an image's chunk 0 also stores the
+  // image's sums as its row of dbias and dscale.
   const float rhw = 1.f / (float)HW;
   for (int item = blockIdx.x; item < items; item += workers) {
     const int n = item / G, t = item - n * G;
+    if (dx == nullptr && t != 0) continue;  // the same for the whole block
     float4 a, b;
     image_sums(part, n, G, C, sh1, sh2, L, a, b);
+    if (per_image && t == 0 && threadIdx.x < L.C4) {
+      *reinterpret_cast<float4*>(dscale + (size_t)n * C + c) = b;
+      *reinterpret_cast<float4*>(dbias + (size_t)n * C + c) = a;
+    }
+    if (dx == nullptr) continue;
     const int pb = t * chunk, pe = min(HW, pb + chunk);
     if (!lane || pb + L.lp >= pe) continue;
-    const Chan4 k = load_chan(mean, inv, scale, bias, n, C, c);
+    const Chan4 k = load_chan(mean, inv, scale, bias, affine_stride, n, C, c);
     const int last = pb + L.lp + (pe - 1 - pb - L.lp) / L.ppi * L.ppi;
 #pragma unroll 4
     for (int p = last; p >= pb; p -= L.ppi) {
@@ -292,13 +311,15 @@ inb_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restri
 
 template <typename T>
 int launch(const void* x, const void* res, const void* g, const void* mean, const void* inv,
-           const void* scale, const void* bias, void* part, void* dscale, void* dbias, void* dx,
-           int N, int HW, int C, int relu, int grid, int G, int chunk, void* stream) {
+           const void* scale, const void* bias, int affine_stride, void* part, void* dscale,
+           void* dbias, void* dx, int N, int HW, int C, int relu, int grid, int G, int chunk,
+           void* stream) {
   // Four channels a thread, at least one pixel lane per channel group; a
   // chunk plan that covers every pixel of every image; a worker block and
   // the sums block.
   if (N < 1 || HW < 1 || C % 4 != 0 || C < 4 || C / 4 > NT || grid < 2 || G < 1 || chunk < 1 ||
-      (long long)G * chunk < HW || (long long)(G - 1) * chunk >= HW)
+      (long long)G * chunk < HW || (long long)(G - 1) * chunk >= HW ||
+      (affine_stride != 0 && affine_stride != C))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* xt = static_cast<const T*>(x);
   const T* rt = static_cast<const T*>(res);
@@ -311,7 +332,7 @@ int launch(const void* x, const void* res, const void* g, const void* mean, cons
   float* dsp = static_cast<float*>(dscale);
   float* dbp = static_cast<float*>(dbias);
   T* dxp = static_cast<T*>(dx);
-  void* args[] = {&xt, &rt, &gt, &mp,  &ip, &sp, &bp,  &N,   &HW,  &C,
+  void* args[] = {&xt, &rt, &gt, &mp, &ip, &sp, &bp, &affine_stride, &N, &HW, &C,
                   &relu, &G, &chunk, &pp, &dsp, &dbp, &dxp};
   // Refused (cudaErrorCooperativeLaunchTooLarge) when the grid exceeds the
   // blocks the device holds at once.
@@ -343,26 +364,27 @@ const char* stx_instance_norm_bwd_error_string(int err) {
 }
 
 // x, g, dx [N, H, W, C] (HW = H * W); res the same or NULL; mean/inv [N, C]
-// f32 from the forward; scale/bias [C] f32; part [N, G, 2, C] f32 scratch for
-// G chunks of `chunk` pixels per image (G * chunk >= HW > (G - 1) * chunk);
-// dscale/dbias [C] f32 outputs. dx NULL skips pass 2. C % 4 == 0, C <= 2048;
+// f32 from the forward; scale/bias f32, [C] (affine_stride 0) or [N, C]
+// (affine_stride C); part [N, G, 2, C] f32 scratch for G chunks of `chunk`
+// pixels per image (G * chunk >= HW > (G - 1) * chunk); dscale/dbias f32
+// outputs shaped as scale. dx NULL skips pass 2. C % 4 == 0, C <= 2048;
 // `grid` (the chunks' blocks and the sums block) at most the blocks that
 // stx_in_bwd_resident_f32 reports.
 int stx_in_bwd_f32(const void* x, const void* res, const void* g, const void* mean,
-                   const void* inv, const void* scale, const void* bias, void* part,
-                   void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu, int grid,
-                   int G, int chunk, void* stream) {
-  return launch<float>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N, HW, C,
-                       relu, grid, G, chunk, stream);
+                   const void* inv, const void* scale, const void* bias, int affine_stride,
+                   void* part, void* dscale, void* dbias, void* dx, int N, int HW, int C,
+                   int relu, int grid, int G, int chunk, void* stream) {
+  return launch<float>(x, res, g, mean, inv, scale, bias, affine_stride, part, dscale, dbias,
+                       dx, N, HW, C, relu, grid, G, chunk, stream);
 }
 
 // As stx_in_bwd_f32 with x, res, g and dx in bf16.
 int stx_in_bwd_bf16(const void* x, const void* res, const void* g, const void* mean,
-                    const void* inv, const void* scale, const void* bias, void* part,
-                    void* dscale, void* dbias, void* dx, int N, int HW, int C, int relu,
-                    int grid, int G, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, res, g, mean, inv, scale, bias, part, dscale, dbias, dx, N,
-                               HW, C, relu, grid, G, chunk, stream);
+                    const void* inv, const void* scale, const void* bias, int affine_stride,
+                    void* part, void* dscale, void* dbias, void* dx, int N, int HW, int C,
+                    int relu, int grid, int G, int chunk, void* stream) {
+  return launch<__nv_bfloat16>(x, res, g, mean, inv, scale, bias, affine_stride, part, dscale,
+                               dbias, dx, N, HW, C, relu, grid, G, chunk, stream);
 }
 
 // The blocks of each dtype's kernel that the current device holds at once:

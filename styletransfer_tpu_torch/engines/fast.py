@@ -15,17 +15,19 @@ kept: the loss every 20 steps (``data/fst_train_loss``), a preview every 50
 
 Inference: ``make_serve_fn`` (uint8 in, uint8 out, the normalize and
 denormalize steps on the device, the pad-early forward on the serving
-kernels), ``process_image`` and ``process_dir``. Inputs are decoded on the
-host with PIL and moved to the device as uint8.
+kernels), ``process_image``, ``process_dir`` and the stdin daemon
+``serve_loop`` (``fast_st serve``, on ``engines/daemon.py``). Inputs are
+decoded on the host with PIL and moved to the device as uint8.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from styletransfer_tpu_torch import ckpt, constants
 from styletransfer_tpu_torch.data import coco
+from styletransfer_tpu_torch.engines import daemon
 from styletransfer_tpu_torch.models import transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
 from styletransfer_tpu_torch.parallel import prefetch
@@ -92,6 +95,33 @@ def loss_fn(
                    "tv": tv}
 
 
+def make_step(objective: Callable, remat: bool = False) -> Callable:
+    """``train_step(params, optimizer, *inputs) -> metrics`` for
+    ``objective(params, *inputs) -> (total, metrics)``: one forward,
+    backward and Adam update, in place on ``params``. The metrics are
+    detached 0-d tensors on the device (reading one waits for the step).
+
+    ``remat=True`` checkpoints the objective (``torch.utils.checkpoint``):
+    the backward recomputes the forward's activations instead of keeping
+    them, about a third more work for much less memory. The recomputation
+    runs the instance-norm forward kernels a second time."""
+    layers.disable_tf32()
+
+    def train_step(params: transformer.TransformerNet, optimizer: torch.optim.Optimizer,
+                   *inputs) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad(set_to_none=True)
+        if remat:
+            total, metrics = torch_checkpoint.checkpoint(objective, params, *inputs,
+                                                         use_reentrant=False)
+        else:
+            total, metrics = objective(params, *inputs)
+        total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
 def make_train_step(
     vgg_params: vgg.Params,
     style_grams: Mapping[str, torch.Tensor],
@@ -100,33 +130,33 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
 ) -> Callable:
-    """``train_step(params, optimizer, batch) -> metrics``: one forward,
-    backward and Adam update, in place on ``params``. The metrics are
-    detached 0-d tensors on the device (reading one waits for the step).
-
-    ``remat=True`` checkpoints the loss (``torch.utils.checkpoint``): the
-    backward recomputes the forward's activations instead of keeping them,
-    about a third more work for much less memory. The recomputation runs the
-    instance-norm forward kernels a second time."""
-    layers.disable_tf32()
-
+    """``train_step(params, optimizer, batch) -> metrics`` on :func:`loss_fn`
+    (:func:`make_step`, with its ``remat``)."""
     def objective(params, batch):
         return loss_fn(params, batch, vgg_params, style_grams, style_weight, content_weight,
                        compute_dtype)
 
-    def train_step(params: transformer.TransformerNet, optimizer: torch.optim.Optimizer,
-                   batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad(set_to_none=True)
-        if remat:
-            total, metrics = torch_checkpoint.checkpoint(objective, params, batch,
-                                                         use_reentrant=False)
-        else:
-            total, metrics = objective(params, batch)
-        total.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+    return make_step(objective, remat)
 
-    return train_step
+
+def eval_loss(
+    vgg_params: vgg.Params,
+    transformed: torch.Tensor,
+    batch: torch.Tensor,
+    style_grams: Mapping[str, torch.Tensor],
+    style_weight: float,
+    feature_weight: float,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The eval objective of a stylized batch: style + feature loss, with
+    the reference's quirk of clamping the ImageNet-normalized output to [0,
+    255] (which only removes negatives) first. ``style_grams`` are [1, C, C]
+    or per image [B, C, C]."""
+    clamped = torch.clamp(transformed, 0.0, 255.0)
+    feats = vgg.extract_features(vgg_params, clamped, tuple(style_grams), compute_dtype)
+    s_loss = sum(losses.style_loss(feats[name], tgt) for name, tgt in style_grams.items())
+    f_loss = vgg.feature_loss(vgg_params, clamped, batch, compute_dtype=compute_dtype)
+    return style_weight * s_loss + feature_weight * f_loss
 
 
 def make_eval_step(
@@ -136,21 +166,16 @@ def make_eval_step(
     feature_weight: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
-    """``eval_step(params, batch) -> loss``: style + feature loss of the
-    stylized batch, with the reference's quirk of clamping the
-    ImageNet-normalized output to [0, 255] (which only removes negatives)
-    before the losses."""
+    """``eval_step(params, batch) -> loss``: :func:`eval_loss` of the
+    stylized batch."""
     layers.disable_tf32()
 
     @torch.no_grad()
     def eval_step(params: transformer.TransformerNet, batch: torch.Tensor) -> torch.Tensor:
         batch = img_utils.maybe_normalize_on_device(batch)
         transformed = transformer.apply_stacked(params, batch, compute_dtype)
-        clamped = torch.clamp(transformed, 0.0, 255.0)
-        feats = vgg.extract_features(vgg_params, clamped, tuple(style_grams), compute_dtype)
-        s_loss = sum(losses.style_loss(feats[name], tgt) for name, tgt in style_grams.items())
-        f_loss = vgg.feature_loss(vgg_params, clamped, batch, compute_dtype=compute_dtype)
-        return style_weight * s_loss + feature_weight * f_loss
+        return eval_loss(vgg_params, transformed, batch, style_grams, style_weight,
+                         feature_weight, compute_dtype)
 
     return eval_step
 
@@ -163,6 +188,126 @@ def static_test(params: transformer.TransformerNet, test_loader, eval_step: Call
     avg = float(np.mean(total)) if total else float("nan")
     get_logger().info("Average test loss: %.8f", avg)
     return avg
+
+
+def train_loop(
+    params: transformer.TransformerNet,
+    train_step: Callable,
+    test: Callable,
+    preview: Callable,
+    from_tree: Callable,
+    model_name: str,
+    style_name: str,
+    train_loader,
+    writer,
+    epochs: int,
+    batch_size: int,
+    log_cadence: Tuple[int, int, int],
+    models_path: Optional[str],
+    max_steps_per_epoch: Optional[int],
+    step_checkpoint_every: Optional[int],
+    device: torch.device,
+    start_message: str = "Starting epoch %d",
+) -> transformer.TransformerNet:
+    """The epoch loop that ``static_train`` and the multi-style ``train``
+    share; returns the trained parameters.
+
+    ``train_step(params, optimizer, batch) -> metrics``, ``test(params) ->
+    mean eval loss`` and ``preview(params, batch) -> (stylized, input)``
+    (normalized [1, H, W, 3] images) run at the cadences of ``log_cadence``
+    (loss, preview, eval: TensorBoard's ``data/fst_train_loss``,
+    ``data/fst_images``, ``data/fst_test_loss``); ``from_tree`` builds the
+    parameters from a saved tree. The reference's epoch-checkpoint contract:
+    an epoch whose checkpoint exists is skipped and its weights loaded (the
+    Adam state starts anew, as in the JAX trainers). With
+    ``step_checkpoint_every`` a step state (params, Adam state, epoch and
+    batch position) is also saved every N steps and after each epoch; a
+    restart resumes from it with the loader fast-forwarded, so no trained
+    batch is replayed."""
+    logger = get_logger()
+    scalar_every, image_every, eval_every = log_cadence
+    optimizer = make_optimizer(params)
+    iteration = 0
+    start_epoch = 0
+    resume_batches = 0
+    if step_checkpoint_every:
+        state = ckpt.load_step_state(model_name, style_name, models_path,
+                                     extra_keys=("batch_in_epoch",))
+        if state is not None:
+            params = from_tree(state["params"])
+            optimizer = make_optimizer(params)
+            ckpt.adam_state_from_tree(params, optimizer, state["opt_state"])
+            start_epoch = state["epoch"]
+            iteration = state["iteration"]
+            resume_batches = state["extra"]["batch_in_epoch"]
+            if resume_batches:
+                # Fast-forward the loader to where the stopped run was.
+                train_loader.set_position(start_epoch, resume_batches)
+            if start_epoch >= epochs:
+                logger.warning(
+                    "Step state is at epoch %d >= requested epochs %d: nothing to train. "
+                    "Delete %s to retrain from scratch.", start_epoch, epochs,
+                    ckpt.step_state_path(model_name, style_name, models_path))
+
+    for epoch in range(start_epoch, epochs):
+        done = ckpt.existing_checkpoint_path(model_name, style_name, epoch, models_path)
+        if done is not None:
+            # This epoch's own file: the latest overall could be a later one.
+            params = from_tree(ckpt.load(done))
+            optimizer = make_optimizer(params)
+            logger.info("Epoch %d checkpoint exists; skipping", epoch)
+            continue
+
+        logger.info(start_message, epoch)
+        t0 = time.time()
+        n_in_epoch = 0
+        epoch_offset = resume_batches if epoch == start_epoch else 0
+        resume_batches = 0
+        batches = prefetch.prefetch_to_device(train_loader, device)
+        try:
+            for batch in batches:
+                metrics = train_step(params, optimizer, batch)
+                if iteration % scalar_every == 0:
+                    total = float(metrics["total"])
+                    writer.add_scalar("data/fst_train_loss", total, iteration)
+                    logger.info("Batch Loss: %.8f", total)
+                if iteration % eval_every == 0:
+                    writer.add_scalar("data/fst_test_loss", test(params), iteration)
+                if iteration % image_every == 0:
+                    with torch.no_grad():
+                        stylized, preview_in = preview(params, batch, iteration)
+                    pair = img_utils.concat_images(
+                        img_utils.to_uint8(stylized.float().cpu().numpy()),
+                        img_utils.to_uint8(preview_in.float().cpu().numpy()),
+                        axis=1,
+                    )
+                    writer.add_image("data/fst_images", pair, iteration)
+                iteration += 1
+                n_in_epoch += 1
+                if step_checkpoint_every and iteration % step_checkpoint_every == 0:
+                    ckpt.save_step_state(
+                        params, ckpt.adam_state_to_tree(params, optimizer), epoch, iteration,
+                        model_name, style_name, models_path,
+                        extra={"batch_in_epoch": epoch_offset + n_in_epoch})
+                if max_steps_per_epoch and n_in_epoch >= max_steps_per_epoch:
+                    break
+        finally:
+            batches.close()
+
+        dt = time.time() - t0
+        if n_in_epoch:
+            logger.info("Epoch %d: %d steps in %.1fs (%.2f img/s)",
+                        epoch, n_in_epoch, dt, n_in_epoch * batch_size / dt)
+        ckpt.save_epoch(params, model_name, style_name, epoch, models_path)
+        if step_checkpoint_every:
+            # Keep the step state ahead of the epoch checkpoint, so a restart
+            # right after an epoch resumes with the current Adam moments.
+            ckpt.save_step_state(
+                params, ckpt.adam_state_to_tree(params, optimizer), epoch + 1, iteration,
+                model_name, style_name, models_path, extra={"batch_in_epoch": 0})
+
+    writer.close()
+    return params
 
 
 def static_train(
@@ -188,18 +333,12 @@ def static_train(
     """Train the fast transform net on ``style_image`` ([1, H, W, 3],
     normalized; numpy or tensor) and return the trained parameters.
 
-    Keeps the reference's epoch-checkpoint contract: an epoch whose
-    checkpoint exists is skipped and its weights loaded (the Adam state
-    starts anew, as in the JAX trainer). With ``step_checkpoint_every`` a
-    step state (params, Adam state, epoch and batch position) is also saved
-    every N steps and after each epoch; a restart resumes from it with the
-    loader fast-forwarded, so no trained batch is replayed.
-    ``precision="bf16"`` runs the activations of the transform net and VGG
-    in bf16; params, gradients, Adam state and loss reductions stay f32."""
-    logger = get_logger()
+    The epochs, checkpoints, step states and their resume are
+    :func:`train_loop`'s. ``precision="bf16"`` runs the activations of the
+    transform net and VGG in bf16; params, gradients, Adam state and loss
+    reductions stay f32."""
     dev = constants.resolve_device(device)
     compute_dtype = _compute_dtype(precision)
-    scalar_every, image_every, eval_every = log_cadence
     writer = tb.get_tensorboard_writer(runs_dir or os.path.join(
         constants.PROJECT_ROOT_PATH, constants.RUNS_PATH,
         f"fast-image-style-transfer-still-image_{style_name}"))
@@ -210,7 +349,6 @@ def static_train(
     style_grams = vgg.style_gram_targets(vgg_params, style)
     if params is None:
         params = transformer.init_params(seed, device=dev)
-    optimizer = make_optimizer(params)
     train_step = make_train_step(vgg_params, style_grams, style_weight, content_weight,
                                  compute_dtype)
     eval_step = make_eval_step(vgg_params, style_grams, style_weight,
@@ -218,91 +356,17 @@ def static_train(
     if train_loader is None or test_loader is None:
         test_loader, train_loader = coco.get_coco_loader(
             batch_size=batch_size, test_split=0.10, test_limit=20, seed=seed)
-    logger.info("Training fast_st with Adam on %s (%s)", dev, precision)
+    get_logger().info("Training fast_st with Adam on %s (%s)", dev, precision)
 
-    iteration = 0
-    start_epoch = 0
-    resume_batches = 0
-    if step_checkpoint_every:
-        state = ckpt.load_step_state(MODEL_NAME, style_name, models_path,
-                                     extra_keys=("batch_in_epoch",))
-        if state is not None:
-            params = transformer.params_from_jax(state["params"], device=dev)
-            optimizer = make_optimizer(params)
-            ckpt.adam_state_from_tree(params, optimizer, state["opt_state"])
-            start_epoch = state["epoch"]
-            iteration = state["iteration"]
-            resume_batches = state["extra"]["batch_in_epoch"]
-            if resume_batches:
-                # Fast-forward the loader to where the stopped run was.
-                train_loader.set_position(start_epoch, resume_batches)
-            if start_epoch >= epochs:
-                logger.warning(
-                    "Step state is at epoch %d >= requested epochs %d: nothing to train. "
-                    "Delete %s to retrain from scratch.", start_epoch, epochs,
-                    ckpt.step_state_path(MODEL_NAME, style_name, models_path))
+    def preview(params, batch, iteration):
+        preview_in = img_utils.maybe_normalize_on_device(batch[:1])
+        return transformer.apply_stacked(params, preview_in, compute_dtype), preview_in
 
-    for epoch in range(start_epoch, epochs):
-        done = ckpt.existing_checkpoint_path(MODEL_NAME, style_name, epoch, models_path)
-        if done is not None:
-            # This epoch's own file: the latest overall could be a later one.
-            params = transformer.params_from_jax(ckpt.load(done), device=dev)
-            optimizer = make_optimizer(params)
-            logger.info("Epoch %d checkpoint exists; skipping", epoch)
-            continue
-
-        logger.info("Starting epoch %d", epoch)
-        t0 = time.time()
-        n_in_epoch = 0
-        epoch_offset = resume_batches if epoch == start_epoch else 0
-        resume_batches = 0
-        batches = prefetch.prefetch_to_device(train_loader, dev)
-        try:
-            for batch in batches:
-                metrics = train_step(params, optimizer, batch)
-                if iteration % scalar_every == 0:
-                    total = float(metrics["total"])
-                    writer.add_scalar("data/fst_train_loss", total, iteration)
-                    logger.info("Batch Loss: %.8f", total)
-                if iteration % eval_every == 0:
-                    avg = static_test(params, test_loader, eval_step, dev)
-                    writer.add_scalar("data/fst_test_loss", avg, iteration)
-                if iteration % image_every == 0:
-                    with torch.no_grad():
-                        preview_in = img_utils.maybe_normalize_on_device(batch[:1])
-                        preview = transformer.apply_stacked(params, preview_in, compute_dtype)
-                    pair = img_utils.concat_images(
-                        img_utils.to_uint8(preview.float().cpu().numpy()),
-                        img_utils.to_uint8(preview_in.float().cpu().numpy()),
-                        axis=1,
-                    )
-                    writer.add_image("data/fst_images", pair, iteration)
-                iteration += 1
-                n_in_epoch += 1
-                if step_checkpoint_every and iteration % step_checkpoint_every == 0:
-                    ckpt.save_step_state(
-                        params, ckpt.adam_state_to_tree(params, optimizer), epoch, iteration,
-                        MODEL_NAME, style_name, models_path,
-                        extra={"batch_in_epoch": epoch_offset + n_in_epoch})
-                if max_steps_per_epoch and n_in_epoch >= max_steps_per_epoch:
-                    break
-        finally:
-            batches.close()
-
-        dt = time.time() - t0
-        if n_in_epoch:
-            logger.info("Epoch %d: %d steps in %.1fs (%.2f img/s)",
-                        epoch, n_in_epoch, dt, n_in_epoch * batch_size / dt)
-        ckpt.save_epoch(params, MODEL_NAME, style_name, epoch, models_path)
-        if step_checkpoint_every:
-            # Keep the step state ahead of the epoch checkpoint, so a restart
-            # right after an epoch resumes with the current Adam moments.
-            ckpt.save_step_state(
-                params, ckpt.adam_state_to_tree(params, optimizer), epoch + 1, iteration,
-                MODEL_NAME, style_name, models_path, extra={"batch_in_epoch": 0})
-
-    writer.close()
-    return params
+    return train_loop(
+        params, train_step, lambda p: static_test(p, test_loader, eval_step, dev), preview,
+        lambda tree: transformer.params_from_jax(tree, device=dev), MODEL_NAME, style_name,
+        train_loader, writer, epochs, batch_size, log_cadence, models_path,
+        max_steps_per_epoch, step_checkpoint_every, dev)
 
 
 def make_serve_fn(precision: str = "f32", pad_mode: str = "reflect") -> Callable:
@@ -431,3 +495,141 @@ def process_dir(
         len(out_paths), dt, len(out_paths) / dt if dt else 0.0, out_dir,
     )
     return out_paths
+
+
+def warm_buckets(serve: Callable, buckets: Sequence[int], batch_size: int, device,
+                 label: str) -> None:
+    """Run ``serve(batch_u8)`` once at every bucket's shape before READY, so
+    that the first request finds the kernels built and loaded."""
+    for s in buckets:
+        t0 = time.time()
+        serve(torch.zeros((batch_size, s, s, 3), dtype=torch.uint8, device=device)).cpu()
+        get_logger().info("%s: warmed the %dpx b%d forward in %.1fs", label, s, batch_size,
+                          time.time() - t0)
+    get_logger().info("%s: ready (buckets: %s)", label, list(buckets))
+
+
+def bucket_resolver(buckets: Sequence[int], size_field: int, shape: str) -> Callable:
+    """``resolve(fields) -> size``: the field-count contract (at most
+    ``size_field + 1`` fields, named by ``shape`` in the refusal) and the
+    optional SIZE field's bucket (absent or empty: the first bucket)."""
+    def resolve(fields) -> int:
+        if len(fields) > size_field + 1:
+            raise ValueError(f"expected {shape}, got {len(fields)} fields")
+        if len(fields) == size_field + 1 and fields[size_field]:
+            try:
+                s = int(fields[size_field])
+            except ValueError:
+                raise ValueError(f"SIZE must be an integer, got {fields[size_field]!r}")
+            if s not in buckets:
+                raise ValueError(f"size {s} not in serving buckets {list(buckets)}")
+            return s
+        return buckets[0]
+
+    return resolve
+
+
+def pad_group(arrays: List[np.ndarray], batch_size: int) -> np.ndarray:
+    """Stack a group's per-request arrays and pad it to ``batch_size`` with
+    copies of the last one: every device call has the warmed shape."""
+    out = np.stack(arrays)
+    pad = batch_size - len(arrays)
+    return np.concatenate([out, np.repeat(out[-1:], pad, axis=0)]) if pad else out
+
+
+def serve_loop(
+    style_name: str,
+    out_dir: str = "results/",
+    params: Optional[transformer.TransformerNet] = None,
+    models_path: Optional[str] = None,
+    size: Optional[int] = None,
+    precision: str = "f32",
+    pad_mode: str = "reflect",
+    batch_size: int = 1,
+    sizes: Optional[Sequence[int]] = None,
+    stdin=None,
+    stdout=None,
+    device=constants.DEFAULT_DEVICE,
+) -> int:
+    """Warm-process serving: the line-oriented stylization daemon of
+    ``fast_st serve``, with the JAX daemon's protocol (``engines/daemon.py``).
+
+    One request per line on ``stdin``, ``INPUT[\\tOUTPUT[\\tSIZE]]``:
+    stylize INPUT to OUTPUT (empty or absent:
+    ``{out_dir}/converted_fast_st_{style}_{stem}.png``) at the SIZE bucket
+    (absent: the first of ``sizes``, or ``size``, or 256). ``RELOAD`` swaps
+    in the latest checkpoint (``OK RELOAD epoch=<n>``; on failure ``ERR
+    RELOAD: <reason>`` and the old parameters keep serving); ``STATS``
+    answers the latency summary and ``device_rtt_ms``; a blank line or EOF
+    shuts down. ``READY`` is printed once every bucket's forward has run
+    once (which builds the kernels); then each request answers ``OK
+    <out_path>`` or ``ERR <input>: <reason>``, in request order. Returns the
+    number of requests served.
+
+    ``batch_size > 1`` batches dynamically: the requests already queued (up
+    to ``batch_size``) run as one device call per bucket present, padded to
+    ``batch_size``; a lone request keeps single-request latency.
+    """
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    dev = constants.resolve_device(device)
+    stdout = stdout if stdout is not None else sys.stdout
+    params = _load_params(params, style_name, models_path, dev)
+    serve_fn = make_serve_fn(precision, pad_mode)
+    buckets = daemon.normalize_buckets(sizes, size or constants.IMSIZE)
+    out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    # The served parameters live in a cell, so that RELOAD can swap them.
+    state = {"params": params}
+    warm_buckets(lambda b: serve_fn(state["params"], b), buckets, batch_size, dev, "serve")
+    print("READY", file=stdout, flush=True)
+    resolve_bucket = bucket_resolver(buckets, 2, "INPUT[\\tOUTPUT[\\tSIZE]]")
+
+    def reload():
+        new, epoch = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path,
+                                                  device=dev, template=state["params"])
+        state["params"] = new
+        return f"RELOAD epoch={epoch}"
+
+    def save_one(in_path, explicit_out, img):
+        stem = os.path.splitext(os.path.basename(in_path))[0]
+        out_file = daemon.resolve_out_path(
+            explicit_out, out_dir, f"converted_fast_st_{style_name}_{stem}.png")
+        img_utils.save_uint8(img, out_file)
+        return out_file
+
+    def load(in_path, bucket):
+        return img_utils.load_image_uint8(
+            os.path.join(constants.PROJECT_ROOT_PATH, in_path), size=bucket)
+
+    if batch_size == 1:
+        def handle(*fields):
+            bucket = resolve_bucket(fields)
+            in_u8 = torch.from_numpy(np.array(load(fields[0], bucket))).to(dev)
+            out_u8 = serve_fn(state["params"], in_u8).cpu().numpy()[0]
+            return save_one(fields[0], fields[1] if len(fields) > 1 else "", out_u8)
+
+        return daemon.run_request_loop(handle, stdin=stdin, stdout=stdout, name="serve",
+                                       commands={"RELOAD": reload}, device=dev)
+
+    def decode(i, fields):
+        try:
+            bucket = resolve_bucket(fields)
+            meta = (i, fields[0], fields[1] if len(fields) > 1 else "",
+                    load(fields[0], bucket)[0])
+            return i, bucket, meta, None
+        except Exception as exc:  # noqa: BLE001 - answered per request
+            return i, None, None, exc
+
+    def launch(bucket, metas):
+        arr = pad_group([m[3] for m in metas], batch_size)
+        return serve_fn(state["params"], torch.from_numpy(arr).to(dev))
+
+    def save(meta, img):
+        return save_one(meta[1], meta[2], img)
+
+    submit_segment = daemon.make_pooled_segment_submit(decode, launch, save)
+    return daemon.run_batched_request_loop(
+        None, batch_size, stdin=stdin, stdout=stdout, name="serve",
+        submit_batch=daemon.segmented_submit_batch(submit_segment, {"RELOAD": reload}),
+        device=dev)

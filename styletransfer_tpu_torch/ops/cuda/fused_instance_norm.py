@@ -17,12 +17,19 @@ fused_instance_norm`` (``_fused``, its custom VJP ``_fused_fwd`` /
   ``dscale = sum_n S2``, ``dbias = sum_n S1``. One cooperative launch per
   call on the grid that :func:`bwd_plan` names.
 
+The affines are [C], or [N, C] for one row per image (multi-style
+training, ``models/multistyle.py``): then each image normalizes with its own
+row, and ``dscale`` / ``dbias`` are [N, C], image n's S2 and S1, with no sum
+over the images (the gather of the rows from the styles' [S, C] parameters
+adds them per style).
+
 Both kernels are bound by bytes; their source headers say what the designs
 do about it. :func:`fused_instance_norm` is the differentiable entry point
 (a ``torch.autograd.Function``). On CPU tensors it computes the plain
 versions beside it (:func:`forward_plain`, :func:`backward_plain`); on CUDA
 tensors it launches the kernels or raises. ``fwd_launches`` and
-``bwd_launches`` count the kernels' launches.
+``bwd_launches`` count the kernels' launches, ``fwd_per_image_launches``
+and ``bwd_per_image_launches`` those among them with [N, C] affines.
 """
 
 from __future__ import annotations
@@ -37,9 +44,12 @@ import torch
 from styletransfer_tpu_torch.ops.cuda import _build, check_cuda_inputs
 from styletransfer_tpu_torch.ops.cuda import instance_norm as _in_pad
 
-# Kernel launches since the counters were last set to 0.
+# Kernel launches since the counters were last set to 0; the per_image
+# counters count the launches among them with [N, C] affines.
 fwd_launches = 0
 bwd_launches = 0
+fwd_per_image_launches = 0
+bwd_per_image_launches = 0
 
 EPS = _in_pad.EPS
 # The backward's chunks: at least this many elements of x per block, so that
@@ -95,6 +105,12 @@ def bwd_plan(N: int, H: int, W: int, C: int, resident: int) -> BwdPlan:
     return BwdPlan(min(N * G, resident - 1) + 1, G, chunk, (N, G, 2, C))
 
 
+def _per_pixel(t: torch.Tensor) -> torch.Tensor:
+    """A [C] affine as it is, an [N, C] one as [N, 1, 1, C]: either
+    broadcasts over [N, H, W, C]."""
+    return t if t.dim() == 1 else t[:, None, None, :]
+
+
 def forward_plain(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -103,13 +119,14 @@ def forward_plain(
     relu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward, ``_xla_reference``'s arithmetic: s = x +
-    residual in f32, the exact centered variance, the affine and ReLU in f32,
-    then the cast to ``x.dtype``. Returns ``(out, mean, inv)``, the
-    statistics [N, C] f32."""
+    residual in f32, the exact centered variance, the affine ([C] or [N, C])
+    and ReLU in f32, then the cast to ``x.dtype``. Returns ``(out, mean,
+    inv)``, the statistics [N, C] f32."""
     s = _sum(x, residual)
     mean = s.mean(dim=(1, 2))
     var = (s - mean[:, None, None, :]).square().mean(dim=(1, 2))
     inv = torch.rsqrt(var + EPS)
+    scale, bias = _per_pixel(scale), _per_pixel(bias)
     out = (s - mean[:, None, None, :]) * inv[:, None, None, :] * scale + bias
     if relu:
         out = torch.relu(out)
@@ -127,8 +144,11 @@ def backward_plain(
     relu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward, the closed form in the module docstring.
-    Returns ``(dx, dscale, dbias)``: dx in ``x.dtype``, the others f32."""
+    Returns ``(dx, dscale, dbias)``: dx in ``x.dtype``, the others f32 and
+    shaped as ``scale`` ([C]: summed over the images; [N, C]: per image)."""
+    per_image = scale.dim() == 2
     mu, iv = mean[:, None, None, :], inv[:, None, None, :]
+    scale, bias = _per_pixel(scale), _per_pixel(bias)
     xhat = (_sum(x, residual) - mu) * iv
     gm = _wide(g)
     if relu:
@@ -137,18 +157,9 @@ def backward_plain(
     s2 = (gm * xhat).sum(dim=(1, 2))
     rhw = 1.0 / (x.shape[1] * x.shape[2])
     dx = iv * scale * (gm - s1[:, None, None, :] * rhw - xhat * (s2[:, None, None, :] * rhw))
+    if per_image:
+        return dx.to(x.dtype), s2, s1
     return dx.to(x.dtype), s2.sum(dim=0), s1.sum(dim=0)
-
-
-def _check(x, scale, bias, residual) -> None:
-    """IN-pad's checks, and [C] affines only: the backward kernel adds
-    dscale and dbias over the images, so a per-image [N, C] affine (which
-    the forward kernel would take) has no gradient here yet."""
-    _in_pad.check(x, scale, bias, residual)
-    if scale.dim() != 1:
-        raise NotImplementedError(
-            "fused_instance_norm takes [C] affines: per-image [N, C] affines need a "
-            "[N, C] dscale / dbias from the backward (multi-style training is not ported)")
 
 
 def forward(
@@ -160,13 +171,14 @@ def forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(out, mean, inv)``: the forward kernel on CUDA tensors, the plain
     version on CPU tensors. ``x`` [N, H, W, C] f32 or bf16, ``residual`` the
-    same shape and dtype or None, ``scale``/``bias`` [C] f32."""
-    _check(x, scale, bias, residual)
+    same shape and dtype or None, ``scale``/``bias`` [C] or [N, C] f32."""
+    _in_pad.check(x, scale, bias, residual)
     if x.device.type == "cpu":
         return forward_plain(x, scale, bias, residual, relu)
-    global fwd_launches
+    global fwd_launches, fwd_per_image_launches
     out, mean_inv = _in_pad.launch(x, scale, bias, residual, 0, True, relu, 0, "reflect", None)
     fwd_launches += 1
+    fwd_per_image_launches += scale.dim() == 2
     return out, mean_inv[0], mean_inv[1]
 
 
@@ -183,8 +195,9 @@ def backward(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """``(dx, dscale, dbias)`` from the forward's saved inputs and
     statistics: the backward kernel on CUDA tensors, the plain version on
-    CPU tensors. ``need_dx=False`` skips the dx pass (dx is None)."""
-    _check(x, scale, bias, residual)
+    CPU tensors. ``need_dx=False`` skips the dx pass (dx is None).
+    ``dscale`` and ``dbias`` are shaped as ``scale``."""
+    _in_pad.check(x, scale, bias, residual)
     N, H, W, C = x.shape
     if tuple(g.shape) != tuple(x.shape) or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {tuple(x.shape)}, got {g.dtype} {tuple(g.shape)}")
@@ -196,19 +209,20 @@ def backward(
         return (dx if need_dx else None), dscale, dbias
     extra = [] if residual is None else [residual]
     check_cuda_inputs(x, g, mean, inv, scale, bias, *extra)
-    global bwd_launches
+    global bwd_launches, bwd_per_image_launches
     lib = _library()
     dev = x.device
     plan = bwd_plan(N, H, W, C, _resident(dev, x.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     part = _scratch(plan, dev, stream)
-    dsb = torch.empty((2, C), dtype=torch.float32, device=dev)
+    dsb = torch.empty((2, *scale.shape), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     fn = lib.stx_in_bwd_f32 if x.dtype == torch.float32 else lib.stx_in_bwd_bf16
     with torch.cuda.device(dev):  # the library launches on the current device
         err = fn(
             x.data_ptr(), None if residual is None else residual.data_ptr(), g.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), part,
+            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            C if scale.dim() == 2 else 0, part,
             dsb[0].data_ptr(), dsb[1].data_ptr(), None if dx is None else dx.data_ptr(),
             N, H * W, C, int(relu), plan.blocks, plan.image_chunks, plan.chunk, stream,
         )
@@ -218,6 +232,7 @@ def backward(
             f"{lib.stx_instance_norm_bwd_error_string(err).decode()}"
         )
     bwd_launches += 1
+    bwd_per_image_launches += scale.dim() == 2
     return dx, dsb[0], dsb[1]
 
 
@@ -292,8 +307,9 @@ def fused_instance_norm(
 ) -> torch.Tensor:
     """Differentiable ``IN(x + residual)`` (+ReLU) over the spatial dims of
     NHWC ``x`` (f32 or bf16; ``residual`` the same shape and dtype),
-    ``scale``/``bias`` [C] f32. Output in ``x.dtype``; gradients for x,
-    residual (the same tensor as x's), scale and bias."""
+    ``scale``/``bias`` [C] f32, or [N, C] f32 for an affine per image.
+    Output in ``x.dtype``; gradients for x, residual (the same tensor as
+    x's), scale and bias (shaped as they are)."""
     return _FusedInstanceNorm.apply(x, scale, bias, residual, relu)
 
 
@@ -302,7 +318,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_stx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stx_in_bwd_f32, lib.stx_in_bwd_bf16):
-            fn.argtypes = [p] * 11 + [i] * 7 + [p]
+            fn.argtypes = [p] * 7 + [i] + [p] * 4 + [i] * 7 + [p]
             fn.restype = i
         for fn in (lib.stx_in_bwd_resident_f32, lib.stx_in_bwd_resident_bf16):
             fn.argtypes = [p]

@@ -397,6 +397,80 @@ def test_fused_instance_norm_backward_with_few_workers(cuda, resident):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,with_res,relu", [c for c in _FUSED_CASES] + [
+    (s, r, not r) for s in _TRAIN_SHAPES for r in (False, True)])
+def test_fused_instance_norm_kernels_take_per_image_affines(cuda, dtype, shape, with_res, relu):
+    # [N, C] affines, rows drawn apart: the forward and the backward against
+    # their plain versions, dscale and dbias [N, C] (per image, sums over H x
+    # W in another order) within 1e-5 of their largest value, one launch per
+    # call, bit-identical on repeat and without the dx pass; with every row
+    # equal, dx is bit for bit the [C] call's.
+    N, C = shape[0], shape[3]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    res = torch.randn(*shape, device=cuda, generator=g).to(dtype) if with_res else None
+    scale = torch.rand(N, C, device=cuda, generator=g) + 0.5
+    bias = torch.randn(N, C, device=cuda, generator=g)
+    gy = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    fin = fused_instance_norm
+    before = fin.fwd_launches, fin.bwd_launches
+    out, mean, inv = fin.forward(x, scale, bias, res, relu)
+    first = fin.backward(gy, x, res, mean, inv, scale, bias, relu)
+    again = fin.backward(gy, x, res, mean, inv, scale, bias, relu)
+    sums_only = fin.backward(gy, x, res, mean, inv, scale, bias, relu, need_dx=False)
+    torch.cuda.synchronize()
+    assert (fin.fwd_launches - before[0], fin.bwd_launches - before[1]) == (1, 3)
+    pout, _, _ = fin.forward_plain(x, scale, bias, res, relu)
+    _close(out, pout, dtype)
+    pdx, pdscale, pdbias = fin.backward_plain(gy, x, res, mean, inv, scale, bias, relu)
+    assert first[1].shape == first[2].shape == (N, C)
+    _close(first[0], pdx, dtype)
+    assert _rel_to_max(first[1], pdscale) <= 1e-5 and _rel_to_max(first[2], pdbias) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert sums_only[0] is None
+    assert torch.equal(sums_only[1], first[1]) and torch.equal(sums_only[2], first[2])
+    rows = scale[-1].expand(N, C).contiguous(), bias[-1].expand(N, C).contiguous()
+    shared = fin.backward(gy, x, res, mean, inv, scale[-1], bias[-1], relu)
+    per_row = fin.backward(gy, x, res, mean, inv, *rows, relu)
+    assert torch.equal(shared[0], per_row[0])
+    assert _rel_to_max(per_row[1].sum(0), shared[1]) <= 1e-5
+
+
+def test_multistyle_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 multi-style loss and gradient at 64 px, batch 2 (style 1 of 3
+    not drawn): the card against the CPU within the training parity limits
+    (losses 1e-5 relative, gradients 1e-3 relative L2); the undrawn style's
+    rows get exactly 0 on both."""
+    from styletransfer_tpu_torch.engines import multistyle as engine
+    from styletransfer_tpu_torch.models import multistyle, vgg
+
+    rng = np.random.default_rng(12)
+    styles = torch.from_numpy(rng.standard_normal((3, 64, 64, 3)).astype(np.float32) * 0.5)
+    batch = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32))
+    params = multistyle.init_params(seed=2, num_styles=3, device="cpu")
+    idx = np.array([2, 0])
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = multistyle.params_from_jax(transformer.params_to_tree(params), device=dev)
+        v = vgg.init_params(seed=0, device=dev)
+        grams = engine.stack_style_grams(v, styles.to(dev))
+        total, metrics = engine.multistyle_loss(p, batch.to(dev), idx, v, grams, 1e5, 1.0)
+        total.backward()
+        runs[str(dev)] = ({k: float(m) for k, m in metrics.items()},
+                          {n: q.grad.cpu() for n, q in p.named_parameters()})
+    (mc, gc), (mg, gg) = runs["cpu"], runs["cuda"]
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]), k
+    scale = max(float(g.norm()) for g in gc.values())
+    for name, g in gc.items():
+        if g.dim() == 2:
+            assert not gg[name][1].any() and not g[1].any(), name
+        if float(g.norm()) < 1e-6 * scale:
+            continue  # a bias that a norm cancels: rounding noise on both
+        assert float((gg[name] - g).norm()) <= 1e-3 * float(g.norm()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_instance_norm_gradients_on_the_card_match_the_cpu(cuda, dtype):
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32)).to(dtype)

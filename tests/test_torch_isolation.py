@@ -65,6 +65,7 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch.engines.multistyle\n"
         "import styletransfer_tpu_torch.models.multistyle\n"
         "import styletransfer_tpu_torch.ops.cuda.conv_direct\n"
+        "import styletransfer_tpu_torch.engines.daemon, styletransfer_tpu_torch.clis.common\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
@@ -160,4 +161,26 @@ def test_multistyle_entry_points_raise_without_a_gpu(no_gpu, tmp_path, monkeypat
                                       "--num-styles", "2"])
     assert result.exit_code != 0
     assert "no CUDA GPU" in str(result.exception)
+    assert os.listdir(tmp_path) == []
+
+
+def test_training_and_serving_entry_points_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.engines import multistyle as engine
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        engine.train(None)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        fast.serve_loop("tst")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        engine.serve_loop("duo", num_styles=2)
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    for args in (["train-multi", "a.png", "b.png", "-e", "1"], ["serve", "tst"],
+                 ["serve-multi", "duo", "--num-styles", "2"]):
+        result = CliRunner().invoke(cli, ["fast_st", *args], input="img.png\n\n")
+        assert result.exit_code != 0
+        assert "no CUDA GPU" in str(result.exception), args
+        assert "READY" not in result.output
     assert os.listdir(tmp_path) == []

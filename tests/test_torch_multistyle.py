@@ -203,19 +203,31 @@ def test_instance_norm_pad_plain_per_image_affines_are_each_image_alone(mode, pa
 
 
 def test_per_image_affines_are_checked_and_refused_by_the_training_kernels():
+    """Malformed per-image affines are refused by IN-pad and by both
+    training kernels (the fused-IN forward and backward); [N, C] affines,
+    one row per image, are taken by both training kernels, whose gradients
+    are then [N, C] as well."""
     x = torch.randn(2, 4, 4, 8)
+    mean_inv = torch.zeros(2, 8)
     for bad in (torch.ones(3, 8), torch.ones(2, 4), torch.ones(8, 2)):
         with pytest.raises(ValueError, match="scale must be"):
             instance_norm.instance_norm_pad(x, bad, bad.clone())
+        with pytest.raises(ValueError, match="scale must be"):
+            fused_instance_norm.fused_instance_norm(x, bad, bad.clone())
+        with pytest.raises(ValueError, match="scale must be"):
+            fused_instance_norm.backward(x, x, None, mean_inv, mean_inv, bad, bad.clone())
     with pytest.raises(ValueError, match="differ"):
         instance_norm.instance_norm_pad(x, torch.ones(2, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="differ"):
+        fused_instance_norm.fused_instance_norm(x, torch.ones(2, 8), torch.zeros(8))
     scale = torch.ones(2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"\[N, C\] dscale"):
-        fused_instance_norm.fused_instance_norm(x, scale, torch.zeros(2, 8))
-    mean_inv = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="multi-style training"):
-        fused_instance_norm.backward(x, x, None, mean_inv, mean_inv, scale.detach(),
-                                     torch.zeros(2, 8))
+    bias = torch.zeros(2, 8, requires_grad=True)
+    fused_instance_norm.fused_instance_norm(x, scale, bias, relu=True).square().sum().backward()
+    assert scale.grad.shape == bias.grad.shape == (2, 8)
+    _, mean, inv = fused_instance_norm.forward(x, scale.detach(), bias.detach())
+    dx, dscale, dbias = fused_instance_norm.backward(x, x, None, mean, inv, scale.detach(),
+                                                     bias.detach())
+    assert dx.shape == x.shape and dscale.shape == dbias.shape == (2, 8)
 
 
 @pytest.fixture
