@@ -7,6 +7,7 @@
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
     python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
     python3 chip_smoke.py --multi       # phases 1-2, [N, C] fused IN, train-multi, daemons
+    python3 chip_smoke.py --serve       # phases 1-2, the network transports, video / Gatys daemons
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -122,9 +123,28 @@ It imports nothing of JAX. Phases:
    f32 and bf16, and ``serve-multi`` from the trained checkpoint with
    indices and blends mixed (launches, PNGs against the port's CPU
    forward, requests/s);
-11. print one JSON line with each kernel's error, launches and times (and
-   each kernel's launches on the video-slice paths, on train-multi and in
-   the daemons), and as the last line ``{"ok": true, "device": {...}}``.
+11. the network transports and the other two daemons (also alone with
+   ``--serve``): ``fast_st serve`` at batch 8 on 64 requests of 256 px, f32
+   and bf16, on scripted stdin, over ``--tcp`` (two socket clients
+   pipelining 32 requests each; a goodbye, then SHUTDOWN) and over
+   ``--http`` (four client threads POSTing PNG bodies after /healthz
+   opens; /metrics with the device RTT gauge; POST /shutdown): every answer
+   OK, the first two against the port's CPU forward, 10 conv3x3 and 15
+   IN-pad launches per forward, requests/s side by side; ``video_st serve``
+   (f32 and bf16, reflect and zeros, at batch 4 and 1): four streams of 12
+   frames interleaved, one reset after 6, every stream's PNGs exactly
+   (0/255) ``stylize_clip`` of its frames on the card, 6 conv_direct and the
+   forward's kernels per forward, no cuDNN conv, frames/s; ``gatys_st
+   --serve`` (256 px, 5 L-BFGS steps, H 16, f32 and bf16): four requests
+   mixing two styles and a blend at batch 4 and at batch 1, finite losses,
+   each lane's first closure within GATYS_LANE_FIRST_RTOL of the request
+   alone (the final losses' spread printed),
+   1 conv3x3_im2col and 9 conv3x3_flat per closure, no cuDNN conv, seconds
+   per request;
+12. print one JSON line with each kernel's error, launches and times (and
+   each kernel's launches on the video-slice paths, on train-multi, in the
+   stdin daemons and in the network slice's daemons), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -2659,6 +2679,546 @@ def multistyle_slice(torch, np, in_dir):
     return train, daemon_launches, daemon_rates
 
 
+# The network transports and the other two daemons: fast_st serve over TCP
+# and HTTP at DAEMON_BATCH (DAEMON_REQUESTS requests from NET_CLIENTS socket
+# clients, HTTP_CLIENTS HTTP clients); video_st serve with STREAMS streams of
+# STREAM_FRAMES frames, interleaved, at STREAM_BATCHES, one stream reset
+# after RESET_AT of its frames; gatys_st --serve on GATYS_REQUESTS requests
+# of GATYS_SIZE px (two styles and a blend), GATYS_SERVE_STEPS steps, H 16,
+# at batch GATYS_REQUESTS and 1.
+NET_CLIENTS = 2
+HTTP_CLIENTS = 4
+STREAMS = 4
+STREAM_FRAMES = 12
+STREAM_BATCHES = (4, 1)
+RESET_AT = 6
+GATYS_REQUESTS = 4
+GATYS_SERVE_STEPS = 5
+GATYS_SERVE_HISTORY = 16
+# A lane of a Gatys group against the same request served alone: the loss of
+# the first closure, the same computation summed in another order (the Gram's
+# torch.bmm; in bf16 the activations round after those sums), within these
+# relative distances. Later steps are not held: L-BFGS's compact history
+# forms its products with torch.bmm, whose sums follow the number of lanes,
+# and the trajectory carries such a difference on (on the CPU at 32 px the
+# final losses of 5 steps end up to 4e-2 apart; tests/test_torch_gatys_serve.py
+# holds lanes exactly with adam and the two-loop history). The spread of the
+# final losses and PNGs is printed.
+GATYS_LANE_FIRST_RTOL = {"f32": 1e-4, "bf16": 1e-2}
+NET_TIMEOUT_S = 300
+
+
+def _client_thread(fn, *args):
+    """Run a client in a daemon thread; errors are kept for the check."""
+    import threading
+
+    box = {}
+
+    def target():
+        try:
+            box["result"] = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 - reported by the caller
+            box["error"] = exc
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    return th, box
+
+
+def _joined(threads, label):
+    for th, _ in threads:
+        th.join(NET_TIMEOUT_S)
+    errors = [repr(box.get("error")) for th, box in threads if th.is_alive() or "error" in box]
+    check(not errors, f"{label}: every client ended without an error ({errors})")
+    return [box["result"] for _, box in threads]
+
+
+def _stopper(clients, stop):
+    """After the clients end (or time out), make sure the daemon stops: a
+    client that failed before its SHUTDOWN must not leave the engine loop,
+    and with it this script, waiting for good."""
+    def run():
+        for th, _ in clients:
+            th.join(NET_TIMEOUT_S)
+        if not stop["done"]:
+            stop["fn"]()
+    return _client_thread(run)
+
+
+def tcp_daemon(torch, np, in_dir, names, models, precision):
+    """fast_st serve --tcp in process: the engine on this thread (every CUDA
+    call stays here), NET_CLIENTS socket clients on threads, each pipelining
+    its share of the requests. The first client says goodbye, the second
+    SHUTDOWN. Returns (answers by client, the seconds from the first READY
+    to the last answer, launch counts)."""
+    import socket
+    import threading
+
+    from styletransfer_tpu_torch.engines import fast, netserve
+
+    share = DAEMON_REQUESTS // NET_CLIENTS
+    marks = {}
+    goodbye = threading.Event()
+
+    def connect(port):
+        s = socket.create_connection(("127.0.0.1", port), timeout=NET_TIMEOUT_S)
+        s.settimeout(NET_TIMEOUT_S)
+        return s, s.makefile("r", encoding="utf-8")
+
+    def client(k, port):
+        s, r = connect(port)
+        assert r.readline().strip() == "READY"
+        marks.setdefault("ready", time.perf_counter())
+        mine = names[k * share:(k + 1) * share]
+        s.sendall("".join(f"{os.path.join(in_dir, n)}\ttcp_{precision}/{n}\n"
+                          for n in mine).encode())
+        answers = [r.readline().strip() for _ in mine]
+        marks[k] = time.perf_counter()
+        if k == 0:
+            s.sendall(b"\n")
+            answers.append(r.readline())  # the goodbye closes this connection: EOF
+            goodbye.set()
+        else:
+            assert goodbye.wait(NET_TIMEOUT_S)
+            s.sendall(b"SHUTDOWN\n")
+            answers.append(r.readline().strip())
+        s.close()
+        return answers
+
+    threads, stop = [], {"done": False}
+
+    def on_listen(port):
+        threads.extend(_client_thread(client, k, port) for k in range(NET_CLIENTS))
+        stop["fn"] = lambda: connect(port)[0].sendall(b"SHUTDOWN\n")
+        threads.append(_stopper(threads[:NET_CLIENTS], stop))
+
+    out = _Stamped()
+    reset_counts()
+    try:
+        n = netserve.serve_over_tcp(
+            lambda i, o: fast.serve_loop("smoke", out_dir="unused/", models_path=models,
+                                         size=SIZE, precision=precision,
+                                         batch_size=DAEMON_BATCH, stdin=i, stdout=o,
+                                         device="cuda"),
+            stdout=out, name="smoke-tcp", _on_listen=on_listen)
+    finally:
+        stop["done"] = True
+    torch.cuda.synchronize()
+    counts = read_counts()
+    answers = _joined(threads[:NET_CLIENTS], f"fast_st serve --tcp {precision}")
+    check(n == DAEMON_REQUESTS and out.lines[0].startswith("TCP 127.0.0.1 ")
+          and out.lines[1] == "READY",
+          f"fast_st serve --tcp {precision}: 'TCP <host> <port>' and READY on stdout, "
+          f"{n} requests served (want {DAEMON_REQUESTS})")
+    return answers, max(marks[k] for k in range(NET_CLIENTS)) - marks["ready"], counts
+
+
+def http_daemon(torch, np, in_dir, names, models, precision):
+    """fast_st serve --http in process: HTTP_CLIENTS threads POST PNG bodies
+    to /v1/stylize once /healthz answers 200; then /metrics (with the device
+    RTT gauge) and POST /shutdown. Returns (PNG bodies in request order,
+    seconds from READY to the last answer, launch counts)."""
+    import urllib.error
+    import urllib.request
+
+    from styletransfer_tpu_torch.engines import fast, httpserve
+
+    share = DAEMON_REQUESTS // HTTP_CLIENTS
+    marks = {}
+
+    def client(k, base):
+        deadline = time.perf_counter() + NET_TIMEOUT_S
+        while True:  # /healthz answers 503 until the engine printed READY
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=NET_TIMEOUT_S) as r:
+                    if r.status == 200:
+                        break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503 and time.perf_counter() < deadline
+            time.sleep(0.01)
+        marks.setdefault("ready", time.perf_counter())
+        bodies = []
+        for n in names[k * share:(k + 1) * share]:
+            with open(os.path.join(in_dir, n), "rb") as f:
+                req = urllib.request.Request(base + "/v1/stylize", data=f.read(), method="POST")
+            with urllib.request.urlopen(req, timeout=NET_TIMEOUT_S) as r:
+                assert r.status == 200 and r.headers["Content-Type"] == "image/png"
+                bodies.append(r.read())
+        marks[k] = time.perf_counter()
+        return bodies
+
+    def shutdown(base):
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/shutdown", data=b"", method="POST"), timeout=NET_TIMEOUT_S) as r:
+            assert r.status == 200
+
+    threads, stop = [], {"done": False}
+
+    def on_listen(port):
+        base = f"http://127.0.0.1:{port}"
+        threads.extend(_client_thread(client, k, base) for k in range(HTTP_CLIENTS))
+
+        def metrics_then_shutdown():
+            for th, _ in threads[:HTTP_CLIENTS]:
+                th.join(NET_TIMEOUT_S)
+            try:
+                with urllib.request.urlopen(base + "/metrics", timeout=NET_TIMEOUT_S) as r:
+                    return r.read().decode()
+            finally:
+                shutdown(base)
+        threads.append(_client_thread(metrics_then_shutdown))
+        stop["fn"] = lambda: shutdown(base)
+        threads.append(_stopper(threads[:HTTP_CLIENTS + 1], stop))
+
+    out = _Stamped()
+    reset_counts()
+    try:
+        n = httpserve.serve_over_http(
+            lambda i, o: fast.serve_loop("smoke", out_dir="unused/", models_path=models,
+                                         size=SIZE, precision=precision,
+                                         batch_size=DAEMON_BATCH, stdin=i, stdout=o,
+                                         device="cuda"),
+            kind="fast", stdout=out, name="smoke-http", _on_listen=on_listen)
+    finally:
+        stop["done"] = True
+    torch.cuda.synchronize()
+    counts = read_counts()
+    results = _joined(threads[:HTTP_CLIENTS + 1], f"fast_st serve --http {precision}")
+    metrics = results[-1]
+    rtt = re.search(r'styletransfer_device_rtt_seconds\{daemon="smoke-http"\} ([0-9.]+)',
+                    metrics)
+    check(n == DAEMON_REQUESTS and out.lines[0].startswith("HTTP 127.0.0.1 ")
+          and out.lines[1] == "READY" and rtt is not None
+          and f'outcome="ok"}} {DAEMON_REQUESTS}' in metrics,
+          f"fast_st serve --http {precision}: {n} requests served, /healthz opened at READY, "
+          f"/metrics with {DAEMON_REQUESTS} ok and the device RTT gauge "
+          f"({rtt.group(1) if rtt else None} s)")
+    bodies = [b for r in results[:-1] for b in r]
+    return bodies, max(marks[k] for k in range(HTTP_CLIENTS)) - marks["ready"], counts
+
+
+def transport_path(torch, np, in_dir):
+    """fast_st serve over TCP and HTTP at batch DAEMON_BATCH, f32 and bf16,
+    beside the stdin daemon on the same requests in the same run: every
+    answer OK, the first DAEMON_CHECKED within MAIN_TOL of the port's CPU
+    forward, 10 conv3x3 and 15 IN-pad launches per forward. Returns
+    (launches by (transport, precision), requests/s)."""
+    import io as io_mod
+
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, constants
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.utils import images
+
+    root = os.path.join(WORK, "net")
+    models = os.path.join(root, "data", "models")
+    ckpt.save(transformer.init_params(seed=7, device="cpu"),
+              ckpt.checkpoint_path("fast_st", "smoke", 0, models))
+    cpu_params, _ = ckpt.load_latest_transformer("fast_st", "smoke", models, device="cpu")
+    names = sorted(os.listdir(in_dir))[:DAEMON_REQUESTS]
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    launches, rates = {}, {}
+    try:
+        for precision in ("f32", "bf16"):
+            serve_cpu = fast.make_serve_fn(precision)
+            want = {n: serve_cpu(cpu_params, torch.from_numpy(np.array(images.load_image_uint8(
+                os.path.join(in_dir, n), size=SIZE)))).numpy()[0]
+                for n in names[:DAEMON_CHECKED]}
+            for transport in ("stdin", "tcp", "http"):
+                if transport == "stdin":
+                    lines = [f"{os.path.join(in_dir, n)}\tstdin_{precision}/{n}" for n in names]
+                    reset_counts()
+                    _, out = _drive(fast.serve_loop, lines, style_name="smoke",
+                                    out_dir="unused/", models_path=models, size=SIZE,
+                                    precision=precision, batch_size=DAEMON_BATCH, device="cuda")
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    answers, seconds = out.lines[1:], out.last - out.ready
+                    ok = answers == [f"OK {root}/stdin_{precision}/{n}" for n in names]
+                    got = {n: np.asarray(Image.open(f"{root}/stdin_{precision}/{n}"))
+                           for n in names[:DAEMON_CHECKED]}
+                elif transport == "tcp":
+                    answers, seconds, counts = tcp_daemon(torch, np, in_dir, names, models,
+                                                          precision)
+                    share = DAEMON_REQUESTS // NET_CLIENTS
+                    ok = all(a[:share] == [f"OK {root}/tcp_{precision}/{n}" for n in
+                                           names[k * share:(k + 1) * share]]
+                             for k, a in enumerate(answers))
+                    ok = ok and answers[0][-1] == "" and answers[1][-1] == "OK SHUTDOWN"
+                    got = {n: np.asarray(Image.open(f"{root}/tcp_{precision}/{n}"))
+                           for n in names[:DAEMON_CHECKED]}
+                else:
+                    bodies, seconds, counts = http_daemon(torch, np, in_dir, names, models,
+                                                          precision)
+                    ok = len(bodies) == DAEMON_REQUESTS
+                    got = {n: np.asarray(Image.open(io_mod.BytesIO(b)))
+                           for n, b in zip(names[:DAEMON_CHECKED], bodies)}
+                check(ok, f"fast_st serve {transport} {precision}: {DAEMON_REQUESTS} answers, "
+                      f"each OK with its own output, in each client's order"
+                      + (" (then EOF after the goodbye, OK SHUTDOWN)" if transport == "tcp"
+                         else ""))
+                calls = counts["conv3x3_valid"] // 10
+                check(calls >= 2 + DAEMON_REQUESTS // DAEMON_BATCH - 1
+                      and counts["conv3x3_valid"] == 10 * calls
+                      and counts["instance_norm_pad"] == 15 * calls,
+                      f"fast_st serve {transport} {precision}: {calls} forwards (the warm-up "
+                      f"included), 10 conv3x3 and 15 IN-pad launches each")
+                for n in names[:DAEMON_CHECKED]:
+                    _frames_checked(np, f"fast_st serve {transport} {precision} {n}: card vs "
+                                    "CPU", [got[n]], [want[n]], precision)
+                launches[(transport, precision)] = counts
+                rates[(transport, precision)] = DAEMON_REQUESTS / seconds
+            print(f"fast_st serve {precision} at batch {DAEMON_BATCH}, {DAEMON_REQUESTS} "
+                  f"requests of {SIZE} px, requests/s after READY: stdin "
+                  f"{rates[('stdin', precision)]:.1f}, tcp ({NET_CLIENTS} clients) "
+                  f"{rates[('tcp', precision)]:.1f}, http ({HTTP_CLIENTS} clients) "
+                  f"{rates[('http', precision)]:.1f}", flush=True)
+    finally:
+        constants.PROJECT_ROOT_PATH = saved_root
+    return launches, rates
+
+
+def stream_daemon_path(torch, np, F, in_dir):
+    """video_st serve in process, f32 and bf16, reflect and zeros, at each of
+    STREAM_BATCHES: STREAMS streams of STREAM_FRAMES frames interleaved, one
+    of them reset after RESET_AT frames. Every stream's PNGs are exactly
+    (0/255) stylize_clip of its frames on the card; per forward 6
+    conv_direct and the forward's kernels, no cuDNN conv. Returns (launches
+    by (pad mode, precision, batch), frames/s)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, constants
+    from styletransfer_tpu_torch.engines import video
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.utils import images
+
+    root = os.path.join(WORK, "stream")
+    models = os.path.join(root, "data", "models")
+    ckpt.save(transformer.init_video_params(seed=9, device="cpu"),
+              ckpt.checkpoint_path("video_st", "smoke", 0, models))
+    params, _ = ckpt.load_latest_transformer("video_st", "smoke", models, device="cuda")
+    names = sorted(os.listdir(in_dir))
+    frames = {(s, t): names[s * STREAM_FRAMES + t]
+              for s in range(STREAMS) for t in range(STREAM_FRAMES)}
+    order = [(s, t) for t in range(STREAM_FRAMES) for s in range(STREAMS)]
+    lines = []
+    for s, t in order:
+        if (s, t) == (STREAMS - 1, RESET_AT):
+            lines.append(f"RESET\t\tcam{s}")
+        lines.append(f"{os.path.join(in_dir, frames[(s, t)])}\tOUT/cam{s}_{t}.png\tcam{s}")
+    library_conv, conv_calls = F.conv2d, [0]
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    launches, rates = {}, {}
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    F.conv2d = counting_conv2d
+    try:
+        for pad_mode in ("reflect", "zeros"):
+            for precision in ("f32", "bf16"):
+                # The streams as clips, stylized whole on the card.
+                refs = {}
+                for s in range(STREAMS):
+                    cuts = ([(0, RESET_AT), (RESET_AT, STREAM_FRAMES)] if s == STREAMS - 1
+                            else [(0, STREAM_FRAMES)])
+                    for a, b in cuts:
+                        clip = np.stack([images.load_image_uint8(os.path.join(
+                            in_dir, frames[(s, t)]), size=SIZE)[0] for t in range(a, b)])
+                        outs = video.stylize_clip(params, clip, precision, pad_mode)
+                        u8 = images.to_uint8_on_device(torch.from_numpy(outs).cuda()).cpu()
+                        for t in range(a, b):
+                            refs[(s, t)] = u8[t - a].numpy()
+                for batch in STREAM_BATCHES:
+                    tag = f"{precision} {pad_mode} b{batch}"
+                    out_tag = f"{precision}_{pad_mode}_b{batch}"
+                    reset_counts()
+                    conv_calls[0] = 0
+                    n, out = _drive(video.serve_stream_loop,
+                                    [ln.replace("OUT/", f"{out_tag}/") for ln in lines],
+                                    style_name="smoke", out_dir="unused/", models_path=models,
+                                    size=SIZE, precision=precision, pad_mode=pad_mode,
+                                    batch_size=batch, device="cuda")
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    answers = out.lines[1:]
+                    check(out.lines[0] == "READY" and len(answers) == len(lines)
+                          and f"OK RESET cam{STREAMS - 1}" in answers
+                          and sum(a.startswith("OK ") and a.endswith(".png") for a in answers)
+                          == len(order),
+                          f"video_st serve {tag}: READY, {len(order)} frames OK and OK RESET, "
+                          "in request order")
+                    gaps = {}
+                    for s, t in order:
+                        got = np.asarray(Image.open(os.path.join(root, out_tag,
+                                                                 f"cam{s}_{t}.png")))
+                        gaps[(s, t)] = int(np.abs(got.astype(np.int32)
+                                                  - refs[(s, t)].astype(np.int32)).max())
+                    check(max(gaps.values()) == 0,
+                          f"video_st serve {tag}: every stream's {STREAM_FRAMES} frames exactly "
+                          f"stylize_clip of its frames on the card (max "
+                          f"{max(gaps.values())}/255; frames off: "
+                          f"{[k for k, g in gaps.items() if g]})")
+                    forwards = counts["conv_direct"] // 6
+                    route = "f32_fma" if precision == "f32" else "bf16_wgmma"
+                    per = ({"conv_direct": 6, **ZEROS_PER_FORWARD} if pad_mode == "zeros" else
+                           {"conv_direct": 6, "conv3x3_valid": 10,
+                            f"conv3x3_valid.{route}": 10, "instance_norm_pad": 15})
+                    want = {k: per.get(k, 0) * forwards for k in counts}
+                    warm = 1 if batch == 1 else 2
+                    waves = forwards - warm
+                    check(counts == want and conv_calls[0] == 0
+                          and len(order) / batch <= waves <= len(order),
+                          f"video_st serve {tag}: {forwards} forwards ({warm} warm-up, {waves} "
+                          f"waves for {len(order)} frames), each 6 conv_direct and {per}, no "
+                          f"cuDNN conv ({conv_calls[0]})")
+                    launches[(pad_mode, precision, batch)] = counts
+                    rates[(pad_mode, precision, batch)] = len(order) / (out.last - out.ready)
+                    print(f"video_st serve {tag}: {len(order)} frames of {STREAMS} streams in "
+                          f"{waves} waves at {rates[(pad_mode, precision, batch)]:.1f} "
+                          "frames/s after READY (incl. PNG decode and encode)", flush=True)
+    finally:
+        F.conv2d = library_conv
+        constants.PROJECT_ROOT_PATH = saved_root
+    return launches, rates
+
+
+def gatys_daemon_path(torch, np, F):
+    """gatys_st --serve in process at GATYS_SIZE px, GATYS_SERVE_STEPS steps of
+    L-BFGS with H GATYS_SERVE_HISTORY, f32 and bf16: GATYS_REQUESTS requests
+    mixing two styles and a blend, at batch GATYS_REQUESTS (one group) and at
+    batch 1 (each alone). Every answer OK with a finite loss; each lane's
+    first closure within GATYS_LANE_FIRST_RTOL of the request alone; per
+    closure 1 conv3x3_im2col and 9 conv3x3_flat, no cuDNN conv. Returns
+    (launches by (precision, batch), seconds per request)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch.engines import gatys
+    from styletransfer_tpu_torch.models import vgg
+    from styletransfer_tpu_torch.utils import images
+
+    root = os.path.join(WORK, "gatys_serve")
+    os.makedirs(root)
+    paths = {}
+    for k, seed in (("c0", 30_000), ("c1", 30_001), ("c2", 30_002), ("c3", 30_003),
+                    ("s0", 30_100), ("s1", 30_101)):
+        paths[k] = os.path.join(root, f"{k}.png")
+        _save_png(np, paths[k], seed)
+    styles = [paths["s0"], paths["s1"], f"{paths['s0']},{paths['s1']}:0.3,0.7", paths["s1"]]
+    lines = [f"{paths[f'c{i}']}\t{styles[i]}" for i in range(GATYS_REQUESTS)]
+    vgg_params = vgg.init_params(0, device="cuda")
+    library_conv, conv_calls = F.conv2d, [0]
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    groups = []
+    real_batched = gatys._run_serve_batched
+
+    def recorded(*args, **kwargs):
+        groups.append(args[1].shape[0])
+        return real_batched(*args, **kwargs)
+
+    launches, seconds = {}, {}
+    F.conv2d = counting_conv2d
+    gatys._run_serve_batched = recorded
+    try:
+        for precision in ("f32", "bf16"):
+            finals = {}
+            for batch in (GATYS_REQUESTS, 1):
+                tag = f"{precision} b{batch}"
+                reset_counts()
+                gatys.closure_evals = 0
+                conv_calls[0] = 0
+                groups.clear()
+                n, out = _drive(gatys.serve_loop, lines, steps=GATYS_SERVE_STEPS,
+                                history_size=GATYS_SERVE_HISTORY, precision=precision,
+                                size=GATYS_SIZE, out_dir=os.path.join(root, f"{precision}_b{batch}"),
+                                batch=batch, vgg_params=vgg_params, device="cuda")
+                torch.cuda.synchronize()
+                counts, evals = read_counts(), gatys.closure_evals
+                answers = out.lines[1:]
+                losses = [float(a.rsplit("loss=", 1)[1]) for a in answers if " loss=" in a]
+                check(out.lines[0] == "READY" and n == GATYS_REQUESTS
+                      and len(losses) == GATYS_REQUESTS
+                      and all(a.startswith("OK ") for a in answers)
+                      and all(math.isfinite(v) for v in losses)
+                      and all(os.path.isfile(a.split(" ")[1]) for a in answers),
+                      f"gatys_st --serve {tag}: READY, {GATYS_REQUESTS} answers OK with finite "
+                      f"losses {losses}, PNGs written")
+                finals[batch] = (losses, [a.split(" ")[1] for a in answers])
+                # Closures, the content targets of each optimization (the warm-ups'
+                # too) and the VGG passes of the Gram targets (the warm-up's zeros
+                # and each distinct style; the blend reuses both). A group of
+                # lanes is one optimization, a lone lane is one too.
+                lanes_batched = sum(groups[1:])
+                optimizations = 1 + len(groups) + (GATYS_REQUESTS - lanes_batched)
+                gram_passes = 1 + 2
+                want = {k: 0 for k in counts}
+                want["conv3x3_im2col"] = evals + optimizations + gram_passes
+                want["conv3x3_flat"] = 9 * evals + 3 * optimizations + 4 * gram_passes
+                check(evals > 0 and counts == want and conv_calls[0] == 0,
+                      f"gatys_st --serve {tag}: {evals} closures, {counts['conv3x3_im2col']} "
+                      f"conv3x3_im2col and {counts['conv3x3_flat']} conv3x3_flat launches (1 and "
+                      f"9 per closure, 1 + 3 per optimization's content target, 1 + 4 per Gram "
+                      f"pass), no cuDNN conv ({conv_calls[0]})")
+                launches[(precision, batch)] = counts
+                seconds[(precision, batch)] = (out.last - out.ready) / GATYS_REQUESTS
+                print(f"gatys_st --serve {tag}: {GATYS_REQUESTS} requests of {GATYS_SIZE} px "
+                      f"(groups of lanes after the warm-up: {groups[1:]}), "
+                      f"{GATYS_SERVE_STEPS} steps, H {GATYS_SERVE_HISTORY}, {evals} closures in "
+                      f"{out.last - out.ready:.3f} s = {seconds[(precision, batch)]:.3f} s per "
+                      f"request after READY", flush=True)
+            (grouped, grouped_png), (alone, alone_png) = finals[GATYS_REQUESTS], finals[1]
+            rel = [abs(a - b) / abs(b) for a, b in zip(grouped, alone)]
+            gaps = [int(np.abs(np.asarray(Image.open(a), np.int32)
+                               - np.asarray(Image.open(b), np.int32)).max())
+                    for a, b in zip(grouped_png, alone_png)]
+            # The same four requests as one group of lanes and each alone,
+            # through the daemon's optimizations: every lane's first closure.
+            cd = torch.bfloat16 if precision == "bf16" else None
+            contents = torch.cat([torch.from_numpy(images.load_image(
+                paths[f"c{i}"], size=GATYS_SIZE)).cuda() for i in range(GATYS_REQUESTS)])
+            grams = {k: vgg.style_gram_targets(vgg_params, torch.from_numpy(
+                images.load_image(paths[k], size=GATYS_SIZE)).cuda()) for k in ("s0", "s1")}
+            targets = [grams["s0"], grams["s1"],
+                       gatys.blend_grams([grams["s0"], grams["s1"]], [0.3, 0.7]), grams["s1"]]
+            kw = dict(compute_dtype=cd, history_size=GATYS_SERVE_HISTORY)
+            _, lanes = real_batched(vgg_params, contents, {k: torch.cat([t[k] for t in targets])
+                                                           for k in grams["s0"]},
+                                    1, 1e5, 1.0, 0.05, "lbfgs", **kw)
+            first = [abs(float(lanes[i, 0]) - float(gatys._run_optimizer(
+                "lbfgs", vgg_params, contents[i:i + 1], targets[i], 1, 1e5, 1.0, **kw)[1][0]))
+                / float(lanes[i, 0]) for i in range(GATYS_REQUESTS)]
+            check(max(first) <= GATYS_LANE_FIRST_RTOL[precision],
+                  f"gatys_st --serve {precision}: each lane of a group of {GATYS_REQUESTS} against "
+                  f"the request alone: first closure's loss {[f'{r:.2e}' for r in first]} apart "
+                  f"(limit {GATYS_LANE_FIRST_RTOL[precision]}); after {GATYS_SERVE_STEPS} steps "
+                  f"(not held) the daemon's final losses {[f'{r:.2e}' for r in rel]} apart, "
+                  f"PNGs max {gaps}/255")
+    finally:
+        F.conv2d = library_conv
+        gatys._run_serve_batched = real_batched
+    return launches, seconds
+
+
+def network_slice(torch, np, F, in_dir):
+    """The network transports and the video and Gatys daemons (also alone
+    with ``--serve``). Returns (launches by daemon, rates by daemon)."""
+    transport_launches, transport_rates = transport_path(torch, np, in_dir)
+    stream_launches, stream_rates = stream_daemon_path(torch, np, F, in_dir)
+    gatys_launches, gatys_seconds = gatys_daemon_path(torch, np, F)
+    return ({"transports": transport_launches, "video_serve": stream_launches,
+             "gatys_serve": gatys_launches},
+            {"transports": transport_rates, "video_serve": stream_rates,
+             "gatys_serve": gatys_seconds})
+
+
 def main() -> int:
     try:
         import torch
@@ -2730,6 +3290,11 @@ def main() -> int:
             multistyle_slice(torch, np, in_dir)
             print(card)
             return 0
+        if sys.argv[1:] == ["--serve"]:
+            in_dir, _ = write_inputs(np)
+            network_slice(torch, np, F, in_dir)
+            print(card)
+            return 0
         entries = []
         per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -2752,6 +3317,7 @@ def main() -> int:
         video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
                                                                  in_dir, imgs)
         entries += video_entries
+        net_launches, net_rates = network_slice(torch, np, F, in_dir)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2798,6 +3364,19 @@ def main() -> int:
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
                 gatys_launches if kernel in GATYS_KERNELS else train_launches)
         e["launches"] = path[precision][kernel]
+    for e in entries:  # each kernel's launches in the network slice's daemons
+        kernel, dn = e["name"].split(".")
+        precision = "f32" if dn == "float32" else "bf16"
+        counter = {"conv3x3_flat_residual": "conv3x3_flat", "conv3x3_valid_wide": "conv3x3_valid",
+                   "conv3x3_valid_widest": "conv3x3_valid",
+                   "conv3x3_valid_mma": "conv3x3_valid.bf16_mma"}.get(kernel, kernel)
+        e["network_launches"] = {
+            **{f"fast_{t}": c[counter] for (t, p), c in net_launches["transports"].items()
+               if p == precision},
+            **{f"video_serve_{pad}_b{b}": c[counter]
+               for (pad, p, b), c in net_launches["video_serve"].items() if p == precision},
+            **{f"gatys_serve_b{b}": c[counter]
+               for (p, b), c in net_launches["gatys_serve"].items() if p == precision}}
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
@@ -2810,6 +3389,14 @@ def main() -> int:
           f"bf16 {zeros_rates['bf16']:.1f} on {card}")
     print("daemons requests/s at batch %d: " % DAEMON_BATCH + ", ".join(
         f"{d} {p} {r:.1f}" for (d, p), r in daemon_rates.items()) + f" on {card}")
+    print("fast_st serve requests/s at batch %d: " % DAEMON_BATCH + ", ".join(
+        f"{t} {p} {r:.1f}" for (t, p), r in net_rates["transports"].items()) + f" on {card}")
+    print("video_st serve frames/s: " + ", ".join(
+        f"{p} {pad} b{b} {r:.1f}" for (pad, p, b), r in net_rates["video_serve"].items())
+        + f" on {card}")
+    print(f"gatys_st --serve s per request at {GATYS_SIZE} px, {GATYS_SERVE_STEPS} steps: " +
+          ", ".join(f"{p} b{b} {r:.3f}" for (p, b), r in net_rates["gatys_serve"].items())
+          + f" on {card}")
     print("training img/s at 256 px: " + ", ".join(
         f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")

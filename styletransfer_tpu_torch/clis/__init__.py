@@ -2,9 +2,9 @@
 
 The same contract as the JAX package's CLI for the commands the port has
 (``fast_st train``, ``train-multi``, ``convert-image``, ``convert-dir``,
-``convert-image-multi``, ``serve`` and ``serve-multi``; the one-shot
-``gatys_st``; ``video_st train``, ``convert-video`` and ``convert-dir``),
-plus ``--device``.
+``convert-image-multi``, ``serve`` and ``serve-multi``; ``gatys_st``, one-shot
+or ``--serve``; ``video_st train``, ``convert-video``, ``convert-dir`` and
+``serve``; the daemons also over ``--tcp`` / ``--http``), plus ``--device``.
 """
 
 import click

@@ -5,13 +5,16 @@ The JAX package's ``train``, ``train-multi``, ``convert-image``,
 commands, with the same arguments and output names, plus ``--device``
 (default ``cuda``; there is no silent fallback to the CPU). ``train`` and
 ``train-multi`` do not take the JAX commands' ``--packed``,
-``--distributed`` and ``--global-batch`` yet; the daemons serve stdin on one
-device (no ``--tcp`` / ``--http`` yet).
+``--distributed`` and ``--global-batch`` yet. The daemons serve on one
+device, on stdin or over ``--tcp`` / ``--http`` (``engines/netserve.py``,
+``engines/httpserve.py``).
 """
 
 import os
 
 import click
+
+from styletransfer_tpu_torch.engines import httpserve, netserve
 
 _device_option = click.option(
     "--device", default="cuda", show_default=True,
@@ -196,6 +199,25 @@ _size_option = click.option(
     help="Working resolution (default 256); all requests are resized to it")
 
 
+def _transport_options(tcp_extra: str = "", http_extra: str = ""):
+    """``--tcp`` and ``--http`` of a serve command (the JAX CLIs' help)."""
+    def wrap(fn):
+        fn = click.option("--http", default=None, metavar="[HOST:]PORT",
+                          help=httpserve.HTTP_HELP + http_extra)(fn)
+        return click.option("--tcp", default=None, metavar="[HOST:]PORT",
+                            help=netserve.TCP_HELP + tcp_extra)(fn)
+    return wrap
+
+
+def serve_on_transport(run, tcp, http, kind: str) -> None:
+    """Run ``run(stdin, stdout)`` on the pipes, ``--tcp`` or ``--http``; a
+    conflicting or malformed option is a UsageError before ``run`` starts."""
+    try:
+        httpserve.serve_transport(run, tcp, http, kind, kind)
+    except ValueError as exc:
+        raise click.UsageError(str(exc))
+
+
 @fast_st.command()
 @click.argument("style-name")
 @_out_dir_option
@@ -210,8 +232,9 @@ _size_option = click.option(
               help="Dynamic batching: serve up to N already-queued requests per device call "
                    "(lone requests keep single-request latency; with --sizes, a group runs "
                    "one call per bucket present)")
+@_transport_options()
 @_device_option
-def serve(style_name, out_dir, size, sizes, precision, pad_mode, batch_size, device):
+def serve(style_name, out_dir, size, sizes, precision, pad_mode, batch_size, tcp, http, device):
     """
     Warm-process stylization daemon: runs the serving forward once per
     bucket (which builds the kernels), prints `READY`, then stylizes one
@@ -219,15 +242,21 @@ def serve(style_name, out_dir, size, sizes, precision, pad_mode, batch_size, dev
     `INPUT_PATH` or `INPUT_PATH<TAB>OUTPUT_PATH`; each response line is
     `OK <output_path>` or `ERR <input>: <reason>`. A `RELOAD` line swaps in
     the latest checkpoint; a `STATS` line answers the latency summary.
+    With `--tcp` or `--http` the same loop serves many clients.
     """
     from styletransfer_tpu_torch.clis import common
     from styletransfer_tpu_torch.engines import fast
 
-    fast.serve_loop(
-        style_name=style_name, out_dir=out_dir, size=size, precision=precision,
-        pad_mode=pad_mode, batch_size=batch_size, sizes=common.parse_sizes_option(sizes),
-        device=device,
-    )
+    size_list = common.parse_sizes_option(sizes)
+
+    def run(stdin, stdout):
+        return fast.serve_loop(
+            style_name=style_name, out_dir=out_dir, size=size, precision=precision,
+            pad_mode=pad_mode, batch_size=batch_size, sizes=size_list, stdin=stdin,
+            stdout=stdout, device=device,
+        )
+
+    serve_on_transport(run, tcp, http, "fast")
 
 
 @fast_st.command("serve-multi")
@@ -245,8 +274,10 @@ def serve(style_name, out_dir, size, sizes, precision, pad_mode, batch_size, dev
 @click.option("-b", "--batch-size", default=1, type=click.IntRange(min=1),
               help="Dynamic batching: serve up to N already-queued requests per device call "
                    "(mixed styles and blends batch together: the style is per-image data)")
+@_transport_options()
 @_device_option
-def serve_multi(name, num_styles, out_dir, size, sizes, precision, batch_size, device):
+def serve_multi(name, num_styles, out_dir, size, sizes, precision, batch_size, tcp, http,
+                device):
     """
     Warm-process MULTI-STYLE daemon for a network trained by `train-multi`:
     prints `READY`, then stylizes one image per stdin line until EOF or a
@@ -260,7 +291,13 @@ def serve_multi(name, num_styles, out_dir, size, sizes, precision, batch_size, d
     from styletransfer_tpu_torch.clis import common
     from styletransfer_tpu_torch.engines import multistyle
 
-    multistyle.serve_loop(
-        name=name, num_styles=num_styles, out_dir=out_dir, size=size, precision=precision,
-        batch_size=batch_size, sizes=common.parse_sizes_option(sizes), device=device,
-    )
+    size_list = common.parse_sizes_option(sizes)
+
+    def run(stdin, stdout):
+        return multistyle.serve_loop(
+            name=name, num_styles=num_styles, out_dir=out_dir, size=size,
+            precision=precision, batch_size=batch_size, sizes=size_list, stdin=stdin,
+            stdout=stdout, device=device,
+        )
+
+    serve_on_transport(run, tcp, http, "multi")

@@ -1,12 +1,12 @@
-"""``gatys_st`` CLI: optimization-based style transfer, one-shot.
+"""``gatys_st`` CLI: optimization-based style transfer.
 
-The JAX package's one-shot command with its arguments, defaults and output
-names (positional content and style paths, ``-n/--out-name`` default
+The JAX package's command with its arguments, defaults and output names
+(positional content and style paths, ``-n/--out-name`` default
 ``gatys_converted.png``, ``-s/--steps`` 300, ``-cw``/``-sw``, a content
 directory with ``-b``, blend specs, the optimizer and L-BFGS options,
-coarse-to-fine, ``--precision``, ``--size``), plus ``--device`` (default
-``cuda``; there is no silent fallback to the CPU). The serving daemon
-(``--serve``, ``--tcp``, ``--http``) and the ``lbfgs-zoom`` optimizer are not
+coarse-to-fine, ``--precision``, ``--size``) and its daemon (``--serve``, on
+stdin or over ``--tcp`` / ``--http``), plus ``--device`` (default ``cuda``;
+there is no silent fallback to the CPU). The ``lbfgs-zoom`` optimizer is not
 ported yet.
 """
 
@@ -14,10 +14,12 @@ import os
 
 import click
 
+from styletransfer_tpu_torch.clis.fast_st import _transport_options, serve_on_transport
+
 
 @click.command()
-@click.argument("content-image-path")
-@click.argument("style-image-path")
+@click.argument("content-image-path", required=False)
+@click.argument("style-image-path", required=False)
 @click.option("-n", "--out-name", default="gatys_converted.png",
               help="The name of the result file (transformed image)")
 @click.option("-s", "--steps", default=300,
@@ -33,9 +35,10 @@ import click
               help="If CONTENT-IMAGE-PATH is a directory, stylize up to this many images "
                    "from it in one batched optimization of independent lanes (0 = all).")
 @click.option("--learning-rate", default=0.05, help="Adam learning rate")
-@click.option("--history-size", default=100, type=click.IntRange(min=1),
-              help="L-BFGS history length H (lbfgs only; 100 is torch's default, the "
-                   "reference contract)")
+@click.option("--history-size", default=None, type=click.IntRange(min=1),
+              help="L-BFGS history length H (lbfgs only). Default: 100 (torch's default, "
+                   "the reference contract) for one-shot runs, 16 for --serve daemons. "
+                   "Pass a value to override either mode.")
 @click.option("--history-math", default="compact", type=click.Choice(["compact", "two_loop"]),
               help="L-BFGS direction computation (lbfgs only): compact is the "
                    "Byrd-Nocedal form, two_loop torch's literal recursion; the same "
@@ -49,11 +52,21 @@ import click
 @click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
               help="VGG tower activation precision (pixels stay f32)")
 @click.option("--size", default=None, type=int, help="Working resolution (default 256)")
+@click.option("--serve", is_flag=True, default=False,
+              help="Warm-process daemon mode: warm up, print READY, then run one "
+                   "optimization per stdin line (CONTENT<TAB>STYLE[<TAB>OUTPUT]) until EOF "
+                   "or a blank line. The positional image paths are omitted. "
+                   "Optimizer/steps/weights are fixed per daemon. With -b N, pending "
+                   "requests group into one optimization of up to N independent lanes "
+                   "(styles may mix). STYLE may be a blend spec a.png,b.png[:0.3,0.7].")
+@_transport_options(
+    http_extra=" The content image is the POST body; ?style= names a server-side style "
+               "path or blend spec.")
 @click.option("--device", default="cuda", show_default=True,
               help="Torch device to run on ('cuda', 'cuda:1', 'cpu')")
 def gatys_st(content_image_path, style_image_path, out_name, steps, content_weight,
              style_weight, optimizer, batch, learning_rate, history_size, history_math,
-             coarse_steps, coarse_scale, precision, size, device):
+             coarse_steps, coarse_scale, precision, size, serve, tcp, http, device):
     """
     Run the original Gatys style transfer. Both `style-image` and
     `content-image` should be the paths to the image we want to take the
@@ -66,6 +79,31 @@ def gatys_st(content_image_path, style_image_path, out_name, steps, content_weig
     style targets become the weighted average of the listed styles'
     Gram matrices (weights normalized; omitted = equal).
     """
+    # The daemon's history defaults to H = 16, the one-shot run keeps torch's
+    # H = 100; an explicit --history-size wins in both modes.
+    if history_size is None:
+        history_size = 16 if serve else 100
+    if serve:
+        if coarse_steps:
+            raise click.UsageError("--coarse-steps is not supported in --serve mode (the "
+                                   "daemon runs one optimization configuration).")
+        from styletransfer_tpu_torch.engines import gatys
+
+        def run(stdin, stdout):
+            return gatys.serve_loop(
+                steps=steps, style_weight=style_weight, content_weight=content_weight,
+                optimizer=optimizer, learning_rate=learning_rate, history_size=history_size,
+                history_math=history_math, precision=precision, size=size,
+                batch=max(batch, 1), stdin=stdin, stdout=stdout, device=device,
+            )
+
+        serve_on_transport(run, tcp, http, "gatys")
+        return
+    if tcp is not None or http is not None:
+        raise click.UsageError("--tcp/--http require --serve (daemon mode).")
+    if not content_image_path or not style_image_path:
+        raise click.UsageError("CONTENT-IMAGE-PATH and STYLE-IMAGE-PATH are required (or pass "
+                               "--serve for daemon mode).")
     import torch
 
     from styletransfer_tpu_torch import constants

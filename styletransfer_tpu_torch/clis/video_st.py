@@ -1,10 +1,11 @@
 """``video_st`` CLI: video style transfer training and inference.
 
-The JAX package's ``train``, ``convert-video`` and ``convert-dir`` commands,
-with the same arguments and output names, plus ``--device`` (default
-``cuda``; there is no silent fallback to the CPU). ``train`` does not take
-the JAX command's ``--distributed`` and ``--global-batch``, and there is no
-``serve`` yet.
+The JAX package's ``train``, ``convert-video``, ``convert-dir`` and
+``serve`` commands, with the same arguments and output names, plus
+``--device`` (default ``cuda``; there is no silent fallback to the CPU).
+``train`` does not take the JAX command's ``--distributed`` and
+``--global-batch``; ``serve`` runs on one device, on stdin or over ``--tcp``
+/ ``--http``.
 """
 
 import os
@@ -12,7 +13,7 @@ import os
 import click
 
 from styletransfer_tpu_torch.clis.fast_st import (
-    _device_option, _pad_mode_option, _precision_option)
+    _device_option, _pad_mode_option, _precision_option, _transport_options, serve_on_transport)
 
 
 @click.group()
@@ -121,3 +122,60 @@ def convert_dir(input_dir, style_name, batch_size, out_dir, fps, precision, pad_
         input_dir=input_dir, style_name=style_name, batch_size=batch_size, out_dir=out_dir,
         fps=fps, precision=precision, pad_mode=pad_mode, device=device,
     )
+
+
+@video_st.command()
+@click.argument("style-name")
+@click.option("-o", "--out-dir", default="results/",
+              help="Default results directory for requests without an explicit output path")
+@click.option("--size", default=None, type=int,
+              help="Working resolution (default 256); all frames are resized to it")
+@_precision_option
+@_pad_mode_option
+@click.option("-b", "--batch-size", default=1, type=click.IntRange(min=1),
+              help="Cross-STREAM dynamic batching: pending requests for different streams "
+                   "run as one device call (same-stream requests serialize: the carry is a "
+                   "dependency). 1 = strictly serial.")
+@click.option("--max-streams", default=64, type=click.IntRange(min=1),
+              help="LRU cap on concurrently-held stream carries")
+@click.option("--sizes", default=None, metavar="S1,S2,...",
+              help="Multi-resolution serving buckets (e.g. 256,512), each warmed before "
+                   "READY. A stream's bucket is fixed by its FIRST frame's optional fourth "
+                   "field (FRAME<TAB>OUTPUT<TAB>STREAM<TAB>512; absent = the first listed) "
+                   "and remembered: RESET the stream to change it. Overrides --size.")
+@_transport_options(
+    tcp_extra=" Each connection can carry its own STREAM ids; clients share one id "
+              "namespace.",
+    http_extra=" Route frames to streams with ?stream=ID; POST /reset[?stream=ID] drops "
+               "carries.")
+@_device_option
+def serve(style_name, out_dir, size, precision, pad_mode, batch_size, max_streams, sizes, tcp,
+          http, device):
+    """
+    Warm-process STREAMING stylization daemon: runs the recurrent step once
+    per bucket (which builds the kernels), prints `READY`, then stylizes one
+    frame per stdin line until EOF or a blank line. The previous stylized
+    frame is kept on the device between requests, so consecutive requests
+    form one temporally consistent stream (a live source that cannot be
+    stylized as a whole clip).
+
+    Each line is `FRAME_PATH[<TAB>OUTPUT_PATH[<TAB>STREAM]]`; the optional
+    STREAM field serves several concurrent streams (each with its own carry)
+    through one daemon. `RESET` starts everything fresh;
+    `RESET<TAB><TAB>STREAM` resets one stream; `RELOAD` swaps in the latest
+    checkpoint (carries survive). Each response line is `OK <output_path>`,
+    `OK RESET`, or `ERR <input>: <reason>`.
+    """
+    from styletransfer_tpu_torch.clis import common
+    from styletransfer_tpu_torch.engines import video
+
+    size_list = common.parse_sizes_option(sizes)
+
+    def run(stdin, stdout):
+        return video.serve_stream_loop(
+            style_name=style_name, out_dir=out_dir, size=size, precision=precision,
+            pad_mode=pad_mode, batch_size=batch_size, max_streams=max_streams, sizes=size_list,
+            stdin=stdin, stdout=stdout, device=device,
+        )
+
+    serve_on_transport(run, tcp, http, "video")

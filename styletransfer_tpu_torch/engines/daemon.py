@@ -2,10 +2,12 @@
 
 The port of ``styletransfer_tpu/engines/daemon.py``, byte for byte the same
 protocol, so that a client of the JAX daemons (``examples/daemon_client.py``)
-drives the port's unchanged. The port has two of its daemons, ``fast_st
-serve`` and ``fast_st serve-multi`` (stdin only): requests are
-TAB-separated fields on stdin, one per line; responses are flushed per line
-on stdout:
+drives the port's unchanged. The port has all four of its daemons (``fast_st
+serve``, ``fast_st serve-multi``, ``video_st serve``, ``gatys_st --serve``),
+on stdin or behind the TCP and HTTP transports (``engines/netserve.py``,
+``engines/httpserve.py``), which hand this loop stdin- and stdout-shaped
+streams: requests are TAB-separated fields, one per line; responses are
+flushed per line:
 
 - ``READY`` is printed by the caller once its program is compiled (this
   module only runs the request loop);

@@ -1,11 +1,11 @@
 """Gatys optimization-based style transfer.
 
-The port of ``styletransfer_tpu/engines/gatys.py`` (everything but the
-serving daemon): the pixels of the content image are optimized against VGG19
-Gram (style) and feature (content) losses. Each closure runs the VGG tower to
-``conv3_1`` forward and backward on the stat-free 3x3 conv kernels
-(``models/vgg.py``): ``conv3x3_im2col`` for ``conv1_1``, ``conv3x3_flat`` for
-the other four convs and for all five input gradients.
+The port of ``styletransfer_tpu/engines/gatys.py`` (all but ``lbfgs-zoom``
+and multi-device placement): the pixels of the content image are optimized
+against VGG19 Gram (style) and feature (content) losses. Each closure runs
+the VGG tower to ``conv3_1`` forward and backward on the stat-free 3x3 conv
+kernels (``models/vgg.py``): ``conv3x3_im2col`` for ``conv1_1``,
+``conv3x3_flat`` for the other four convs and for all five input gradients.
 
 Two optimizers:
 - ``lbfgs`` (default): the torch-contract L-BFGS (``ops/lbfgs.py``): each
@@ -20,18 +20,26 @@ lane's own single-image loss and gradient (the per-lane losses are summed
 for the backward, never averaged). The reported loss history is the mean
 over lanes, as in the JAX engine. ``adam`` minimizes the batch's loss, the
 mean over lanes, as the JAX engine does.
+
+The serving daemon (``gatys_st --serve``, :func:`serve_loop`) runs one
+optimization per request; with ``batch > 1`` a group of requests runs as
+independent lanes, each against its own Gram targets (``make_loss_fn``
+takes targets of shape [N, C, C]) and each with its own loss history
+(:func:`_run_serve_batched`).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.models import vgg
 from styletransfer_tpu_torch.ops import layers, losses, lbfgs
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -86,9 +94,14 @@ def _run_adam(
     learning_rate: float,
     compute_dtype: Optional[torch.dtype] = None,
     init_pixels: Optional[torch.Tensor] = None,
+    per_lane: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Adam over the pixels from the content image (or ``init_pixels``);
-    returns ``(pixels, losses [steps])``, the loss before each update."""
+    returns ``(pixels, losses [steps])``, the loss before each update.
+
+    ``per_lane``: each image is its own problem (the lanes' losses are
+    summed, so each lane's gradient is its own loss's, and Adam is
+    elementwise), and the losses are ``[N, steps]``, one row per lane."""
     loss_fn = make_loss_fn(vgg_params, content_image, style_grams, style_weight,
                            content_weight, compute_dtype)
     start = content_image if init_pixels is None else init_pixels
@@ -97,11 +110,13 @@ def _run_adam(
     history = []
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(pixels).mean()
-        loss.backward()
+        lane_losses = loss_fn(pixels)
+        (lane_losses.sum() if per_lane else lane_losses.mean()).backward()
         opt.step()
-        history.append(loss.detach())
-    return pixels.detach(), torch.stack(history) if history else pixels.new_zeros(0)
+        history.append(lane_losses.detach() if per_lane else lane_losses.detach().mean())
+    if not history:
+        return pixels.detach(), pixels.new_zeros((start.shape[0], 0) if per_lane else 0)
+    return pixels.detach(), torch.stack(history, dim=-1)
 
 
 def _run_lbfgs_torch(
@@ -116,10 +131,12 @@ def _run_lbfgs_torch(
     history_size: int = 100,
     history_math: str = "compact",
     init_pixels: Optional[torch.Tensor] = None,
+    per_lane: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``steps`` torch-LBFGS ``.step(closure)`` calls over the pixels, one
     independent optimizer per image of ``content_image`` [N, H, W, 3].
-    Returns ``(pixels, losses [steps])``, the losses averaged over lanes."""
+    Returns ``(pixels, losses [steps])``, the losses averaged over lanes
+    (``per_lane``: ``[N, steps]``, each lane's own)."""
     shape = content_image.shape
     n_lanes = shape[0]
     loss_fn = make_loss_fn(vgg_params, content_image, style_grams, style_weight,
@@ -138,7 +155,7 @@ def _run_lbfgs_torch(
     x, history = lbfgs.lbfgs_torch(
         loss_and_grad, start.detach().float().reshape(n_lanes, -1), steps,
         max_iter=max_iter, history_size=history_size, history_math=history_math)
-    return x.reshape(shape), history.mean(dim=0)
+    return x.reshape(shape), history if per_lane else history.mean(dim=0)
 
 
 def _run_optimizer(
@@ -154,17 +171,20 @@ def _run_optimizer(
     history_size: int = 100,
     history_math: str = "compact",
     init_pixels: Optional[torch.Tensor] = None,
+    per_lane: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The one optimizer-name dispatch of ``train_gatys``."""
+    """The one optimizer-name dispatch of ``train_gatys`` and the daemon."""
     if optimizer == "adam":
         return _run_adam(vgg_params, content_image, style_grams, steps, float(style_weight),
                          float(content_weight), float(learning_rate),
-                         compute_dtype=compute_dtype, init_pixels=init_pixels)
+                         compute_dtype=compute_dtype, init_pixels=init_pixels,
+                         per_lane=per_lane)
     if optimizer == "lbfgs":
         return _run_lbfgs_torch(vgg_params, content_image, style_grams, steps,
                                 float(style_weight), float(content_weight),
                                 compute_dtype=compute_dtype, history_size=history_size,
-                                history_math=history_math, init_pixels=init_pixels)
+                                history_math=history_math, init_pixels=init_pixels,
+                                per_lane=per_lane)
     raise ValueError(f"unknown optimizer {optimizer!r}; use one of {', '.join(OPTIMIZERS)}")
 
 
@@ -280,3 +300,215 @@ def blend_grams(gram_list: Sequence[Mapping[str, torch.Tensor]],
     if len(gram_list) == 1 and weights[0] == 1.0:
         return dict(gram_list[0])
     return {name: sum(w * g[name] for w, g in zip(weights, gram_list)) for name in gram_list[0]}
+
+
+def _run_serve_batched(
+    vgg_params: vgg.Params,
+    contents: torch.Tensor,
+    grams: Mapping[str, torch.Tensor],
+    steps: int,
+    style_weight: float,
+    content_weight: float,
+    learning_rate: float,
+    optimizer: str,
+    compute_dtype: Optional[torch.dtype] = None,
+    history_size: int = 100,
+    history_math: str = "compact",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-style batched Gatys for the daemon: lane ``i`` optimizes
+    ``contents[i]`` against its OWN Gram targets ``grams[name][i]`` ([N, C,
+    C] per tap), as an independent problem. Returns ``(pixels [N, H, W, 3],
+    per-lane losses [N, steps])``: each response carries its own final
+    loss, not the mean."""
+    return _run_optimizer(optimizer, vgg_params, contents, grams, steps, style_weight,
+                          content_weight, learning_rate, compute_dtype=compute_dtype,
+                          history_size=history_size, history_math=history_math, per_lane=True)
+
+
+def serve_loop(
+    steps: int = 300,
+    style_weight: float = 100_000.0,
+    content_weight: float = 1.0,
+    optimizer: str = "lbfgs",
+    learning_rate: float = 0.05,
+    history_size: int = 100,
+    history_math: str = "compact",
+    precision: str = "f32",
+    size: Optional[int] = None,
+    out_dir: str = "results/",
+    batch: int = 1,
+    vgg_params: Optional[vgg.Params] = None,
+    stdin=None,
+    stdout=None,
+    device=constants.DEFAULT_DEVICE,
+) -> int:
+    """Warm-process Gatys daemon (``gatys_st --serve``): one optimization per
+    request, with the JAX daemon's protocol (``engines/daemon.py``).
+
+    Each request line is ``CONTENT\\tSTYLE[\\tOUTPUT]``; empty OUTPUT means
+    ``{out_dir}/gatys_{content_stem}_{style_stem}.png``. STYLE may be a
+    blend spec ``a.png,b.png[:0.3,0.7]`` (:func:`parse_style_spec`): the
+    targets are the weighted average of the styles' Grams. Style Grams are
+    LRU-cached by (path, mtime). Responses: ``READY`` once the closure has
+    run at one lane and at ``batch`` lanes (which builds the kernels), then
+    per request ``OK <out_path> loss=<final_loss>`` or ``ERR <input>:
+    <reason>``. ``RELOAD`` and ``RESET`` answer an explanatory ``ERR``: the
+    requests are stateless. The optimizer, steps and weights are fixed per
+    daemon.
+
+    ``batch > 1`` batches dynamically: the requests already queued run as
+    independent lanes of one optimization (:func:`_run_serve_batched`), each
+    with its own Gram targets, so a group may mix styles; each response
+    carries its lane's own final loss. A lone surviving lane runs as one
+    lane, and a ragged group of 2 or more runs at its own size (the JAX
+    daemon pads it to its one compiled shape): under the torch-contract
+    L-BFGS a padded lane costs as much as a real one."""
+    import sys
+    from collections import OrderedDict
+
+    from styletransfer_tpu_torch.engines import daemon
+    from styletransfer_tpu_torch.parallel import prefetch
+    from styletransfer_tpu_torch.utils import images as img_utils
+
+    logger = get_logger()
+    stdout = stdout if stdout is not None else sys.stdout
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer!r}; use one of {', '.join(OPTIMIZERS)}")
+    dev = constants.resolve_device(device)
+    if vgg_params is None:
+        vgg_params = vgg.load_params(device=dev)
+    layers.disable_tf32()
+    compute_dtype = torch.bfloat16 if precision == "bf16" else None
+    sz = size or constants.IMSIZE
+    out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+
+    # Style Grams are pure functions of (path, mtime): a daemon serving a few
+    # styles skips their VGG pass.
+    gram_cache: "OrderedDict" = OrderedDict()
+
+    def load(path):
+        return prefetch.to_device(img_utils.load_image(path, size=sz), dev)
+
+    def style_grams_cached(style_path: str):
+        full = os.path.join(constants.PROJECT_ROOT_PATH, style_path)
+        key = (full, os.path.getmtime(full))
+        if key in gram_cache:
+            gram_cache.move_to_end(key)
+            return gram_cache[key]
+        grams = vgg.style_gram_targets(vgg_params, load(full))
+        gram_cache[key] = grams
+        while len(gram_cache) > 16:
+            gram_cache.popitem(last=False)
+        return grams
+
+    def style_grams_for_spec(spec: str):
+        paths, ws = parse_style_spec(spec, root=constants.PROJECT_ROOT_PATH)
+        return blend_grams([style_grams_cached(p) for p in paths], ws)
+
+    def style_stem(spec: str) -> str:
+        paths, ws = parse_style_spec(spec, root=constants.PROJECT_ROOT_PATH)
+        stem = "+".join(os.path.splitext(os.path.basename(p))[0] for p in paths)
+        if len(paths) > 1:
+            # Distinct blends of the same styles must not share a default
+            # output name; normalized weights collapse equivalent specs.
+            stem += "_" + "_".join(f"{w:g}" for w in ws)
+        return stem
+
+    # Warm-up: the Gram pass and one step of the optimization at one lane and
+    # at ``batch`` lanes, so that every kernel is built and every plan taken
+    # before READY.
+    t0 = time.time()
+    warm = torch.zeros((1, sz, sz, 3), dtype=torch.float32, device=dev)
+    warm_grams = vgg.style_gram_targets(vgg_params, warm)
+    _run_optimizer(optimizer, vgg_params, warm, warm_grams, 1, style_weight, content_weight,
+                   learning_rate, compute_dtype=compute_dtype, history_size=history_size,
+                   history_math=history_math)[0].cpu()
+    if batch > 1:
+        _run_serve_batched(vgg_params, warm.expand(batch, -1, -1, -1).contiguous(),
+                           {k: g.expand(batch, -1, -1).contiguous()
+                            for k, g in warm_grams.items()}, 1, style_weight, content_weight,
+                           learning_rate, optimizer, compute_dtype=compute_dtype,
+                           history_size=history_size, history_math=history_math)[0].cpu()
+    logger.info("gatys serve: warmed %dpx %s %s (steps=%d, batch=%d) in %.1fs; ready", sz,
+                precision, optimizer, steps, batch, time.time() - t0)
+    print("READY", file=stdout, flush=True)
+
+    def parse_and_load(fields):
+        """A request line -> (content_path, style spec, explicit_out, content
+        [1, H, W, 3] on the device, grams). Raises on a malformed line or an
+        unreadable file."""
+        if fields[0] in ("RELOAD", "RESET"):
+            raise ValueError(f"the gatys daemon has no {fields[0]}: requests are stateless and "
+                             "there is no checkpoint; start a new daemon to change "
+                             "configuration")
+        if not 2 <= len(fields) <= 3 or not fields[1]:
+            raise ValueError("expected CONTENT\\tSTYLE[\\tOUTPUT]")
+        content_path, style_path = fields[0], fields[1]
+        content = load(os.path.join(constants.PROJECT_ROOT_PATH, content_path))
+        return (content_path, style_path, fields[2] if len(fields) > 2 else "", content,
+                style_grams_for_spec(style_path))
+
+    def save_one(content_path, style_path, explicit_out, pixels, final):
+        cstem = os.path.splitext(os.path.basename(content_path))[0]
+        out_file = daemon.resolve_out_path(explicit_out, out_dir,
+                                           f"gatys_{cstem}_{style_stem(style_path)}.png")
+        img_utils.save_image(pixels, out_file)
+        return f"{out_file} loss={float(final):.4f}"
+
+    def run_one(lane):
+        content_path, style_path, explicit_out, content, grams = lane
+        pixels, losses = _run_optimizer(
+            optimizer, vgg_params, content, grams, steps, style_weight, content_weight,
+            learning_rate, compute_dtype=compute_dtype, history_size=history_size,
+            history_math=history_math)
+        return save_one(content_path, style_path, explicit_out, pixels.cpu().numpy(),
+                        losses[-1])
+
+    if batch == 1:
+        return daemon.run_request_loop(lambda *fields: run_one(parse_and_load(fields)),
+                                       stdin=stdin, stdout=stdout, name="gatys serve",
+                                       device=dev)
+
+    def handle_batch(requests):
+        results: list = [None] * len(requests)
+        lanes = []  # (request index, content_path, style, out, content, grams)
+        for i, fields in enumerate(requests):
+            try:
+                lanes.append((i,) + parse_and_load(fields))
+            except Exception as exc:  # noqa: BLE001 - answered per request
+                results[i] = exc
+        if len(lanes) == 1:
+            # A lone surviving lane (a lone request, or the rest of its group
+            # failed) runs as one lane.
+            try:
+                results[lanes[0][0]] = run_one(lanes[0][1:])
+            except Exception as exc:  # noqa: BLE001 - answered per request
+                results[lanes[0][0]] = exc
+            return results
+        if not lanes:
+            return results
+        try:
+            pixels, losses = _run_serve_batched(
+                vgg_params, torch.cat([lane[4] for lane in lanes]),
+                {k: torch.cat([lane[5][k] for lane in lanes]) for k in lanes[0][5]}, steps,
+                style_weight, content_weight, learning_rate, optimizer,
+                compute_dtype=compute_dtype, history_size=history_size,
+                history_math=history_math)
+            pixels, finals = pixels.cpu().numpy(), losses[:, -1].cpu().numpy()
+        except Exception as exc:  # noqa: BLE001 - keep the parse-specific ERRs
+            for lane in lanes:
+                results[lane[0]] = exc
+            return results
+        for k, (i, content_path, style_path, explicit_out, _, _) in enumerate(lanes):
+            try:
+                results[i] = save_one(content_path, style_path, explicit_out,
+                                      pixels[k:k + 1], finals[k])
+            except Exception as exc:  # noqa: BLE001
+                results[i] = exc
+        return results
+
+    return daemon.run_batched_request_loop(handle_batch, batch, stdin=stdin, stdout=stdout,
+                                           name="gatys serve", device=dev)

@@ -20,7 +20,9 @@ Inference (:func:`stylize_clip`, :func:`process_video`,
 the conv3x3_valid and IN-pad kernels, or with ``pad_mode="zeros"`` the
 conv3x3_flat and fused-IN kernels) frame by frame, each output fed back as
 the next frame's carry. Output videos are mp4 where imageio has an encoder,
-GIF (through Pillow) otherwise.
+GIF (through Pillow) otherwise. The streaming daemon
+(:func:`serve_stream_loop`, ``video_st serve``) steps frames as they arrive,
+each stream's carry held on the device in a slot table.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -637,3 +640,416 @@ def process_video_dir(
     logger.info("Stylized %d clips (%d frames) in %.1fs (%.1f fps incl. IO)",
                 len(outputs), total_written, dt, total_written / dt if dt else 0.0)
     return outputs
+
+
+# ---------------------------------------------------------------------------
+# The streaming daemon (``video_st serve``).
+# ---------------------------------------------------------------------------
+
+
+class _SlotCarries:
+    """Per-stream carries (the previous stylized frame, model space, f32) in
+    ONE device buffer per resolution bucket: a slot table.
+
+    A wave assembles its carries with one ``index_select`` and writes its
+    outputs back with one ``index_copy_``, instead of a copy per lane. Row 0
+    of each buffer is scratch (failed lanes, and lanes that are not fresh
+    when fresh streams are seeded, write there); real slots are 1-based.
+    Tables start at ``init`` rows and double toward ``cap`` as streams
+    appear (sizing them at the cap would hold (cap + 1) x s x s x 12 bytes
+    per bucket whether or not any stream exists); growing appends rows, so
+    every live slot keeps its index. Streams are LRU-evicted at ``cap``."""
+
+    def __init__(self, cap: int, init: int, device, logger):
+        self.cap = cap
+        self.init = max(1, min(init, cap))
+        self.device = device
+        self.logger = logger
+        self.lru: "OrderedDict[str, Tuple[int, int]]" = OrderedDict()  # sid -> (bucket, slot)
+        self.buffers: Dict[int, torch.Tensor] = {}  # bucket -> [rows + 1, s, s, 3] f32
+        self.rows: Dict[int, int] = {}  # bucket -> allocated slots (row 0 excluded)
+        self.free: Dict[int, List[int]] = {}  # bucket -> free slot indices
+
+    def __contains__(self, sid) -> bool:
+        return sid in self.lru
+
+    def bucket_of(self, sid) -> int:
+        return self.lru[sid][0]
+
+    def slot_of(self, sid) -> int:
+        return self.lru[sid][1]
+
+    def scratch(self, bucket: int) -> int:
+        self._ensure(bucket)
+        return 0
+
+    def _ensure(self, bucket: int) -> None:
+        if bucket not in self.buffers:
+            self.rows[bucket] = self.init
+            self.buffers[bucket] = torch.zeros((self.init + 1, bucket, bucket, 3),
+                                               dtype=torch.float32, device=self.device)
+            self.free[bucket] = list(range(1, self.init + 1))
+
+    def _grow(self, bucket: int) -> None:
+        old = self.rows[bucket]
+        new = min(self.cap, old * 2)
+        self.logger.info("video serve: growing the %dpx slot table %d -> %d rows", bucket, old,
+                         new)
+        self.buffers[bucket] = torch.cat([self.buffers[bucket], torch.zeros(
+            (new - old, bucket, bucket, 3), dtype=torch.float32, device=self.device)])
+        self.free[bucket].extend(range(old + 1, new + 1))
+        self.rows[bucket] = new
+
+    def index(self, slots) -> torch.Tensor:
+        """Slot numbers as a long tensor on the device (from pinned memory on
+        a CUDA device: a pageable copy would wait for all queued work)."""
+        from styletransfer_tpu_torch.parallel import prefetch
+
+        return prefetch.to_device(np.asarray(slots, dtype=np.int64), self.device)
+
+    def gather(self, bucket: int, idx: torch.Tensor) -> torch.Tensor:
+        return self.buffers[bucket].index_select(0, idx)
+
+    def scatter(self, bucket: int, idx: torch.Tensor, rows: torch.Tensor) -> None:
+        """Write ``rows`` [B, s, s, 3] at ``idx`` [B] (scratch entries absorb
+        lanes whose carry must not move)."""
+        self.buffers[bucket].index_copy_(0, idx, rows)
+
+    def allocate(self, sid, bucket: int, protected=()) -> int:
+        """A slot for a NEW stream, evicting the LRU stream at capacity.
+        ``protected`` sids (the current wave's other lanes, whose slots the
+        caller already holds) are skipped (rotated to MRU), or an eviction
+        could free a slot mid-wave and hand it to a second lane; a victim
+        outside the wave exists, since a wave has at most batch_size <=
+        max_streams lanes. The caller commits the sid only once its request
+        succeeded; ``release`` returns the slot otherwise."""
+        self._ensure(bucket)
+        while not self.free[bucket] or len(self.lru) >= self.cap:
+            if (not self.free[bucket] and self.rows[bucket] < self.cap
+                    and len(self.lru) < self.cap):
+                self._grow(bucket)
+                continue
+            evicted, (eb, eslot) = self.lru.popitem(last=False)
+            if evicted in protected:
+                self.lru[evicted] = (eb, eslot)  # re-insert at MRU
+                continue
+            self.free[eb].append(eslot)
+            self.logger.warning("video serve: evicted stream %r (max-streams=%d); its next "
+                                "frame starts a fresh stream", evicted, self.cap)
+        return self.free[bucket].pop()
+
+    def release(self, bucket: int, slot: int) -> None:
+        self.free[bucket].append(slot)
+
+    def commit(self, sid, bucket: int, slot: int) -> None:
+        """Register or refresh ``sid`` at ``slot`` (its row was already
+        written) and mark it most recently used."""
+        self.lru[sid] = (bucket, slot)
+        self.lru.move_to_end(sid)
+
+    def pop(self, sid) -> None:
+        entry = self.lru.pop(sid, None)
+        if entry is not None:
+            self.free[entry[0]].append(entry[1])
+
+    def clear(self) -> None:
+        for bucket in self.buffers:
+            self.free[bucket] = list(range(1, self.rows[bucket] + 1))
+        self.lru.clear()
+
+
+def serve_stream_loop(
+    style_name: str,
+    out_dir: str = "results/",
+    params: Optional[transformer.TransformerNet] = None,
+    models_path: Optional[str] = None,
+    size: Optional[int] = None,
+    precision: str = "f32",
+    pad_mode: str = "reflect",
+    batch_size: int = 1,
+    max_streams: int = 64,
+    sizes=None,
+    stdin=None,
+    stdout=None,
+    device=constants.DEFAULT_DEVICE,
+) -> int:
+    """Warm-process STREAMING stylization (``video_st serve``): one frame per
+    request, the recurrent carry held on the device between requests, so
+    consecutive requests of a stream form one temporally consistent clip.
+
+    The protocol of the JAX daemon (``engines/daemon.py``):
+
+    - ``FRAME[\\tOUTPUT[\\tSTREAM[\\tSIZE]]]``: stylize the next frame of
+      STREAM (absent: ``"0"``); reply ``OK <out_path>``. The default output
+      is ``{out_dir}/video_st_{style}_{stem}.png``, with an ``s{stream}_``
+      tag before the stem for streams other than ``"0"``.
+    - ``RESET`` drops every stream's carry (``OK RESET``); ``RESET\\t\\tID``
+      drops one (``OK RESET ID``). The next frame of a dropped stream pairs
+      with itself, like a clip's first frame.
+    - ``RELOAD`` swaps in the latest checkpoint (``OK RELOAD epoch=<n>``;
+      on failure ``ERR`` and the old parameters keep serving); the carries
+      survive it, since the recurrence reads the previous stylized frame as
+      data. ``STATS`` answers the latency summary and ``device_rtt_ms``.
+    - a blank line or EOF shuts down.
+
+    Each stream's carry lives in a slot table (:class:`_SlotCarries`),
+    LRU-capped at ``max_streams`` (an evicted stream restarts on its next
+    frame), which must be at least ``batch_size``. A stream's resolution
+    bucket (``sizes``; absent: ``size`` or 256) is fixed by its first frame
+    and remembered: naming another size for a live stream answers ``ERR``.
+    A failed request does not advance its carry.
+
+    ``batch_size > 1`` batches across streams: the requests already queued
+    run in waves of at most ``batch_size`` lanes, one stream each (requests
+    of one stream serialize into successive waves, since the carry is a
+    dependency), one device call per bucket present; a bare ``RESET`` or
+    ``RELOAD`` is a barrier that rides a wave alone. The forward runs with
+    ``fixed_order=True``, so a lane's bits do not depend on the wave, and a
+    stream's outputs are exactly :func:`_stylize_chunk` of its frames at
+    every ``batch_size``; a ragged wave runs at its own size (the JAX
+    daemon pads it to keep one compiled shape). ``READY`` is printed once
+    every bucket's forward has run at one lane and at ``batch_size`` lanes
+    (which builds the kernels). Returns the number of OK responses (bare
+    ``RESET`` in the serial loop rides the command path and is not
+    counted)."""
+    import re
+    import sys
+
+    from styletransfer_tpu_torch.engines import daemon
+    from styletransfer_tpu_torch.parallel import prefetch
+
+    logger = get_logger()
+    stdout = stdout if stdout is not None else sys.stdout
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if max_streams < max(batch_size, 1):
+        # Fewer slots than lanes per wave would evict carries written in the
+        # same wave: every stream would restart each wave while answering OK.
+        raise ValueError(f"max_streams must be >= batch_size (and >= 1), got {max_streams} "
+                         f"with batch_size={batch_size}")
+    dev = constants.resolve_device(device)
+    compute_dtype = fast._compute_dtype(precision)
+    if params is None:
+        params, _ = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path, device=dev)
+    layers.disable_tf32()
+    buckets = daemon.normalize_buckets(sizes, size or constants.IMSIZE)
+    out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    state = {"params": params}  # a cell, so that RELOAD can swap the params
+
+    @torch.no_grad()
+    def step(frame_u8: torch.Tensor, old: torch.Tensor):
+        """One frame of each lane, as :func:`_stylize_chunk` steps it:
+        (model-space output, the next carry; uint8 output)."""
+        frame = img_utils.maybe_normalize_on_device(frame_u8)
+        out = transformer.apply(state["params"], torch.cat([frame, old], dim=-1),
+                                compute_dtype=compute_dtype, pad_mode=pad_mode,
+                                fixed_order=True)
+        return out, img_utils.to_uint8_on_device(out)
+
+    # The initial table holds one full wave of fresh streams (and at least 8).
+    carries = _SlotCarries(max_streams, max(8, batch_size), dev, logger)
+    t0 = time.time()
+    for s in buckets:
+        scratch = carries.scratch(s)
+        for b in sorted({1, batch_size}):
+            warm = torch.zeros((b, s, s, 3), dtype=torch.uint8, device=dev)
+            idx = carries.index([scratch] * b)
+            carries.scatter(s, idx, img_utils.maybe_normalize_on_device(warm))
+            step(warm, carries.gather(s, idx))[1].cpu()
+    logger.info("video serve: warmed %s px %s (batch %d) in %.1fs; ready", buckets, precision,
+                batch_size, time.time() - t0)
+    print("READY", file=stdout, flush=True)
+
+    def stream_bucket(sid, size_field) -> int:
+        """A stream's resolution: fixed by its first frame, remembered after
+        (the carry has a shape: changing it mid-stream is an ERR)."""
+        want = None
+        if size_field:
+            try:
+                want = int(size_field)
+            except ValueError:
+                raise ValueError(f"SIZE must be an integer, got {size_field!r}")
+            if want not in buckets:
+                raise ValueError(f"size {want} not in serving buckets {buckets}")
+        if sid in carries:
+            have = carries.bucket_of(sid)
+            if want is not None and want != have:
+                raise ValueError(f"stream {sid!r} is {have}px; RESET it before changing size "
+                                 f"to {want}")
+            return have
+        return want if want is not None else buckets[0]
+
+    def reset_all():
+        carries.clear()
+        return "RESET"
+
+    def reload():
+        new, epoch = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path,
+                                                  device=dev, template=state["params"])
+        state["params"] = new
+        return f"RELOAD epoch={epoch}"
+
+    def out_path(in_path, explicit_out, sid):
+        stem = os.path.splitext(os.path.basename(in_path))[0]
+        tag = "" if sid == "0" else "s" + re.sub(r"[^\w.-]", "_", sid) + "_"
+        return daemon.resolve_out_path(explicit_out, out_dir,
+                                       f"video_st_{style_name}_{tag}{stem}.png")
+
+    def load_frame(in_path, bucket):
+        return img_utils.load_image_uint8(os.path.join(constants.PROJECT_ROOT_PATH, in_path),
+                                          size=bucket)
+
+    def parse(fields):
+        if len(fields) > 4:
+            raise ValueError(f"expected FRAME[\\tOUTPUT[\\tSTREAM[\\tSIZE]]], got {len(fields)} "
+                             "fields")
+        return (fields[0], fields[1] if len(fields) > 1 else "",
+                (fields[2] if len(fields) > 2 else "") or "0",
+                fields[3] if len(fields) > 3 else "")
+
+    def reset(fields, sid):
+        if len(fields) == 2 or (len(fields) > 3 and fields[3]):
+            # Refuse rather than guess: the serial and batched loops must not
+            # part ways on a malformed trailing-tab RESET.
+            raise ValueError("RESET takes no OUTPUT/SIZE field; use RESET or RESET\\t\\t<stream>")
+        if len(fields) > 2:
+            carries.pop(sid)
+            return f"RESET {sid}"
+        return reset_all()
+
+    def run_lanes(bucket, lanes, protected=()):
+        """One device call for ``lanes`` [(result index, in_path, explicit
+        out, sid, frame [s, s, 3] uint8)] of one bucket, one stream each:
+        fresh streams are seeded with their normalized frame (a clip's first
+        frame pairs with itself), one gather assembles the carries, and one
+        scatter commits the outputs of the lanes whose PNG was saved.
+        ``protected``: the sids of the whole wave, which an eviction must
+        not pick. Returns [(result index, payload or exception)]."""
+        scratch = carries.scratch(bucket)
+        slots, fresh = [], []
+        for _, _, _, sid, _ in lanes:
+            is_fresh = sid not in carries
+            slots.append(carries.allocate(sid, bucket, protected=protected) if is_fresh
+                         else carries.slot_of(sid))
+            fresh.append(is_fresh)
+        try:
+            frames = prefetch.to_device(np.stack([lane[4] for lane in lanes]), dev)
+            if any(fresh):
+                carries.scatter(bucket, carries.index(
+                    [s if f else scratch for s, f in zip(slots, fresh)]),
+                    img_utils.maybe_normalize_on_device(frames))
+            out_model, out_u8 = step(frames, carries.gather(bucket, carries.index(slots)))
+            out_u8 = out_u8.cpu().numpy()
+        except Exception as exc:  # noqa: BLE001 - answered per lane
+            for s, f in zip(slots, fresh):
+                if f:
+                    carries.release(bucket, s)
+            return [(lane[0], exc) for lane in lanes]
+
+        def encode(k):
+            _, in_path, explicit_out, sid, _ = lanes[k]
+            try:
+                path = out_path(in_path, explicit_out, sid)
+                img_utils.save_uint8(out_u8[k], path)
+                return path
+            except Exception as exc:  # noqa: BLE001 - answered per request
+                return exc
+
+        outcomes = (list(daemon.io_pool().map(encode, range(len(lanes)))) if len(lanes) > 1
+                    else [encode(0)])
+        # A failed save does not advance that lane's carry: its row goes to
+        # scratch, and a fresh lane's slot is returned.
+        carries.scatter(bucket, carries.index(
+            [scratch if isinstance(o, Exception) else s for o, s in zip(outcomes, slots)]),
+            out_model)
+        results = []
+        for (i, _, _, sid, _), slot, is_fresh, o in zip(lanes, slots, fresh, outcomes):
+            if isinstance(o, Exception):
+                if is_fresh:
+                    carries.release(bucket, slot)
+            else:
+                carries.commit(sid, bucket, slot)
+            results.append((i, o))
+        return results
+
+    def handle(*fields):
+        in_path, explicit_out, sid, size_field = parse(fields)
+        if in_path == "RESET":
+            return reset(fields, sid)
+        bucket = stream_bucket(sid, size_field)
+        ((_, result),) = run_lanes(bucket, [(0, in_path, explicit_out, sid,
+                                             load_frame(in_path, bucket)[0])])
+        if isinstance(result, Exception):
+            raise result
+        return result
+
+    if batch_size == 1:
+        return daemon.run_request_loop(handle, stdin=stdin, stdout=stdout, name="video serve",
+                                       commands={"RESET": reset_all, "RELOAD": reload},
+                                       device=dev)
+
+    def handle_batch(requests):
+        results: list = [None] * len(requests)
+        pending = list(enumerate(requests))
+        while pending:
+            # One wave: at most one request per stream (the carry is a
+            # dependency within a stream) and at most batch_size lanes;
+            # leftovers go to the next wave. A bare RESET touches every stream
+            # and a RELOAD swaps the params, so both are barriers: each rides
+            # a wave alone, and nothing after one joins an earlier wave.
+            wave, rest, seen = [], [], set()
+            barrier = False
+            for i, fields in pending:
+                if barrier:
+                    rest.append((i, fields))
+                    continue
+                if len(fields) == 1 and fields[0] in ("RESET", "RELOAD"):
+                    barrier = True
+                    (wave if not wave else rest).append((i, fields))
+                    continue
+                sid = (fields[2] if len(fields) > 2 else "") or "0"
+                if sid in seen or len(wave) == batch_size:
+                    rest.append((i, fields))
+                else:
+                    seen.add(sid)
+                    wave.append((i, fields))
+            pending = rest
+
+            # Parse, commands and stream-bucket bookkeeping in request order
+            # (they change shared stream state); frame decode on the IO pool.
+            jobs = []
+            for i, fields in wave:
+                try:
+                    in_path, explicit_out, sid, size_field = parse(fields)
+                    if in_path == "RELOAD" and len(fields) == 1:
+                        results[i] = reload()
+                    elif in_path == "RESET":
+                        results[i] = reset(fields, sid)
+                    else:
+                        jobs.append((i, in_path, explicit_out, sid,
+                                     stream_bucket(sid, size_field)))
+                except Exception as exc:  # noqa: BLE001 - answered per request
+                    results[i] = exc
+
+            def decode(job):
+                try:
+                    return job, load_frame(job[1], job[4])[0], None
+                except Exception as exc:  # noqa: BLE001 - answered per request
+                    return job, None, exc
+
+            by_bucket: Dict[int, list] = {}
+            for (i, in_path, explicit_out, sid, bucket), frame, exc in daemon.io_pool().map(
+                    decode, jobs):
+                if exc is not None:
+                    results[i] = exc
+                else:
+                    by_bucket.setdefault(bucket, []).append((i, in_path, explicit_out, sid,
+                                                             frame))
+            for bucket, lanes in by_bucket.items():
+                for i, result in run_lanes(bucket, lanes, protected=seen):
+                    results[i] = result
+        return results
+
+    return daemon.run_batched_request_loop(handle_batch, batch_size, stdin=stdin, stdout=stdout,
+                                           name="video serve", device=dev)

@@ -277,7 +277,12 @@ def test_serve_clis_run_on_stdin_and_refuse_the_network_options(project):
                            input="a.png\t\t0.5,0.5,0\t48\n\n")
     assert r.exit_code == 0, r.output + repr(r.exception)
     assert r.stdout.splitlines()[1].endswith("converted_fast_multi_st_trio_a_blend_0.5_0.5_0.png")
+    # The network options exist now (tests/test_torch_serve_cli.py); taken
+    # together, or with a malformed port, they are usage errors.
     for cmd in (["serve", "sty"], ["serve-multi", "trio", "--num-styles", "3"]):
+        r = CliRunner().invoke(tcli, ["fast_st", *cmd, "--tcp", "7000", "--http", "7000",
+                                      "--device", "cpu"])
+        assert r.exit_code == 2 and "--tcp and --http are mutually exclusive" in r.output
         for opt in ("--tcp", "--http"):
-            r = CliRunner().invoke(tcli, ["fast_st", *cmd, opt, "7000", "--device", "cpu"])
-            assert r.exit_code == 2 and f"No such option '{opt}'" in r.output
+            r = CliRunner().invoke(tcli, ["fast_st", *cmd, opt, "x:port", "--device", "cpu"])
+            assert r.exit_code == 2 and f"invalid {opt} PORT 'port'" in r.output

@@ -98,15 +98,13 @@ def test_options_run_end_to_end(root, extra):
 def test_options_and_defaults_match_the_jax_command():
     port = {p.name: p for p in cli.commands["gatys_st"].params}
     jax = {p.name: p for p in jax_cli.commands["gatys_st"].params}
-    # Not ported yet: the daemon (--serve, --tcp, --http). Added: --device.
-    assert set(jax) - set(port) == {"serve", "tcp", "http"}
+    # Every JAX option, the daemon's (--serve, --tcp, --http) included; added:
+    # --device. --history-size defaults to None in both: 100 for one-shot
+    # runs, 16 for the daemon (tests/test_torch_serve_cli.py).
+    assert set(jax) - set(port) == set()
     assert set(port) - set(jax) == {"device"}
     assert port["device"].default == "cuda"
     for name in set(port) & set(jax):
-        if name == "history_size":
-            # JAX picks 100 for one-shot runs and 16 for its daemons.
-            assert jax[name].default is None and port[name].default == 100
-            continue
         assert port[name].default == jax[name].default, name
         assert port[name].opts == jax[name].opts, name
     assert list(port["optimizer"].type.choices) == ["adam", "lbfgs"]

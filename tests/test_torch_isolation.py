@@ -66,6 +66,8 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch.models.multistyle\n"
         "import styletransfer_tpu_torch.ops.cuda.conv_direct\n"
         "import styletransfer_tpu_torch.engines.daemon, styletransfer_tpu_torch.clis.common\n"
+        "import styletransfer_tpu_torch.engines.netserve\n"
+        "import styletransfer_tpu_torch.engines.httpserve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
@@ -180,6 +182,28 @@ def test_training_and_serving_entry_points_raise_without_a_gpu(no_gpu, tmp_path,
     for args in (["train-multi", "a.png", "b.png", "-e", "1"], ["serve", "tst"],
                  ["serve-multi", "duo", "--num-styles", "2"]):
         result = CliRunner().invoke(cli, ["fast_st", *args], input="img.png\n\n")
+        assert result.exit_code != 0
+        assert "no CUDA GPU" in str(result.exception), args
+        assert "READY" not in result.output
+    assert os.listdir(tmp_path) == []
+
+
+def test_video_and_gatys_daemons_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    """Also behind the network transports: the listener may bind, but the
+    engine raises before READY."""
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import gatys, video
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        video.serve_stream_loop("tst")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        gatys.serve_loop()
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    for args in (["video_st", "serve", "tst"], ["video_st", "serve", "tst", "--tcp", "0"],
+                 ["gatys_st", "--serve"], ["gatys_st", "--serve", "--http", "0"],
+                 ["fast_st", "serve", "tst", "--tcp", "0"]):
+        result = CliRunner().invoke(cli, args, input="img.png\ts.png\n\n")
         assert result.exit_code != 0
         assert "no CUDA GPU" in str(result.exception), args
         assert "READY" not in result.output
