@@ -8,6 +8,7 @@
     python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
     python3 chip_smoke.py --multi       # phases 1-2, [N, C] fused IN, train-multi, daemons
     python3 chip_smoke.py --serve       # phases 1-2, the network transports, video / Gatys daemons
+    python3 chip_smoke.py --parallel    # phases 1-2, multi-GPU training and serving placement
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -141,10 +142,31 @@ It imports nothing of JAX. Phases:
    alone (the final losses' spread printed),
    1 conv3x3_im2col and 9 conv3x3_flat per closure, no cuDNN conv, seconds
    per request;
-12. print one JSON line with each kernel's error, launches and times (and
+12. the multi-GPU slice (also alone with ``--parallel``), on one card:
+   NCCL at world size 1 (``parallel.distributed.initialize``;
+   static_train for a few steps at batch 4, f32 and bf16, in a group of one
+   against the same steps without a group, losses within 1e-5 with cuDNN's
+   deterministic algorithms; steady steps with and without the all-reduce;
+   train_loop's ms per step in a group of one and without, in turns); two gloo
+   ranks sharing cuda:0 (this script again with ``--rank-worker``), each
+   holding 2 images of a global batch of 4 at 256 px with the published
+   widths, f32 and bf16: per rank and step 15 fused-IN forwards and
+   backwards, 2 conv3x3_im2col and 12 conv3x3_flat, the f32 gradients
+   within 1e-3 relative L2 of one process's step on all 4, parameters bit
+   for bit across the ranks, ms per step beside one process's,
+   static_train over the group and each rank's checkpoint through
+   process_dir, train-multi, and video_st train cut after a mid-batch step
+   state and resumed from the carry sidecars, bit for bit the uninterrupted
+   run; the serving paths over the
+   device list [cuda:0, cuda:0] (process_dir at batch 64 within the serving
+   limits of one device, launches per shard; convert-dir lanes split 2 + 1,
+   every clip exactly its stylize_clip, launches per shard and frame row;
+   fast_st serve at batch 8); and
+   ``parallel/dryrun.py`` with two gloo ranks on cuda:0;
+13. print one JSON line with each kernel's error, launches and times (and
    each kernel's launches on the video-slice paths, on train-multi, in the
-   stdin daemons and in the network slice's daemons), and as the last line
-   ``{"ok": true, "device": {...}}``.
+   stdin daemons, in the network slice's daemons and on the multi-GPU
+   slice's paths), and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -3219,6 +3241,631 @@ def network_slice(torch, np, F, in_dir):
              "gatys_serve": gatys_seconds})
 
 
+# --- The multi-GPU slice: data-parallel training over torch.distributed and
+# the serving paths' placement over a device list (also alone with
+# --parallel). It needs one GPU: NCCL runs at world size 1 (it refuses two
+# ranks on one GPU), and two ranks share cuda:0 over gloo, which takes CUDA
+# tensors.
+
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 4  # static_train steps in each distributed run
+PARALLEL_TIMED = 5  # timed steps per rank and precision
+PARALLEL_TIMEOUT_S = 420  # the ranks are killed after this
+# train_loop timed in an NCCL group of one and without a group, in turns:
+# steps per run, of which the first LOOP_SKIP (the eval, the preview) are
+# not timed.
+LOOP_STEPS = 24
+LOOP_SKIP = 2
+# A rank's step on its 2 images against one process's on all 4, card vs card:
+# the losses (relative) and, in f32, every gradient (relative L2, the limit
+# phase 6 holds the card to against the CPU).
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_GRAD_REL_L2 = 1e-3
+PER_RANK_STEP = {"fused_instance_norm_fwd": NORMS_PER_FORWARD,
+                 "fused_instance_norm_bwd": NORMS_PER_FORWARD, **VGG_PER_STEP}
+PLACEMENT_DEVICES = ["cuda:0", "cuda:0"]
+PAR_VIDEO_FRAMES = 8  # frames per clip of the distributed video runs
+PAR_VIDEO_CHUNK = 4
+PAR_CLIPS = (6, 9, 4)  # convert-dir clips over the placement, one ragged group of 3
+PAR_CLIP_BATCH = 4  # divides over the two slots: the group of 3 splits 2 + 1
+PAR_SERVE_REQUESTS = 16
+MULTI_PAR_STEPS = 3
+
+
+def _parallel_batch(np):
+    """The global batch of the two-rank step: 4 seeded 256 px images."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.utils import images
+
+    return np.stack([images.normalize(coco.synthetic_image(30_000 + i, SIZE))
+                     for i in range(TRAIN_BATCH)]).astype(np.float32)
+
+
+def _step_ms(torch, step, params, opt, x) -> float:
+    """Host ms per train step over PARALLEL_TIMED steps after 2 warm-ups,
+    ending in a synchronize."""
+    for _ in range(2):
+        step(params, opt, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_TIMED):
+        metrics = step(params, opt, x)
+    float(metrics["total"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / PARALLEL_TIMED
+
+
+def _flat_params(torch, params):
+    return torch.cat([p.detach().reshape(-1).float() for p in params.parameters()]).cpu().numpy()
+
+
+def _sharded_coco(rank, world):
+    from styletransfer_tpu_torch.data import coco
+
+    return coco.get_coco_loader(batch_size=TRAIN_BATCH // world, test_limit=8,
+                                image_dir=os.path.join(WORK, "no_images"), shard_index=rank,
+                                shard_count=world)
+
+
+def rank_worker(torch, np, out_dir, in_dir) -> int:
+    """One of the PARALLEL_RANKS ranks (gloo, sharing cuda:0): per precision,
+    one step on its 2 images of the global batch (launches, gradients,
+    parameters, ms per step), static_train over the group and its checkpoint
+    through process_dir; then train-multi, and video_st training whole, cut
+    after a mid-batch step state and resumed from the sidecars (cuDNN
+    deterministic). Writes rank{r}.json and rank{r}.npz to ``out_dir``."""
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.data import video as video_data
+    from styletransfer_tpu_torch.engines import fast, multistyle, video
+    from styletransfer_tpu_torch.models import multistyle as ms_model
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.ops import layers
+    from styletransfer_tpu_torch.parallel import distributed
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    rank, world = distributed.initialize(device="cuda", backend="gloo")
+    layers.disable_tf32()
+    res, arrays = {"rank": rank, "world": world}, {}
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    grams = vgg.style_gram_targets(vgg_params, torch.from_numpy(style).cuda())
+    local = TRAIN_BATCH // world
+    x = torch.from_numpy(_parallel_batch(np)[rank * local:(rank + 1) * local]).cuda()
+    shards = distributed.global_batch()
+    for precision in ("f32", "bf16"):
+        cd = torch.bfloat16 if precision == "bf16" else None
+        step = fast.make_train_step(vgg_params, grams, compute_dtype=cd, shards=shards)
+        params = transformer.init_params(seed=1, device="cuda")
+        opt = fast.make_optimizer(params)
+        reset_counts()
+        metrics = step(params, opt, x)
+        torch.cuda.synchronize()
+        res[f"{precision}.launches"] = read_counts()
+        res[f"{precision}.metrics"] = {k: float(v) for k, v in metrics.items()}
+        for n, p in params.named_parameters():
+            arrays[f"{precision}.grad.{n}"] = p.grad.cpu().numpy()
+        arrays[f"{precision}.params"] = _flat_params(torch, params)
+        res[f"{precision}.ms"] = _step_ms(torch, step, params, opt, x)
+
+        models = os.path.join(out_dir, f"models_{precision}")
+        test_loader, train_loader = _sharded_coco(rank, world)
+        log = _LossLog()
+        get_logger().addHandler(log)
+        try:
+            trained = fast.static_train(
+                style, style_name="smoke", epochs=1, batch_size=TRAIN_BATCH,
+                vgg_params=vgg_params, params=transformer.init_params(seed=0, device="cuda"),
+                train_loader=train_loader, test_loader=test_loader, log_cadence=(1, 100, 2),
+                runs_dir=os.path.join(out_dir, f"runs_{precision}_{rank}"), models_path=models,
+                max_steps_per_epoch=PARALLEL_STEPS, step_checkpoint_every=2,
+                precision=precision, device="cuda")
+        finally:
+            get_logger().removeHandler(log)
+        res[f"{precision}.train_losses"], res[f"{precision}.test_losses"] = log.train, log.test
+        arrays[f"{precision}.trained"] = _flat_params(torch, trained)
+        reset_counts()
+        paths = fast.process_dir(in_dir, "smoke", out_dir=os.path.join(out_dir, f"styl_{rank}"),
+                                 batch_size=BATCH, models_path=models, precision=precision,
+                                 device="cuda")
+        served = read_counts()
+        res[f"{precision}.served"] = [len(paths), served["conv3x3_valid"],
+                                      served["instance_norm_pad"]]
+
+    test_loader, train_loader = _sharded_coco(rank, world)
+    log = _LossLog()
+    get_logger().addHandler(log)
+    try:
+        multi = multistyle.train(
+            _style_stack(np), style_name="smoke", epochs=1, batch_size=TRAIN_BATCH,
+            vgg_params=vgg_params, params=ms_model.init_params(0, TRAIN_STYLES, device="cuda"),
+            train_loader=train_loader, test_loader=test_loader, log_cadence=(1, 100, 100),
+            runs_dir=os.path.join(out_dir, f"runs_multi_{rank}"),
+            models_path=os.path.join(out_dir, "models_multi"),
+            max_steps_per_epoch=MULTI_PAR_STEPS, device="cuda")
+    finally:
+        get_logger().removeHandler(log)
+    res["multi.losses"] = log.train
+    arrays["multi.trained"] = _flat_params(torch, multi)
+
+    steps = []
+    real_step = video.make_scan_train_step
+
+    def counting(*a, **kw):
+        opt, scan = real_step(*a, **kw)
+        return opt, lambda *s: steps.append(int(np.sum(s[3]))) or scan(*s)
+
+    class Stop(Exception):
+        pass
+
+    def video_run(name, stop_at=None):
+        save = ckpt.save_step_state
+
+        def save_then_stop(*args, **kw):
+            path = save(*args, **kw)
+            if args[3] == stop_at:
+                raise Stop
+            return path
+
+        del steps[:]
+        ckpt.save_step_state = save_then_stop
+        video.make_scan_train_step = counting
+        log = _VideoLossLog()
+        get_logger().addHandler(log)
+        try:
+            loader = video_data.VideoDataset(
+                video_dir=os.path.join(WORK, "no_videos"), batch_size=1,
+                synthetic_count=2 * world, shard_index=rank, shard_count=world)
+            params = video.video_train(
+                style, style_name="smoke", epochs=1, batch_size=world, vgg_params=vgg_params,
+                params=transformer.init_video_params(seed=0, device="cuda"),
+                video_loader=loader, chunk_size=PAR_VIDEO_CHUNK, max_frames=PAR_VIDEO_FRAMES,
+                runs_dir=os.path.join(out_dir, f"runs_video_{rank}"),
+                models_path=os.path.join(out_dir, name),
+                step_checkpoint_every=PAR_VIDEO_CHUNK, device="cuda")
+            return _flat_params(torch, params), list(steps), log.train
+        except Stop:
+            return None, list(steps), log.train
+        finally:
+            ckpt.save_step_state = save
+            video.make_scan_train_step = real_step
+            get_logger().removeHandler(log)
+
+    # Deterministic cuDNN algorithms, so that the resumed run can be held to
+    # the whole run bit for bit.
+    torch.backends.cudnn.deterministic = True
+    arrays["video.whole"], res["video.whole_steps"], res["video.losses"] = video_run("video")
+    _, res["video.cut_steps"], _ = video_run("video_cut", stop_at=PAR_VIDEO_CHUNK)
+    res["video.sidecar"] = os.path.isfile(ckpt.carry_shard_path(
+        "video_st", "smoke", os.path.join(out_dir, "video_cut")))
+    arrays["video.resumed"], res["video.resumed_steps"], res["video.resumed_losses"] = \
+        video_run("video_cut")
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+    return 0
+
+
+def nccl_phase(torch, np, card):
+    """NCCL at world size 1: static_train's losses for PARALLEL_STEPS steps
+    at batch 4, f32 and bf16, in a group of one (initialize's real init;
+    every step's all-reduce runs on NCCL, the lockstep gathers and the
+    eval's mean on its gloo side group) and then without a group, after an
+    untimed warm-up run; then train_loop's ms per step in a group of one and
+    without a group, in turns (_loop_step_ms). One
+    rank's all-reduce is a copy: the losses are expected bit for bit. cuDNN
+    runs its deterministic algorithms here: its default f32 backward left
+    two runs without a group 3.8e-05 apart after 4 steps (Adam turns
+    rounding-noise gradients into steps of +-lr), a gap that says nothing of
+    the group; the run-to-run gap is printed beside the group's."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.parallel import distributed
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for label, grouped in (("warm-up", False), ("group", True), ("alone", False)):
+        if grouped:
+            t0 = time.perf_counter()
+            rank, world = distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0,
+                                                 device="cuda")
+            import torch.distributed as dist
+
+            check((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+                  f"nccl: initialize formed a group of {world} on {dist.get_backend()} in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        try:
+            for precision in ("f32", "bf16"):
+                test_loader, train_loader = coco.get_coco_loader(
+                    batch_size=TRAIN_BATCH, test_limit=8,
+                    image_dir=os.path.join(WORK, "no_images"))
+                log = _LossLog()
+                get_logger().addHandler(log)
+                t0 = time.perf_counter()
+                try:
+                    fast.static_train(
+                        style, style_name="nccl", epochs=1, batch_size=TRAIN_BATCH,
+                        vgg_params=vgg_params,
+                        params=transformer.init_params(seed=0, device="cuda"),
+                        train_loader=train_loader, test_loader=test_loader,
+                        log_cadence=(1, 100, 2),
+                        runs_dir=os.path.join(WORK, f"runs_nccl_{label}_{precision}"),
+                        models_path=os.path.join(WORK, f"models_nccl_{label}_{precision}"),
+                        max_steps_per_epoch=PARALLEL_STEPS, precision=precision,
+                        device="cuda")
+                    torch.cuda.synchronize()
+                finally:
+                    get_logger().removeHandler(log)
+                runs[(label, precision)] = (log.train + log.test, time.perf_counter() - t0)
+            if grouped:
+                # Steady steps at batch 4 with the step's all-reduce (a
+                # group of one) and without it, in turns.
+                grams = vgg.style_gram_targets(vgg_params, torch.from_numpy(style).cuda())
+                x = torch.from_numpy(_parallel_batch(np)).cuda()
+                for precision in ("f32", "bf16"):
+                    cd = torch.bfloat16 if precision == "bf16" else None
+                    ms = {}
+                    for label2, shards in (("with", distributed.global_batch()), ("without", None),
+                                           ("with again", distributed.global_batch())):
+                        step = fast.make_train_step(vgg_params, grams, compute_dtype=cd,
+                                                    shards=shards)
+                        params = transformer.init_params(seed=1, device="cuda")
+                        ms[label2] = _step_ms(torch, step, params, fast.make_optimizer(params), x)
+                    print(f"nccl {precision}: steady train step at batch {TRAIN_BATCH} with the "
+                          f"all-reduce of a group of one {ms['with']:.2f} / "
+                          f"{ms['with again']:.2f} ms, without {ms['without']:.2f} ms (cuDNN "
+                          f"deterministic), on {card}",
+                          flush=True)
+        finally:
+            if grouped:
+                distributed.shutdown()
+    torch.backends.cudnn.deterministic = deterministic
+    for precision in ("f32", "bf16"):
+        ms = {label: [] for label in ("group", "alone")}
+        for label in ("group", "alone", "group", "alone"):
+            ms[label].append(_loop_step_ms(torch, np, style, vgg_params, precision,
+                                           label == "group"))
+        print(f"nccl {precision}: train_loop at batch {TRAIN_BATCH}, steps {LOOP_SKIP}-"
+              f"{LOOP_STEPS - 1} on batches held in memory (lockstep, the prefetch and the "
+              f"step), in turns: "
+              f"{' / '.join(f'{t:.2f}' for t in ms['group'])} ms per step in a group of one "
+              f"(control collectives on gloo, the step's all-reduce on NCCL), "
+              f"{' / '.join(f'{t:.2f}' for t in ms['alone'])} without a group, on {card}",
+              flush=True)
+    for precision in ("f32", "bf16"):
+        (alone, t_alone), (group, t_group) = runs[("alone", precision)], runs[("group", precision)]
+        gap = max(abs(a - b) / abs(a) for a, b in zip(alone, group))
+        again = max(abs(a - b) / abs(a) for a, b in zip(alone, runs[("warm-up", precision)][0]))
+        check(len(alone) == len(group) == PARALLEL_STEPS + 2 and gap <= PARALLEL_LOSS_RTOL,
+              f"nccl {precision}: {PARALLEL_STEPS} static_train losses and 2 eval means in a "
+              f"group of one within {PARALLEL_LOSS_RTOL} of the run without a group (largest "
+              f"gap {gap:.3g}; {'bit for bit' if alone == group else 'not bit for bit'}; two "
+              f"runs without a group: {again:.3g} apart); {t_group:.2f} s against "
+              f"{t_alone:.2f} s on {card}")
+
+
+class _HeldBatches:
+    """A train loader over batches held in memory, so that the loader does
+    not bound a timed loop."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def set_position(self, epoch, batches_consumed):
+        raise NotImplementedError
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def _loop_step_ms(torch, np, style, vgg_params, precision, grouped) -> float:
+    """Wall ms per step of static_train's train_loop over steps LOOP_SKIP
+    to LOOP_STEPS - 1 on batches held in memory, in an NCCL group of one
+    (formed before and left after the run) or without a group. Only step 0
+    logs, evaluates and previews; the clock stops at a synchronize after
+    the last step."""
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.parallel import distributed
+
+    real_loop, taken, clock = fast.train_loop, [0], {}
+
+    def timed_loop(params, train_step, *args, **kwargs):
+        def step(*step_args):
+            if taken[0] == LOOP_SKIP:
+                clock["start"] = time.perf_counter()
+            metrics = train_step(*step_args)
+            taken[0] += 1
+            if taken[0] == LOOP_STEPS:
+                torch.cuda.synchronize()
+                clock["end"] = time.perf_counter()
+            return metrics
+        return real_loop(params, step, *args, **kwargs)
+
+    tag = f"{'group' if grouped else 'alone'}_{precision}_{time.perf_counter_ns()}"
+    if grouped:
+        distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device="cuda")
+    fast.train_loop = timed_loop
+    try:
+        test_loader, _ = coco.get_coco_loader(
+            batch_size=TRAIN_BATCH, test_limit=8, image_dir=os.path.join(WORK, "no_images"))
+        batch = _parallel_batch(np)
+        fast.static_train(
+            style, style_name="loop", epochs=1, batch_size=TRAIN_BATCH, vgg_params=vgg_params,
+            params=transformer.init_params(seed=0, device="cuda"),
+            train_loader=_HeldBatches([batch] * LOOP_STEPS),
+            test_loader=test_loader, log_cadence=(10 * LOOP_STEPS,) * 3,
+            runs_dir=os.path.join(WORK, f"runs_loop_{tag}"),
+            models_path=os.path.join(WORK, f"models_loop_{tag}"),
+            max_steps_per_epoch=LOOP_STEPS, precision=precision, device="cuda")
+    finally:
+        fast.train_loop = real_loop
+        if grouped:
+            distributed.shutdown()
+    check(taken[0] == LOOP_STEPS,
+          f"nccl {precision}: train_loop ran {taken[0]} steps ({LOOP_STEPS} asked)")
+    return (clock["end"] - clock["start"]) * 1e3 / (LOOP_STEPS - LOOP_SKIP)
+
+
+def _grads_close(np, got, want, label):
+    scale = max(float(np.linalg.norm(w)) for w in want.values())
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        if np.linalg.norm(w) < 1e-6 * scale:
+            # A bias that an instance norm cancels: zero up to rounding.
+            check(float(np.linalg.norm(got[name])) < 1e-5 * scale,
+                  f"{label}: {name} gradient is zero up to rounding on both")
+            continue
+        rel = float(np.linalg.norm(got[name] - w) / np.linalg.norm(w))
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= PARALLEL_GRAD_REL_L2,
+          f"{label}: every gradient within relative L2 {PARALLEL_GRAD_REL_L2} of one process "
+          f"on all 4 images (worst {worst:.3g}, {worst_name})")
+
+
+def two_rank_phase(torch, np, in_dir, card):
+    """The PARALLEL_RANKS gloo ranks on cuda:0 (rank_worker), then their
+    results against each other and against one process's step on the whole
+    global batch. Returns rank 0's launches of one step by precision."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.parallel import distributed
+
+    out = os.path.join(WORK, "ranks")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()  # the card is shared with the ranks
+    t0 = time.perf_counter()
+    ranks = distributed.launch_local(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", out, in_dir],
+        PARALLEL_RANKS, PARALLEL_TIMEOUT_S, cwd=ROOT)
+    for r, (code, log) in enumerate(ranks):
+        if code:
+            print(log[-6000:], file=sys.stderr)
+        check(code == 0, f"two ranks: rank {r} exited with {code}")
+    print(f"two ranks: both ranks ran in {time.perf_counter() - t0:.1f} s (start-up, steps, "
+          f"static_train, process_dir, train-multi, video_st train) on {card}", flush=True)
+    res = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(PARALLEL_RANKS)]
+    arr = [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(PARALLEL_RANKS)]
+    for key in arr[0]:
+        if ".grad." not in key:
+            check(all(np.array_equal(a[key], arr[0][key]) for a in arr[1:]),
+                  f"two ranks: {key} bit-identical across the ranks")
+
+    style = torch.from_numpy(_style_image(np)).cuda()
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    grams = vgg.style_gram_targets(vgg_params, style)
+    x = torch.from_numpy(_parallel_batch(np)).cuda()
+    launches = {}
+    for precision in ("f32", "bf16"):
+        for r in res:
+            counts = r[f"{precision}.launches"]
+            want = {k: PER_RANK_STEP.get(k, 0) for k in counts}
+            check(counts == want, f"two ranks {precision}: rank {r['rank']}'s step launched "
+                  f"{counts} (want {PER_RANK_STEP})")
+        launches[precision] = res[0][f"{precision}.launches"]
+        cd = torch.bfloat16 if precision == "bf16" else None
+        step = fast.make_train_step(vgg_params, grams, compute_dtype=cd)
+        params = transformer.init_params(seed=1, device="cuda")
+        opt = fast.make_optimizer(params)
+        metrics = {k: float(v) for k, v in step(params, opt, x).items()}
+        grads = {n: p.grad.cpu().numpy() for n, p in params.named_parameters()}
+        ms_one = _step_ms(torch, step, params, opt, x)
+        gap = max(abs(res[0][f"{precision}.metrics"][k] - v) / abs(v) for k, v in metrics.items())
+        if precision == "f32":
+            check(gap <= PARALLEL_LOSS_RTOL,
+                  f"two ranks f32: loss components {res[0]['f32.metrics']} against one process's "
+                  f"{metrics}: largest gap {gap:.3g} (limit {PARALLEL_LOSS_RTOL})")
+            _grads_close(np, {n[len("f32.grad."):]: v for n, v in arr[0].items()
+                              if n.startswith("f32.grad.")}, grads, "two ranks f32")
+        else:
+            check(all(math.isfinite(v) for v in res[0]["bf16.metrics"].values()),
+                  f"two ranks bf16: loss components finite, largest gap to one process "
+                  f"{gap:.3g}")
+        print(f"two ranks {precision}: {TRAIN_BATCH // PARALLEL_RANKS} images per rank: "
+              f"{', '.join('%.2f' % r[f'{precision}.ms'] for r in res)} ms per step "
+              f"(gloo all-reduce of the gradients through the host) against one process on "
+              f"{TRAIN_BATCH} images {ms_one:.2f} ms, on {card}", flush=True)
+        for r in res:
+            losses = r[f"{precision}.train_losses"] + r[f"{precision}.test_losses"]
+            check(len(r[f"{precision}.train_losses"]) == PARALLEL_STEPS
+                  and len(r[f"{precision}.test_losses"]) == 2
+                  and all(math.isfinite(v) for v in losses),
+                  f"two ranks {precision}: rank {r['rank']}'s static_train logged "
+                  f"{['%.4f' % v for v in losses]}, all finite")
+            n, conv, norm = r[f"{precision}.served"]
+            check(n == BATCH and conv == 10 and norm == 15,
+                  f"two ranks {precision}: rank {r['rank']} served the trained checkpoint "
+                  f"through process_dir ({n} PNGs, {conv} conv3x3, {norm} IN-pad launches)")
+    for r in res:
+        check(len(r["multi.losses"]) == MULTI_PAR_STEPS
+              and all(math.isfinite(v) for v in r["multi.losses"]),
+              f"two ranks: rank {r['rank']}'s train-multi logged "
+              f"{['%.4f' % v for v in r['multi.losses']]}, all finite")
+        chunks = [PAR_VIDEO_CHUNK] * (2 * PAR_VIDEO_FRAMES // PAR_VIDEO_CHUNK)
+        check(r["video.whole_steps"] == chunks and r["video.cut_steps"] == chunks[:1]
+              and r["video.sidecar"] and r["video.resumed_steps"] == chunks[1:]
+              and all(math.isfinite(v) for v in r["video.losses"] + r["video.resumed_losses"]),
+              f"two ranks: rank {r['rank']}'s video_st train stepped {r['video.whole_steps']}; "
+              f"cut after the step state at frame {PAR_VIDEO_CHUNK} with its carry sidecar, it "
+              f"resumed mid-batch ({r['video.resumed_steps']}); losses finite")
+    gap = float(np.abs(arr[0]["video.resumed"] - arr[0]["video.whole"]).max())
+    check(gap == 0, f"two ranks: the video run resumed from the sidecars ends with the whole "
+          f"run's parameters bit for bit (largest gap {gap:.3g})")
+    return launches
+
+
+class _ReadyCounts(_Stamped):
+    """A daemon's stdout that sets the launch counters to 0 once its READY
+    line is complete (before the first request)."""
+
+    def write(self, text):
+        ready = self.ready
+        super().write(text)
+        if ready is None and self.ready is not None:
+            reset_counts()
+
+
+def placement_phase(torch, np, in_dir, card):
+    """The serving paths over PLACEMENT_DEVICES (two slots of cuda:0):
+    process_dir at batch BATCH against the one-device run, f32 and bf16;
+    convert-dir of PAR_CLIPS clips at batch PAR_CLIP_BATCH (one ragged
+    group: lanes 2 + 1), every clip exactly its stylize_clip; fast_st serve
+    at batch DAEMON_BATCH on stdin.
+    Returns the launches of each run."""
+    import io
+
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt
+    from styletransfer_tpu_torch.data import video as video_data
+    from styletransfer_tpu_torch.engines import fast, video
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.utils import images
+
+    models = os.path.join(WORK, "models_placement")
+    params = transformer.init_params(seed=0, device="cuda")
+    ckpt.save(params, ckpt.checkpoint_path("fast_st", "smoke", 0, models))
+    launches = {}
+    for precision in ("f32", "bf16"):
+        walls = {}
+        outs = {}
+        for label, devices in (("two", PLACEMENT_DEVICES), ("one", None)):
+            reset_counts()
+            t0 = time.perf_counter()
+            paths = fast.process_dir(in_dir, "smoke", out_dir=os.path.join(
+                WORK, f"place_{label}_{precision}"), batch_size=BATCH, models_path=models,
+                precision=precision, device="cuda", devices=devices)
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            outs[label] = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+            if label == "two":
+                launches[("process_dir", precision)] = counts = read_counts()
+                check(counts["conv3x3_valid"] == 20 and counts["instance_norm_pad"] == 30,
+                      f"placement {precision}: process_dir of {BATCH} images over "
+                      f"{PLACEMENT_DEVICES} launched {counts['conv3x3_valid']} conv3x3 and "
+                      f"{counts['instance_norm_pad']} IN-pad (10 and 15 per shard's forward)")
+        diff = np.abs(outs["two"].astype(np.int32) - outs["one"].astype(np.int32))
+        max_steps, mean_steps = MAIN_TOL[precision]
+        check(outs["two"].shape == (BATCH, SIZE, SIZE, 3) and int(diff.max()) <= max_steps
+              and float(diff.mean()) <= mean_steps,
+              f"placement {precision}: process_dir over two slots vs one device: max "
+              f"{int(diff.max())}/255, mean {float(diff.mean()):.4f}/255 (limits {max_steps}, "
+              f"{mean_steps}); {BATCH / walls['two']:.1f} against {BATCH / walls['one']:.1f} "
+              f"img/s with the IO, on {card}")
+
+    clips = os.path.join(WORK, "par_clips")
+    os.makedirs(clips, exist_ok=True)
+    for i, n in enumerate(PAR_CLIPS):
+        _write_clip(np, os.path.join(clips, f"clip{i}.gif"), n, 40_000 + i)
+    vparams = transformer.init_video_params(seed=0, device="cuda")
+    seen, restore = _recording(video)
+    library_conv, conv_calls = F.conv2d, [0]
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    F.conv2d = counting_conv2d
+    reset_counts()
+    try:
+        outs = video.process_video_dir(clips, "smoke", out_dir=os.path.join(WORK, "par_video"),
+                                       batch_size=PAR_CLIP_BATCH, params=vparams, chunk_size=4,
+                                       device="cuda", devices=PLACEMENT_DEVICES)
+    finally:
+        restore()
+        F.conv2d = library_conv
+    launches[("convert_dir", "f32")] = counts = read_counts()
+    # Every shard steps each frame row of the group (a lane past its clip's
+    # end feeds its last frame), one forward a row.
+    forwards = len(PLACEMENT_DEVICES) * max(PAR_CLIPS)
+    per = {"conv_direct": 6, "conv3x3_valid": 10, "conv3x3_valid.f32_fma": 10,
+           "instance_norm_pad": 15}
+    want = {k: per.get(k, 0) * forwards for k in counts}
+    check(counts == want and conv_calls[0] == 0,
+          f"placement: convert-dir over two slots ran {forwards} forwards ({max(PAR_CLIPS)} "
+          f"frame rows per shard), each 6 conv_direct and {per}: {counts['conv_direct']} "
+          f"conv_direct, no cuDNN conv ({conv_calls[0]})")
+    for i, (n, out) in enumerate(zip(PAR_CLIPS, outs)):
+        reader = video_data.ImageioFrameReader(os.path.join(clips, f"clip{i}.gif"),
+                                               normalized=False)
+        frames = np.stack([reader.next_frame()[0] for _ in range(n)])
+        reader.close()
+        want = np.stack([images.to_uint8(f) for f in video.stylize_clip(vparams, frames)])
+        got = np.stack(seen[out])
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"placement: convert-dir lane {i} ({n} frames; lanes 0-1 on the first slot, 2 "
+              f"on the second) is exactly its stylize_clip (max "
+              f"{int(np.abs(got.astype(np.int32) - want).max())}/255)")
+
+    lines = [os.path.join(in_dir, f"img{i:03d}.png") for i in range(PAR_SERVE_REQUESTS)]
+    out = _ReadyCounts()
+    n = fast.serve_loop("smoke", out_dir=os.path.join(WORK, "par_serve"), models_path=models,
+                        batch_size=DAEMON_BATCH, device="cuda", devices=PLACEMENT_DEVICES,
+                        stdin=io.StringIO("".join(f"{ln}\n" for ln in lines)), stdout=out)
+    launches[("serve", "f32")] = counts = read_counts()
+    forwards = 2 * -(-PAR_SERVE_REQUESTS // DAEMON_BATCH)
+    check(n == PAR_SERVE_REQUESTS and all(ln.startswith("OK ") for ln in out.lines[1:])
+          and counts["conv3x3_valid"] == 10 * forwards
+          and counts["instance_norm_pad"] == 15 * forwards,
+          f"placement: fast_st serve at batch {DAEMON_BATCH} over two slots answered {n} "
+          f"requests OK with {counts['conv3x3_valid']} conv3x3 and "
+          f"{counts['instance_norm_pad']} IN-pad launches after READY (10 and 15 per shard)")
+    return launches
+
+
+def dryrun_phase(torch, card):
+    """parallel/dryrun.py with two gloo ranks on cuda:0."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "styletransfer_tpu_torch.parallel.dryrun",
+                          "--ranks", "2", "--device", "cuda", "--backend", "gloo",
+                          "--timeout", str(PARALLEL_TIMEOUT_S)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S + 60)
+    if out.returncode:
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0, f"dryrun: two gloo ranks on cuda:0 ran one fast_st, multi-style "
+          f"and video step each and a placed Gatys pass in {time.perf_counter() - t0:.1f} s: "
+          f"{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else 'no result'} "
+          f"on {card}")
+
+
+def parallel_slice(torch, np, in_dir, card):
+    """The multi-GPU slice's phases; returns the launches of each path."""
+    nccl_phase(torch, np, card)
+    train = two_rank_phase(torch, np, in_dir, card)
+    placed = placement_phase(torch, np, in_dir, card)
+    dryrun_phase(torch, card)
+    return train, placed
+
+
 def main() -> int:
     try:
         import torch
@@ -3241,6 +3888,8 @@ def main() -> int:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of two_rank_phase
+        return rank_worker(torch, np, sys.argv[2], sys.argv[3])
 
     card = gpu_line()
     print(card, flush=True)
@@ -3295,6 +3944,11 @@ def main() -> int:
             network_slice(torch, np, F, in_dir)
             print(card)
             return 0
+        if sys.argv[1:] == ["--parallel"]:
+            in_dir, _ = write_inputs(np)
+            parallel_slice(torch, np, in_dir, card)
+            print(card)
+            return 0
         entries = []
         per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -3318,6 +3972,7 @@ def main() -> int:
                                                                  in_dir, imgs)
         entries += video_entries
         net_launches, net_rates = network_slice(torch, np, F, in_dir)
+        par_train, par_placed = parallel_slice(torch, np, in_dir, card)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3377,6 +4032,16 @@ def main() -> int:
                for (pad, p, b), c in net_launches["video_serve"].items() if p == precision},
             **{f"gatys_serve_b{b}": c[counter]
                for (p, b), c in net_launches["gatys_serve"].items() if p == precision}}
+    for e in entries:  # each kernel's launches on the multi-GPU slice's paths
+        kernel, dn = e["name"].split(".")
+        precision = "f32" if dn == "float32" else "bf16"
+        counter = {"conv3x3_flat_residual": "conv3x3_flat", "conv3x3_valid_wide": "conv3x3_valid",
+                   "conv3x3_valid_widest": "conv3x3_valid",
+                   "conv3x3_valid_mma": "conv3x3_valid.bf16_mma"}.get(kernel, kernel)
+        e["parallel_launches"] = {
+            "rank0_train_step": par_train[precision][counter],
+            **{f"placement_{path}": c[counter] for (path, p), c in par_placed.items()
+               if p == precision}}
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",

@@ -23,6 +23,10 @@ exactly as the JAX package does. A ``.pth`` (a state dict that the original
 reference wrote with ``torch.save``) loads through
 ``transformer.import_torch_state_dict``; loading an ``.orbax`` checkpoint
 raises here (orbax needs JAX).
+
+A distributed video run keeps each rank's recurrent carry (its local batch
+rows) in a sidecar per rank, ``{model}_{style}_step_carry_p{rank}of{world}``
+(:func:`save_carry_shards`), stamped with the step state's iteration.
 """
 
 from __future__ import annotations
@@ -318,6 +322,57 @@ def load_step_state(
     get_logger().info("Restored step state from %s (epoch %d, iteration %d)",
                       path, state["epoch"], state["iteration"])
     return state
+
+
+def carry_shard_path(model_name: str, style_name: str,
+                     models_path: Optional[str] = None) -> str:
+    """This rank's carry sidecar; the name holds the rank and the world
+    size, so a restart with another world size never reads a mismatched
+    shard."""
+    from styletransfer_tpu_torch.parallel import distributed
+
+    rank, world = distributed.process_info()
+    return os.path.join(_models_dir(models_path),
+                        f"{model_name}_{style_name}_step_carry_p{rank}of{world}{CKPT_SUFFIX}")
+
+
+def save_carry_shards(arrays: Mapping[str, Any], iteration: int, model_name: str,
+                      style_name: str, models_path: Optional[str] = None) -> str:
+    """Save this rank's carry ``arrays`` (its local batch rows; tensors or
+    numpy arrays), stamped with ``iteration`` so that a resume can tell a
+    sidecar older than the step state (a stop between the two writes).
+    Atomic, like every save."""
+    state = {"iteration": np.int64(iteration),
+             "arrays": {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                        else np.asarray(v) for k, v in arrays.items()}}
+    path = carry_shard_path(model_name, style_name, models_path)
+    save(state, path)
+    return path
+
+
+def load_carry_shards(iteration: int, model_name: str, style_name: str,
+                      models_path: Optional[str] = None,
+                      array_keys: Tuple[str, ...] = ()) -> Optional[Dict[str, np.ndarray]]:
+    """This rank's carry arrays, or None when the sidecar is absent,
+    unreadable, stamped with another iteration or missing a key of
+    ``array_keys``: the caller then resumes from the start of the video
+    batch (with every rank, see ``engines/video.py``)."""
+    path = carry_shard_path(model_name, style_name, models_path)
+    if not os.path.isfile(path):
+        return None
+    try:
+        state = load(path)
+        stamp, arrays = int(state["iteration"]), state["arrays"]
+    except Exception:  # noqa: BLE001 - an unreadable sidecar means batch-level resume
+        return None
+    if stamp != int(iteration):
+        get_logger().warning(
+            "Carry sidecar %s is at iteration %d but the step state is at %d; ignoring it "
+            "(batch-level resume).", path, stamp, int(iteration))
+        return None
+    if any(np.size(arrays.get(k, ())) == 0 for k in array_keys):
+        return None
+    return arrays
 
 
 def _tree_get(tree: Mapping[str, Any], path: Sequence[str]) -> Any:

@@ -4,10 +4,13 @@ The JAX package's ``train``, ``train-multi``, ``convert-image``,
 ``convert-dir``, ``convert-image-multi``, ``serve`` and ``serve-multi``
 commands, with the same arguments and output names, plus ``--device``
 (default ``cuda``; there is no silent fallback to the CPU). ``train`` and
-``train-multi`` do not take the JAX commands' ``--packed``,
-``--distributed`` and ``--global-batch`` yet. The daemons serve on one
-device, on stdin or over ``--tcp`` / ``--http`` (``engines/netserve.py``,
-``engines/httpserve.py``).
+``train-multi`` take ``--distributed`` (one process per GPU over
+``torch.distributed``, launched by ``torchrun`` or with the ``STX_*``
+variables; ``parallel/distributed.py``) and ``--global-batch``, but not the
+JAX commands' ``--packed`` yet. The batched commands and daemons serve over
+every visible GPU with ``--device cuda`` (one replica each, the batch split
+over them; ``parallel/mesh.py``), on stdin or over ``--tcp`` / ``--http``
+(``engines/netserve.py``, ``engines/httpserve.py``).
 """
 
 import os
@@ -20,6 +23,37 @@ _device_option = click.option(
     "--device", default="cuda", show_default=True,
     help="Torch device to run on ('cuda', 'cuda:1', 'cpu')",
 )
+_distributed_option = click.option(
+    "--distributed", is_flag=True, default=False,
+    help="Join a torch.distributed group for a multi-process run, one process per "
+         "device (coordinator/rank from STX_COORDINATOR_ADDRESS / STX_NUM_PROCESSES / "
+         "STX_PROCESS_ID, or torchrun's MASTER_ADDR/MASTER_PORT / WORLD_SIZE / RANK / "
+         "LOCAL_RANK; BATCH-SIZE is the GLOBAL batch)",
+)
+_global_batch_option = click.option(
+    "--global-batch", default=None, type=str,
+    help="DP scaling opt-in: 'auto' treats -b as PER-CHIP batch (global = b x device "
+         "count, every chip busy), or an explicit global batch size. Default: -b is the "
+         "global batch (reference semantics; extra chips may idle). Adam lr stays at the "
+         "reference default either way.",
+)
+
+
+def _training_batch(device, distributed_run, batch_size, global_batch) -> int:
+    """Join the process group when asked (before anything touches the
+    device; left at exit) and resolve the global batch."""
+    import atexit
+
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.parallel import distributed, mesh
+
+    constants.resolve_device(device)
+    if distributed_run:
+        distributed.initialize(device=device)
+        atexit.register(distributed.shutdown)
+    return mesh.resolve_global_batch(batch_size, global_batch)
+
+
 _precision_option = click.option(
     "--precision", default="f32", type=click.Choice(["f32", "bf16"]),
     help="Activation precision",
@@ -49,9 +83,11 @@ def fast_st():
               help="Also save mid-epoch resumable state every N steps")
 @click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
               help="Activation precision (params/optimizer stay f32)")
+@_distributed_option
+@_global_batch_option
 @_device_option
 def train(style_image_path, epochs, batch_size, content_weight, style_weight,
-          step_checkpoint_every, precision, device):
+          step_checkpoint_every, precision, distributed, global_batch, device):
     """
     Perform the training for the fast style transfer network. A checkpoint
     will be created at the end of each epoch in the `data/models/` directory.
@@ -61,7 +97,7 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
     from styletransfer_tpu_torch.utils import images
     from styletransfer_tpu_torch.utils.logging import get_logger
 
-    constants.resolve_device(device)
+    batch_size = _training_batch(device, distributed, batch_size, global_batch)
     style_name = style_image_path.split("/")[-1]
     get_logger().info("Training fast style transfer network with style name: %s", style_name)
     style_image = images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, style_image_path))
@@ -85,9 +121,11 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
               help="Also save mid-epoch resumable state every N steps")
 @click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
               help="Activation precision (params/optimizer stay f32)")
+@_distributed_option
+@_global_batch_option
 @_device_option
 def train_multi(style_image_paths, name, epochs, batch_size, content_weight, style_weight,
-                step_checkpoint_every, precision, device):
+                step_checkpoint_every, precision, distributed, global_batch, device):
     """
     Train ONE network on MULTIPLE styles (conditional instance norm).
 
@@ -102,7 +140,7 @@ def train_multi(style_image_paths, name, epochs, batch_size, content_weight, sty
     from styletransfer_tpu_torch.utils import images
     from styletransfer_tpu_torch.utils.logging import get_logger
 
-    constants.resolve_device(device)
+    batch_size = _training_batch(device, distributed, batch_size, global_batch)
     stack = np.concatenate([images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, p))
                             for p in style_image_paths], axis=0)
     get_logger().info("Training multi-style network '%s' on %d styles", name, len(stack))

@@ -3,9 +3,10 @@
 The JAX package's ``train``, ``convert-video``, ``convert-dir`` and
 ``serve`` commands, with the same arguments and output names, plus
 ``--device`` (default ``cuda``; there is no silent fallback to the CPU).
-``train`` does not take the JAX command's ``--distributed`` and
-``--global-batch``; ``serve`` runs on one device, on stdin or over ``--tcp``
-/ ``--http``.
+``train`` takes ``--distributed`` and ``--global-batch`` as ``fast_st
+train`` does; ``convert-dir`` and ``serve`` split their lanes over every
+visible GPU with ``--device cuda``, and ``serve`` listens on stdin or over
+``--tcp`` / ``--http``.
 """
 
 import os
@@ -13,7 +14,8 @@ import os
 import click
 
 from styletransfer_tpu_torch.clis.fast_st import (
-    _device_option, _pad_mode_option, _precision_option, _transport_options, serve_on_transport)
+    _device_option, _distributed_option, _global_batch_option, _pad_mode_option,
+    _precision_option, _training_batch, _transport_options, serve_on_transport)
 
 
 @click.group()
@@ -39,9 +41,12 @@ def video_st():
               help="Activation precision (params/optimizer stay f32)")
 @click.option("--step-checkpoint-every", default=None, type=int,
               help="Also save mid-epoch resumable state every N frame updates")
+@_distributed_option
+@_global_batch_option
 @_device_option
 def train(style_image_path, epochs, batch_size, content_weight, style_weight,
-          temporal_weight, use_pretrained_fast_st, precision, step_checkpoint_every, device):
+          temporal_weight, use_pretrained_fast_st, precision, step_checkpoint_every,
+          distributed, global_batch, device):
     """
     Perform the training for the video style transfer network. A checkpoint
     will be created at the end of each epoch in the `data/models/` directory.
@@ -54,7 +59,7 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
     from styletransfer_tpu_torch.utils import images
     from styletransfer_tpu_torch.utils.logging import get_logger
 
-    constants.resolve_device(device)
+    batch_size = _training_batch(device, distributed, batch_size, global_batch)
     style_name = style_image_path.split("/")[-1]
     get_logger().info("Training video style transfer network with style name: %s", style_name)
     style_image = images.load_image(os.path.join(constants.PROJECT_ROOT_PATH, style_image_path))

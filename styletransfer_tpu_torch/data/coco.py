@@ -117,7 +117,10 @@ class DataLoader:
     """Batched loader with a per-epoch shuffle, drop_last and threaded decode.
 
     Yields float32 ``[batch, size, size, 3]`` numpy arrays. A thread pool
-    decodes a bounded window ahead of the consumer."""
+    decodes a bounded window ahead of the consumer. ``shard_index`` /
+    ``shard_count`` give each rank of a distributed run a disjoint strided
+    slice of the corpus; every rank shuffles with the same seed, so the
+    epochs line up."""
 
     def __init__(
         self,
@@ -127,18 +130,22 @@ class DataLoader:
         drop_last: bool = True,
         num_threads: int = 4,
         seed: int = 0,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = num_threads
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self.seed = seed
         self._epoch = 0
         self._skip_batches = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(range(self.shard_index, len(self.dataset), self.shard_count))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _indices(self, epoch: Optional[int] = None) -> List[int]:
@@ -148,6 +155,8 @@ class DataLoader:
             # rebuild where an epoch left off (see set_position).
             e = self._epoch if epoch is None else epoch
             random.Random((self.seed << 32) ^ e).shuffle(idx)
+        if self.shard_count > 1:
+            idx = idx[self.shard_index::self.shard_count]
         return idx
 
     def set_position(self, epoch: int, batches_consumed: int) -> None:
@@ -208,10 +217,13 @@ def get_coco_loader(
     train_limit: Optional[int] = None,
     image_dir: str = IMAGE_FOLDER_PATH,
     seed: int = 0,
+    shard_index: int = 0,
+    shard_count: int = 1,
 ) -> Tuple[DataLoader, DataLoader]:
     """``(test_loader, train_loader)``, split as the reference's
     ``get_coco_loader``; the synthetic corpus (256 train images, a disjoint
-    test split) when the directory holds no images."""
+    test split) when the directory holds no images. Both loaders take the
+    rank's shard (``shard_index`` of ``shard_count``)."""
     logger = get_logger()
     abs_dir = _abspath(image_dir)
     all_images = sorted(os.listdir(abs_dir)) if os.path.isdir(abs_dir) else []
@@ -231,6 +243,9 @@ def get_coco_loader(
         logger.info("Train set has %d entries", len(train_ds))
         logger.info("Test set has %d entries", len(test_ds))
 
-    test_loader = DataLoader(test_ds, batch_size, shuffle=True, drop_last=True, seed=seed)
-    train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True, seed=seed + 1)
+    shard = dict(shard_index=shard_index, shard_count=shard_count)
+    test_loader = DataLoader(test_ds, batch_size, shuffle=True, drop_last=True, seed=seed,
+                             **shard)
+    train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
+                              seed=seed + 1, **shard)
     return test_loader, train_loader

@@ -135,7 +135,11 @@ def make_batches(items: Sequence, n: int) -> List[List]:
 class VideoDataset:
     """Iterable over batches of frame readers: the clips in ``videos``, or
     the files of ``video_dir``, or (none on disk) ``synthetic_count``
-    synthetic clips of 48 frames."""
+    synthetic clips of 48 frames. ``shard_index`` / ``shard_count`` give
+    each rank of a distributed run a disjoint strided slice of the clips;
+    sharded, the batch size is never clamped to the rank's count (every
+    rank's local batch must be the same size), and a rank with fewer clips
+    than a batch yields no batch."""
 
     def __init__(
         self,
@@ -146,6 +150,8 @@ class VideoDataset:
         size: int = constants.IMSIZE,
         synthetic_fallback: bool = True,
         synthetic_count: int = 4,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         logger = get_logger()
         self.size = size
@@ -165,7 +171,13 @@ class VideoDataset:
 
         if data_limit:
             videos = videos[:data_limit]
-        if batch_size > len(videos):
+        if shard_count > 1:
+            videos = videos[shard_index::shard_count]
+            if batch_size > len(videos):
+                logger.warning("Shard %d/%d has %d video(s) < batch %d; it will yield no "
+                               "batches (all hosts stop together via lockstep).",
+                               shard_index, shard_count, len(videos), batch_size)
+        elif batch_size > len(videos):
             logger.warning("Batch size larger than video count; using batch of %d",
                            len(videos))
             batch_size = len(videos)

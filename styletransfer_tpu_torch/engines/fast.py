@@ -13,11 +13,22 @@ on the logging cadence. The reference's cadences and TensorBoard tags are
 kept: the loss every 20 steps (``data/fst_train_loss``), a preview every 50
 (``data/fst_images``), the eval every 150 (``data/fst_test_loss``).
 
+Data-parallel training over ``torch.distributed`` (one process per GPU,
+``parallel/distributed.py``): each rank trains on its shard of the corpus
+and its slice of the global batch, the step averages the gradients and
+metrics over the ranks in one all-reduce, the loops run in ``lockstep``,
+resume positions are agreed by every rank, and the eval's mean is the
+global batch's. Previews are skipped with more than one rank.
+
 Inference: ``make_serve_fn`` (uint8 in, uint8 out, the normalize and
 denormalize steps on the device, the pad-early forward on the serving
 kernels), ``process_image``, ``process_dir`` and the stdin daemon
 ``serve_loop`` (``fast_st serve``, on ``engines/daemon.py``). Inputs are
-decoded on the host with PIL and moved to the device as uint8.
+decoded on the host with PIL and moved to the device as uint8. The batched
+paths take a list of ``devices`` (default: every visible GPU for ``"cuda"``,
+else ``device`` alone): one replica of the parameters on each, every batch
+split over them (``parallel/mesh.py``); with one device the code path is
+the single-device one.
 """
 
 from __future__ import annotations
@@ -38,7 +49,8 @@ from styletransfer_tpu_torch.data import coco
 from styletransfer_tpu_torch.engines import daemon
 from styletransfer_tpu_torch.models import transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
-from styletransfer_tpu_torch.parallel import prefetch
+from styletransfer_tpu_torch.parallel import distributed, prefetch
+from styletransfer_tpu_torch.parallel import mesh as mesh_lib
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils import tb
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -78,10 +90,13 @@ def loss_fn(
     style_weight: float,
     content_weight: float,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The perceptual training objective: style + content + total variation
     of the stylized batch. Returns ``(total, {"total", "style", "content",
-    "tv"})``."""
+    "tv"})``. With ``shards`` the batch is this rank's slice of a global
+    batch, and the mean over the ranks of the result is the global batch's
+    (see ``parallel/distributed.py``)."""
     batch = img_utils.maybe_normalize_on_device(batch)
     transformed = transformer.apply_stacked(params, batch, compute_dtype)
     perceptual, comps = vgg.perceptual_loss(
@@ -90,16 +105,24 @@ def loss_fn(
         compute_dtype=compute_dtype,
     )
     tv = losses.total_variation_loss(transformed)
+    if shards is not None:
+        # A sum over the batch: its share of the ranks' mean is world times
+        # this rank's sum.
+        tv = tv * shards.world
     total = perceptual + tv
     return total, {"total": total, "style": comps["style"], "content": comps["content"],
                    "tv": tv}
 
 
-def make_step(objective: Callable, remat: bool = False) -> Callable:
+def make_step(objective: Callable, remat: bool = False,
+              shards: Optional[distributed.GlobalBatch] = None) -> Callable:
     """``train_step(params, optimizer, *inputs) -> metrics`` for
     ``objective(params, *inputs) -> (total, metrics)``: one forward,
     backward and Adam update, in place on ``params``. The metrics are
     detached 0-d tensors on the device (reading one waits for the step).
+    With ``shards`` the gradients and metrics are averaged over the ranks
+    (one all-reduce) between the backward and the update, so every rank
+    takes the same step.
 
     ``remat=True`` checkpoints the objective (``torch.utils.checkpoint``):
     the backward recomputes the forward's activations instead of keeping
@@ -116,8 +139,11 @@ def make_step(objective: Callable, remat: bool = False) -> Callable:
         else:
             total, metrics = objective(params, *inputs)
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if shards is not None:
+            metrics = shards.average(params, metrics)
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return train_step
 
@@ -129,14 +155,15 @@ def make_train_step(
     content_weight: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Callable:
     """``train_step(params, optimizer, batch) -> metrics`` on :func:`loss_fn`
-    (:func:`make_step`, with its ``remat``)."""
+    (:func:`make_step`, with its ``remat`` and ``shards``)."""
     def objective(params, batch):
         return loss_fn(params, batch, vgg_params, style_grams, style_weight, content_weight,
-                       compute_dtype)
+                       compute_dtype, shards)
 
-    return make_step(objective, remat)
+    return make_step(objective, remat, shards)
 
 
 def eval_loss(
@@ -147,15 +174,18 @@ def eval_loss(
     style_weight: float,
     feature_weight: float,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> torch.Tensor:
     """The eval objective of a stylized batch: style + feature loss, with
     the reference's quirk of clamping the ImageNet-normalized output to [0,
     255] (which only removes negatives) first. ``style_grams`` are [1, C, C]
-    or per image [B, C, C]."""
+    or per image [B, C, C]. With ``shards`` the mean over the ranks of the
+    result is the global batch's."""
     clamped = torch.clamp(transformed, 0.0, 255.0)
     feats = vgg.extract_features(vgg_params, clamped, tuple(style_grams), compute_dtype)
     s_loss = sum(losses.style_loss(feats[name], tgt) for name, tgt in style_grams.items())
-    f_loss = vgg.feature_loss(vgg_params, clamped, batch, compute_dtype=compute_dtype)
+    f_loss = vgg.feature_loss(vgg_params, clamped, batch, compute_dtype=compute_dtype,
+                              shards=shards)
     return style_weight * s_loss + feature_weight * f_loss
 
 
@@ -165,9 +195,11 @@ def make_eval_step(
     style_weight: float = 100_000.0,
     feature_weight: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Callable:
     """``eval_step(params, batch) -> loss``: :func:`eval_loss` of the
-    stylized batch."""
+    stylized batch (with ``shards``, this rank's share of the ranks'
+    mean)."""
     layers.disable_tf32()
 
     @torch.no_grad()
@@ -175,17 +207,21 @@ def make_eval_step(
         batch = img_utils.maybe_normalize_on_device(batch)
         transformed = transformer.apply_stacked(params, batch, compute_dtype)
         return eval_loss(vgg_params, transformed, batch, style_grams, style_weight,
-                         feature_weight, compute_dtype)
+                         feature_weight, compute_dtype, shards)
 
     return eval_step
 
 
 def static_test(params: transformer.TransformerNet, test_loader, eval_step: Callable,
-                device) -> float:
-    """Mean eval loss over the test loader."""
+                device, shards: Optional[distributed.GlobalBatch] = None) -> float:
+    """Mean eval loss over the test loader. With ``shards`` the ranks
+    evaluate their shards of the test split in lockstep (each eval step
+    holds a collective), and the mean is the global batches'."""
     total = [float(eval_step(params, prefetch.to_device(batch, torch.device(device))))
-             for batch in test_loader]
+             for batch in distributed.lockstep(test_loader)]
     avg = float(np.mean(total)) if total else float("nan")
+    if shards is not None:
+        avg = shards.mean_float(avg)
     get_logger().info("Average test loss: %.8f", avg)
     return avg
 
@@ -223,8 +259,14 @@ def train_loop(
     ``step_checkpoint_every`` a step state (params, Adam state, epoch and
     batch position) is also saved every N steps and after each epoch; a
     restart resumes from it with the loader fast-forwarded, so no trained
-    batch is replayed."""
+    batch is replayed.
+
+    In a distributed run every rank runs this loop on its loader's shard:
+    the batches go in ``lockstep``, a loaded step state is kept only if
+    every rank loaded the same position, every rank writes the checkpoints
+    (the same bytes; ``ckpt.save`` is atomic) and no preview is made."""
     logger = get_logger()
+    world = distributed.process_info()[1]
     scalar_every, image_every, eval_every = log_cadence
     optimizer = make_optimizer(params)
     iteration = 0
@@ -233,6 +275,7 @@ def train_loop(
     if step_checkpoint_every:
         state = ckpt.load_step_state(model_name, style_name, models_path,
                                      extra_keys=("batch_in_epoch",))
+        state = distributed.agree_resume_state(state)
         if state is not None:
             params = from_tree(state["params"])
             optimizer = make_optimizer(params)
@@ -265,7 +308,7 @@ def train_loop(
         resume_batches = 0
         batches = prefetch.prefetch_to_device(train_loader, device)
         try:
-            for batch in batches:
+            for batch in distributed.lockstep(batches):
                 metrics = train_step(params, optimizer, batch)
                 if iteration % scalar_every == 0:
                     total = float(metrics["total"])
@@ -273,7 +316,7 @@ def train_loop(
                     logger.info("Batch Loss: %.8f", total)
                 if iteration % eval_every == 0:
                     writer.add_scalar("data/fst_test_loss", test(params), iteration)
-                if iteration % image_every == 0:
+                if iteration % image_every == 0 and world == 1:
                     with torch.no_grad():
                         stylized, preview_in = preview(params, batch, iteration)
                     pair = img_utils.concat_images(
@@ -336,8 +379,13 @@ def static_train(
     The epochs, checkpoints, step states and their resume are
     :func:`train_loop`'s. ``precision="bf16"`` runs the activations of the
     transform net and VGG in bf16; params, gradients, Adam state and loss
-    reductions stay f32."""
+    reductions stay f32. In a distributed run (``parallel.distributed.
+    initialize`` first) ``batch_size`` is the global batch, and each rank
+    loads its shard of the corpus and its slice of every batch."""
     dev = constants.resolve_device(device)
+    rank, world = distributed.process_info()
+    shards = distributed.global_batch()
+    mesh_lib.warn_single_process_training(dev, world)
     compute_dtype = _compute_dtype(precision)
     writer = tb.get_tensorboard_writer(runs_dir or os.path.join(
         constants.PROJECT_ROOT_PATH, constants.RUNS_PATH,
@@ -350,20 +398,23 @@ def static_train(
     if params is None:
         params = transformer.init_params(seed, device=dev)
     train_step = make_train_step(vgg_params, style_grams, style_weight, content_weight,
-                                 compute_dtype)
+                                 compute_dtype, shards=shards)
     eval_step = make_eval_step(vgg_params, style_grams, style_weight,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, shards=shards)
     if train_loader is None or test_loader is None:
         test_loader, train_loader = coco.get_coco_loader(
-            batch_size=batch_size, test_split=0.10, test_limit=20, seed=seed)
-    get_logger().info("Training fast_st with Adam on %s (%s)", dev, precision)
+            batch_size=distributed.local_batch_size(batch_size), test_split=0.10,
+            test_limit=20, seed=seed, shard_index=rank, shard_count=world)
+    get_logger().info("Training fast_st with Adam on %s (%s, %d process(es))", dev, precision,
+                      world)
 
     def preview(params, batch, iteration):
         preview_in = img_utils.maybe_normalize_on_device(batch[:1])
         return transformer.apply_stacked(params, preview_in, compute_dtype), preview_in
 
     return train_loop(
-        params, train_step, lambda p: static_test(p, test_loader, eval_step, dev), preview,
+        params, train_step, lambda p: static_test(p, test_loader, eval_step, dev, shards),
+        preview,
         lambda tree: transformer.params_from_jax(tree, device=dev), MODEL_NAME, style_name,
         train_loader, writer, epochs, batch_size, log_cadence, models_path,
         max_steps_per_epoch, step_checkpoint_every, dev)
@@ -438,12 +489,14 @@ def process_dir(
     precision: str = "f32",
     pad_mode: str = "reflect",
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> List[str]:
     """Stylize every image in a directory with batched inference.
 
     One checkpoint load, threaded host decode of up to ``PREFETCH_BATCHES``
-    batches ahead of the device, uint8 both ways. Unreadable files are
-    skipped with a warning. Outputs are
+    batches ahead of the device, uint8 both ways, each batch split over
+    ``devices`` (``mesh.serving_placement``). Unreadable files are skipped
+    with a warning. Outputs are
     ``{out_dir}/converted_fast_st_{style}_{stem}.png``; returns their paths.
     """
     dev = constants.resolve_device(device)
@@ -453,6 +506,7 @@ def process_dir(
     if not files:
         raise FileNotFoundError(f"No images ({'/'.join(IMAGE_EXTS)}) in {in_dir}")
     params = _load_params(params, style_name, models_path, dev)
+    placement = mesh_lib.serving_placement(min(batch_size, len(files)), params, devices, dev)
     serve_fn = make_serve_fn(precision, pad_mode)
     sz = size or constants.IMSIZE
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
@@ -482,8 +536,7 @@ def process_dir(
             good = [(n, a) for n, a in chunk if a is not None]
             if not good:
                 continue
-            batch = torch.from_numpy(np.stack([a for _, a in good])).to(dev)
-            out = serve_fn(params, batch).cpu().numpy()
+            out = placement.run(serve_fn, np.stack([a for _, a in good])).cpu().numpy()
             for (name, _), img in zip(good, out):
                 stem = os.path.splitext(name)[0]
                 path = os.path.join(out_dir, f"converted_fast_st_{style_name}_{stem}.png")
@@ -550,6 +603,7 @@ def serve_loop(
     stdin=None,
     stdout=None,
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> int:
     """Warm-process serving: the line-oriented stylization daemon of
     ``fast_st serve``, with the JAX daemon's protocol (``engines/daemon.py``).
@@ -568,27 +622,29 @@ def serve_loop(
 
     ``batch_size > 1`` batches dynamically: the requests already queued (up
     to ``batch_size``) run as one device call per bucket present, padded to
-    ``batch_size``; a lone request keeps single-request latency.
+    ``batch_size``; a lone request keeps single-request latency. The group
+    is split over ``devices`` (``mesh.serving_placement``); ``RELOAD``
+    replaces every device's replica.
     """
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = constants.resolve_device(device)
     stdout = stdout if stdout is not None else sys.stdout
     params = _load_params(params, style_name, models_path, dev)
+    # The served parameters live in the placement, so that RELOAD can swap them.
+    placement = mesh_lib.serving_placement(batch_size, params, devices, dev)
     serve_fn = make_serve_fn(precision, pad_mode)
     buckets = daemon.normalize_buckets(sizes, size or constants.IMSIZE)
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)
-    # The served parameters live in a cell, so that RELOAD can swap them.
-    state = {"params": params}
-    warm_buckets(lambda b: serve_fn(state["params"], b), buckets, batch_size, dev, "serve")
+    warm_buckets(lambda b: placement.run(serve_fn, b), buckets, batch_size, dev, "serve")
     print("READY", file=stdout, flush=True)
     resolve_bucket = bucket_resolver(buckets, 2, "INPUT[\\tOUTPUT[\\tSIZE]]")
 
     def reload():
         new, epoch = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path,
-                                                  device=dev, template=state["params"])
-        state["params"] = new
+                                                  device=dev, template=placement.params)
+        placement.place_params(new)
         return f"RELOAD epoch={epoch}"
 
     def save_one(in_path, explicit_out, img):
@@ -606,7 +662,7 @@ def serve_loop(
         def handle(*fields):
             bucket = resolve_bucket(fields)
             in_u8 = torch.from_numpy(np.array(load(fields[0], bucket))).to(dev)
-            out_u8 = serve_fn(state["params"], in_u8).cpu().numpy()[0]
+            out_u8 = serve_fn(placement.params, in_u8).cpu().numpy()[0]
             return save_one(fields[0], fields[1] if len(fields) > 1 else "", out_u8)
 
         return daemon.run_request_loop(handle, stdin=stdin, stdout=stdout, name="serve",
@@ -622,8 +678,7 @@ def serve_loop(
             return i, None, None, exc
 
     def launch(bucket, metas):
-        arr = pad_group([m[3] for m in metas], batch_size)
-        return serve_fn(state["params"], torch.from_numpy(arr).to(dev))
+        return placement.run(serve_fn, pad_group([m[3] for m in metas], batch_size))
 
     def save(meta, img):
         return save_one(meta[1], meta[2], img)

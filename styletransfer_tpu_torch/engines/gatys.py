@@ -1,7 +1,7 @@
 """Gatys optimization-based style transfer.
 
-The port of ``styletransfer_tpu/engines/gatys.py`` (all but ``lbfgs-zoom``
-and multi-device placement): the pixels of the content image are optimized
+The port of ``styletransfer_tpu/engines/gatys.py`` (all but ``lbfgs-zoom``):
+the pixels of the content image are optimized
 against VGG19 Gram (style) and feature (content) losses. Each closure runs
 the VGG tower to ``conv3_1`` forward and backward on the stat-free 3x3 conv
 kernels (``models/vgg.py``): ``conv3x3_im2col`` for ``conv1_1``,
@@ -25,7 +25,9 @@ The serving daemon (``gatys_st --serve``, :func:`serve_loop`) runs one
 optimization per request; with ``batch > 1`` a group of requests runs as
 independent lanes, each against its own Gram targets (``make_loss_fn``
 takes targets of shape [N, C, C]) and each with its own loss history
-(:func:`_run_serve_batched`).
+(:func:`_run_serve_batched`), the group's lanes split over the devices
+(:func:`_run_serve_placed`). The devices take their shares one after the
+other: under L-BFGS each inner iteration reads a flag back to the host.
 """
 
 from __future__ import annotations
@@ -325,6 +327,22 @@ def _run_serve_batched(
                           history_size=history_size, history_math=history_math, per_lane=True)
 
 
+def _run_serve_placed(placement, contents: torch.Tensor, grams: Mapping[str, torch.Tensor],
+                      *args, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_run_serve_batched` with the lanes split over the devices of
+    ``placement`` (whose parameters are VGG's): each device optimizes its
+    lanes, against their own Gram targets, with its replica. With one
+    device it is :func:`_run_serve_batched` itself; with more the pixels
+    and losses come back on the host."""
+    if len(placement.devices) == 1:
+        return _run_serve_batched(placement.params, contents, grams, *args, **kwargs)
+    keys = list(grams)
+    parts = [_run_serve_batched(vgg_params, lanes, dict(zip(keys, targets)), *args, **kwargs)
+             for vgg_params, lanes, *targets in placement.split(contents, *grams.values())]
+    return (torch.cat([p.cpu() for p, _ in parts]),
+            torch.cat([losses.cpu() for _, losses in parts]))
+
+
 def serve_loop(
     steps: int = 300,
     style_weight: float = 100_000.0,
@@ -341,6 +359,7 @@ def serve_loop(
     stdin=None,
     stdout=None,
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> int:
     """Warm-process Gatys daemon (``gatys_st --serve``): one optimization per
     request, with the JAX daemon's protocol (``engines/daemon.py``).
@@ -362,12 +381,15 @@ def serve_loop(
     carries its lane's own final loss. A lone surviving lane runs as one
     lane, and a ragged group of 2 or more runs at its own size (the JAX
     daemon pads it to its one compiled shape): under the torch-contract
-    L-BFGS a padded lane costs as much as a real one."""
+    L-BFGS a padded lane costs as much as a real one. A group's lanes are
+    split over ``devices`` (``mesh.serving_placement``), each device
+    optimizing its own lanes with its replica of VGG
+    (:func:`_run_serve_placed`)."""
     import sys
     from collections import OrderedDict
 
     from styletransfer_tpu_torch.engines import daemon
-    from styletransfer_tpu_torch.parallel import prefetch
+    from styletransfer_tpu_torch.parallel import mesh, prefetch
     from styletransfer_tpu_torch.utils import images as img_utils
 
     logger = get_logger()
@@ -426,12 +448,13 @@ def serve_loop(
     _run_optimizer(optimizer, vgg_params, warm, warm_grams, 1, style_weight, content_weight,
                    learning_rate, compute_dtype=compute_dtype, history_size=history_size,
                    history_math=history_math)[0].cpu()
+    placement = mesh.serving_placement(batch, vgg_params, devices, dev)
     if batch > 1:
-        _run_serve_batched(vgg_params, warm.expand(batch, -1, -1, -1).contiguous(),
-                           {k: g.expand(batch, -1, -1).contiguous()
-                            for k, g in warm_grams.items()}, 1, style_weight, content_weight,
-                           learning_rate, optimizer, compute_dtype=compute_dtype,
-                           history_size=history_size, history_math=history_math)[0].cpu()
+        _run_serve_placed(placement, warm.expand(batch, -1, -1, -1).contiguous(),
+                          {k: g.expand(batch, -1, -1).contiguous()
+                           for k, g in warm_grams.items()}, 1, style_weight, content_weight,
+                          learning_rate, optimizer, compute_dtype=compute_dtype,
+                          history_size=history_size, history_math=history_math)[0].cpu()
     logger.info("gatys serve: warmed %dpx %s %s (steps=%d, batch=%d) in %.1fs; ready", sz,
                 precision, optimizer, steps, batch, time.time() - t0)
     print("READY", file=stdout, flush=True)
@@ -491,8 +514,8 @@ def serve_loop(
         if not lanes:
             return results
         try:
-            pixels, losses = _run_serve_batched(
-                vgg_params, torch.cat([lane[4] for lane in lanes]),
+            pixels, losses = _run_serve_placed(
+                placement, torch.cat([lane[4] for lane in lanes]),
                 {k: torch.cat([lane[5][k] for lane in lanes]) for k in lanes[0][5]}, steps,
                 style_weight, content_weight, learning_rate, optimizer,
                 compute_dtype=compute_dtype, history_size=history_size,

@@ -12,6 +12,10 @@ kernels with [B, C] affines and returns [B, C] dscale and dbias, which the
 gather adds into each style's rows. The loop, Adam, checkpoints and step
 states are ``engines/fast.py``'s (``train_loop``), under the model name
 ``fast_multi_st``; checkpoints hold every affine as [S, C], the JAX layout.
+Distributed, every rank draws the global batch's indices from the one seed
+and takes its slice's rows, so the global batch trains the schedule of one
+process; the [S, C] affines' gradients go through the step's one
+all-reduce with the rest.
 
 Inference: ``stylize`` (a style index per image), ``stylize_blend``
 (per-image convex blends of the styles) and the request parser
@@ -36,6 +40,8 @@ from styletransfer_tpu_torch.engines import daemon, fast
 from styletransfer_tpu_torch.engines.fast import _compute_dtype
 from styletransfer_tpu_torch.models import multistyle, transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
+from styletransfer_tpu_torch.parallel import distributed
+from styletransfer_tpu_torch.parallel import mesh as mesh_lib
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils import tb
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -64,10 +70,12 @@ def multistyle_loss(
     style_weight: float,
     content_weight: float,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The perceptual objective with a style index per image [B]: style
     (each image against its style's Grams) + content + total variation.
-    Returns ``(total, {"total", "style", "content", "tv"})``."""
+    Returns ``(total, {"total", "style", "content", "tv"})``; with
+    ``shards``, this rank's share of the global batch's (``fast.loss_fn``)."""
     batch = img_utils.maybe_normalize_on_device(batch)
     idx = multistyle.style_index(style_idx, batch.device)
     transformed = multistyle.apply_stacked(params, batch, idx, compute_dtype)
@@ -77,6 +85,8 @@ def multistyle_loss(
         compute_dtype=compute_dtype,
     )
     tv = losses.total_variation_loss(transformed)
+    if shards is not None:
+        tv = tv * shards.world  # a sum over the batch (fast.loss_fn)
     total = perceptual + tv
     return total, {"total": total, "style": comps["style"], "content": comps["content"],
                    "tv": tv}
@@ -89,15 +99,16 @@ def make_train_step(
     content_weight: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Callable:
     """``train_step(params, optimizer, batch, style_idx) -> metrics``: one
     forward, backward and Adam update of :func:`multistyle_loss`
-    (``fast.make_step``)."""
+    (``fast.make_step``, with its ``shards``)."""
     def objective(params, batch, style_idx):
         return multistyle_loss(params, batch, style_idx, vgg_params, style_grams, style_weight,
-                               content_weight, compute_dtype)
+                               content_weight, compute_dtype, shards)
 
-    return fast.make_step(objective, remat)
+    return fast.make_step(objective, remat, shards)
 
 
 def make_eval_step(
@@ -106,10 +117,11 @@ def make_eval_step(
     style_weight: float = 100_000.0,
     feature_weight: float = 1.0,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Callable:
     """``eval_step(params, batch, style_idx) -> loss``: style + feature loss
-    of the clamped stylized batch (``fast.eval_loss``), each image against
-    its own style's Grams."""
+    of the clamped stylized batch (``fast.eval_loss``, with its ``shards``),
+    each image against its own style's Grams."""
     layers.disable_tf32()
 
     @torch.no_grad()
@@ -119,7 +131,7 @@ def make_eval_step(
         idx = multistyle.style_index(style_idx, batch.device)
         transformed = multistyle.apply_stacked(params, batch, idx, compute_dtype)
         return fast.eval_loss(vgg_params, transformed, batch, _targets(style_grams, idx),
-                              style_weight, feature_weight, compute_dtype)
+                              style_weight, feature_weight, compute_dtype, shards)
 
     return eval_step
 
@@ -152,9 +164,13 @@ def train(
     trains the same schedule in both packages. The eval holds image b to
     style ``b % S``; the preview stylizes with style ``iteration % S`` on the
     serving forward. Epochs, checkpoints (``fast_multi_st_{style_name}``),
-    step states and resume are ``fast.train_loop``'s."""
+    step states and resume are ``fast.train_loop``'s. Distributed,
+    ``batch_size`` is the global batch (``fast.static_train``)."""
     logger = get_logger()
     dev = constants.resolve_device(device)
+    rank, world = distributed.process_info()
+    shards = distributed.global_batch()
+    mesh_lib.warn_single_process_training(dev, world)
     compute_dtype = _compute_dtype(precision)
     writer = tb.get_tensorboard_writer(runs_dir or os.path.join(
         constants.PROJECT_ROOT_PATH, constants.RUNS_PATH,
@@ -167,28 +183,38 @@ def train(
     grams = stack_style_grams(vgg_params, styles)
     if params is None:
         params = multistyle.init_params(seed, num_styles=n_styles, device=dev)
-    step = make_train_step(vgg_params, grams, style_weight, content_weight, compute_dtype)
-    eval_step = make_eval_step(vgg_params, grams, style_weight, compute_dtype=compute_dtype)
+    step = make_train_step(vgg_params, grams, style_weight, content_weight, compute_dtype,
+                           shards=shards)
+    eval_step = make_eval_step(vgg_params, grams, style_weight, compute_dtype=compute_dtype,
+                               shards=shards)
     if train_loader is None or test_loader is None:
         test_loader, train_loader = coco.get_coco_loader(
-            batch_size=batch_size, test_split=0.10, test_limit=20, seed=seed)
-    logger.info("Training fast_multi_st (%d styles) with Adam on %s (%s)", n_styles, dev,
-                precision)
+            batch_size=distributed.local_batch_size(batch_size), test_split=0.10,
+            test_limit=20, seed=seed, shard_index=rank, shard_count=world)
+    logger.info("Training fast_multi_st (%d styles) with Adam on %s (%s, %d process(es))",
+                n_styles, dev, precision, world)
     rng = np.random.default_rng(seed)
 
     def train_step(params, optimizer, batch):
-        return step(params, optimizer, batch, rng.integers(0, n_styles, batch.shape[0]))
+        # The global batch's draw, of which this rank's slice holds rows
+        # [rank * b, (rank + 1) * b).
+        b = batch.shape[0]
+        idx = rng.integers(0, n_styles, b * world)[rank * b:(rank + 1) * b]
+        return step(params, optimizer, batch, idx)
 
     def eval_step_rr(params, batch):
-        # Round robin, so that every style is evaluated on each pass.
-        return eval_step(params, batch, np.arange(batch.shape[0]) % n_styles)
+        # Round robin over the global batch, so that every style is
+        # evaluated on each pass.
+        b = batch.shape[0]
+        return eval_step(params, batch, np.arange(rank * b, (rank + 1) * b) % n_styles)
 
     def preview(params, batch, iteration):
         preview_in = img_utils.maybe_normalize_on_device(batch[:1])
         return stylize(params, preview_in, [iteration % n_styles], compute_dtype), preview_in
 
     return fast.train_loop(
-        params, train_step, lambda p: fast.static_test(p, test_loader, eval_step_rr, dev),
+        params, train_step,
+        lambda p: fast.static_test(p, test_loader, eval_step_rr, dev, shards),
         preview, lambda tree: multistyle.params_from_jax(tree, device=dev), MODEL_NAME,
         style_name, train_loader, writer, epochs, batch_size, log_cadence, models_path,
         max_steps_per_epoch, step_checkpoint_every, dev,
@@ -310,6 +336,7 @@ def serve_loop(
     stdin=None,
     stdout=None,
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> int:
     """Warm-process multi-style serving (``fast_st serve-multi``): every
     request picks its own style, an index or a blend, as data.
@@ -321,7 +348,9 @@ def serve_loop(
     ``{out_dir}/converted_fast_multi_st_{name}_{stem}_{tag}.png``. Each
     style travels as a row of [B, S] blend weights (an index is its one-hot
     row) through ``apply_blend``, so a batched group that mixes indices and
-    blends is one device call per bucket. Returns the number served."""
+    blends is one device call per bucket, split with its images over
+    ``devices`` (``mesh.serving_placement``; ``RELOAD`` replaces every
+    replica). Returns the number served."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = constants.resolve_device(device)
@@ -341,10 +370,10 @@ def serve_loop(
     buckets = daemon.normalize_buckets(sizes, size or constants.IMSIZE)
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)
-    state = {"params": params}
+    placement = mesh_lib.serving_placement(batch_size, params, devices, dev)
     warm_w = torch.zeros((batch_size, num_styles), device=dev)
     warm_w[:, 0] = 1.0
-    fast.warm_buckets(lambda b: serve_fn(state["params"], b, warm_w), buckets, batch_size,
+    fast.warm_buckets(lambda b: placement.run(serve_fn, b, warm_w), buckets, batch_size,
                       dev, "multi serve")
     print("READY", file=stdout, flush=True)
     resolve_bucket = fast.bucket_resolver(buckets, 3, "INPUT[\\tOUTPUT[\\tSTYLE[\\tSIZE]]]")
@@ -352,8 +381,8 @@ def serve_loop(
 
     def reload():
         new, epoch = ckpt.load_latest_transformer(MODEL_NAME, name, models_path, device=dev,
-                                                  template=state["params"])
-        state["params"] = new
+                                                  template=placement.params)
+        placement.place_params(new)
         return f"RELOAD epoch={epoch}"
 
     def save_one(in_path, explicit_out, tag, img):
@@ -372,7 +401,7 @@ def serve_loop(
             bucket = resolve_bucket(fields)
             w, tag = parse_style(fields[2] if len(fields) > 2 else "0")
             in_u8 = torch.from_numpy(np.array(load(fields[0], bucket))).to(dev)
-            out_u8 = serve_fn(state["params"], in_u8,
+            out_u8 = serve_fn(placement.params, in_u8,
                               torch.from_numpy(w)[None].to(dev)).cpu().numpy()[0]
             return save_one(fields[0], fields[1] if len(fields) > 1 else "", tag, out_u8)
 
@@ -390,10 +419,8 @@ def serve_loop(
             return i, None, None, exc
 
     def launch(bucket, metas):
-        arr = fast.pad_group([m[5] for m in metas], batch_size)
-        wb = fast.pad_group([m[4] for m in metas], batch_size)
-        return serve_fn(state["params"], torch.from_numpy(arr).to(dev),
-                        torch.from_numpy(wb).to(dev))
+        return placement.run(serve_fn, fast.pad_group([m[5] for m in metas], batch_size),
+                             fast.pad_group([m[4] for m in metas], batch_size))
 
     def save(meta, img):
         return save_one(meta[1], meta[2], meta[3], img)

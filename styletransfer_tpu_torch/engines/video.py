@@ -1,8 +1,8 @@
 """Video style transfer: temporally consistent training and inference.
 
-The port of ``styletransfer_tpu/engines/video.py`` for one process. The
-model is the 6-channel transform net fed [current frame, previous stylized
-frame] on channels.
+The port of ``styletransfer_tpu/engines/video.py``. The model is the
+6-channel transform net fed [current frame, previous stylized frame] on
+channels.
 
 Training is the reference's recurrence: one Adam step per frame, the
 previous (content, stylized) pair as the carry, detached so that no gradient
@@ -14,6 +14,14 @@ stat-free conv kernels, as in fast_st training. The warm-start freeze (only
 ``conv1`` trains in epoch 0 when starting from fast_st weights) multiplies
 the gradients by a {0, 1} mask: the frozen parameters still take their Adam
 step with zero gradients, so every parameter's step count stays optax's.
+
+Distributed training (``parallel/distributed.py``, one process per GPU):
+each rank trains its shard of the clips in its slice of the video batch;
+the frame step averages the gradients and metrics over the ranks, the
+temporal loss takes the global batch's norms, the video batches and chunks
+go in ``lockstep`` and a chunk steps only the frames that every rank has.
+Each rank keeps its carry rows in a sidecar (``ckpt.save_carry_shards``),
+and a mid-batch resume needs every rank's: the ranks decide it together.
 
 Inference (:func:`stylize_clip`, :func:`process_video`,
 :func:`process_video_dir`) runs the serving forward (``transformer.apply``:
@@ -31,7 +39,7 @@ import os
 import shutil
 import time
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +50,8 @@ from styletransfer_tpu_torch.data import video as video_data
 from styletransfer_tpu_torch.engines import fast
 from styletransfer_tpu_torch.models import transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
+from styletransfer_tpu_torch.parallel import distributed
+from styletransfer_tpu_torch.parallel import mesh as mesh_lib
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils import tb
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -62,9 +72,12 @@ def frame_loss_fn(
     content_weight: float,
     temporal_weight: float,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """The per-frame objective: style + content + total variation +
-    temporal. Returns ``(total, (transformed, metrics))``."""
+    temporal. Returns ``(total, (transformed, metrics))``; with ``shards``,
+    this rank's share of the global batch's (``fast.loss_fn``; the
+    temporal term is the global batch's on every rank)."""
     frame = img_utils.maybe_normalize_on_device(frame)
     net_input = torch.cat([frame, old_stylized], dim=-1)
     transformed = transformer.apply_stacked(params, net_input, compute_dtype)
@@ -74,8 +87,10 @@ def frame_loss_fn(
         compute_dtype=compute_dtype,
     )
     tv = losses.total_variation_loss(transformed)
+    if shards is not None:
+        tv = tv * shards.world  # a sum over the batch (fast.loss_fn)
     temporal = losses.temporal_loss(old_content, old_stylized, frame, transformed,
-                                    temporal_weight)
+                                    temporal_weight, shards)
     total = perceptual + tv + temporal
     metrics = {"total": total, "style": comps["style"], "content": comps["content"],
                "tv": tv, "temporal": temporal}
@@ -89,6 +104,7 @@ def make_scan_train_step(
     content_weight: float = 1.0,
     temporal_weight: float = 0.8,
     compute_dtype: Optional[torch.dtype] = None,
+    shards: Optional[distributed.GlobalBatch] = None,
 ):
     """Build the chunked train step. Returns ``(opt, scan_step)``: ``opt``
     makes the optimizer (Adam) of a parameter module, and
@@ -103,7 +119,9 @@ def make_scan_train_step(
     multiplies each parameter's gradient. A frame whose ``valid`` is False
     (a padded tail) takes no step, leaves the carry as it is and reports 0.0
     metrics. ``metrics`` maps each of total, style, content, tv and temporal
-    to a [T] f32 tensor on the frames' device."""
+    to a [T] f32 tensor on the frames' device. With ``shards`` each frame's
+    gradients and metrics are averaged over the ranks before the update
+    (``fast.make_step``)."""
     layers.disable_tf32()
 
     def scan_step(params, opt_state, frames, valid, old_content, old_stylized, grad_mask):
@@ -119,8 +137,10 @@ def make_scan_train_step(
             opt_state.zero_grad(set_to_none=True)
             total, (transformed, m) = frame_loss_fn(
                 params, frame, old_content, old_stylized, vgg_params, style_grams,
-                style_weight, content_weight, temporal_weight, compute_dtype)
+                style_weight, content_weight, temporal_weight, compute_dtype, shards)
             total.backward()
+            if shards is not None:
+                m = shards.average(params, {k: m[k].detach() for k in _METRIC_KEYS})
             for name, p in params.named_parameters():
                 if grad_mask[name] != 1.0:
                     p.grad.mul_(grad_mask[name])
@@ -166,6 +186,12 @@ def _chunk_frames(
         yield np.stack(buf), valid
 
 
+def _all_processes_agree(flag: bool) -> bool:
+    """True iff ``flag`` is true on every rank (``flag`` in one process):
+    for resume decisions that change how many collectives a rank joins."""
+    return distributed.agree_min(int(bool(flag))) == 1
+
+
 def video_train(
     style_image,
     style_name: str = "nsp",
@@ -200,10 +226,17 @@ def video_train(
     carry, so that a restart replays no trained frame and ends with the
     parameters of an uninterrupted run (the chunks trained before the stop
     are decoded again, to move the readers, but take no step). The file
-    layout is the JAX trainer's single-process one: either package resumes
-    the other's state."""
+    layout is the JAX trainer's: either package resumes the other's state.
+
+    Distributed (``parallel.distributed.initialize`` first), ``batch_size``
+    is the global video batch and each rank trains its shard of the clips;
+    the carry goes to one sidecar per rank, and a mid-batch resume needs
+    every rank's sidecar, else every rank restarts the video batch."""
     logger = get_logger()
     dev = constants.resolve_device(device)
+    rank, world = distributed.process_info()
+    shards = distributed.global_batch()
+    mesh_lib.warn_single_process_training(dev, world)
     compute_dtype = fast._compute_dtype(precision)
     writer = tb.get_tensorboard_writer(runs_dir or os.path.join(
         constants.PROJECT_ROOT_PATH, constants.RUNS_PATH,
@@ -229,11 +262,14 @@ def video_train(
 
     opt, scan_step = make_scan_train_step(vgg_params, style_grams, style_weight,
                                           content_weight, temporal_weight,
-                                          compute_dtype=compute_dtype)
+                                          compute_dtype=compute_dtype, shards=shards)
     optimizer = opt(params)
     if video_loader is None:
-        video_loader = video_data.VideoDataset(batch_size=batch_size)
-    logger.info("Training video_st with Adam on %s (%s)", dev, precision)
+        video_loader = video_data.VideoDataset(
+            batch_size=distributed.local_batch_size(batch_size), shard_index=rank,
+            shard_count=world)
+    logger.info("Training video_st with Adam on %s (%s, %d process(es))", dev, precision,
+                world)
 
     iteration = 0
     start_epoch = 0
@@ -245,6 +281,8 @@ def video_train(
             MODEL_NAME, style_name, models_path,
             extra_keys=("has_external_weights", "batch_in_epoch", "chunk_in_batch"),
             array_keys=("old_content", "old_stylized"))
+        state = distributed.agree_resume_state(
+            state, extra_keys=("batch_in_epoch", "chunk_in_batch"))
         if state is not None:
             params = transformer.params_from_jax(state["params"], device=dev)
             optimizer = opt(params)
@@ -255,7 +293,22 @@ def video_train(
             has_external_weights = bool(state["extra"]["has_external_weights"])
             resume_batches = state["extra"]["batch_in_epoch"]
             resume_chunks = state["extra"]["chunk_in_batch"]
-            if resume_chunks and {"old_content", "old_stylized"} <= set(state["arrays"]):
+            if resume_chunks and world > 1:
+                # Each rank's carry rows are in its sidecar; the mid-batch
+                # resume needs every rank's, or no rank takes it.
+                shard_arrays = ckpt.load_carry_shards(
+                    iteration, MODEL_NAME, style_name, models_path,
+                    array_keys=("old_content", "old_stylized"))
+                if _all_processes_agree(shard_arrays is not None):
+                    resume_carry = (shard_arrays["old_content"], shard_arrays["old_stylized"])
+                else:
+                    logger.warning(
+                        "Step state has a mid-batch position but at least one process's "
+                        "carry sidecar is absent or stale (this process: %s); all processes "
+                        "resume from the start of video batch %d.",
+                        "present" if shard_arrays is not None else "missing", resume_batches)
+                    resume_chunks = 0
+            elif resume_chunks and {"old_content", "old_stylized"} <= set(state["arrays"]):
                 resume_carry = (state["arrays"]["old_content"], state["arrays"]["old_stylized"])
             elif resume_chunks:
                 logger.warning("Step state has a mid-batch position but no carry frames; "
@@ -291,7 +344,7 @@ def video_train(
         logger.info("Starting epoch %d", epoch)
         t0 = time.time()
         frames_in_epoch = 0
-        for batch_idx, readers in enumerate(video_loader):
+        for batch_idx, readers in enumerate(distributed.lockstep(video_loader)):
             if batch_idx < skip_batches:  # trained before the stop
                 for r in readers:
                     r.close()
@@ -301,7 +354,11 @@ def video_train(
             # [frame, frame]); it is also the first frame trained on.
             old_content = old_stylized = None
             chunks_done = 0
-            for chunk, valid in _chunk_frames(frame_iter, chunk_size):
+            for chunk, valid in distributed.lockstep(_chunk_frames(frame_iter, chunk_size)):
+                if world > 1:
+                    # A rank's shortest clip ends its chunks: the last
+                    # chunk steps the frames that every rank has.
+                    valid = np.arange(len(valid)) < distributed.agree_min(int(valid.sum()))
                 if batch_idx == skip_batches and chunks_done < skip_chunks:
                     # Trained before the stop: decoded (the readers move on),
                     # no step.
@@ -328,7 +385,7 @@ def video_train(
                         logger.info("Epoch: %d\tBatch Loss: %.4f", epoch, float(total))
                 image_steps = [iteration + i for i in range(len(totals))
                                if (iteration + i) % 50 == 0]
-                if image_steps:
+                if image_steps and world == 1:
                     # The carry pair of lane 2 (the reference's batch[2]),
                     # clamped to the batch.
                     b = min(2, chunk.shape[1] - 1)
@@ -345,12 +402,19 @@ def video_train(
                 frames_in_epoch += len(totals)
                 chunks_done += 1
                 if step_checkpoint_every and iteration - last_step_save >= step_checkpoint_every:
+                    carry = {"old_content": old_content, "old_stylized": old_stylized}
+                    if world > 1:
+                        # This rank's rows, stamped before the step state:
+                        # a stop between the two writes leaves a sidecar of
+                        # another iteration, which the resume rejects.
+                        ckpt.save_carry_shards(carry, iteration, MODEL_NAME, style_name,
+                                               models_path)
                     ckpt.save_step_state(
                         params, ckpt.adam_state_to_tree(params, optimizer), epoch, iteration,
                         MODEL_NAME, style_name, models_path,
                         extra={**step_extra, "batch_in_epoch": batch_idx,
                                "chunk_in_batch": chunks_done},
-                        arrays={"old_content": old_content, "old_stylized": old_stylized})
+                        arrays=carry if world == 1 else None)
                     last_step_save = iteration
 
         dt = time.time() - t0
@@ -533,10 +597,13 @@ def process_video_dir(
     precision: str = "f32",
     pad_mode: str = "reflect",
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> List[str]:
     """Stylize every video in a directory, ``batch_size`` clips at a time,
-    one carry lane each: each clip's frames are bit for bit those of the
-    clip stylized alone (``_stylize_chunk``). Clips that
+    one carry lane each, the lanes split over ``devices``
+    (``mesh.serving_placement``; each device keeps its lanes' carries):
+    each clip's frames are bit for bit those of the clip stylized alone
+    (``_stylize_chunk``), wherever its lane runs. Clips that
     end early keep feeding their last frame and their outputs are dropped; a
     clip that yields no frame rides a zero lane and writes no file;
     a clip that cannot be opened is skipped with a warning. Outputs are
@@ -551,6 +618,7 @@ def process_video_dir(
         raise FileNotFoundError(f"No videos ({'/'.join(VIDEO_EXTS)}) in {in_dir}")
     if params is None:
         params, _ = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path, device=dev)
+    placement = mesh_lib.serving_placement(batch_size, params, devices, dev)
     layers.disable_tf32()
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -608,16 +676,21 @@ def process_video_dir(
             writers.append(w)
             paths.append(p)
 
-        old_stylized = None
+        carries: List[Optional[torch.Tensor]] = [None] * len(placement.devices)
         tstep = 0
         try:
             for chunk, _ in _chunk_frames(rows(), chunk_size):
-                frames = torch.from_numpy(chunk).to(dev)  # [T, nb, H, W, 3] uint8
-                if old_stylized is None:
-                    old_stylized = img_utils.maybe_normalize_on_device(frames[0])
-                outs = _stylize_chunk(params, frames, old_stylized, compute_dtype, pad_mode)
-                old_stylized = outs[-1]
-                outs_u8 = img_utils.to_uint8_on_device(outs).cpu().numpy()
+                outs = []
+                # [T, lanes, H, W, 3] uint8: each device's lanes, the same
+                # split for every chunk of the group.
+                shares = mesh_lib.shard_frames(chunk, placement.devices)
+                for i, (replica, frames) in enumerate(zip(placement.replicas, shares)):
+                    if carries[i] is None:
+                        carries[i] = img_utils.maybe_normalize_on_device(frames[0])
+                    out = _stylize_chunk(replica, frames, carries[i], compute_dtype, pad_mode)
+                    carries[i] = out[-1]
+                    outs.append(img_utils.to_uint8_on_device(out))
+                outs_u8 = torch.cat([o.cpu() for o in outs], dim=1).numpy()
                 for t in range(outs_u8.shape[0]):
                     for j in range(nb):
                         if tstep + t < counts[j]:
@@ -772,6 +845,7 @@ def serve_stream_loop(
     stdin=None,
     stdout=None,
     device=constants.DEFAULT_DEVICE,
+    devices: Optional[Sequence] = None,
 ) -> int:
     """Warm-process STREAMING stylization (``video_st serve``): one frame per
     request, the recurrent carry held on the device between requests, so
@@ -809,9 +883,11 @@ def serve_stream_loop(
     every ``batch_size``; a ragged wave runs at its own size (the JAX
     daemon pads it to keep one compiled shape). ``READY`` is printed once
     every bucket's forward has run at one lane and at ``batch_size`` lanes
-    (which builds the kernels). Returns the number of OK responses (bare
-    ``RESET`` in the serial loop rides the command path and is not
-    counted)."""
+    (which builds the kernels). A wave's lanes are split over ``devices``
+    (``mesh.serving_placement``): the slot table stays on the first, and
+    each device steps its lanes' frames and carries with its replica.
+    Returns the number of OK responses (bare ``RESET`` in the serial loop
+    rides the command path and is not counted)."""
     import re
     import sys
 
@@ -835,16 +911,21 @@ def serve_stream_loop(
     buckets = daemon.normalize_buckets(sizes, size or constants.IMSIZE)
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)
-    state = {"params": params}  # a cell, so that RELOAD can swap the params
+    # The placement holds the params, so that RELOAD can swap them.
+    placement = mesh_lib.serving_placement(batch_size, params, devices, dev)
+
+    def lane_step(params, frame_u8: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        frame = img_utils.maybe_normalize_on_device(frame_u8)
+        return transformer.apply(params, torch.cat([frame, old], dim=-1),
+                                 compute_dtype=compute_dtype, pad_mode=pad_mode,
+                                 fixed_order=True)
 
     @torch.no_grad()
     def step(frame_u8: torch.Tensor, old: torch.Tensor):
         """One frame of each lane, as :func:`_stylize_chunk` steps it:
-        (model-space output, the next carry; uint8 output)."""
-        frame = img_utils.maybe_normalize_on_device(frame_u8)
-        out = transformer.apply(state["params"], torch.cat([frame, old], dim=-1),
-                                compute_dtype=compute_dtype, pad_mode=pad_mode,
-                                fixed_order=True)
+        (model-space output, the next carry, on the slot table's device;
+        uint8 output)."""
+        out = placement.run(lane_step, frame_u8, old).to(old.device)
         return out, img_utils.to_uint8_on_device(out)
 
     # The initial table holds one full wave of fresh streams (and at least 8).
@@ -886,8 +967,8 @@ def serve_stream_loop(
 
     def reload():
         new, epoch = ckpt.load_latest_transformer(MODEL_NAME, style_name, models_path,
-                                                  device=dev, template=state["params"])
-        state["params"] = new
+                                                  device=dev, template=placement.params)
+        placement.place_params(new)
         return f"RELOAD epoch={epoch}"
 
     def out_path(in_path, explicit_out, sid):

@@ -175,12 +175,14 @@ def feature_loss(
     content_image: torch.Tensor,
     feature_layers: Sequence[str] = FEATURE_LOSS_LAYERS,
     compute_dtype: Optional[torch.dtype] = None,
+    shards=None,
 ) -> torch.Tensor:
-    """Feature-reconstruction loss at the ReLU_4 tap (the eval loss)."""
+    """Feature-reconstruction loss at the ReLU_4 tap (the eval loss); the
+    global batch's with ``shards`` (``losses.feature_reconstruction_loss``)."""
     in_feats = extract_features(params, input_image, feature_layers, compute_dtype)
     with torch.no_grad():
         tgt_feats = extract_features(params, content_image, feature_layers, compute_dtype)
-    return sum(losses.feature_reconstruction_loss(in_feats[name], tgt_feats[name])
+    return sum(losses.feature_reconstruction_loss(in_feats[name], tgt_feats[name], shards)
                for name in feature_layers)
 
 

@@ -68,11 +68,17 @@ def content_loss(features: torch.Tensor, target_features: torch.Tensor) -> torch
 
 
 def feature_reconstruction_loss(
-    features: torch.Tensor, target_features: torch.Tensor
+    features: torch.Tensor, target_features: torch.Tensor, shards=None
 ) -> torch.Tensor:
-    """MSE squared over B*C*H*W (the reference's FeatureReconstructionLoss)."""
+    """MSE squared over B*C*H*W (the reference's FeatureReconstructionLoss).
+
+    With ``shards`` (a ``parallel.distributed.GlobalBatch``) the batch is
+    one rank's share of a global batch, and the result is the global
+    batch's, the same on every rank."""
     mse = content_loss(features, target_features)
-    return mse.square() / features.numel()
+    if shards is None:
+        return mse.square() / features.numel()
+    return shards.mean(mse).square() / (features.numel() * shards.world)
 
 
 def total_variation_loss(image: torch.Tensor, regularization_factor: float = 1e-6) -> torch.Tensor:
@@ -89,11 +95,18 @@ def temporal_loss(
     current_content: torch.Tensor,
     current_stylized: torch.Tensor,
     temporal_weight: float = 1.0,
+    shards=None,
 ) -> torch.Tensor:
     """Temporal consistency: the change of the stylized stream relative to
     the change of the content stream, ``||s_t - s_{t-1}||_F /
     (||c_t - c_{t-1}||_F + 1) * w``, norms over the full batch tensor (as
-    ``torch.Tensor.norm()``)."""
-    ds = (current_stylized.float() - old_stylized.float()).norm()
-    dc = (current_content.float() - old_content.float()).norm()
-    return ds / (dc + 1.0) * temporal_weight
+    ``torch.Tensor.norm()``). With ``shards`` (a
+    ``parallel.distributed.GlobalBatch``) the norms are the global batch's,
+    from the ranks' summed squares, and the result is the same on every
+    rank."""
+    ds = current_stylized.float() - old_stylized.float()
+    dc = current_content.float() - old_content.float()
+    if shards is None:
+        return ds.norm() / (dc.norm() + 1.0) * temporal_weight
+    squares = shards.sum(torch.stack([ds.square().sum(), dc.square().sum()]))
+    return squares[0].sqrt() / (squares[1].sqrt() + 1.0) * temporal_weight

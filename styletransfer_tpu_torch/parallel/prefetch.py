@@ -3,7 +3,9 @@
 The port of ``styletransfer_tpu/parallel/prefetch.py`` for one device. A
 producer thread pulls batches from the (already thread-decoded) loader,
 copies each into pinned host memory and starts a ``non_blocking`` copy to
-the device, up to ``size`` batches ahead of the consumer.
+the device, up to ``size`` batches ahead of the consumer. ``"cuda"`` is
+the consumer's current device (a distributed rank's GPU), resolved before
+the producer thread starts: a thread's current device is its own.
 
 The generator cleans up after itself: if the consumer stops early
 (``break``, an exception, ``max_steps_per_epoch``), the producer is told to
@@ -31,6 +33,15 @@ def to_device(batch, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def resolve_index(device) -> torch.device:
+    """``device`` with the calling thread's current GPU filled in where a
+    CUDA device names none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def prefetch_to_device(iterable: Iterable, device, size: int = 2) -> Iterator[torch.Tensor]:
     """Wrap a host batch iterator with a device-prefetch queue of ``size``.
 
@@ -38,7 +49,7 @@ def prefetch_to_device(iterable: Iterable, device, size: int = 2) -> Iterator[to
     issued on the producer thread's stream after an event on it, and the
     consumer's stream waits for that event. Errors in the producer are
     raised on the consumer's side."""
-    device = torch.device(device)
+    device = resolve_index(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
     err: list = []

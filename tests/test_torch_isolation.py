@@ -208,3 +208,21 @@ def test_video_and_gatys_daemons_raise_without_a_gpu(no_gpu, tmp_path, monkeypat
         assert "no CUDA GPU" in str(result.exception), args
         assert "READY" not in result.output
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.subprocess
+def test_the_parallel_modules_load_no_jax():
+    """The multi-GPU modules, and the dry run's ranks, stand alone too."""
+    code = (
+        "import sys\n"
+        "import styletransfer_tpu_torch.parallel.distributed\n"
+        "import styletransfer_tpu_torch.parallel.mesh, styletransfer_tpu_torch.parallel.dryrun\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'styletransfer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
