@@ -9,6 +9,8 @@
     python3 chip_smoke.py --multi       # phases 1-2, [N, C] fused IN, train-multi, daemons
     python3 chip_smoke.py --serve       # phases 1-2, the network transports, video / Gatys daemons
     python3 chip_smoke.py --parallel    # phases 1-2, multi-GPU training and serving placement
+    python3 chip_smoke.py --packed      # phases 1-2, --packed training
+    python3 chip_smoke.py --zoom        # phases 1-2, gatys_st --optimizer lbfgs-zoom, doctor
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -163,10 +165,30 @@ It imports nothing of JAX. Phases:
    every clip exactly its stylize_clip, launches per shard and frame row;
    fast_st serve at batch 8); and
    ``parallel/dryrun.py`` with two gloo ranks on cuda:0;
-13. print one JSON line with each kernel's error, launches and times (and
+13. the packed slice (also alone with ``--packed``): ``pack_synthetic`` of 64
+   images at 256 px; ``static_train`` on its loaders for a few steps at
+   batch 4, f32 and bf16 (every step on a uint8 batch on the card,
+   launching 15 fused-IN forwards and backwards, 2 conv3x3_im2col and 12
+   conv3x3_flat; the eval and previews on uint8 batches; finite losses);
+   one f32 step on two of its images, card against CPU (losses 1e-5,
+   parameters 1e-3 relative L2); ``fast_st train-multi --packed`` for an
+   epoch of the file; the loop's ms per step on the packed file beside the
+   synthetic corpus, in turns;
+14. the lbfgs-zoom slice (also alone with ``--zoom``, with phase 15):
+   ``gatys_st --optimizer lbfgs-zoom`` at 256 px for 20 steps in f32 and
+   bf16 and at its 300-step default in f32 (per closure 1 conv3x3_im2col and
+   9 conv3x3_flat, no cuDNN conv; closures and host reads per step; s per
+   image); ``_run_lbfgs`` on a 64 px image, card against CPU (first loss
+   1e-5, 3 steps 1e-3), and on 3 images in one run, each lane against its
+   image alone; ``gatys_st --serve --optimizer lbfgs-zoom`` as phase 11 runs
+   the L-BFGS daemon;
+15. ``python -m styletransfer_tpu_torch doctor``: exit 0, the card's row and
+   the kernel build's row ok;
+16. print one JSON line with each kernel's error, launches and times (and
    each kernel's launches on the video-slice paths, on train-multi, in the
-   stdin daemons, in the network slice's daemons and on the multi-GPU
-   slice's paths), and as the last line ``{"ok": true, "device": {...}}``.
+   stdin daemons, in the network slice's daemons, on the multi-GPU slice's
+   paths, on the packed paths and on the lbfgs-zoom paths), and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -3109,9 +3131,10 @@ def stream_daemon_path(torch, np, F, in_dir):
     return launches, rates
 
 
-def gatys_daemon_path(torch, np, F):
+def gatys_daemon_path(torch, np, F, optimizer="lbfgs"):
     """gatys_st --serve in process at GATYS_SIZE px, GATYS_SERVE_STEPS steps of
-    L-BFGS with H GATYS_SERVE_HISTORY, f32 and bf16: GATYS_REQUESTS requests
+    ``optimizer`` (L-BFGS with H GATYS_SERVE_HISTORY, or lbfgs-zoom with its
+    memory of 10), f32 and bf16: GATYS_REQUESTS requests
     mixing two styles and a blend, at batch GATYS_REQUESTS (one group) and at
     batch 1 (each alone). Every answer OK with a finite loss; each lane's
     first closure within GATYS_LANE_FIRST_RTOL of the request alone; per
@@ -3123,7 +3146,7 @@ def gatys_daemon_path(torch, np, F):
     from styletransfer_tpu_torch.models import vgg
     from styletransfer_tpu_torch.utils import images
 
-    root = os.path.join(WORK, "gatys_serve")
+    root = os.path.join(WORK, f"gatys_serve_{optimizer}")
     os.makedirs(root)
     paths = {}
     for k, seed in (("c0", 30_000), ("c1", 30_001), ("c2", 30_002), ("c3", 30_003),
@@ -3146,6 +3169,7 @@ def gatys_daemon_path(torch, np, F):
         groups.append(args[1].shape[0])
         return real_batched(*args, **kwargs)
 
+    memory = f"H {GATYS_SERVE_HISTORY}" if optimizer == "lbfgs" else "memory 10"
     launches, seconds = {}, {}
     F.conv2d = counting_conv2d
     gatys._run_serve_batched = recorded
@@ -3153,13 +3177,14 @@ def gatys_daemon_path(torch, np, F):
         for precision in ("f32", "bf16"):
             finals = {}
             for batch in (GATYS_REQUESTS, 1):
-                tag = f"{precision} b{batch}"
+                tag = f"{optimizer} {precision} b{batch}"
                 reset_counts()
                 gatys.closure_evals = 0
                 conv_calls[0] = 0
                 groups.clear()
                 n, out = _drive(gatys.serve_loop, lines, steps=GATYS_SERVE_STEPS,
-                                history_size=GATYS_SERVE_HISTORY, precision=precision,
+                                optimizer=optimizer, history_size=GATYS_SERVE_HISTORY,
+                                precision=precision,
                                 size=GATYS_SIZE, out_dir=os.path.join(root, f"{precision}_b{batch}"),
                                 batch=batch, vgg_params=vgg_params, device="cuda")
                 torch.cuda.synchronize()
@@ -3193,7 +3218,7 @@ def gatys_daemon_path(torch, np, F):
                 seconds[(precision, batch)] = (out.last - out.ready) / GATYS_REQUESTS
                 print(f"gatys_st --serve {tag}: {GATYS_REQUESTS} requests of {GATYS_SIZE} px "
                       f"(groups of lanes after the warm-up: {groups[1:]}), "
-                      f"{GATYS_SERVE_STEPS} steps, H {GATYS_SERVE_HISTORY}, {evals} closures in "
+                      f"{GATYS_SERVE_STEPS} steps, {memory}, {evals} closures in "
                       f"{out.last - out.ready:.3f} s = {seconds[(precision, batch)]:.3f} s per "
                       f"request after READY", flush=True)
             (grouped, grouped_png), (alone, alone_png) = finals[GATYS_REQUESTS], finals[1]
@@ -3213,12 +3238,13 @@ def gatys_daemon_path(torch, np, F):
             kw = dict(compute_dtype=cd, history_size=GATYS_SERVE_HISTORY)
             _, lanes = real_batched(vgg_params, contents, {k: torch.cat([t[k] for t in targets])
                                                            for k in grams["s0"]},
-                                    1, 1e5, 1.0, 0.05, "lbfgs", **kw)
+                                    1, 1e5, 1.0, 0.05, optimizer, **kw)
             first = [abs(float(lanes[i, 0]) - float(gatys._run_optimizer(
-                "lbfgs", vgg_params, contents[i:i + 1], targets[i], 1, 1e5, 1.0, **kw)[1][0]))
+                optimizer, vgg_params, contents[i:i + 1], targets[i], 1, 1e5, 1.0, **kw)[1][0]))
                 / float(lanes[i, 0]) for i in range(GATYS_REQUESTS)]
             check(max(first) <= GATYS_LANE_FIRST_RTOL[precision],
-                  f"gatys_st --serve {precision}: each lane of a group of {GATYS_REQUESTS} against "
+                  f"gatys_st --serve {optimizer} {precision}: each lane of a group of "
+                  f"{GATYS_REQUESTS} against "
                   f"the request alone: first closure's loss {[f'{r:.2e}' for r in first]} apart "
                   f"(limit {GATYS_LANE_FIRST_RTOL[precision]}); after {GATYS_SERVE_STEPS} steps "
                   f"(not held) the daemon's final losses {[f'{r:.2e}' for r in rel]} apart, "
@@ -3866,6 +3892,381 @@ def parallel_slice(torch, np, in_dir, card):
     return train, placed
 
 
+# The packed slice (``--packed``): a file of PACKED_IMAGES synthetic 256 px
+# crops (``pack_synthetic``), whose loaders give 14 train batches of 4 and
+# one eval batch; static_train for TRAIN_STEPS steps on it in f32 and bf16
+# (per step the training path's launches, on uint8 batches), one f32 step
+# card against CPU on its first batch, ``fast_st train-multi --packed`` for
+# an epoch, and ms per step of the loop on the packed file beside the
+# synthetic corpus, in turns.
+PACKED_IMAGES = 64
+PACKED_WARM = 2  # untimed steps of each timed loop
+PACKED_TIMED = 12  # timed steps of each loop (14 batches in the packed file)
+PACKED_PARITY_IMAGES = 2
+PER_STEP = {"fused_instance_norm_fwd": NORMS_PER_FORWARD,
+            "fused_instance_norm_bwd": NORMS_PER_FORWARD, **VGG_PER_STEP}
+PER_MULTI_STEP = {**PER_STEP, "fused_instance_norm_fwd.per_image": NORMS_PER_FORWARD,
+                  "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD}
+
+
+def _step_recording(module, steps):
+    """Wrap ``module.make_train_step`` so each step records the dtype and
+    device of its batch and the launches it made; returns the original."""
+    real = module.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recorded(params, optimizer, batch, *rest):
+            before = read_counts()
+            metrics = step(params, optimizer, batch, *rest)
+            after = read_counts()
+            steps.append((batch.dtype, batch.device.type,
+                          {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+            return metrics
+
+        return recorded
+
+    module.make_train_step = make
+    return real
+
+
+def _steps_checked(torch, label, steps, n, per_step):
+    check(len(steps) == n and all(dt == torch.uint8 and dev == "cuda" for dt, dev, _ in steps)
+          and all(d == per_step for _, _, d in steps),
+          f"{label}: {len(steps)} steps on uint8 batches on the card, each launching "
+          f"{steps[0][2] if steps else None} (want {n} steps of {per_step})")
+
+
+def _loop_ms(torch, fast, prefetch, vgg_params, grams, loader, precision) -> float:
+    """ms per step of the training loop's inner part (prefetched batches,
+    the step, nothing else) over PACKED_TIMED steps after PACKED_WARM."""
+    from styletransfer_tpu_torch.models import transformer
+
+    step = fast.make_train_step(vgg_params, grams,
+                                compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+    params = transformer.init_params(seed=0, device="cuda")
+    opt = fast.make_optimizer(params)
+    batches = prefetch.prefetch_to_device(loader, "cuda")
+    try:
+        for i, batch in enumerate(batches):
+            if i == PACKED_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            metrics = step(params, opt, batch)
+            if i == PACKED_WARM + PACKED_TIMED - 1:
+                break
+        loss = float(metrics["total"])
+        ms = (time.perf_counter() - t0) * 1e3 / PACKED_TIMED
+    finally:
+        batches.close()
+    check(i == PACKED_WARM + PACKED_TIMED - 1 and math.isfinite(loss),
+          f"timed loop {precision}: {i + 1} steps, last loss {loss:.4f} finite")
+    return ms
+
+
+def packed_path(torch, np):
+    """The --packed slice. Returns (launches by precision of the static_train
+    runs, ms per step by (precision, corpus))."""
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.data import coco, packed
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.engines import multistyle as mengine
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.parallel import prefetch
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    root = os.path.join(WORK, "packed")
+    path = os.path.join(root, "synthetic.bin")
+    t0 = time.perf_counter()
+    n = packed.pack_synthetic(path, PACKED_IMAGES, SIZE)
+    check(n == PACKED_IMAGES and os.path.getsize(path) == PACKED_IMAGES * SIZE * SIZE * 3,
+          f"pack_synthetic: {n} images of {SIZE} px, {os.path.getsize(path)} bytes in "
+          f"{time.perf_counter() - t0:.2f} s")
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    _, image_every, eval_every = TRAIN_CADENCE
+    launches, steps = {}, []
+    real = _step_recording(fast, steps)
+    try:
+        for precision in ("f32", "bf16"):
+            test_loader, train_loader = packed.get_packed_loader(
+                path, batch_size=TRAIN_BATCH, test_limit=20)
+            previews = len(range(0, TRAIN_STEPS, image_every))
+            eval_forwards = len(test_loader) * len(range(0, TRAIN_STEPS, eval_every))
+            log = _LossLog()
+            logger = get_logger()
+            logger.addHandler(log)
+            steps.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                fast.static_train(
+                    style, style_name="packed", epochs=1, batch_size=TRAIN_BATCH,
+                    vgg_params=vgg_params, params=transformer.init_params(seed=0, device="cuda"),
+                    train_loader=train_loader, test_loader=test_loader,
+                    log_cadence=TRAIN_CADENCE, runs_dir=os.path.join(root, f"runs_{precision}"),
+                    models_path=os.path.join(root, f"models_{precision}"),
+                    max_steps_per_epoch=TRAIN_STEPS, precision=precision, device="cuda")
+                torch.cuda.synchronize()
+            finally:
+                logger.removeHandler(log)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            launches[precision] = counts
+            _steps_checked(torch, f"packed static_train {precision}", steps, TRAIN_STEPS,
+                           PER_STEP)
+            want = {k: 0 for k in counts}
+            want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (
+                TRAIN_STEPS + previews + eval_forwards),
+                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS})
+            for k in GATYS_KERNELS:
+                want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+                           + VGG_STYLE_TARGETS[k])
+            check(counts == want and eval_forwards == 1,
+                  f"packed static_train {precision}: {TRAIN_STEPS} steps, {previews} previews "
+                  f"and {eval_forwards} eval forwards of uint8 batches launched {counts} "
+                  f"(want {want})")
+            check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train)
+                  and len(log.test) == 1 and math.isfinite(log.test[0]),
+                  f"packed static_train {precision}: losses {['%.4f' % v for v in log.train]}, "
+                  f"eval {log.test}, all finite")
+            print(f"packed static_train {precision}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} "
+                  f"in {wall:.3f} s (incl. VGG targets, eval, previews, checkpoint)", flush=True)
+    finally:
+        fast.make_train_step = real
+
+    # One f32 step on the file's first train batch: card against CPU. Biases
+    # that a norm cancels get gradients of rounding noise, which Adam's first
+    # step turns into moves of about +-lr: they are held to 2 lr, the rest of
+    # the parameters to PARITY_GRAD_REL_L2 (multistyle_parity's rule).
+    _, train_loader = packed.get_packed_loader(path, batch_size=PACKED_PARITY_IMAGES,
+                                               test_limit=20)
+    batch = torch.from_numpy(next(iter(train_loader)))
+    cpu_params = transformer.init_params(seed=1, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = (cpu_params if dev == "cpu" else transformer.params_from_jax(
+            transformer.params_to_tree(cpu_params), device=dev))
+        vp = vgg.init_params(seed=0, device=dev)
+        grams = vgg.style_gram_targets(vp, torch.from_numpy(style).to(dev))
+        step = fast.make_train_step(vp, grams)
+        metrics = step(params, fast.make_optimizer(params), batch.to(dev))
+        runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                     {n: (p.grad.detach().cpu(), p.detach().cpu())
+                      for n, p in params.named_parameters()})
+    (mg, pg), (mc, pc) = runs["cuda"], runs["cpu"]
+    worst = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc)
+    scale = max(float(g.norm()) for g, _ in pc.values())
+    noise = [n for n, (g, _) in pc.items() if float(g.norm()) < 1e-6 * scale]
+    moved = max((float((pg[n][1] - pc[n][1]).abs().max()) for n in noise), default=0.0)
+    rest = [n for n in pc if n not in noise]
+    rel = float(torch.cat([(pg[n][1] - pc[n][1]).reshape(-1) for n in rest]).norm()
+                / torch.cat([pc[n][1].reshape(-1) for n in rest]).norm())
+    check(worst <= PARITY_LOSS_RTOL and rel <= PARITY_GRAD_REL_L2 and moved <= 2 * ADAM_LR,
+          f"packed parity f32: a step on {PACKED_PARITY_IMAGES} uint8 images, losses card "
+          f"{mg} vs CPU {mc} (worst relative {worst:.3g}, limit {PARITY_LOSS_RTOL}), "
+          f"parameters after the step relative L2 {rel:.3g} (limit {PARITY_GRAD_REL_L2}); "
+          f"{len(noise)} with gradients of rounding noise within {moved:.3g} (limit 2 lr)")
+
+    # fast_st train-multi --packed: the command, one epoch of the file.
+    for i in range(2):
+        _save_png(np, os.path.join(root, f"style{i}.png"), 10_000 + i)
+    test_loader, train_loader = packed.get_packed_loader(path, batch_size=TRAIN_BATCH,
+                                                         test_limit=20)
+    multi_steps = []
+    real = _step_recording(mengine, multi_steps)
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    log = _LossLog()
+    get_logger().addHandler(log)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["fast_st", "train-multi", "style0.png", "style1.png", "-n", "packed", "-e",
+                  "1", "-b", str(TRAIN_BATCH), "--packed", "synthetic.bin", "--device", "cuda"],
+                 standalone_mode=False)
+        torch.cuda.synchronize()
+    finally:
+        get_logger().removeHandler(log)
+        constants.PROJECT_ROOT_PATH = saved_root
+        mengine.make_train_step = real
+    wall = time.perf_counter() - t0
+    launches["train_multi"] = read_counts()
+    _steps_checked(torch, "fast_st train-multi --packed", multi_steps, len(train_loader),
+                   PER_MULTI_STEP)
+    check(all(math.isfinite(v) for v in log.train + log.test) and len(log.test) == 1
+          and os.path.isfile(os.path.join(root, "data", "models",
+                                          "fast_multi_st_packed_epoch0.msgpack")),
+          f"fast_st train-multi --packed: losses {log.train}, eval {log.test} finite, epoch "
+          f"checkpoint written ({len(multi_steps)} steps in {wall:.3f} s with the command's "
+          f"set-up)")
+
+    # The loop's ms per step: packed batches beside the synthetic corpus.
+    grams = vgg.style_gram_targets(vgg_params, torch.from_numpy(style).cuda())
+    rates = {}
+    for precision in ("f32", "bf16"):
+        for corpus in ("packed", "synthetic", "synthetic", "packed"):
+            if corpus == "packed":
+                _, loader = packed.get_packed_loader(path, batch_size=TRAIN_BATCH,
+                                                     test_limit=20)
+            else:
+                _, loader = coco.get_coco_loader(batch_size=TRAIN_BATCH, test_limit=20,
+                                                 image_dir=os.path.join(WORK, "no_images"))
+            ms = _loop_ms(torch, fast, prefetch, vgg_params, grams, loader, precision)
+            rates.setdefault((precision, corpus), []).append(ms)
+        print(f"training loop {precision} at batch {TRAIN_BATCH}, {SIZE} px, in turns: packed "
+              f"{rates[(precision, 'packed')][0]:.3f} / {rates[(precision, 'packed')][1]:.3f} "
+              f"ms per step, synthetic corpus {rates[(precision, 'synthetic')][0]:.3f} / "
+              f"{rates[(precision, 'synthetic')][1]:.3f}", flush=True)
+    return launches, rates
+
+
+# The lbfgs-zoom slice: gatys_st --optimizer lbfgs-zoom at GATYS_SIZE px,
+# batch 1, ZOOM_STEPS steps in f32 and bf16 and the CLI's 300-step default
+# in f32; _run_lbfgs at GATYS_PARITY_SIZE px card against CPU, and on
+# ZOOM_LANES images against each alone; the daemon at batch 4 and 1.
+ZOOM_STEPS = 20
+ZOOM_PARITY_STEPS = 3
+ZOOM_LOSS_RTOL = 1e-3  # tests/test_torch_gatys.py's LBFGS_LOSS_RTOL
+ZOOM_LANES = 3
+
+
+def _zoom_losses(torch, gatys, vgg_params, contents, grams, cd=None, per_lane=False):
+    _, losses = gatys._run_lbfgs(vgg_params, contents, grams, ZOOM_PARITY_STEPS, 1e5, 1.0,
+                                 compute_dtype=cd, per_lane=per_lane)
+    return losses.cpu().numpy()
+
+
+def zoom_path(torch, np, F):
+    """The lbfgs-zoom slice. Returns (launches by precision of the 20-step
+    runs, seconds per image by run, daemon launches and seconds)."""
+    from PIL import Image
+
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.data import coco
+    from styletransfer_tpu_torch.engines import gatys
+    from styletransfer_tpu_torch.models import vgg
+    from styletransfer_tpu_torch.ops import lbfgs
+    from styletransfer_tpu_torch.utils import images
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    root = os.path.join(WORK, "zoom")
+    os.makedirs(root)
+    content, style = os.path.join(root, "content.png"), os.path.join(root, "style.png")
+    _save_png(np, content, 20_000)
+    _save_png(np, style, 20_001)
+    library_conv, conv_calls = F.conv2d, [0]
+
+    def counting_conv2d(*args, **kwargs):
+        conv_calls[0] += 1
+        return library_conv(*args, **kwargs)
+
+    def run(label, args):
+        reset_counts()
+        gatys.closure_evals = 0
+        conv_calls[0] = 0
+        lbfgs.zoom_log.clear()
+        log = _GatysLog()
+        get_logger().addHandler(log)
+        t0 = time.perf_counter()
+        try:
+            cli.main(["gatys_st", content, style, "--optimizer", "lbfgs-zoom", "--size",
+                      str(GATYS_SIZE), *args, "--device", "cuda"], standalone_mode=False)
+            torch.cuda.synchronize()
+        finally:
+            get_logger().removeHandler(log)
+        wall = time.perf_counter() - t0
+        counts, evals = read_counts(), gatys.closure_evals
+        per_step = [int(c[0]) for c, _ in lbfgs.zoom_log]
+        reads = [r for _, r in lbfgs.zoom_log]
+        want = {k: 0 for k in counts}
+        for k in GATYS_KERNELS:
+            want[k] = GATYS_PER_CLOSURE[k] * evals + GATYS_TARGETS[k]
+        check(evals == 1 + sum(per_step) and counts == want and conv_calls[0] == 0,
+              f"lbfgs-zoom {label}: {evals} closures (1 + the line searches' {sum(per_step)}) "
+              f"launched {counts} (want {want}), {conv_calls[0]} F.conv2d calls")
+        check(len(log.losses) >= 2 and all(math.isfinite(v) for v in log.losses)
+              and log.losses[-1] < log.losses[0],
+              f"lbfgs-zoom {label}: logged losses {log.losses} finite and falling")
+        print(f"lbfgs-zoom {label}: {wall:.3f} s for one image ({len(per_step)} steps, "
+              f"{evals} closures; closures per step mean {np.mean(per_step):.2f}, max "
+              f"{max(per_step)}; host reads per step mean {np.mean(reads):.2f}, max "
+              f"{max(reads)}) on {GATYS_SIZE} px", flush=True)
+        return counts, wall, per_step, reads
+
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    F.conv2d = counting_conv2d
+    launches, seconds, closures = {}, {}, {}
+    try:
+        for precision in ("f32", "bf16"):
+            counts, wall, per_step, reads = run(precision, [
+                "-s", str(ZOOM_STEPS), "--precision", precision, "-n", f"zoom_{precision}.png"])
+            out = np.asarray(Image.open(os.path.join(root, "results", f"zoom_{precision}.png")))
+            check(out.shape == (GATYS_SIZE, GATYS_SIZE, 3),
+                  f"lbfgs-zoom {precision}: PNG {out.shape} written")
+            launches[precision], seconds[precision] = counts, wall
+            closures[precision] = per_step
+        _, seconds["default"], closures["default"], _ = run("default (300 steps, f32)", [
+            "-n", "zoom_default.png"])
+    finally:
+        F.conv2d = library_conv
+        constants.PROJECT_ROOT_PATH = saved_root
+
+    # _run_lbfgs at GATYS_PARITY_SIZE px: the card against the port's CPU run,
+    # one image, then ZOOM_LANES lanes against each image alone.
+    def img(i):
+        return torch.from_numpy(images.normalize(
+            coco.synthetic_image(i, GATYS_PARITY_SIZE))[None].astype(np.float32))
+
+    contents = torch.cat([img(30_010 + i) for i in range(ZOOM_LANES)])
+    cpu_params = vgg.init_params(seed=0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: {leaf: v.to(dev) for leaf, v in p.items()} for k, p in cpu_params.items()}
+        grams = vgg.style_gram_targets(params, img(30_001).to(dev))
+        runs[dev] = _zoom_losses(torch, gatys, params, contents[:1].to(dev), grams)
+    first = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    worst = float(np.max(np.abs(runs["cuda"] - runs["cpu"]) / np.abs(runs["cpu"])))
+    check(first <= GATYS_PARITY_LOSS_RTOL and worst <= ZOOM_LOSS_RTOL,
+          f"lbfgs-zoom parity f32 {GATYS_PARITY_SIZE} px: losses card {runs['cuda']} vs CPU "
+          f"{runs['cpu']} (first relative {first:.3g}, limit {GATYS_PARITY_LOSS_RTOL}; worst "
+          f"{worst:.3g} over {ZOOM_PARITY_STEPS} steps, limit {ZOOM_LOSS_RTOL})")
+    params = {k: {leaf: v.cuda() for leaf, v in p.items()} for k, p in cpu_params.items()}
+    grams = vgg.style_gram_targets(params, img(30_001).cuda())
+    lanes = _zoom_losses(torch, gatys, params, contents.cuda(), grams, per_lane=True)
+    gaps = []
+    for i in range(ZOOM_LANES):
+        alone = _zoom_losses(torch, gatys, params, contents[i:i + 1].cuda(), grams)
+        gaps.append((abs(lanes[i][0] - alone[0]) / abs(alone[0]),
+                     float(np.max(np.abs(lanes[i] - alone) / np.abs(alone)))))
+    check(all(f <= GATYS_PARITY_LOSS_RTOL and w <= ZOOM_LOSS_RTOL for f, w in gaps),
+          f"lbfgs-zoom lanes: {ZOOM_LANES} images of {GATYS_PARITY_SIZE} px in one run, each "
+          f"lane against its image alone (first loss, worst of {ZOOM_PARITY_STEPS} steps): "
+          f"{[(f'{f:.2e}', f'{w:.2e}') for f, w in gaps]}")
+
+    daemon_launches, daemon_seconds = gatys_daemon_path(torch, np, F, optimizer="lbfgs-zoom")
+    return launches, seconds, closures, daemon_launches, daemon_seconds
+
+
+def doctor_phase(torch):
+    """``python -m styletransfer_tpu_torch doctor`` on the card: exit 0, the
+    card's probe and the kernel build (done in phase 2) both ``ok``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "styletransfer_tpu_torch", "doctor"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    rows = [line for line in proc.stdout.splitlines() if line.startswith("[")]
+    for line in rows:
+        print(f"  {line}")
+    check(proc.returncode == 0 and any(r.startswith("[ OK ] backend: ") for r in rows)
+          and any(r.startswith("[ OK ] kernel build: ") for r in rows),
+          f"doctor: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s, the card's "
+          f"row and the kernel build's ok")
+
+
 def main() -> int:
     try:
         import torch
@@ -3949,6 +4350,15 @@ def main() -> int:
             parallel_slice(torch, np, in_dir, card)
             print(card)
             return 0
+        if sys.argv[1:] == ["--packed"]:
+            packed_path(torch, np)
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--zoom"]:
+            zoom_path(torch, np, F)
+            doctor_phase(torch)
+            print(card)
+            return 0
         entries = []
         per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -3968,6 +4378,10 @@ def main() -> int:
         train_multi, daemon_launches, daemon_rates = multistyle_slice(torch, np, in_dir)
         gatys_launches = gatys_path(torch, np, F)
         gatys_parity(torch, np)
+        packed_launches, packed_rates = packed_path(torch, np)
+        zoom_launches, zoom_seconds, zoom_closures, zoom_daemon, zoom_daemon_s = zoom_path(
+            torch, np, F)
+        doctor_phase(torch)
         video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
                                                                  in_dir, imgs)
         entries += video_entries
@@ -4042,6 +4456,17 @@ def main() -> int:
             "rank0_train_step": par_train[precision][counter],
             **{f"placement_{path}": c[counter] for (path, p), c in par_placed.items()
                if p == precision}}
+    for e in entries:  # each kernel's launches on the --packed and lbfgs-zoom paths
+        kernel, dn = e["name"].split(".")
+        precision = "f32" if dn == "float32" else "bf16"
+        counter = {"conv3x3_flat_residual": "conv3x3_flat", "conv3x3_valid_wide": "conv3x3_valid",
+                   "conv3x3_valid_widest": "conv3x3_valid",
+                   "conv3x3_valid_mma": "conv3x3_valid.bf16_mma"}.get(kernel, kernel)
+        e["packed_launches"] = {"static_train": packed_launches[precision][counter],
+                                "train_multi_f32": packed_launches["train_multi"][counter]}
+        e["zoom_launches"] = {"gatys_st": zoom_launches[precision][counter],
+                              **{f"gatys_serve_b{b}": c[counter]
+                                 for (p, b), c in zoom_daemon.items() if p == precision}}
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
@@ -4062,6 +4487,14 @@ def main() -> int:
     print(f"gatys_st --serve s per request at {GATYS_SIZE} px, {GATYS_SERVE_STEPS} steps: " +
           ", ".join(f"{p} b{b} {r:.3f}" for (p, b), r in net_rates["gatys_serve"].items())
           + f" on {card}")
+    print(f"lbfgs-zoom s per image at {GATYS_SIZE} px: " + ", ".join(
+        f"{k} {v:.2f} (closures per step mean {np.mean(zoom_closures[k]):.2f}, max "
+        f"{max(zoom_closures[k])})" for k, v in zoom_seconds.items()) + f" on {card}")
+    print(f"gatys_st --serve --optimizer lbfgs-zoom s per request, {GATYS_SERVE_STEPS} steps: "
+          + ", ".join(f"{p} b{b} {r:.3f}" for (p, b), r in zoom_daemon_s.items()) + f" on {card}")
+    print(f"training loop ms per step at batch {TRAIN_BATCH}, packed / synthetic corpus: " +
+          ", ".join(f"{p} {c} {'/'.join(f'{v:.3f}' for v in r)}"
+                    for (p, c), r in packed_rates.items()) + f" on {card}")
     print("training img/s at 256 px: " + ", ".join(
         f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")

@@ -1,15 +1,17 @@
 """``fast_st`` CLI: feed-forward style transfer training and inference.
 
-The JAX package's ``train``, ``train-multi``, ``convert-image``,
-``convert-dir``, ``convert-image-multi``, ``serve`` and ``serve-multi``
-commands, with the same arguments and output names, plus ``--device``
-(default ``cuda``; there is no silent fallback to the CPU). ``train`` and
-``train-multi`` take ``--distributed`` (one process per GPU over
-``torch.distributed``, launched by ``torchrun`` or with the ``STX_*``
-variables; ``parallel/distributed.py``) and ``--global-batch``, but not the
-JAX commands' ``--packed`` yet. The batched commands and daemons serve over
-every visible GPU with ``--device cuda`` (one replica each, the batch split
-over them; ``parallel/mesh.py``), on stdin or over ``--tcp`` / ``--http``
+The JAX package's ``train``, ``train-multi``, ``pack-dataset``,
+``convert-image``, ``convert-dir``, ``convert-image-multi``, ``serve`` and
+``serve-multi`` commands, with the same arguments and output names, plus
+``--device`` (default ``cuda``; there is no silent fallback to the CPU) on
+all but the host-only ``pack-dataset``. ``train`` and ``train-multi`` take
+``--packed`` (a file written by ``pack-dataset``; ``data/packed.py``),
+``--distributed`` (one process per GPU over ``torch.distributed``,
+launched by ``torchrun`` or with the ``STX_*`` variables;
+``parallel/distributed.py``; each rank reads its shard of a packed file)
+and ``--global-batch``. The batched commands and daemons serve over every
+visible GPU with ``--device cuda`` (one replica each, the batch split over
+them; ``parallel/mesh.py``), on stdin or over ``--tcp`` / ``--http``
 (``engines/netserve.py``, ``engines/httpserve.py``).
 """
 
@@ -54,6 +56,31 @@ def _training_batch(device, distributed_run, batch_size, global_batch) -> int:
     return mesh.resolve_global_batch(batch_size, global_batch)
 
 
+_packed_option = click.option(
+    "--packed", default=None, type=str,
+    help="Path to a packed dataset file (see data.packed.pack_images); zero-decode mmap "
+         "reads instead of per-image JPEG decode",
+)
+
+
+def _packed_loaders(packed: str, batch_size: int) -> dict:
+    """``train_loader`` / ``test_loader`` over a packed file (relative paths
+    from the project root), the rank's shard with its local batch in a
+    distributed run; empty without ``--packed``."""
+    if not packed:
+        return {}
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.data.packed import get_packed_loader
+    from styletransfer_tpu_torch.parallel import distributed
+
+    rank, world = distributed.process_info()
+    test_loader, train_loader = get_packed_loader(
+        os.path.join(constants.PROJECT_ROOT_PATH, packed),
+        batch_size=distributed.local_batch_size(batch_size), test_split=0.10, test_limit=20,
+        shard_index=rank, shard_count=world)
+    return {"test_loader": test_loader, "train_loader": train_loader}
+
+
 _precision_option = click.option(
     "--precision", default="f32", type=click.Choice(["f32", "bf16"]),
     help="Activation precision",
@@ -79,6 +106,7 @@ def fast_st():
               help="The weight we will assign to the content loss during the optimization")
 @click.option("-sw", "--style-weight", default=100_000,
               help="The weight we will assign to the style loss during the optimization")
+@_packed_option
 @click.option("--step-checkpoint-every", default=None, type=int,
               help="Also save mid-epoch resumable state every N steps")
 @click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
@@ -86,7 +114,7 @@ def fast_st():
 @_distributed_option
 @_global_batch_option
 @_device_option
-def train(style_image_path, epochs, batch_size, content_weight, style_weight,
+def train(style_image_path, epochs, batch_size, content_weight, style_weight, packed,
           step_checkpoint_every, precision, distributed, global_batch, device):
     """
     Perform the training for the fast style transfer network. A checkpoint
@@ -105,6 +133,7 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
         style_image, style_name=style_name, epochs=epochs, batch_size=batch_size,
         style_weight=style_weight, content_weight=content_weight,
         step_checkpoint_every=step_checkpoint_every, precision=precision, device=device,
+        **_packed_loaders(packed, batch_size),
     )
 
 
@@ -117,6 +146,7 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
               help="The weight we will assign to the content loss during the optimization")
 @click.option("-sw", "--style-weight", default=100_000,
               help="The weight we will assign to the style loss during the optimization")
+@_packed_option
 @click.option("--step-checkpoint-every", default=None, type=int,
               help="Also save mid-epoch resumable state every N steps")
 @click.option("--precision", default="f32", type=click.Choice(["f32", "bf16"]),
@@ -125,7 +155,7 @@ def train(style_image_path, epochs, batch_size, content_weight, style_weight,
 @_global_batch_option
 @_device_option
 def train_multi(style_image_paths, name, epochs, batch_size, content_weight, style_weight,
-                step_checkpoint_every, precision, distributed, global_batch, device):
+                packed, step_checkpoint_every, precision, distributed, global_batch, device):
     """
     Train ONE network on MULTIPLE styles (conditional instance norm).
 
@@ -148,7 +178,31 @@ def train_multi(style_image_paths, name, epochs, batch_size, content_weight, sty
         stack, style_name=name, epochs=epochs, batch_size=batch_size,
         style_weight=style_weight, content_weight=content_weight,
         step_checkpoint_every=step_checkpoint_every, precision=precision, device=device,
+        **_packed_loaders(packed, batch_size),
     )
+
+
+@fast_st.command("pack-dataset")
+@click.argument("image-dir")
+@click.argument("out-path")
+@click.option("--size", default=256, help="Crop size for packed images")
+@click.option("--limit", default=None, type=int, help="Max images to pack")
+def pack_dataset(image_dir, out_path, size, limit):
+    """
+    Pack a directory of images into a single memory-mapped dataset file for
+    zero-decode training (use with `fast_st train --packed OUT_PATH`).
+
+    Each image is center-cropped square, resized to SIZE and stored as raw
+    uint8; non-RGB and unreadable files are skipped.
+    """
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.data.packed import pack_images
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    image_dir = os.path.join(constants.PROJECT_ROOT_PATH, image_dir)
+    out_path = os.path.join(constants.PROJECT_ROOT_PATH, out_path)
+    n = pack_images(image_dir, out_path, size=size, limit=limit)
+    get_logger().info("Packed %d images into %s", n, out_path)
 
 
 @fast_st.command("convert-image")

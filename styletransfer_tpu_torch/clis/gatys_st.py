@@ -6,8 +6,9 @@ The JAX package's command with its arguments, defaults and output names
 directory with ``-b``, blend specs, the optimizer and L-BFGS options,
 coarse-to-fine, ``--precision``, ``--size``) and its daemon (``--serve``, on
 stdin or over ``--tcp`` / ``--http``), plus ``--device`` (default ``cuda``;
-there is no silent fallback to the CPU). The ``lbfgs-zoom`` optimizer is not
-ported yet.
+there is no silent fallback to the CPU). The optimizers are ``lbfgs``,
+``lbfgs-zoom`` and ``adam`` (``engines/gatys.py``). Both modes log the
+L-BFGS history size in effect at start-up, and where it came from.
 """
 
 import os
@@ -15,6 +16,18 @@ import os
 import click
 
 from styletransfer_tpu_torch.clis.fast_st import _transport_options, serve_on_transport
+
+
+def _log_history(optimizer: str, history_size: int, source: str) -> None:
+    """Log the L-BFGS memory a run takes and where it came from."""
+    from styletransfer_tpu_torch.ops.lbfgs import ZOOM_MEMORY
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    if optimizer == "lbfgs":
+        get_logger().info("gatys_st: L-BFGS history size %d (%s)", history_size, source)
+    elif optimizer == "lbfgs-zoom":
+        get_logger().info("gatys_st: lbfgs-zoom keeps optax's fixed memory of %d "
+                          "(--history-size and --history-math do not apply)", ZOOM_MEMORY)
 
 
 @click.command()
@@ -28,9 +41,12 @@ from styletransfer_tpu_torch.clis.fast_st import _transport_options, serve_on_tr
               help="The weight we will assign to the content loss during the optimization")
 @click.option("-sw", "--style-weight", default=100_000,
               help="The weight we will assign to the style loss during the optimization")
-@click.option("--optimizer", default="lbfgs", type=click.Choice(["adam", "lbfgs"]),
-              help="Pixel optimizer. lbfgs is the reference's torch LBFGS contract (up "
-                   "to 20 inner iterations per step); adam is Adam over the pixels.")
+@click.option("--optimizer", default="lbfgs",
+              type=click.Choice(["adam", "lbfgs", "lbfgs-zoom"]),
+              help="Pixel optimizer. lbfgs replicates the reference's torch LBFGS "
+                   "contract exactly (~20 inner iterations per step); lbfgs-zoom is optax "
+                   "L-BFGS with linesearch (1 update per step, memory 10); adam is Adam over "
+                   "the pixels.")
 @click.option("-b", "--batch", default=0, type=click.IntRange(min=0),
               help="If CONTENT-IMAGE-PATH is a directory, stylize up to this many images "
                    "from it in one batched optimization of independent lanes (0 = all).")
@@ -82,7 +98,11 @@ def gatys_st(content_image_path, style_image_path, out_name, steps, content_weig
     # The daemon's history defaults to H = 16, the one-shot run keeps torch's
     # H = 100; an explicit --history-size wins in both modes.
     if history_size is None:
-        history_size = 16 if serve else 100
+        history_size, source = (16, "the daemon's default") if serve else (
+            100, "the one-shot default")
+    else:
+        source = "--history-size"
+    _log_history(optimizer, history_size, source)
     if serve:
         if coarse_steps:
             raise click.UsageError("--coarse-steps is not supported in --serve mode (the "

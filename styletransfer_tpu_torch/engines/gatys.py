@@ -1,21 +1,25 @@
 """Gatys optimization-based style transfer.
 
-The port of ``styletransfer_tpu/engines/gatys.py`` (all but ``lbfgs-zoom``):
-the pixels of the content image are optimized
+The port of ``styletransfer_tpu/engines/gatys.py``: the pixels of the
+content image are optimized
 against VGG19 Gram (style) and feature (content) losses. Each closure runs
 the VGG tower to ``conv3_1`` forward and backward on the stat-free 3x3 conv
 kernels (``models/vgg.py``): ``conv3x3_im2col`` for ``conv1_1``,
 ``conv3x3_flat`` for the other four convs and for all five input gradients.
 
-Two optimizers:
+Three optimizers:
 - ``lbfgs`` (default): the torch-contract L-BFGS (``ops/lbfgs.py``): each
   step is one ``torch.optim.LBFGS.step(closure)`` with the reference's
   defaults (up to 20 fixed-step inner iterations, persistent history), so
   the CLI's ``-s 300`` makes the reference's ~6,000 closure evaluations;
+- ``lbfgs-zoom``: ``optax.lbfgs()`` (a memory of 10 and the zoom line
+  search, ``ops/linesearch.py``; ``lbfgs.lbfgs_zoom``): one line-searched
+  update per step, each costing as many closures as its line search takes;
 - ``adam``: Adam over the pixels (optax ``adam``'s arithmetic).
 
-A batch of N content images is N independent problems: with ``lbfgs`` each
-lane has its own history, step size and breaks; its closure returns each
+A batch of N content images is N independent problems: with ``lbfgs`` and
+``lbfgs-zoom`` each lane has its own history, step size and breaks (or line
+search); its closure returns each
 lane's own single-image loss and gradient (the per-lane losses are summed
 for the backward, never averaged). The reported loss history is the mean
 over lanes, as in the JAX engine. ``adam`` minimizes the batch's loss, the
@@ -27,7 +31,8 @@ independent lanes, each against its own Gram targets (``make_loss_fn``
 takes targets of shape [N, C, C]) and each with its own loss history
 (:func:`_run_serve_batched`), the group's lanes split over the devices
 (:func:`_run_serve_placed`). The devices take their shares one after the
-other: under L-BFGS each inner iteration reads a flag back to the host.
+other: under L-BFGS each inner iteration (each line-search iteration under
+``lbfgs-zoom``) reads back from the device.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from styletransfer_tpu_torch.models import vgg
 from styletransfer_tpu_torch.ops import layers, losses, lbfgs
 from styletransfer_tpu_torch.utils.logging import get_logger
 
-OPTIMIZERS = ("adam", "lbfgs")
+OPTIMIZERS = ("adam", "lbfgs", "lbfgs-zoom")
 
 # Closure evaluations (loss and pixel gradient of every lane) since the
 # counter was last set to 0.
@@ -121,6 +126,23 @@ def _run_adam(
     return pixels.detach(), torch.stack(history, dim=-1)
 
 
+def _lane_closure(loss_fn: Callable[[torch.Tensor], torch.Tensor], shape) -> Callable:
+    """The L-BFGS closure over lanes: flat pixels [N, H * W * 3] -> (each
+    lane's loss [N], each lane's own gradient [N, H * W * 3]; the lanes'
+    losses are summed for the backward, never averaged)."""
+
+    def loss_and_grad(x_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        global closure_evals
+        x = x_flat.detach().reshape(shape).requires_grad_()
+        with torch.enable_grad():
+            lane_losses = loss_fn(x)
+            (grad,) = torch.autograd.grad(lane_losses.sum(), x)
+        closure_evals += 1
+        return lane_losses.detach(), grad.reshape(shape[0], -1)
+
+    return loss_and_grad
+
+
 def _run_lbfgs_torch(
     vgg_params: vgg.Params,
     content_image: torch.Tensor,
@@ -143,20 +165,35 @@ def _run_lbfgs_torch(
     n_lanes = shape[0]
     loss_fn = make_loss_fn(vgg_params, content_image, style_grams, style_weight,
                            content_weight, compute_dtype)
-
-    def loss_and_grad(x_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        global closure_evals
-        x = x_flat.detach().reshape(shape).requires_grad_()
-        with torch.enable_grad():
-            lane_losses = loss_fn(x)
-            (grad,) = torch.autograd.grad(lane_losses.sum(), x)
-        closure_evals += 1
-        return lane_losses.detach(), grad.reshape(n_lanes, -1)
-
     start = content_image if init_pixels is None else init_pixels
     x, history = lbfgs.lbfgs_torch(
-        loss_and_grad, start.detach().float().reshape(n_lanes, -1), steps,
+        _lane_closure(loss_fn, shape), start.detach().float().reshape(n_lanes, -1), steps,
         max_iter=max_iter, history_size=history_size, history_math=history_math)
+    return x.reshape(shape), history if per_lane else history.mean(dim=0)
+
+
+def _run_lbfgs(
+    vgg_params: vgg.Params,
+    content_image: torch.Tensor,
+    style_grams: Mapping[str, torch.Tensor],
+    steps: int,
+    style_weight: float,
+    content_weight: float,
+    compute_dtype: Optional[torch.dtype] = None,
+    init_pixels: Optional[torch.Tensor] = None,
+    per_lane: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` updates of ``optax.lbfgs()`` over the pixels (memory 10,
+    the zoom line search; ``lbfgs.lbfgs_zoom``), one independent optimizer
+    per image of ``content_image`` [N, H, W, 3]. Returns ``(pixels, losses
+    [steps])``, the losses averaged over lanes (``per_lane``: ``[N,
+    steps]``, each lane's own)."""
+    shape = content_image.shape
+    loss_fn = make_loss_fn(vgg_params, content_image, style_grams, style_weight,
+                           content_weight, compute_dtype)
+    start = content_image if init_pixels is None else init_pixels
+    x, history = lbfgs.lbfgs_zoom(_lane_closure(loss_fn, shape),
+                                  start.detach().float().reshape(shape[0], -1), steps)
     return x.reshape(shape), history if per_lane else history.mean(dim=0)
 
 
@@ -187,6 +224,10 @@ def _run_optimizer(
                                 compute_dtype=compute_dtype, history_size=history_size,
                                 history_math=history_math, init_pixels=init_pixels,
                                 per_lane=per_lane)
+    if optimizer == "lbfgs-zoom":
+        return _run_lbfgs(vgg_params, content_image, style_grams, steps, float(style_weight),
+                          float(content_weight), compute_dtype=compute_dtype,
+                          init_pixels=init_pixels, per_lane=per_lane)
     raise ValueError(f"unknown optimizer {optimizer!r}; use one of {', '.join(OPTIMIZERS)}")
 
 
@@ -362,7 +403,9 @@ def serve_loop(
     devices: Optional[Sequence] = None,
 ) -> int:
     """Warm-process Gatys daemon (``gatys_st --serve``): one optimization per
-    request, with the JAX daemon's protocol (``engines/daemon.py``).
+    request, with the JAX daemon's protocol (``engines/daemon.py``). The
+    history options apply to ``lbfgs`` only (``lbfgs-zoom`` keeps optax's
+    memory of 10).
 
     Each request line is ``CONTENT\\tSTYLE[\\tOUTPUT]``; empty OUTPUT means
     ``{out_dir}/gatys_{content_stem}_{style_stem}.png``. STYLE may be a

@@ -1,4 +1,5 @@
-"""torch-contract L-BFGS over independent lanes.
+"""L-BFGS over independent lanes: torch's contract, and optax's with the
+zoom line search.
 
 The port of ``styletransfer_tpu/ops/lbfgs.py``: ``torch.optim.LBFGS`` with
 the reference's settings (``lr=1``, ``max_iter=20``, ``history_size=100``,
@@ -31,13 +32,23 @@ The host reads one flag per inner iteration: whether any lane takes a step.
 When none does, every lane has broken off this outer step, and the closure
 (whose result every lane would discard) and the remaining inner iterations,
 which would change nothing, are skipped.
+
+``lbfgs_zoom`` is the JAX engine's other optimizer, ``optax.lbfgs()``: a
+memory of 10 pairs and the zoom line search of ``ops/linesearch.py``, one
+update per outer step. Its vector work (the two-loop recursion over the
+ring, the closure, the slopes) stays on the device; the line search's
+per-lane scalars run on the host, with one read from the device per
+line-search iteration.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
+import numpy as np
 import torch
+
+from styletransfer_tpu_torch.ops import linesearch
 
 LossAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -247,3 +258,95 @@ def lbfgs_torch(
         return x[0], out[0]
     return x, out
 
+
+
+# The memory of optax.lbfgs() (``memory_size=10``), which the JAX engine's
+# lbfgs-zoom takes as it is.
+ZOOM_MEMORY = 10
+
+# One record per outer step of every lbfgs_zoom run since the list was last
+# emptied: (each lane's line-search iterations [N], host reads).
+zoom_log: List[Tuple[np.ndarray, int]] = []
+
+
+def _precondition(grad, S, Y, rho, gamma, memory_idx: int) -> torch.Tensor:
+    """optax's ``_precondition_by_lbfgs`` per lane: the two-loop recursion
+    over every slot of the ring, newest to oldest and back, with the empty
+    slots' zero weights included as optax includes them."""
+    m = S.shape[1]
+    order = [(memory_idx + j) % m for j in range(m)]
+    q, alphas = grad, {}
+    for idx in reversed(order):
+        alphas[idx] = rho[:, idx] * _dot(S[:, idx], q)
+        q = q + (-alphas[idx]).unsqueeze(1) * Y[:, idx]
+    r = gamma.unsqueeze(1) * q
+    for idx in order:
+        beta = rho[:, idx] * _dot(Y[:, idx], r)
+        r = r + (alphas[idx] - beta).unsqueeze(1) * S[:, idx]
+    return r
+
+
+def lbfgs_zoom(
+    loss_and_grad_fn: LossAndGrad,
+    x0: torch.Tensor,
+    steps: int,
+    memory_size: int = ZOOM_MEMORY,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` updates of ``optax.lbfgs()``, driven as the JAX engine's
+    ``_run_lbfgs`` drives it (``optax.value_and_grad_from_state``).
+
+    Each step: the L-BFGS direction of ``optax.scale_by_lbfgs`` (a ring of
+    ``memory_size`` pairs (s, y) with weights ``1 / <y, s>``, the identity
+    scaled by ``<y, s> / <y, y>`` of the last pair, or by ``min(1,
+    1/|g|)`` at the first step), negated, then the zoom line search along it
+    (``ops/linesearch.py``), whose last value and gradient start the next
+    step without another closure (a lane whose value is not finite gets a
+    new one, as ``value_and_grad_from_state`` gives it).
+
+    ``x0`` is one flat problem ``[n]`` or N independent lanes ``[N, n]``;
+    ``loss_and_grad_fn(x [N, n]) -> (loss [N], grad [N, n])`` is the closure
+    over all lanes at once. Returns ``(x_final, losses)`` shaped like ``x0``
+    and ``[steps]`` (``[N, steps]`` for lanes): ``losses[..., i]`` is the
+    value at the start of step ``i``."""
+    single = x0.dim() == 1
+    x = (x0.unsqueeze(0) if single else x0).float()
+    N, n = x.shape
+    S = x.new_zeros((N, memory_size, n))
+    Y = x.new_zeros((N, memory_size, n))
+    rho = x.new_zeros((N, memory_size))
+    prev_x, prev_g = torch.zeros_like(x), torch.zeros_like(x)
+    value = np.full(N, np.inf, np.float32)
+    grad = torch.zeros_like(x)
+    losses = []
+    for k in range(steps):
+        reads = 0
+        redo = ~np.isfinite(value)
+        if redo.any():
+            v, g = loss_and_grad_fn(x)
+            again = torch.from_numpy(redo).to(x.device).unsqueeze(1)
+            grad = torch.where(again, g.float(), grad)
+            value = np.where(redo, v.float().cpu().numpy(), value)
+            reads += 1
+        losses.append(value.copy())
+        if k > 0:
+            ds, dy = x - prev_x, grad - prev_g
+            ys = _dot(dy, ds)
+            slot = (k - 1) % memory_size
+            S[:, slot], Y[:, slot] = ds, dy
+            rho[:, slot] = torch.where(ys == 0.0, torch.zeros_like(ys), 1.0 / ys)
+            yy = _dot(dy, dy)
+            gamma = torch.where(yy > 0.0, ys / yy, torch.ones_like(ys))
+        else:
+            gamma = torch.clamp(1.0 / grad.square().sum(dim=1).sqrt(), max=1.0)
+        u = -1.0 * _precondition(grad, S, Y, rho, gamma, k % memory_size)
+        prev_x, prev_g = x, grad
+        found = linesearch.zoom_linesearch(loss_and_grad_fn, x, u, value, grad, _dot(u, grad))
+        t = torch.from_numpy(found.stepsize).to(x.device)
+        x = x + t.unsqueeze(1) * u
+        value, grad = found.value, found.grad
+        zoom_log.append((found.count, reads + int(found.count.max())))
+    out = (torch.from_numpy(np.stack(losses, axis=1)) if losses
+           else torch.zeros((N, 0))).to(x.device)
+    if single:
+        return x[0], out[0]
+    return x, out

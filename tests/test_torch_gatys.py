@@ -14,6 +14,7 @@ from styletransfer_tpu.engines import gatys as jg
 from styletransfer_tpu.models import vgg as jv
 from styletransfer_tpu_torch.engines import gatys as tg
 from styletransfer_tpu_torch.models import vgg as tv
+from styletransfer_tpu_torch.ops import lbfgs
 
 SIZE = 32
 # The objective through five convs and five Grams: f32 sums in another order.
@@ -149,6 +150,52 @@ def test_batched_lanes_are_independent_and_match_jax(jax_vgg, port_vgg, inputs):
     np.testing.assert_allclose(float(la[1]), float(jl[1]), rtol=BATCHED_LOSS_RTOL)
 
 
+def test_run_lbfgs_matches_jax(jax_vgg, port_vgg, inputs):
+    """``lbfgs-zoom``: optax L-BFGS with the zoom line search, 3 steps at
+    batch 1; one closure to start, then one per line-search iteration."""
+    content, _, jgrams, tgrams = inputs
+    _, jlosses = jg._run_lbfgs(jax_vgg, jnp.asarray(content), jgrams, 3, 1e5, 1.0)
+    tg.closure_evals = 0
+    lbfgs.zoom_log.clear()
+    px, losses = tg._run_lbfgs(port_vgg, torch.from_numpy(content), tgrams, 3, 1e5, 1.0)
+    assert losses.shape == (3,) and float(losses[2]) < float(losses[0])
+    assert tg.closure_evals == 1 + sum(int(c[0]) for c, _ in lbfgs.zoom_log)
+    np.testing.assert_allclose(float(losses[0]), float(jlosses[0]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses), rtol=LBFGS_LOSS_RTOL)
+
+
+def test_run_lbfgs_lanes_are_each_their_image_and_match_jax(jax_vgg, port_vgg, inputs):
+    """Two lanes of ``lbfgs-zoom``: each lane's losses are its image's run
+    alone, and the lane means follow JAX's vmapped ``_run_lbfgs``."""
+    _, _, jgrams, tgrams = inputs
+    imgs = np.concatenate([_img(7), _img(8, scale=0.8, shift=0.2)])
+    _, lanes = tg._run_lbfgs(port_vgg, torch.from_numpy(imgs), tgrams, 3, 1e5, 1.0,
+                             per_lane=True)
+    for i in range(2):
+        _, alone = tg._run_lbfgs(port_vgg, torch.from_numpy(imgs[i:i + 1]), tgrams, 3, 1e5,
+                                 1.0)
+        np.testing.assert_allclose(lanes[i].numpy(), alone.numpy(), rtol=LOSS_RTOL)
+    _, jl = jg._run_lbfgs(jax_vgg, jnp.asarray(imgs), jgrams, 3, 1e5, 1.0)
+    mean = lanes.mean(dim=0).numpy()
+    np.testing.assert_allclose(mean[0], float(jl[0]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(mean, np.asarray(jl), rtol=BATCHED_LOSS_RTOL)
+
+
+def test_coarse_to_fine_warm_starts_lbfgs_zoom(port_vgg, inputs):
+    _, style, _, _ = inputs
+    content = torch.from_numpy(_img(11, size=64))
+    style = torch.from_numpy(style)
+    cold, cold_l = tg.train_gatys(port_vgg, style, content, steps=2, optimizer="lbfgs-zoom",
+                                  log_every=None)
+    warm, warm_l = tg.train_gatys(port_vgg, style, content, steps=2, optimizer="lbfgs-zoom",
+                                  coarse_steps=2, log_every=None)
+    assert warm.shape == content.shape and np.isfinite(warm_l).all()
+    assert not np.allclose(warm_l[0], cold_l[0]) and warm_l[-1] < warm_l[0]
+    again, _ = tg.train_gatys(port_vgg, style, content, steps=2, optimizer="lbfgs-zoom",
+                              coarse_steps=0, log_every=None)
+    assert torch.equal(cold, again)
+
+
 @pytest.mark.parametrize("src,dst", [((32, 32), (16, 16)), ((40, 48), (24, 32)),
                                      ((16, 16), (32, 32)), ((24, 32), (40, 48))])
 def test_resize_matches_jax_image_resize(src, dst):
@@ -187,7 +234,7 @@ def test_unknown_optimizer_raises(port_vgg, inputs):
     content, style, _, _ = inputs
     with pytest.raises(ValueError, match="unknown optimizer"):
         tg.train_gatys(port_vgg, torch.from_numpy(style), torch.from_numpy(content), steps=1,
-                       optimizer="lbfgs-zoom", log_every=None)
+                       optimizer="sgd", log_every=None)
 
 
 def test_parse_style_spec_matches_jax(tmp_path):

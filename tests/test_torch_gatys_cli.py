@@ -87,6 +87,9 @@ def test_bad_blend_spec_is_a_usage_error(root):
 
 @pytest.mark.parametrize("extra", [["--coarse-steps", "1", "--size", "64"],
                                    ["--optimizer", "adam"],
+                                   ["--optimizer", "lbfgs-zoom"],
+                                   ["--optimizer", "lbfgs-zoom", "--coarse-steps", "1",
+                                    "--size", "64"],
                                    ["--history-math", "two_loop", "--history-size", "3"],
                                    ["--precision", "bf16"]])
 def test_options_run_end_to_end(root, extra):
@@ -107,8 +110,39 @@ def test_options_and_defaults_match_the_jax_command():
     for name in set(port) & set(jax):
         assert port[name].default == jax[name].default, name
         assert port[name].opts == jax[name].opts, name
-    assert list(port["optimizer"].type.choices) == ["adam", "lbfgs"]
+    assert list(port["optimizer"].type.choices) == list(jax["optimizer"].type.choices) == [
+        "adam", "lbfgs", "lbfgs-zoom"]
     assert list(port["history_math"].type.choices) == list(jax["history_math"].type.choices)
+
+
+@pytest.mark.parametrize("args,logged", [
+    (["--serve"], "L-BFGS history size 16 (the daemon's default)"),
+    (["--serve", "--history-size", "100"], "L-BFGS history size 100 (--history-size)"),
+    (["content.png", "s1.png"], "L-BFGS history size 100 (the one-shot default)"),
+    (["content.png", "s1.png", "--history-size", "7"], "L-BFGS history size 7 (--history-size)"),
+    (["--serve", "--optimizer", "lbfgs-zoom", "--history-size", "4"],
+     "lbfgs-zoom keeps optax's fixed memory of 10"),
+    (["content.png", "s1.png", "--optimizer", "lbfgs-zoom"],
+     "lbfgs-zoom keeps optax's fixed memory of 10")])
+def test_history_in_effect_is_logged_with_its_source(root, monkeypatch, caplog, args, logged):
+    """The daemon's H = 16 differs from the one-shot run's H = 100 without a
+    word in the JAX package; the port says which it takes, and why."""
+    from styletransfer_tpu_torch.engines import gatys
+
+    seen = {}
+
+    def stub(**kw):
+        seen.update(kw)
+        return 0
+
+    monkeypatch.setattr(gatys, "serve_loop", stub)
+    monkeypatch.setattr(gatys, "train_gatys", lambda *a, **kw: (seen.update(kw), (
+        torch.zeros((1, 32, 32, 3)), None))[1])
+    caplog.set_level("INFO")
+    _run([*args, *FAST])
+    assert logged in caplog.text
+    if "lbfgs-zoom" not in args:
+        assert f"history size {seen['history_size']} " in caplog.text
 
 
 @pytest.fixture

@@ -250,11 +250,12 @@ def test_refuses_a_bad_batch_or_optimizer(port_vgg):
     with pytest.raises(ValueError, match="batch must be >= 1"):
         gatys.serve_loop(batch=0, vgg_params=port_vgg, device="cpu")
     with pytest.raises(ValueError, match="unknown optimizer"):
-        gatys.serve_loop(optimizer="lbfgs-zoom", vgg_params=port_vgg, device="cpu")
+        gatys.serve_loop(optimizer="sgd", vgg_params=port_vgg, device="cpu")
 
 
 @pytest.mark.parametrize("optimizer,batch,steps,rtol", [
-    ("adam", 2, 3, ADAM_LOSS_RTOL), ("lbfgs", 1, 2, BATCHED_LOSS_RTOL)])
+    ("adam", 2, 3, ADAM_LOSS_RTOL), ("lbfgs", 1, 2, BATCHED_LOSS_RTOL),
+    ("lbfgs-zoom", 2, 3, BATCHED_LOSS_RTOL)])
 def test_losses_match_jax_serve_loop(jax_vgg, port_vgg, pngs, tmp_path, optimizer, batch,
                                      steps, rtol):
     """The same requests through JAX ``serve_loop`` and the port's, on one set

@@ -68,8 +68,10 @@ def test_importing_the_port_loads_no_jax():
         "import styletransfer_tpu_torch.engines.daemon, styletransfer_tpu_torch.clis.common\n"
         "import styletransfer_tpu_torch.engines.netserve\n"
         "import styletransfer_tpu_torch.engines.httpserve\n"
+        "import styletransfer_tpu_torch.data.packed, styletransfer_tpu_torch.ops.linesearch\n"
+        "import styletransfer_tpu_torch.utils.doctor, styletransfer_tpu_torch.utils.demo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'styletransfer_tpu'))\n"
+        "('jax', 'flax', 'optax', 'styletransfer_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -208,6 +210,39 @@ def test_video_and_gatys_daemons_raise_without_a_gpu(no_gpu, tmp_path, monkeypat
         assert "no CUDA GPU" in str(result.exception), args
         assert "READY" not in result.output
     assert os.listdir(tmp_path) == []
+
+
+def test_packed_training_and_lbfgs_zoom_raise_without_a_gpu(no_gpu, tmp_path, monkeypatch):
+    """``train --packed``, ``train-multi --packed`` and ``gatys_st --optimizer
+    lbfgs-zoom`` (one-shot and daemon) default to the card; ``pack-dataset``
+    is host work and runs."""
+    import numpy as np
+    from PIL import Image
+
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import gatys
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        gatys.serve_loop(optimizer="lbfgs-zoom")
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
+    (tmp_path / "imgs").mkdir()
+    for i in range(3):
+        Image.fromarray(np.full((20, 20, 3), 40 * i, np.uint8)).save(tmp_path / "imgs" /
+                                                                     f"{i}.png")
+    result = CliRunner().invoke(cli, ["fast_st", "pack-dataset", "imgs", "p.bin", "--size",
+                                      "16"])
+    assert result.exit_code == 0, result.output
+    before = sorted(os.listdir(tmp_path))
+    for args in (["fast_st", "train", "style.png", "-e", "1", "--packed", "p.bin"],
+                 ["fast_st", "train-multi", "a.png", "b.png", "-e", "1", "--packed", "p.bin"],
+                 ["gatys_st", "c.png", "s.png", "--optimizer", "lbfgs-zoom"],
+                 ["gatys_st", "--serve", "--optimizer", "lbfgs-zoom"]):
+        result = CliRunner().invoke(cli, args, input="c.png\ts.png\n\n")
+        assert result.exit_code != 0
+        assert "no CUDA GPU" in str(result.exception), args
+        assert "READY" not in result.output
+    assert sorted(os.listdir(tmp_path)) == before
 
 
 @pytest.mark.subprocess
