@@ -11,6 +11,7 @@
     python3 chip_smoke.py --parallel    # phases 1-2, multi-GPU training and serving placement
     python3 chip_smoke.py --packed      # phases 1-2, --packed training
     python3 chip_smoke.py --zoom        # phases 1-2, gatys_st --optimizer lbfgs-zoom, doctor
+    python3 chip_smoke.py --aot         # phases 1-2, CUDA graphs, start-up, precision, CRC32C
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -184,11 +185,25 @@ It imports nothing of JAX. Phases:
    the L-BFGS daemon;
 15. ``python -m styletransfer_tpu_torch doctor``: exit 0, the card's row and
    the kernel build's row ok;
-16. print one JSON line with each kernel's error, launches and times (and
+16. the aot / start-up phase (also alone with ``--aot``): ``fast_st
+   convert-image`` and ``convert-dir`` (8 images, 256 px, f32 and bf16,
+   reflect) with ``STX_AOT_CACHE=1`` and without: the same PNGs bit for
+   bit, two graphs captured and replayed with the flag (each forward's
+   kernels launched in the warm-up and the capture) and none without; the
+   serving forward's wall ms per call at batch 1 and 64, on its graph and
+   eagerly, in turns; a fresh process's seconds from ``python -c`` to the
+   import, the first forward and the saved PNG, with the kernel build cache
+   warm and with ``STX_NO_COMPILE_CACHE=1`` (every kernel it loads built
+   by nvcc in the process); ``STX_MATMUL_PRECISION=high`` against unset on
+   the f32 forward at batch 64 (TF32 flags, the uint8 output within
+   TF32_MAX_STEPS, finite, both times); the native CRC32C built here, equal
+   to Python's on 1 MiB, with its MB/s;
+17. print one JSON line with each kernel's error, launches and times (and
    each kernel's launches on the video-slice paths, on train-multi, in the
    stdin daemons, in the network slice's daemons, on the multi-GPU slice's
-   paths, on the packed paths and on the lbfgs-zoom paths), and as the last
-   line ``{"ok": true, "device": {...}}``.
+   paths, on the packed paths, on the lbfgs-zoom paths and in the aot
+   phase's convert commands), and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -4267,6 +4282,215 @@ def doctor_phase(torch):
           f"row and the kernel build's ok")
 
 
+# The aot / start-up phase: fast_st convert-image and convert-dir with and
+# without STX_AOT_CACHE=1 (CUDA graphs of the serving forward, utils/aot.py),
+# the forward's wall time per batch on the graph and eagerly, cold and warm
+# process start-up, STX_MATMUL_PRECISION=high against unset, native CRC32C.
+AOT_IMAGES = 8
+AOT_BATCHES = (1, 64)
+AOT_TIMED = {1: 50, 64: 10}  # calls per timed turn
+# STX_MATMUL_PRECISION=high (TF32 in cuDNN's convs) against TF32 off, on the
+# f32 serving forward's uint8 output: TF32 keeps 10 bits of mantissa where
+# bf16 keeps 7, so it is held to the bf16 serving limit of 16/255.
+TF32_MAX_STEPS = 16
+CRC_BYTES = 1 << 20
+CRC_ROUNDS = 20
+
+_STARTUP = r"""
+import sys, time
+t0 = float(sys.argv[1])
+import numpy as np, torch
+from styletransfer_tpu_torch import ckpt
+from styletransfer_tpu_torch.engines import fast
+from styletransfer_tpu_torch.ops.cuda import _build
+from styletransfer_tpu_torch.utils import images
+t_import = time.time()
+params, _ = ckpt.load_latest_transformer("fast_st", "aot", sys.argv[2], "cuda")
+x = torch.from_numpy(images.load_image_uint8(sys.argv[3], size=256)).cuda()
+out = fast.make_serve_fn("f32")(params, x).cpu().numpy()[0]
+t_forward = time.time()
+images.save_uint8(out, sys.argv[4])
+t_png = time.time()
+print(_build.BUILD_DIR, t_import - t0, t_forward - t0, t_png - t0)
+"""
+
+
+def _pngs(np, root):
+    """Every PNG under ``root``, by its path relative to it."""
+    from PIL import Image
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            out[os.path.relpath(path, root)] = np.asarray(Image.open(path))
+    return out
+
+
+def _startup(np, label, env, models, image, out_png):
+    """A fresh ``python -c`` that loads the checkpoint, runs one f32 forward
+    on the card and saves the PNG: seconds from its start to the import, the
+    first forward's result on the host and the saved PNG."""
+    full = dict(os.environ, **env)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", _STARTUP, repr(t0), models, image, out_png],
+                          cwd=ROOT, env=full, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"start-up {label}: exit {proc.returncode} "
+          f"{proc.stderr[-2000:] if proc.returncode else ''}")
+    build_dir, *spans = proc.stdout.split()[-4:]
+    spans = [float(v) for v in spans]
+    print(f"start-up {label}: kernels in {build_dir}; python -c start to import "
+          f"{spans[0]:.3f} s, to the first forward {spans[1]:.3f} s, to the saved PNG "
+          f"{spans[2]:.3f} s", flush=True)
+    return build_dir, spans
+
+
+def aot_phase(torch, np, card):
+    """The aot / start-up phase. Returns each kernel's launches in the
+    convert commands' runs, with the graphs and eagerly."""
+    from styletransfer_tpu_torch import ckpt, constants, native
+    from styletransfer_tpu_torch.clis import cli
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer
+    from styletransfer_tpu_torch.ops import layers
+    from styletransfer_tpu_torch.ops.cuda import _build
+    from styletransfer_tpu_torch.utils import aot, images, tb
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "aot")
+    in_dir = os.path.join(root, "images")
+    os.makedirs(in_dir)
+    rng = np.random.default_rng(7)
+    from PIL import Image
+    for i, img in enumerate(rng.integers(0, 256, (AOT_IMAGES, SIZE, SIZE, 3), dtype=np.uint8)):
+        Image.fromarray(img).save(os.path.join(in_dir, f"img{i:03d}.png"))
+    models = os.path.join(root, "data", "models")
+    params = transformer.init_params(seed=0, device="cuda")
+    ckpt.save(params, ckpt.checkpoint_path("fast_st", "aot", 0, models))
+    per_forward = {"conv3x3_valid": 10, "instance_norm_pad": 15}
+    launches = {}
+    saved_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = root
+    try:
+        # 1. The convert commands, eager and on graphs: the same PNGs.
+        for precision in ("f32", "bf16"):
+            outs = {}
+            for flag in ("0", "1"):
+                os.environ["STX_AOT_CACHE"] = flag
+                aot.captures = aot.replays = 0
+                reset_counts()
+                out_dir = f"out_{precision}_{flag}"
+                t0 = time.perf_counter()
+                for args in (["convert-image", "images/img000.png", "aot", "-o", f"{out_dir}/image"],
+                             ["convert-dir", "images", "aot", "-o", f"{out_dir}/dir"]):
+                    cli.main(["fast_st", *args, "--precision", precision, "--device", "cuda"],
+                             standalone_mode=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                launches[(precision, flag)] = counts
+                outs[flag] = _pngs(np, os.path.join(root, out_dir))
+                # Two forwards (an image, a batch of AOT_IMAGES); on graphs
+                # each is WARMUP eager runs and one capture, then a replay.
+                forwards = 2 * (aot.WARMUP + 1) if flag == "1" else 2
+                got = {k: counts[k] for k in per_forward}
+                want = {k: v * forwards for k, v in per_forward.items()}
+                graphs = (aot.captures, aot.replays)
+                check(got == want and graphs == ((2, 2) if flag == "1" else (0, 0))
+                      and len(outs[flag]) == 1 + AOT_IMAGES,
+                      f"aot {precision} STX_AOT_CACHE={flag}: convert-image and convert-dir "
+                      f"({AOT_IMAGES} images) wrote {len(outs[flag])} PNGs in {wall:.3f} s; "
+                      f"captures {graphs[0]}, replays {graphs[1]}; launches {got} (want {want})")
+            diff = max(int(np.abs(outs["1"][k].astype(np.int32) - outs["0"][k]).max())
+                       for k in outs["0"]) if sorted(outs["0"]) == sorted(outs["1"]) else -1
+            check(diff == 0, f"aot {precision}: the graphs' PNGs are the eager ones bit for bit "
+                  f"(max difference {diff}/255 over {len(outs['0'])} PNGs)")
+
+        # 2. The forward's wall time per batch, graph and eager in turns.
+        for precision in ("f32", "bf16"):
+            serve_fn = fast.make_serve_fn(precision)
+            for batch in AOT_BATCHES:
+                x = torch.from_numpy(rng.integers(0, 256, (batch, SIZE, SIZE, 3),
+                                                  dtype=np.uint8)).cuda()
+                os.environ["STX_AOT_CACHE"] = "1"
+                graphed = aot.cached_compile(serve_fn, (params, x), "smoke")
+                same = bool(torch.equal(graphed(params, x), serve_fn(params, x)))
+                check(graphed is not serve_fn and same,
+                      f"aot {precision} batch {batch}: the graph's output is the eager one")
+                times = {"eager": [], "graph": []}
+                for turn in ("eager", "graph", "graph", "eager"):
+                    fn = serve_fn if turn == "eager" else graphed
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(AOT_TIMED[batch]):
+                        fn(params, x)
+                    torch.cuda.synchronize()
+                    times[turn].append((time.perf_counter() - t0) * 1e3 / AOT_TIMED[batch])
+                print(f"aot {precision} batch {batch}: wall ms per forward, eager "
+                      f"{'/'.join(f'{t:.3f}' for t in times['eager'])}, graph "
+                      f"{'/'.join(f'{t:.3f}' for t in times['graph'])} on {card}", flush=True)
+                del graphed
+
+        # 3. STX_MATMUL_PRECISION=high against unset, on the f32 forward.
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+        os.environ.pop("STX_MATMUL_PRECISION", None)
+        serve_fn = fast.make_serve_fn("f32")
+        flags_off = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        ref = serve_fn(params, x)
+        ms_off = time_ms(torch, lambda: serve_fn(params, x), iters=10, warmup=2)
+        os.environ["STX_MATMUL_PRECISION"] = "high"
+        serve_fn = fast.make_serve_fn("f32")
+        flags_on = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        got = serve_fn(params, x)
+        y = transformer.apply(params, images.maybe_normalize_on_device(x))
+        ms_on = time_ms(torch, lambda: serve_fn(params, x), iters=10, warmup=2)
+        steps = (got.int() - ref.int()).abs()
+        check(flags_off == (False, False) and flags_on == (True, True)
+              and bool(torch.isfinite(y).all()) and int(steps.max()) <= TF32_MAX_STEPS,
+              f"STX_MATMUL_PRECISION=high, f32 forward at batch {BATCH}: TF32 flags {flags_on} "
+              f"(unset {flags_off}); uint8 output against TF32 off: max {int(steps.max())}/255, "
+              f"mean {float(steps.float().mean()):.4f}/255 (limit {TF32_MAX_STEPS}), output "
+              f"finite; {ms_on:.3f} ms against {ms_off:.3f} ms per forward on {card}")
+    finally:
+        os.environ.pop("STX_AOT_CACHE", None)
+        os.environ.pop("STX_MATMUL_PRECISION", None)
+        layers.disable_tf32()
+        constants.PROJECT_ROOT_PATH = saved_root
+
+    # 4. Start-up: a warm build cache, then none (every kernel the forward
+    # runs built by nvcc in the process).
+    image = os.path.join(in_dir, "img000.png")
+    warm_dir, warm = _startup(np, "warm", {}, models, image, os.path.join(root, "warm.png"))
+    cold_dir, cold = _startup(np, "cold (STX_NO_COMPILE_CACHE=1)",
+                              {"STX_NO_COMPILE_CACHE": "1"}, models, image,
+                              os.path.join(root, "cold.png"))
+    check(warm_dir == _build.BUILD_DIR and cold_dir != warm_dir
+          and not os.path.exists(cold_dir) and cold[1] > warm[1]
+          and bool(np.array_equal(np.asarray(Image.open(os.path.join(root, "warm.png"))),
+                                  np.asarray(Image.open(os.path.join(root, "cold.png"))))),
+          f"start-up: warm from {warm_dir}, cold in a directory of its own (removed), "
+          f"first forward cold {cold[1]:.3f} s against warm {warm[1]:.3f} s, the same PNG")
+
+    # 5. Native CRC32C built here, against Python on CRC_BYTES bytes.
+    native._crc32c_fn = None
+    lib = native._build("crc32c.c")
+    data = rng.integers(0, 256, CRC_BYTES, dtype=np.uint8).tobytes()
+    want = tb._crc32c_py(data)
+    native.crc32c(b"")
+    t0 = time.perf_counter()
+    for _ in range(CRC_ROUNDS):
+        got = native.crc32c(data)
+    mb_s = CRC_ROUNDS * CRC_BYTES / 1e6 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tb._crc32c_py(data)
+    py_mb_s = CRC_BYTES / 1e6 / (time.perf_counter() - t0)
+    check(lib is not None and native._crc32c_fn is not tb._crc32c_py and got == want,
+          f"native CRC32C built ({os.path.basename(lib or '')}), {CRC_BYTES} bytes: "
+          f"{got:#010x} as Python's; {mb_s:.1f} MB/s against Python's {py_mb_s:.2f} MB/s")
+    print(f"aot / start-up phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4359,6 +4583,10 @@ def main() -> int:
             doctor_phase(torch)
             print(card)
             return 0
+        if sys.argv[1:] == ["--aot"]:
+            aot_phase(torch, np, card)
+            print(card)
+            return 0
         entries = []
         per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -4382,6 +4610,7 @@ def main() -> int:
         zoom_launches, zoom_seconds, zoom_closures, zoom_daemon, zoom_daemon_s = zoom_path(
             torch, np, F)
         doctor_phase(torch)
+        aot_launches = aot_phase(torch, np, card)
         video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
                                                                  in_dir, imgs)
         entries += video_entries
@@ -4467,6 +4696,14 @@ def main() -> int:
         e["zoom_launches"] = {"gatys_st": zoom_launches[precision][counter],
                               **{f"gatys_serve_b{b}": c[counter]
                                  for (p, b), c in zoom_daemon.items() if p == precision}}
+    for e in entries:  # each kernel's launches in the aot phase's convert commands
+        kernel, dn = e["name"].split(".")
+        precision = "f32" if dn == "float32" else "bf16"
+        counter = {"conv3x3_flat_residual": "conv3x3_flat", "conv3x3_valid_wide": "conv3x3_valid",
+                   "conv3x3_valid_widest": "conv3x3_valid",
+                   "conv3x3_valid_mma": "conv3x3_valid.bf16_mma"}.get(kernel, kernel)
+        e["aot_launches"] = {"convert_graph": aot_launches[(precision, "1")][counter],
+                             "convert_eager": aot_launches[(precision, "0")][counter]}
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",

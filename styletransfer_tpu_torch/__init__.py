@@ -13,7 +13,15 @@ Layout:
 - ``clis``     ``python -m styletransfer_tpu_torch fast_st ...``
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; without a GPU they raise.
+``device="cpu"`` (or sets ``STX_PLATFORM=cpu``); without a GPU they raise.
 """
 
 __version__ = "0.1.0"
+
+# The platform and precision knobs (STX_PLATFORM, STX_MATMUL_PRECISION),
+# applied at import as the JAX package applies them; none has an effect
+# when it is unset.
+from styletransfer_tpu_torch.utils.cache import enable_persistent_cache as _epc
+
+_epc()
+del _epc

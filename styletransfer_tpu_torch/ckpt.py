@@ -148,16 +148,23 @@ def _as_tree(params: Any) -> Any:
 
 def save(params: Any, path: str) -> None:
     """Write ``params`` (an ``nn.Module`` or a nested mapping of arrays /
-    tensors) as a flax-format ``.msgpack`` file, atomically."""
+    tensors) as a flax-format ``.msgpack`` file, atomically: a temporary
+    file renamed into place, removed if the write fails."""
     import msgpack
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     data = msgpack.packb(_as_tree(params), default=_ext_default, strict_types=True)
     # pid and thread id: two writers of one path never share a temp file.
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_native_id()}"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        # A failed write or rename leaves no temporary file behind (the JAX
+        # ``_atomic_write`` does); the error still reaches the caller.
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:

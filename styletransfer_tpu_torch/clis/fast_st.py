@@ -19,10 +19,11 @@ import os
 
 import click
 
+from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.engines import httpserve, netserve
 
 _device_option = click.option(
-    "--device", default="cuda", show_default=True,
+    "--device", default=constants.DEFAULT_DEVICE, show_default=True,
     help="Torch device to run on ('cuda', 'cuda:1', 'cpu')",
 )
 _distributed_option = click.option(

@@ -15,6 +15,7 @@ import os
 
 import click
 
+from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.clis.fast_st import _transport_options, serve_on_transport
 
 
@@ -78,7 +79,7 @@ def _log_history(optimizer: str, history_size: int, source: str) -> None:
 @_transport_options(
     http_extra=" The content image is the POST body; ?style= names a server-side style "
                "path or blend spec.")
-@click.option("--device", default="cuda", show_default=True,
+@click.option("--device", default=constants.DEFAULT_DEVICE, show_default=True,
               help="Torch device to run on ('cuda', 'cuda:1', 'cpu')")
 def gatys_st(content_image_path, style_image_path, out_name, steps, content_weight,
              style_weight, optimizer, batch, learning_rate, history_size, history_math,

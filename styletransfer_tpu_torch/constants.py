@@ -3,7 +3,7 @@
 The contract of ``styletransfer_tpu/constants.py`` for what the port uses:
 ImageNet normalization statistics, the working resolution, the project root
 (relocatable with ``STX_PROJECT_ROOT``), the checkpoint and TensorBoard
-directories.
+directories, the log file and the default device.
 """
 
 from __future__ import annotations
@@ -26,19 +26,23 @@ PROJECT_ROOT_PATH = os.environ.get("STX_PROJECT_ROOT") or os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))
 )
 
-# Default locations of model checkpoints and of TensorBoard runs.
+# Default locations of model checkpoints, of TensorBoard runs and of the
+# log file (``utils/logging.py``; truncated by each run).
 MODELS_PATH = "data/models/"
 RUNS_PATH = "runs/"
+LOG_PATH = os.path.join(RUNS_PATH, "runtime.log")
 
+# The device of every entry point that is given none; ``STX_PLATFORM=cpu``
+# makes it the CPU (``utils/cache.py::apply_platform``, at package import).
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
-    """The ``torch.device`` an entry point runs on.
+def resolve_device(device=None) -> torch.device:
+    """The ``torch.device`` an entry point runs on (None: ``DEFAULT_DEVICE``).
 
     A CUDA device without a GPU raises: the port never falls back to the CPU
     on its own. Pass ``device="cpu"`` to run there."""
-    dev = torch.device(device)
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} was asked for but no CUDA GPU is available; "

@@ -18,14 +18,19 @@ flushed per line:
 The engines own everything model-specific (warm-up, which also builds the
 kernels, and how a request is served); this loop owns parsing, error
 containment, and the response contract, so the daemons cannot drift apart.
-The one difference from the JAX module is :func:`device_rtt_ms`, whose
-probe is a one-element op on the serving device and a synchronize.
+The differences from the JAX module are in :func:`device_rtt_ms`: its probe
+is a one-element op on the serving device and a synchronize, and STATS
+answers with the last finished probe's value instead of waiting for a new
+one (the loops probe once before the first request,
+:func:`prime_device_rtt`).
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
+import time
 from typing import Callable, Dict, Optional
 
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -226,52 +231,84 @@ class _ServeStats:
         )
 
 
-_rtt_state: dict = {"busy": False}
+# Per serving device (its name): the last finished probe's round trip in
+# milliseconds, and whether a probe is running now.
+_rtt_state: dict = {"last": {}, "running": set()}
+_rtt_lock = threading.Lock()
 
 
-def device_rtt_ms(device=None) -> Optional[float]:
-    """One tiny op on the serving device and a synchronize, in milliseconds.
+def _probe(device) -> float:
+    """One tiny op on ``device`` and a synchronize, in milliseconds."""
+    import torch
 
-    Every daemon's ``STATS`` reply carries ``device_rtt_ms``, so an operator
-    can tell a slow daemon from a slow device path. ``device`` is the
-    serving device (a ``torch.device`` or its name; None: the CPU). Returns
-    None when disabled (``STX_STATS_RTT=0``), when the probe fails, or when
-    it does not answer within ``STX_STATS_RTT_TIMEOUT_S`` (default 2 s):
-    STATS is a health check and must answer promptly even when the device
-    is the thing that is sick. The probe runs in a worker thread and is
-    abandoned on timeout, with a busy latch so that slow probes never pile
-    up.
-    """
-    if os.environ.get("STX_STATS_RTT") == "0":
-        return None
-    if _rtt_state["busy"]:
-        return None  # an earlier probe is still waiting on the device
-    import threading
-    import time
+    dev = torch.device(device or "cpu")
+    t0 = time.perf_counter()
+    v = torch.zeros((1,), dtype=torch.float32, device=dev) + 1.0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    float(v[0])
+    return (time.perf_counter() - t0) * 1e3
 
-    box: dict = {}
+
+def _start_probe(device) -> Optional[threading.Thread]:
+    """Start a probe of ``device`` in a worker thread unless one is running;
+    returns the thread it started, or None."""
+    key = str(device or "cpu")
+    last, running = _rtt_state["last"], _rtt_state["running"]
+    with _rtt_lock:
+        if key in running:
+            return None
+        running.add(key)
 
     def work() -> None:
         try:
-            import torch
-
-            dev = torch.device(device or "cpu")
-            t0 = time.perf_counter()
-            v = torch.zeros((1,), dtype=torch.float32, device=dev) + 1.0
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            float(v[0])
-            box["v"] = (time.perf_counter() - t0) * 1e3
+            last[key] = _probe(device)
         except Exception:  # noqa: BLE001 - diagnostics must not break STATS
             pass
         finally:
-            _rtt_state["busy"] = False
+            with _rtt_lock:
+                running.discard(key)
 
-    _rtt_state["busy"] = True
     th = threading.Thread(target=work, daemon=True, name="stats-rtt-probe")
     th.start()
-    th.join(float(os.environ.get("STX_STATS_RTT_TIMEOUT_S", "2.0")))
-    return box.get("v")
+    return th
+
+
+def _rtt_disabled() -> bool:
+    return os.environ.get("STX_STATS_RTT") == "0"
+
+
+def device_rtt_ms(device=None) -> Optional[float]:
+    """The round trip of the last finished probe of the serving device: one
+    tiny op and a synchronize, in milliseconds.
+
+    Every daemon's ``STATS`` reply carries ``device_rtt_ms``, so an operator
+    can tell a slow daemon from a slow device path. ``device`` is the
+    serving device (a ``torch.device`` or its name; None: the CPU). Never
+    waits: it starts a new probe in the background when none is running and
+    returns the value of the last one that finished, or None before one has
+    finished (and when disabled with ``STX_STATS_RTT=0``). So STATS answers
+    at once even when the device is the thing that is sick, and slow probes
+    never pile up. The JAX function joins its probe for up to
+    ``STX_STATS_RTT_TIMEOUT_S``, which held up every answer of a batched
+    group behind a STATS line.
+    """
+    if _rtt_disabled():
+        return None
+    _start_probe(device)
+    return _rtt_state["last"].get(str(device or "cpu"))
+
+
+def prime_device_rtt(device=None) -> None:
+    """Probe ``device`` once before the first request, waiting for the probe
+    up to ``STX_STATS_RTT_TIMEOUT_S`` (default 2 s), so that the first STATS
+    of a healthy device carries ``device_rtt_ms``. A probe that outlasts the
+    wait goes on in the background."""
+    if _rtt_disabled():
+        return
+    th = _start_probe(device)
+    if th is not None:
+        th.join(float(os.environ.get("STX_STATS_RTT_TIMEOUT_S", "2.0")))
 
 
 def _rtt_suffix(device=None) -> str:
@@ -385,10 +422,8 @@ def run_request_loop(
     Logs per-request latency percentiles every 100 requests and at
     shutdown (`_ServeStats`) — a warm daemon's health is visible from
     stderr alone. ``device`` is the serving device, which STATS probes
-    (:func:`device_rtt_ms`).
+    (:func:`device_rtt_ms`; probed once here before the first request).
     """
-    import time
-
     logger = get_logger()
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
@@ -398,6 +433,7 @@ def run_request_loop(
     commands.setdefault(
         "STATS", lambda: f"STATS {stats.snapshot()}{_rtt_suffix(device)}"
     )
+    prime_device_rtt(device)
 
     n_served = 0
     sig = _GracefulSignals(name, logger)
@@ -618,8 +654,6 @@ def run_batched_request_loop(
     Returns the number of successful requests.
     """
     import queue
-    import threading
-    import time
 
     logger = get_logger()
     stdin = stdin if stdin is not None else sys.stdin
@@ -630,6 +664,7 @@ def run_batched_request_loop(
     # blocks instead of buffering the whole backlog in host memory — the
     # pressure propagates down the pipe/socket to the sender (TCP window /
     # pipe buffer), which is the correct production failure mode.
+    prime_device_rtt(device)
     q: "queue.Queue" = queue.Queue(maxsize=max(64, 8 * max_batch))
     _EOF = object()
 

@@ -51,8 +51,8 @@ from styletransfer_tpu_torch.models import transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
 from styletransfer_tpu_torch.parallel import distributed, prefetch
 from styletransfer_tpu_torch.parallel import mesh as mesh_lib
+from styletransfer_tpu_torch.utils import aot, tb
 from styletransfer_tpu_torch.utils import images as img_utils
-from styletransfer_tpu_torch.utils import tb
 from styletransfer_tpu_torch.utils.logging import get_logger
 
 MODEL_NAME = "fast_st"
@@ -460,7 +460,8 @@ def process_image(
 ) -> str:
     """Stylize one image with the latest trained weights for ``style_name``
     (or ``params``). Returns the output path
-    (``{out_dir}/converted_fast_st_{style}.png``)."""
+    (``{out_dir}/converted_fast_st_{style}.png``). Under ``STX_AOT_CACHE=1``
+    the forward runs from a CUDA graph (``utils/aot.py``)."""
     dev = constants.resolve_device(device)
     params = _load_params(params, style_name, models_path, dev)
     input_u8 = img_utils.load_image_uint8(
@@ -468,7 +469,10 @@ def process_image(
         size=size or constants.IMSIZE,
     )
     serve_fn = make_serve_fn(precision, pad_mode)
-    out_u8 = serve_fn(params, torch.from_numpy(np.array(input_u8)).to(dev)).cpu().numpy()[0]
+    # A CUDA graph of the forward at this shape under STX_AOT_CACHE=1.
+    batch = torch.from_numpy(np.array(input_u8)).to(dev)
+    serve = aot.cached_compile(serve_fn, (params, batch), "fast_serve")
+    out_u8 = serve(params, batch).cpu().numpy()[0]
 
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -498,6 +502,8 @@ def process_dir(
     ``devices`` (``mesh.serving_placement``). Unreadable files are skipped
     with a warning. Outputs are
     ``{out_dir}/converted_fast_st_{style}_{stem}.png``; returns their paths.
+    Under ``STX_AOT_CACHE=1`` each batch shape runs from a CUDA graph
+    (``utils/aot.py``).
     """
     dev = constants.resolve_device(device)
     logger = get_logger()
@@ -507,7 +513,10 @@ def process_dir(
         raise FileNotFoundError(f"No images ({'/'.join(IMAGE_EXTS)}) in {in_dir}")
     params = _load_params(params, style_name, models_path, dev)
     placement = mesh_lib.serving_placement(min(batch_size, len(files)), params, devices, dev)
-    serve_fn = make_serve_fn(precision, pad_mode)
+    # Under STX_AOT_CACHE=1, a CUDA graph of the forward for each replica and
+    # batch shape (a ragged last batch gets its own).
+    serve_fn = aot.cached_compile(make_serve_fn(precision, pad_mode), placement.replicas,
+                                  "fast_serve")
     sz = size or constants.IMSIZE
     out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
     os.makedirs(out_dir, exist_ok=True)

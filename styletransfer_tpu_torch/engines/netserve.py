@@ -113,8 +113,10 @@ class _Client:
     # Outbound: responses queue here and a dedicated writer thread drains
     # them into the socket (``sendall`` can block indefinitely on a client
     # that reads nothing; on the engine thread that would stall every
-    # connection). When the queue stays full for SEND_TIMEOUT_S the client
-    # is declared dead and dropped.
+    # connection). Enqueueing never blocks: when the queue has held
+    # SEND_QUEUE lines or more for SEND_TIMEOUT_S, the next line declares
+    # the client dead and drops it. Its backlog past SEND_QUEUE is bounded by
+    # MAX_INFLIGHT (one line per request it sent).
     SEND_QUEUE = 256
     SEND_TIMEOUT_S = 20.0
 
@@ -132,30 +134,53 @@ class _Client:
         self._closing = False
         self._finished = False
         self._deferred: list = []
-        self._sendq: "queue.Queue" = queue.Queue(maxsize=self.SEND_QUEUE)
+        # The send queue, its condition, and when it first held SEND_QUEUE
+        # lines (None while it holds fewer).
+        self._sendq: "collections.deque" = collections.deque()
+        self._send_cond = threading.Condition()
+        self._full_since: Optional[float] = None
         self._logger = get_logger()
         self._writer = threading.Thread(target=self._write_loop, daemon=True,
                                         name=f"tcp-writer-{ident}")
         self._writer.start()
 
+    def _put_nowait(self, item) -> bool:
+        """Append ``item`` to the send queue without waiting; False once the
+        queue has stayed full for SEND_TIMEOUT_S."""
+        with self._send_cond:
+            if len(self._sendq) >= self.SEND_QUEUE:
+                now = time.monotonic()
+                if self._full_since is None:
+                    self._full_since = now
+                elif now - self._full_since >= self.SEND_TIMEOUT_S:
+                    return False
+            self._sendq.append(item)
+            self._send_cond.notify()
+            return True
+
     def send_line(self, line: str) -> bool:
-        """Enqueue one response line for delivery (never blocks longer than
-        SEND_TIMEOUT_S). False: the client is gone or was just declared dead
-        for not reading."""
+        """Enqueue one response line for delivery; never blocks. False: the
+        client is gone, or was just declared dead for reading nothing while
+        its queue stayed full for SEND_TIMEOUT_S. (The JAX ``send_line``
+        waits up to SEND_TIMEOUT_S on a full queue, holding up the engine
+        thread and with it every other client.)"""
         if not self.alive:
             return False
-        try:
-            self._sendq.put(line, timeout=self.SEND_TIMEOUT_S)
+        if self._put_nowait(line):
             return True
-        except queue.Full:
-            self._logger.warning("client %s read nothing for %.0fs with a full send queue; "
-                                 "dropping it", self.addr, self.SEND_TIMEOUT_S)
-            self.close()
-            return False
+        self._logger.warning("client %s read nothing for %.0fs with a full send queue; "
+                             "dropping it", self.addr, self.SEND_TIMEOUT_S)
+        self.close()
+        return False
 
     def _write_loop(self) -> None:
         while True:
-            item = self._sendq.get()
+            with self._send_cond:
+                while not self._sendq:
+                    self._send_cond.wait()
+                item = self._sendq.popleft()
+                if len(self._sendq) < self.SEND_QUEUE:
+                    self._full_since = None
             if item is self._CLOSE:
                 break
             try:
@@ -206,9 +231,7 @@ class _Client:
         for line in self._deferred:
             self.send_line(line)
         self._deferred = []
-        try:
-            self._sendq.put(self._CLOSE, timeout=self.SEND_TIMEOUT_S)
-        except queue.Full:
+        if not self._put_nowait(self._CLOSE):
             self.close()  # not reading: an abrupt close is all that is left
 
     def writing(self) -> bool:
@@ -230,10 +253,9 @@ class _Client:
         """Abrupt close: shut the socket NOW (a writer blocked in sendall
         errors out and exits through _close_socket)."""
         self._close_socket()
-        try:
-            self._sendq.put_nowait(self._CLOSE)  # wake an idle writer
-        except queue.Full:
-            pass  # the writer is mid-send; the dead socket will eject it
+        with self._send_cond:  # wake an idle writer; one mid-send errors out
+            self._sendq.append(self._CLOSE)
+            self._send_cond.notify()
 
     def _close_socket(self) -> None:
         with self.wlock:

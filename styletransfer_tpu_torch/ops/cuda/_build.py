@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
 Libraries go to ``build/kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of their source, the shared headers
+``.gitignore``; ``utils/cache.py::cache_dir``: ``STX_COMPILE_CACHE_DIR``
+moves it, ``STX_NO_COMPILE_CACHE=1`` takes a new temporary directory for
+each process), named by a hash of their source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused. Each is written under a temporary name and renamed
 into place.
@@ -23,9 +25,11 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from styletransfer_tpu_torch.utils import cache
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+BUILD_DIR = cache.cache_dir()
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -13,7 +13,7 @@ Parity notes (the same as the JAX module's):
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,11 +21,18 @@ import torch.nn.functional as F
 
 
 def disable_tf32() -> None:
-    """Keep f32 convolutions and matmuls in full f32 on the GPU.
+    """Keep f32 convolutions and matmuls in full f32 on the GPU, unless
+    ``STX_MATMUL_PRECISION`` asks for less (``utils/cache.py``).
 
     cuDNN runs f32 convolutions in TF32 by default (about three decimal
     digits), which would drift from the f32 JAX reference; both flags are
-    set explicitly."""
+    set explicitly. With the knob set to a valid value, its flags apply
+    instead (``high``: TF32 on). The hand-written kernels compute f32 with
+    FMAs whatever the knob says."""
+    from styletransfer_tpu_torch.utils import cache
+
+    if cache.apply_matmul_precision():
+        return
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -214,24 +221,41 @@ def phase_conv_kernel(kernel: torch.Tensor, block: int = 4) -> torch.Tensor:
             f"phase_conv_kernel requires block ({block}) to divide "
             f"kernel_size//2 ({r}); got a {k}x{k} kernel"
         )
-    span = r // block
-    ks = 2 * span + 1
-    dy = np.zeros((ks, ks, block, block, block, block), np.int64)
-    dx = np.zeros_like(dy)
-    for syi, sy in enumerate(range(-span, span + 1)):
-        for sxi, sx in enumerate(range(-span, span + 1)):
-            for qy in range(block):
-                for qx in range(block):
-                    for py in range(block):
-                        for px in range(block):
-                            y_ = block * sy + qy - py + r
-                            x_ = block * sx + qx - px + r
-                            dy[syi, sxi, qy, qx, py, px] = y_ if 0 <= y_ < k else k
-                            dx[syi, sxi, qy, qx, py, px] = x_ if 0 <= x_ < k else k
+    ks = 2 * (r // block) + 1
+    dy, dx = _phase_index(k, block, kernel.device)
     kpad = F.pad(kernel, (0, 0, 0, 0, 0, 1, 0, 1))  # row/col k = zeros
-    g = kpad[torch.from_numpy(dy).to(kernel.device), torch.from_numpy(dx).to(kernel.device)]
+    g = kpad[dy, dx]
     bb = block * block
     return g.permute(0, 1, 2, 3, 6, 4, 5, 7).reshape(ks, ks, bb * c, bb * o)
+
+
+# Constant index and weight tensors of the phase forms, by their arguments
+# and device, made once: a copy from the host at every forward would also
+# stop the forward from being captured in a CUDA graph.
+_CONSTANTS: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _phase_index(k: int, block: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (dy, dx) gather indices of :func:`phase_conv_kernel`."""
+    key = ("phase", k, block, torch.device(device))
+    if key not in _CONSTANTS:
+        r = k // 2
+        span = r // block
+        ks = 2 * span + 1
+        dy = np.zeros((ks, ks, block, block, block, block), np.int64)
+        dx = np.zeros_like(dy)
+        for syi, sy in enumerate(range(-span, span + 1)):
+            for sxi, sx in enumerate(range(-span, span + 1)):
+                for qy in range(block):
+                    for qx in range(block):
+                        for py in range(block):
+                            for px in range(block):
+                                y_ = block * sy + qy - py + r
+                                x_ = block * sx + qx - px + r
+                                dy[syi, sxi, qy, qx, py, px] = y_ if 0 <= y_ < k else k
+                                dx[syi, sxi, qy, qx, py, px] = x_ if 0 <= x_ < k else k
+        _CONSTANTS[key] = (torch.from_numpy(dy).to(device), torch.from_numpy(dx).to(device))
+    return _CONSTANTS[key]
 
 
 # _UP_COMBOS[p][t][d] == 1 iff original tap d contributes to phase p's 2-tap
@@ -252,7 +276,11 @@ def upsample_phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
     k, k2, c, o = kernel.shape
     if (k, k2) != (3, 3):
         raise ValueError(f"upsample_phase_kernel is for 3x3 kernels, got {k}x{k2}")
-    m = torch.as_tensor(_UP_COMBOS, dtype=kernel.dtype, device=kernel.device)
+    key = ("up", kernel.dtype, kernel.device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = (torch.as_tensor(_UP_COMBOS, dtype=kernel.dtype,
+                                           device=kernel.device),)
+    (m,) = _CONSTANTS[key]
     kp = torch.einsum("ptd,qse,deco->pqtsco", m, m, kernel)
     blocks = []
     for py in range(2):

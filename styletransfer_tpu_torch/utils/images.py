@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -131,10 +132,18 @@ def save_uint8(arr: np.ndarray, path: str) -> None:
         raise
 
 
-def _stats(device) -> "tuple[torch.Tensor, torch.Tensor]":
-    mean = torch.tensor(constants.IMAGENET_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(constants.IMAGENET_STD, dtype=torch.float32, device=device)
-    return mean, std
+# ImageNet mean and std by device, made once: a copy from the host at every
+# call would also stop the forward from being captured in a CUDA graph.
+_STATS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _stats(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    device = torch.device(device)
+    if device not in _STATS:
+        _STATS[device] = (
+            torch.tensor(constants.IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(constants.IMAGENET_STD, dtype=torch.float32, device=device))
+    return _STATS[device]
 
 
 def maybe_normalize_on_device(batch: torch.Tensor) -> torch.Tensor:

@@ -17,23 +17,95 @@ products, the optimizer, everything else), the wall time per call (without
 the profiler, and under it) and the share of it in which the device ran no
 kernel. The last line is one JSON object with the same numbers. Needs a CUDA
 GPU; fails without one.
+
+For programs, the module also has the JAX package's helpers
+(``styletransfer_tpu/utils/profiling.py``): :func:`trace`, a
+``torch.profiler`` recording of a region written as a Chrome / Perfetto
+trace, and :class:`StepTimer`, a steady-state throughput meter.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.engines import fast, gatys
 from styletransfer_tpu_torch.models import transformer, vgg
+from styletransfer_tpu_torch.utils.logging import get_logger
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "runs/profile", device=None) -> Iterator[None]:
+    """Record the enclosed region with ``torch.profiler``: the CPU, and CUDA
+    when ``device`` is a GPU (None: when one is available). Writes a Chrome /
+    Perfetto trace (``trace_<pid>_<ms>.json``, open it in ui.perfetto.dev or
+    chrome://tracing) under ``logdir`` (relative to the project root) and
+    logs its path."""
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    out_dir = os.path.join(constants.PROJECT_ROOT_PATH, logdir)
+    os.makedirs(out_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    path = os.path.join(out_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+    prof.export_chrome_trace(path)
+    get_logger().info("Profiler trace written to %s", path)
+
+
+class StepTimer:
+    """Steady-state throughput meter that skips warm-up steps (a kernel
+    build, cuDNN's algorithm search).
+
+    >>> timer = StepTimer(items_per_step=batch_size, skip=2)
+    >>> for batch in loader:
+    ...     train_step(...)
+    ...     timer.step()
+    >>> timer.summary()  # -> "1234.5 items/s over 98 steps"
+
+    ``skip=0`` times every step: the clock starts when the timer is built.
+    Time device work only after it has finished (a synchronize, or a host
+    read of its result) before each ``step()``.
+    """
+
+    def __init__(self, items_per_step: int = 1, skip: int = 2):
+        self.items_per_step = items_per_step
+        self.skip = skip
+        self._count = 0
+        self._t0: Optional[float] = time.perf_counter() if skip == 0 else None
+
+    def step(self) -> None:
+        self._count += 1
+        if self._count == self.skip:
+            self._t0 = time.perf_counter()
+
+    @property
+    def timed_steps(self) -> int:
+        return max(0, self._count - self.skip)
+
+    def rate(self) -> float:
+        """Items per second over the timed steps (nan before the first)."""
+        if self._t0 is None or self.timed_steps == 0:
+            return float("nan")
+        return self.timed_steps * self.items_per_step / (time.perf_counter() - self._t0)
+
+    def summary(self) -> str:
+        return f"{self.rate():.1f} items/s over {self.timed_steps} steps"
 
 # First match wins. The IN kernel serves both the IN-pad of the serving
 # forward and the fused-IN forward of the training forward.

@@ -6,8 +6,9 @@ side-by-side image logs with the reference's tags (``data/fst_train_loss``,
 then recreate it" semantics (:func:`get_tensorboard_writer`).
 
 Event files are TFRecord-framed protobuf ``Event`` messages, written by hand
-(protobuf wire format and CRC32C record framing, the CRC in pure Python);
-they load in stock TensorBoard.
+(protobuf wire format and CRC32C record framing, the CRC in C through
+``native``, in Python where no compiler is found); they load in stock
+TensorBoard.
 """
 
 from __future__ import annotations
@@ -41,13 +42,23 @@ def _build_table() -> None:
 _build_table()
 
 
-def _crc32c(data: bytes) -> int:
-    """CRC32C of ``data``, table-driven in Python."""
+def _crc32c_py(data: bytes) -> int:
+    """CRC32C of ``data``, table-driven in Python (the fallback of
+    ``native.crc32c`` where no C compiler builds its library)."""
     crc = 0xFFFFFFFF
     table = _CRC_TABLE
     for b in data:
         crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def _crc32c(data: bytes) -> int:
+    """CRC32C of ``data`` through ``native.crc32c`` (C, built at first use;
+    an image summary is megabytes per event). Imported here, not at the top:
+    the native module's fallback imports this one."""
+    from styletransfer_tpu_torch import native
+
+    return native.crc32c(data)
 
 
 def _masked_crc(data: bytes) -> int:

@@ -207,3 +207,51 @@ def test_port_resumes_a_step_state_the_jax_trainer_wrote(tmp_path, jax_params):
     assert float(adam["step"]) == 1
     np.testing.assert_allclose(adam["exp_avg"].numpy(), 0.05, rtol=1e-6)
     np.testing.assert_allclose(adam["exp_avg_sq"].numpy(), 0.00025, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fails", ["write", "rename"])
+def test_a_failed_save_leaves_no_temporary_file(tmp_path, monkeypatch, fails):
+    """The JAX ``_atomic_write`` leaves ``<path>.tmp.<pid>.<tid>`` behind when
+    the write or the rename raises; the port's ``save`` removes it, and the
+    error reaches the caller."""
+    import builtins
+
+    params = tt.params_to_tree(tt.init_params(seed=0, device="cpu"))
+    real_open = builtins.open
+
+    class _FailingFile:
+        def __init__(self, f):
+            self.f = f
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.f.close()
+
+        def write(self, data):
+            self.f.write(data[:10])
+            raise OSError("disk full")
+
+    def failing_open(path, mode="r", *args, **kwargs):
+        f = real_open(path, mode, *args, **kwargs)
+        return _FailingFile(f) if ".tmp." in str(path) and "w" in mode else f
+
+    def failing_replace(src, dst):
+        raise OSError("rename refused")
+
+    def saved(save, sub):
+        d = tmp_path / sub
+        d.mkdir()
+        with monkeypatch.context() as m:
+            if fails == "write":
+                m.setattr(builtins, "open", failing_open)
+            else:
+                m.setattr(os, "replace", failing_replace)
+            with pytest.raises(OSError, match="disk full|rename refused"):
+                save(params, str(d / "fast_st_a_epoch0.msgpack"))
+        return sorted(os.listdir(d))
+
+    jax_left = saved(jckpt.save, "jax")
+    assert len(jax_left) == 1 and ".tmp." in jax_left[0]  # the fault, in JAX
+    assert saved(tckpt.save, "port") == []

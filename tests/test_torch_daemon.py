@@ -9,6 +9,7 @@ import io
 import os
 import re
 import threading
+import time
 
 import jax
 import numpy as np
@@ -109,14 +110,108 @@ def test_style_parser_of_serve_multi_matches_jax(spec):
     assert got == pytest.approx(want) if isinstance(want, tuple) else got == want
 
 
+def _join_probes():
+    for t in threading.enumerate():
+        if t.name == "stats-rtt-probe":
+            t.join(10.0)
+
+
 def test_device_rtt_probe_answers_and_can_be_turned_off(monkeypatch):
+    monkeypatch.setitem(daemon._rtt_state, "last", {})
+    monkeypatch.setitem(daemon._rtt_state, "running", set())
+    daemon.prime_device_rtt("cpu")  # what the loops do before the first request
     v = daemon.device_rtt_ms("cpu")
     assert isinstance(v, float) and v >= 0
     monkeypatch.setenv("STX_STATS_RTT", "0")
     assert daemon.device_rtt_ms("cpu") is None
     monkeypatch.delenv("STX_STATS_RTT")
-    monkeypatch.setitem(daemon._rtt_state, "busy", True)  # a probe still waiting
+    _join_probes()
+    # A probe still running and none finished: no value, and no second probe.
+    calls = []
+    monkeypatch.setattr(daemon, "_probe", lambda device: calls.append(device) or 1.0)
+    monkeypatch.setitem(daemon._rtt_state, "last", {})
+    monkeypatch.setitem(daemon._rtt_state, "running", {"cpu"})
     assert daemon.device_rtt_ms("cpu") is None
+    _join_probes()
+    assert calls == []
+
+
+class _Lines:
+    """A loop's stdout: each line with the time it was written."""
+
+    def __init__(self):
+        self.lines, self._buf, self._cond = [], "", threading.Condition()
+
+    def write(self, text):
+        with self._cond:
+            self._buf += text
+            while "\n" in self._buf:
+                line, self._buf = self._buf.split("\n", 1)
+                self.lines.append((line, time.perf_counter()))
+                self._cond.notify_all()
+
+    def flush(self):
+        pass
+
+    def wait(self, n, timeout=10.0):
+        with self._cond:
+            assert self._cond.wait_for(lambda: len(self.lines) >= n, timeout), self.lines
+        return self.lines[:n]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_stats_never_waits_on_a_slow_probe(monkeypatch, batched):
+    """A probe that takes seconds: STATS answers within 0.5 s without a value
+    (none has finished), the requests beside it in a batched group are not
+    held up, and a STATS sent after the probe finished carries its value.
+    The JAX ``device_rtt_ms`` joins its probe for up to
+    ``STX_STATS_RTT_TIMEOUT_S`` on every STATS."""
+    import queue
+
+    release = threading.Event()
+
+    def slow_probe(device):  # sleeps until the test lets it finish
+        release.wait(10.0)
+        return 12.5
+
+    monkeypatch.setattr(daemon, "_probe", slow_probe)
+    monkeypatch.setitem(daemon._rtt_state, "last", {})
+    monkeypatch.setitem(daemon._rtt_state, "running", set())
+    # The default 2 s wait: the loop's priming gives up on the probe after it,
+    # where the JAX STATS would wait as long again.
+    monkeypatch.delenv("STX_STATS_RTT_TIMEOUT_S", raising=False)
+    feed: "queue.Queue" = queue.Queue()
+    out = _Lines()
+    if batched:
+        def loop():
+            daemon.run_batched_request_loop(
+                lambda reqs: [f"done {r[0]}" for r in reqs], 4,
+                stdin=iter(feed.get, None), stdout=out, device="cpu")
+    else:
+        def loop():
+            daemon.run_request_loop(lambda *f: f"done {f[0]}", stdin=iter(feed.get, None),
+                                    stdout=out, device="cpu")
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    feed.put("warm\n")
+    out.wait(1)
+    t0 = time.perf_counter()
+    for line in ("a\n", "STATS\n", "b\n"):
+        feed.put(line)
+    got = out.wait(4)[1:]
+    assert got[0][0] == "OK done a" and got[2][0] == "OK done b"
+    assert re.fullmatch(r"OK STATS ok=[12] err=0 p50_ms=[0-9.]+ p95_ms=[0-9.]+ mean_ms=[0-9.]+"
+                        r"( .*)?", got[1][0]) and "device_rtt_ms" not in got[1][0]
+    assert max(t for _, t in got) - t0 < 0.5, [t - t0 for _, t in got]
+    release.set()
+    _join_probes()
+    feed.put("STATS\n")
+    last = out.wait(5)[4][0]
+    assert last.startswith("OK STATS ok=3 err=0 ") and last.endswith(" device_rtt_ms=12.50")
+    feed.put("\n")
+    th.join(10.0)
+    assert not th.is_alive()
+    _join_probes()  # the probe the last STATS started ends on this test's state
 
 
 # --- Both serve loops against JAX's ---------------------------------------------

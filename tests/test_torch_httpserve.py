@@ -85,6 +85,7 @@ def _port_stats_payload():
     stats = tdaemon._ServeStats("t", tdaemon.get_logger())
     stats.record(3, 1, 0.02, group_size=4, request_times_ms=[5.0, 6.0, 7.0, 8.0])
     stats.record(1, 0, 0.004)
+    tdaemon.prime_device_rtt("cpu")  # as the loops do: STATS serves the last probe
     return stats.snapshot() + tdaemon._rtt_suffix("cpu")
 
 

@@ -81,6 +81,51 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "clean"
 
 
+@pytest.mark.subprocess
+def test_the_last_ported_modules_load_no_jax():
+    """``utils/aot.py``, ``utils/cache.py``, ``native``, ``utils/profiling.py``
+    and ``utils/logging.py``, and the CRC and the logger they set up, bring
+    in nothing of JAX."""
+    code = (
+        "import sys\n"
+        "from styletransfer_tpu_torch import native\n"
+        "from styletransfer_tpu_torch.utils import aot, cache, logging, profiling, tb\n"
+        "assert native.crc32c(b'123456789') == 0xE3069283\n"
+        "logging.get_logger().info('isolation check')\n"
+        "with profiling.trace('build/isolation_trace', device='cpu'):\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'styletransfer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_native_builds_from_the_ports_own_source():
+    """The CRC library is built from ``styletransfer_tpu_torch/native/crc32c.c``
+    (a copy of the JAX package's source, not a path into it) into the
+    port's ``build/native``, named by that file's hash."""
+    from styletransfer_tpu_torch import native
+
+    src = os.path.join(PORT, "native", "crc32c.c")
+    assert native.SRC_DIR == os.path.dirname(src) and os.path.isfile(src)
+    assert native.BUILD_DIR == os.path.join(ROOT, "build", "native")
+    with open(src) as f:
+        text = f.read()
+    assert "uint32_t crc32c(const uint8_t *data, size_t len)" in text
+    assert "styletransfer_tpu/" not in text
+    target = native._target("crc32c.c")
+    assert os.path.dirname(target) == native.BUILD_DIR
+    with open(os.path.join(ROOT, "styletransfer_tpu", "native", "crc32c.c"), "rb") as f:
+        jax_src = f.read()
+    with open(src, "rb") as f:
+        assert f.read() != jax_src  # the port's own copy, hashed on its own
+
+
 @pytest.fixture
 def no_gpu():
     if torch.cuda.is_available():

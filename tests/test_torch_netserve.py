@@ -314,6 +314,91 @@ def test_tcp_session_transcripts_match_jax(session, monkeypatch):
     assert banner[0] == "TCP 127.0.0.1 PORT" and "READY" in banner
 
 
+# --- A client that reads nothing --------------------------------------------------
+
+SEND_LIMIT_S = 0.05  # the longest a send_line call may take
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_send_line_to_a_client_that_reads_nothing(pkg, monkeypatch):
+    """One client whose peer reads nothing, its send queue made small: the
+    JAX ``send_line`` blocks for ``SEND_TIMEOUT_S`` once the queue is full;
+    the port's returns at once every time, and the first call after the
+    deadline drops the client."""
+    net = PACKAGES[pkg][0]
+    monkeypatch.setattr(net._Client, "SEND_QUEUE", 2)
+    monkeypatch.setattr(net._Client, "SEND_TIMEOUT_S", 0.3)
+    ours, peer = socket.socketpair()
+    peer.settimeout(SOCKET_TIMEOUT_S)
+    client = net._Client(ours, "peer", 0)
+    big = "X" * (1 << 20)  # past any socket buffer: the writer stays in sendall
+    try:
+        times, sent = [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            sent.append(client.send_line(big))
+            times.append(time.perf_counter() - t0)
+        if pkg == "jax":  # the fault: the engine thread waits out the deadline
+            assert max(times) >= 0.3 and not all(sent)
+            return
+        assert all(sent) and max(times) < SEND_LIMIT_S, times
+        time.sleep(0.35)  # the queue has now been full past the deadline
+        t0 = time.perf_counter()
+        assert client.send_line("late") is False
+        assert time.perf_counter() - t0 < SEND_LIMIT_S and not client.alive
+    finally:
+        client.close()
+        peer.close()
+
+
+def test_a_stalled_client_holds_up_no_other(monkeypatch):
+    """Behind TCP, a client that sends requests with large answers and reads
+    nothing, beside one that reads: no ``send_line`` call takes more than
+    50 ms, the second client's answers arrive meanwhile, and the first is
+    dropped at the first answer due after its deadline."""
+    monkeypatch.setattr(tnet._Client, "SEND_QUEUE", 4)
+    monkeypatch.setattr(tnet._Client, "SEND_TIMEOUT_S", 1.0)
+    durations, dropped = [], []
+    real_send = tnet._Client.send_line
+
+    def timed_send(self, line):
+        t0 = time.perf_counter()
+        ok = real_send(self, line)
+        durations.append(time.perf_counter() - t0)
+        if not ok and line.startswith("OK X"):
+            dropped.append(time.perf_counter())
+        return ok
+
+    monkeypatch.setattr(tnet._Client, "send_line", timed_send)
+    big = "X" * (1 << 20)
+    srv = _Server(tnet, _serial_loop(tdaemon, handle=lambda *f: big if f[0] == "big"
+                                     else f[0].upper()))
+    slow = _Client(srv.port, [], "slow")
+    slow.recv()
+    fast_c = _Client(srv.port, [], "fast")
+    fast_c.recv()
+    # 32 MiB of answers, more than the kernel's socket buffers take in: the
+    # writer blocks and the send queue fills.
+    for _ in range(32):
+        slow.send("big")  # and never read
+    t_stall = time.perf_counter()
+    answers = []
+    while time.perf_counter() - t_stall < 1.5:
+        fast_c.send("ping")
+        answers.append(fast_c.recv())
+        time.sleep(0.02)
+    slow.send("big")  # its answer is due after the deadline
+    fast_c.send("ping")
+    answers.append(fast_c.recv())
+    fast_c.send("SHUTDOWN")
+    answers.append(fast_c.recv())
+    srv.join()
+    assert answers[-1] == "OK SHUTDOWN" and set(answers[:-1]) == {"OK PING"}
+    assert len(answers) > 20
+    assert max(durations) < SEND_LIMIT_S, max(durations)
+    assert dropped and dropped[0] - t_stall >= 1.0
+
+
 # --- The real fast_st daemon behind TCP ----------------------------------------------
 
 def test_fast_serve_loop_over_tcp_writes_the_stdin_daemons_pngs(tmp_path, monkeypatch):
