@@ -12,6 +12,7 @@
     python3 chip_smoke.py --packed      # phases 1-2, --packed training
     python3 chip_smoke.py --zoom        # phases 1-2, gatys_st --optimizer lbfgs-zoom, doctor
     python3 chip_smoke.py --aot         # phases 1-2, CUDA graphs, start-up, precision, CRC32C
+    python3 chip_smoke.py --ckpt        # phases 1-2, .orbax epochs, the zstd decoder, downloads
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -198,12 +199,29 @@ It imports nothing of JAX. Phases:
    the f32 forward at batch 64 (TF32 flags, the uint8 output within
    TF32_MAX_STEPS, finite, both times); the native CRC32C built here, equal
    to Python's on 1 MiB, with its MB/s;
-17. print one JSON line with each kernel's error, launches and times (and
+17. the Orbax slice (also alone with ``--ckpt``): ``native/zstd.c`` built with
+   ``cc``; the committed ``.orbax`` fixture that the JAX package wrote
+   (``scripts/torch_make_orbax_fixture.py``) decoded by the port's own zstd,
+   OCDBT and zarr codec, every array bit for bit numpy's from the seed
+   (``scripts/torch_orbax_fixture_arrays.py``, no JAX in the process);
+   ``static_train`` for a few steps at batch 4 under
+   ``STX_CKPT_BACKEND=orbax`` (15 fused-IN forwards and backwards per step;
+   the epoch written as an ``.orbax`` directory); ``load_latest_transformer``
+   picking that epoch, the trained parameters bit for bit; ``process_dir``
+   from it, the PNGs bit for bit those from the same parameters saved as
+   ``.msgpack`` (10 conv3x3 and 15 IN-pad launches per forward); a second
+   ``static_train`` skipping the finished epoch; the host seconds to save
+   and load the epoch in each format; and the seconds that
+   ``download_videos_dataset`` takes to warn and return when its HEAD is
+   refused (the sample URLs point at a closed port on this machine for the
+   whole run: the video datasets built from a directory try that download,
+   and this script reaches for no host outside the machine);
+18. print one JSON line with each kernel's error, launches and times (and
    each kernel's launches on the video-slice paths, on train-multi, in the
    stdin daemons, in the network slice's daemons, on the multi-GPU slice's
-   paths, on the packed paths, on the lbfgs-zoom paths and in the aot
-   phase's convert commands), and as the last line ``{"ok": true,
-   "device": {...}}``.
+   paths, on the packed paths, on the lbfgs-zoom paths, in the aot phase's
+   convert commands and on the Orbax slice's paths), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero and prints no ``ok`` line; so does a machine
 without a GPU, or a directory without the package. Scratch files go to
@@ -4490,6 +4508,227 @@ def aot_phase(torch, np, card):
     print(f"aot / start-up phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
+# The Orbax slice: the committed fixture that the JAX package wrote, and
+# static_train writing its epochs as .orbax directories (a few steps).
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "torch_fixtures", "seeded.orbax")
+# Its arrays, made from the seed with numpy alone (the script that wrote the
+# fixture, scripts/torch_make_orbax_fixture.py, needs JAX).
+ORBAX_FIXTURE_ARRAYS = os.path.join(ROOT, "scripts", "torch_orbax_fixture_arrays.py")
+ORBAX_TRAIN_STEPS = 3
+# Saves and loads timed per format (the median is printed).
+CKPT_TIMING_REPEATS = 5
+
+
+def offline_sample_videos() -> None:
+    """Point the sample-video download at a closed port on this machine.
+    ``VideoDataset`` built from a directory first tries that download, as
+    the JAX loader does; here it is refused at once and warns, and no
+    request leaves the machine."""
+    import socket
+
+    from styletransfer_tpu_torch.data import download
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    download.SAMPLE_VIDEO_URLS = [f"http://127.0.0.1:{port}/sample/{u.rsplit('/', 1)[-1]}"
+                                  for u in download.SAMPLE_VIDEO_URLS]
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _median_s(fn, repeats: int = CKPT_TIMING_REPEATS) -> float:
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def ckpt_phase(torch, np, in_dir, card):
+    """The Orbax slice (phase 17). Returns each kernel's launches on its
+    paths (static_train and process_dir from the .orbax epoch) and the host
+    seconds it measured."""
+    import importlib.util
+
+    from PIL import Image
+
+    from styletransfer_tpu_torch import ckpt, ckpt_orbax, native
+    from styletransfer_tpu_torch.data import coco, download
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils.logging import get_logger
+
+    seconds = {}
+    # A fresh build directory: the decoder is compiled here, whatever an
+    # earlier run left under build/native.
+    saved_build_dir = native.BUILD_DIR
+    native.BUILD_DIR = os.path.join(WORK, "native")
+    native._zstd_lib = None
+    try:
+        t0 = time.perf_counter()
+        lib = native._build("zstd.c")
+        seconds["zstd_build"] = time.perf_counter() - t0
+        native.zstd_decompress(b"\x28\xb5\x2f\xfd\x20\x00\x01\x00\x00")  # loads it
+    finally:
+        native.BUILD_DIR = saved_build_dir
+    check(lib is not None and lib.startswith(os.path.join(WORK, "native")),
+          f"orbax: native/zstd.c built with cc into {lib} in {seconds['zstd_build']:.3f} s")
+    spec = importlib.util.spec_from_file_location("orbax_fixture", ORBAX_FIXTURE_ARRAYS)
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "styletransfer_tpu"))
+    check(not loaded, f"orbax: the fixture's arrays loaded with no JAX in the process {loaded}")
+    want = fixture.fixture_arrays()
+    native.crc32c(b"")  # built and loaded apart from the timed load
+    t0 = time.perf_counter()
+    got = ckpt.load(ORBAX_FIXTURE)
+    seconds["fixture_load"] = time.perf_counter() - t0
+    # The decoder alone on the fixture's largest zstd chunk.
+    chunk = max(ckpt_orbax.read_kvstore(ORBAX_FIXTURE).values(), key=len)
+    plain = native.zstd_decompress(chunk)
+    per_call = _median_s(lambda: native.zstd_decompress(chunk), repeats=21)
+    seconds["zstd_mb_per_s"] = len(plain) / per_call / 1e6
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}.")
+            else:
+                yield prefix + k, tree[k]
+
+    got_leaves, want_leaves = dict(leaves(got)), dict(leaves(want))
+    same = got_leaves.keys() == want_leaves.keys() and all(
+        got_leaves[k].dtype == want_leaves[k].dtype and got_leaves[k].shape ==
+        want_leaves[k].shape and np.array_equal(got_leaves[k], want_leaves[k])
+        for k in want_leaves)
+    nbytes = sum(v.nbytes for v in want_leaves.values())
+    check(same, f"orbax: the JAX-written fixture's {len(want_leaves)} arrays ({nbytes} bytes, "
+          f"the largest {max(v.nbytes for v in want_leaves.values())}) decoded bit for bit "
+          f"as numpy's from seed {fixture.SEED} in {seconds['fixture_load']:.4f} s; the zstd "
+          f"decoder alone {seconds['zstd_mb_per_s']:.1f} MB/s out on a {len(chunk)}-byte frame "
+          f"of {len(plain)} bytes")
+
+    style = _style_image(np)
+    vgg_params = vgg.init_params(seed=0, device="cuda")
+    models = os.path.join(WORK, "models_orbax")
+    saved_backend = os.environ.get("STX_CKPT_BACKEND")
+    os.environ["STX_CKPT_BACKEND"] = "orbax"
+    launches = {}
+    log = _Messages()
+    logger = get_logger()
+    logger.addHandler(log)
+    try:
+        def train(params):
+            test_loader, train_loader = coco.get_coco_loader(
+                batch_size=TRAIN_BATCH, test_limit=8, image_dir=os.path.join(WORK, "no_images"))
+            return fast.static_train(
+                style, style_name="smoke", epochs=1, batch_size=TRAIN_BATCH,
+                vgg_params=vgg_params, params=params, train_loader=train_loader,
+                test_loader=test_loader, log_cadence=(1, 1000, 1000),
+                runs_dir=os.path.join(WORK, "runs_orbax"), models_path=models,
+                max_steps_per_epoch=ORBAX_TRAIN_STEPS, precision="f32", device="cuda")
+
+        params = transformer.init_params(seed=0, device="cuda")
+        reset_counts()
+        train(params)
+        torch.cuda.synchronize()
+        launches["static_train"] = counts = read_counts()
+        epoch_dir = ckpt.checkpoint_path("fast_st", "smoke", 0, models)
+        check(epoch_dir.endswith(".orbax") and os.path.isdir(epoch_dir)
+              and sorted(os.listdir(models)) == [os.path.basename(epoch_dir)],
+              f"orbax: static_train under STX_CKPT_BACKEND=orbax wrote {sorted(os.listdir(models))}"
+              f" (one .orbax epoch directory)")
+        check(counts["fused_instance_norm_bwd"] == NORMS_PER_FORWARD * ORBAX_TRAIN_STEPS
+              and counts["fused_instance_norm_fwd"] >= NORMS_PER_FORWARD * ORBAX_TRAIN_STEPS,
+              f"orbax: static_train {ORBAX_TRAIN_STEPS} steps launched "
+              f"{counts['fused_instance_norm_fwd']} fused-IN forwards and "
+              f"{counts['fused_instance_norm_bwd']} backwards")
+        path, epoch = ckpt.find_latest("fast_st", "smoke", models)
+        trained, epoch = ckpt.load_latest_transformer("fast_st", "smoke", models, device="cuda")
+        check(path == epoch_dir and epoch == 0 and all(
+            torch.equal(a, b) for a, b in zip(trained.parameters(), params.parameters())),
+            f"orbax: load_latest_transformer picked {os.path.basename(path)} (epoch {epoch}); "
+            f"the trained parameters bit for bit")
+
+        # The same parameters as .msgpack, then both through process_dir.
+        msgpack_models = os.path.join(WORK, "models_msgpack")
+        ckpt.save(params, os.path.join(msgpack_models, "fast_st_smoke_epoch0.msgpack"))
+        outs = {}
+        for fmt, where in (("orbax", models), ("msgpack", msgpack_models)):
+            reset_counts()
+            paths = fast.process_dir(in_dir, "smoke", out_dir=os.path.join(WORK, f"ckpt_{fmt}"),
+                                     batch_size=BATCH, models_path=where, precision="f32",
+                                     device="cuda")
+            launches[f"process_dir_{fmt}"] = counts = read_counts()
+            want_counts = {k: 0 for k in counts}
+            want_counts.update({"conv3x3_valid": 10, "conv3x3_valid.f32_fma": 10,
+                                "instance_norm_pad": 15})
+            check(counts == want_counts,
+                  f"orbax: process_dir from the .{fmt} epoch launched {counts} (want 10 "
+                  f"conv3x3 on the f32_fma route and 15 IN-pad per forward)")
+            outs[fmt] = {os.path.basename(p): open(p, "rb").read() for p in paths}
+        pixels_same = outs["orbax"].keys() == outs["msgpack"].keys() and all(
+            np.array_equal(np.asarray(Image.open(os.path.join(WORK, "ckpt_orbax", n))),
+                           np.asarray(Image.open(os.path.join(WORK, "ckpt_msgpack", n))))
+            for n in outs["orbax"])
+        check(len(outs["orbax"]) == BATCH and outs["orbax"] == outs["msgpack"] and pixels_same,
+              f"orbax: process_dir's {len(outs['orbax'])} PNGs from the .orbax epoch are byte "
+              f"for byte those from the .msgpack one")
+
+        del log.messages[:]
+        reset_counts()
+        again = train(transformer.init_params(seed=1, device="cuda"))
+        skipped = read_counts()
+        check(any("Epoch 0 checkpoint exists; skipping" in m for m in log.messages)
+              and skipped["fused_instance_norm_bwd"] == 0 and all(
+                  torch.equal(a, b) for a, b in zip(again.parameters(), params.parameters())),
+              "orbax: a second static_train skipped the finished .orbax epoch (no backward "
+              "launched; its parameters are the epoch's)")
+    finally:
+        logger.removeHandler(log)
+        if saved_backend is None:
+            os.environ.pop("STX_CKPT_BACKEND", None)
+        else:
+            os.environ["STX_CKPT_BACKEND"] = saved_backend
+
+    # Host seconds to save and load the epoch (1.7 M float32) in each format.
+    timing = os.path.join(WORK, "ckpt_timing")
+    tree = transformer.params_to_tree(params)
+    for fmt in ("msgpack", "orbax"):
+        target = os.path.join(timing, f"fast_st_time_epoch0.{fmt}")
+        seconds[f"save_{fmt}"] = _median_s(lambda: ckpt.save(params, target))
+        seconds[f"load_{fmt}"] = _median_s(lambda: ckpt.load(target))
+        back = ckpt.load(target)
+        check(all(np.array_equal(a, b) for (_, a), (_, b) in
+                  zip(leaves(back), leaves(tree))),
+              f"orbax: the {fmt} epoch saved in {seconds[f'save_{fmt}']:.4f} s and loaded in "
+              f"{seconds[f'load_{fmt}']:.4f} s (median of {CKPT_TIMING_REPEATS}), bit for bit")
+
+    # The sample-video download, refused by a closed local port.
+    del log.messages[:]
+    logger.addHandler(log)
+    try:
+        t0 = time.perf_counter()
+        download.download_videos_dataset()
+        seconds["download_videos_offline"] = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    check(any("Could not download sample videos" in m for m in log.messages),
+          f"orbax: download_videos_dataset warned and returned in "
+          f"{seconds['download_videos_offline']:.4f} s (HEAD refused by a closed local port)")
+    print("orbax slice host seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f" on {card}", flush=True)
+    return launches, seconds
+
 
 def main() -> int:
     try:
@@ -4513,6 +4752,7 @@ def main() -> int:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
         return 1
+    offline_sample_videos()
     if sys.argv[1:2] == ["--rank-worker"]:  # one rank of two_rank_phase
         return rank_worker(torch, np, sys.argv[2], sys.argv[3])
 
@@ -4587,6 +4827,11 @@ def main() -> int:
             aot_phase(torch, np, card)
             print(card)
             return 0
+        if sys.argv[1:] == ["--ckpt"]:
+            in_dir, _ = write_inputs(np)
+            ckpt_phase(torch, np, in_dir, card)
+            print(card)
+            return 0
         entries = []
         per_image = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -4611,6 +4856,7 @@ def main() -> int:
             torch, np, F)
         doctor_phase(torch)
         aot_launches = aot_phase(torch, np, card)
+        ckpt_launches, ckpt_seconds = ckpt_phase(torch, np, in_dir, card)
         video_entries, video_launches, zeros_rates = video_phase(torch, np, F, conv3x3_flat,
                                                                  in_dir, imgs)
         entries += video_entries
@@ -4704,6 +4950,10 @@ def main() -> int:
                    "conv3x3_valid_mma": "conv3x3_valid.bf16_mma"}.get(kernel, kernel)
         e["aot_launches"] = {"convert_graph": aot_launches[(precision, "1")][counter],
                              "convert_eager": aot_launches[(precision, "0")][counter]}
+        # The Orbax slice runs in f32 only: its launches stand on the f32 entries.
+        if precision == "f32":
+            route = "conv3x3_valid.f32_fma" if counter == "conv3x3_valid" else counter
+            e["ckpt_launches"] = {path: c[route] for path, c in ckpt_launches.items()}
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
@@ -4734,6 +4984,8 @@ def main() -> int:
                     for (p, c), r in packed_rates.items()) + f" on {card}")
     print("training img/s at 256 px: " + ", ".join(
         f"{p} batch {b} {r:.1f}" for (p, b), r in step_rate.items()) + f" on {card}")
+    print("orbax slice host seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                  ckpt_seconds.items()) + f" on {card}")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the import")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -18,11 +18,18 @@ The flax format is a msgpack map of nested string-keyed maps whose array
 leaves are ExtType code 1 holding ``msgpack((shape, dtype name, raw C-order
 bytes))`` (code 3 is a numpy scalar in the same encoding).
 
-Discovery picks among ``.msgpack``, ``.orbax`` and reference ``.pth`` files
-exactly as the JAX package does. A ``.pth`` (a state dict that the original
-reference wrote with ``torch.save``) loads through
-``transformer.import_torch_state_dict``; loading an ``.orbax`` checkpoint
-raises here (orbax needs JAX).
+``STX_CKPT_BACKEND`` (``msgpack``, the default, or ``orbax``; any other value
+raises ValueError) names the format of new epoch checkpoints, as in the JAX
+package: under ``orbax`` they are Orbax OCDBT directories
+(``..._epoch{e}.orbax/``), read and written by :mod:`ckpt_orbax` without JAX,
+so either package serves or resumes the other's epochs. :func:`save` and
+:func:`load` pick the format by suffix; :func:`existing_checkpoint_path`
+prefers the active backend's format when an epoch exists in both, and
+:func:`find_latest` prefers ``.msgpack``, then ``.orbax``, then a reference
+``.pth`` at equal epochs. Step states and carry sidecars stay ``.msgpack``
+under either backend. A ``.pth`` (a state dict that the original reference
+wrote with ``torch.save``) loads through
+``transformer.import_torch_state_dict``.
 
 A distributed video run keeps each rank's recurrent carry (its local batch
 rows) in a sidecar per rank, ``{model}_{style}_step_carry_p{rank}of{world}``
@@ -52,6 +59,13 @@ _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 
 
+def _ckpt_backend() -> str:
+    backend = os.environ.get("STX_CKPT_BACKEND", "msgpack")
+    if backend not in ("msgpack", "orbax"):
+        raise ValueError(f"STX_CKPT_BACKEND must be 'msgpack' or 'orbax', got {backend!r}")
+    return backend
+
+
 def _models_dir(models_path: Optional[str] = None) -> str:
     path = models_path or constants.MODELS_PATH
     if not os.path.isabs(path):
@@ -62,9 +76,11 @@ def _models_dir(models_path: Optional[str] = None) -> str:
 def checkpoint_path(
     model_name: str, style_name: str, epoch: int, models_path: Optional[str] = None
 ) -> str:
-    """``data/models/{model}_{style}_epoch{e}.msgpack``."""
+    """``data/models/{model}_{style}_epoch{e}.msgpack``; ``.orbax`` under
+    ``STX_CKPT_BACKEND=orbax``."""
+    suffix = ORBAX_SUFFIX if _ckpt_backend() == "orbax" else CKPT_SUFFIX
     return os.path.join(
-        _models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}{CKPT_SUFFIX}"
+        _models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}{suffix}"
     )
 
 
@@ -83,14 +99,14 @@ def save_epoch(
 def existing_checkpoint_path(
     model_name: str, style_name: str, epoch: int, models_path: Optional[str] = None
 ) -> Optional[str]:
-    """The epoch's checkpoint in whichever format exists (``.msgpack`` first,
-    then an ``.orbax`` directory the JAX package may have written), or None."""
+    """The epoch's checkpoint in whichever format exists (the active
+    backend's first), or None. A resume loads through this: after a switch
+    of ``STX_CKPT_BACKEND`` the epoch the other backend wrote still counts."""
     base = os.path.join(_models_dir(models_path), f"{model_name}_{style_name}_epoch{epoch}")
-    if os.path.isfile(base + CKPT_SUFFIX):
-        return base + CKPT_SUFFIX
-    if os.path.isdir(base + ORBAX_SUFFIX):
-        return base + ORBAX_SUFFIX
-    return None
+    candidates = [(base + CKPT_SUFFIX, os.path.isfile), (base + ORBAX_SUFFIX, os.path.isdir)]
+    if _ckpt_backend() == "orbax":
+        candidates.reverse()
+    return next((path for path, exists in candidates if exists(path)), None)
 
 
 def epoch_checkpoint_exists(
@@ -148,11 +164,17 @@ def _as_tree(params: Any) -> Any:
 
 def save(params: Any, path: str) -> None:
     """Write ``params`` (an ``nn.Module`` or a nested mapping of arrays /
-    tensors) as a flax-format ``.msgpack`` file, atomically: a temporary
-    file renamed into place, removed if the write fails."""
+    tensors) as a flax-format ``.msgpack`` file, or as an Orbax directory
+    when ``path`` ends in ``.orbax``; atomically either way: written under
+    a temporary name, renamed into place, and removed if the write fails."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(ORBAX_SUFFIX):
+        from styletransfer_tpu_torch import ckpt_orbax
+
+        ckpt_orbax.save(_as_tree(params), path)
+        return
     import msgpack
 
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     data = msgpack.packb(_as_tree(params), default=_ext_default, strict_types=True)
     # pid and thread id: two writers of one path never share a temp file.
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_native_id()}"
@@ -174,20 +196,19 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
 
 
 def load(path: str) -> Dict[str, Any]:
-    """Read a ``.msgpack`` checkpoint, or a reference ``.pth`` state dict of
-    the transform net, into nested dicts of numpy arrays (the JAX parameter
-    tree's layout)."""
-    import msgpack
-
+    """Read a ``.msgpack`` checkpoint, an ``.orbax`` directory, or a
+    reference ``.pth`` state dict of the transform net, into nested dicts of
+    numpy arrays (the JAX parameter tree's layout)."""
     if path.endswith(".pth"):
         from styletransfer_tpu_torch.models import transformer
 
         return transformer.import_torch_state_dict(load_torch_state_dict(path))
-    if not path.endswith(CKPT_SUFFIX):
-        raise NotImplementedError(
-            f"{os.path.basename(path)}: orbax checkpoints need JAX; the port reads "
-            ".msgpack and .pth"
-        )
+    if path.endswith(ORBAX_SUFFIX):
+        from styletransfer_tpu_torch import ckpt_orbax
+
+        return ckpt_orbax.load(path)
+    import msgpack
+
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
 
@@ -242,7 +263,7 @@ def load_latest_transformer(
     template: Optional[Any] = None,
 ):
     """Load the latest transform-net weights for (model, style) onto
-    ``device``, from a ``.msgpack`` or a reference ``.pth`` file. Returns
+    ``device``, from a ``.msgpack``, an ``.orbax`` or a reference ``.pth``. Returns
     ``(TransformerNet, epoch)``. With a ``template`` (a TransformerNet, e.g.
     a multi-style one with [S, C] affines) the checkpoint must hold its
     parameter names and shapes, else ValueError."""

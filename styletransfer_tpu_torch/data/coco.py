@@ -13,9 +13,11 @@ Contracts kept from the reference:
   failing the epoch;
 - ``drop_last=True`` and a shuffle per epoch.
 
-With no images on disk the loaders fall back to a deterministic synthetic
-corpus of procedural images. Nothing here downloads: put COCO images in
-``data/coco_dataset/images/`` to train on them.
+:func:`get_coco_loader` first calls ``download.download_coco_images``, as
+the JAX loader does: it fetches the images that ``image_info_test2017.json``
+lists when that manifest is in ``data/coco_dataset/`` (it is not shipped),
+and otherwise returns at once. With no images on disk the loaders fall back
+to a deterministic synthetic corpus of procedural images.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 from PIL import Image
 
 from styletransfer_tpu_torch import constants
+from styletransfer_tpu_torch.data import download
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils.logging import get_logger
 
@@ -225,6 +228,7 @@ def get_coco_loader(
     test split) when the directory holds no images. Both loaders take the
     rank's shard (``shard_index`` of ``shard_count``)."""
     logger = get_logger()
+    download.download_coco_images()
     abs_dir = _abspath(image_dir)
     all_images = sorted(os.listdir(abs_dir)) if os.path.isdir(abs_dir) else []
 

@@ -15,8 +15,10 @@ GIFs are decoded with Pillow (frame by frame, by index); other formats need
 ``imageio`` with a video backend, and opening one without it raises. A
 frame that cannot be decoded ends its clip with a warning. With no videos on
 disk a deterministic synthetic clip source (a procedural image translating
-over time) keeps the video paths runnable. Nothing here downloads: put clips
-in ``data/video/`` to train on them.
+over time) keeps the video paths runnable. Built without a list of
+``videos``, :class:`VideoDataset` first calls
+``download.download_videos_dataset`` (the four sample clips into
+``data/video/``), as the JAX loader does; offline that warns and returns.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 from PIL import Image
 
 from styletransfer_tpu_torch import constants
+from styletransfer_tpu_torch.data import download
 from styletransfer_tpu_torch.data.coco import synthetic_image
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils.logging import get_logger
@@ -158,6 +161,7 @@ class VideoDataset:
         self.synthetic = False
 
         if videos is None:
+            download.download_videos_dataset()
             abs_dir = _abspath(video_dir)
             listing = sorted(os.listdir(abs_dir)) if os.path.isdir(abs_dir) else []
             videos = [os.path.join(abs_dir, v) for v in listing]

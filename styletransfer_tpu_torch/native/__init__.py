@@ -1,7 +1,9 @@
-"""Native (C) host helpers, built at first use, with pure-Python fallbacks.
+"""Native (C) host helpers, built at first use.
 
 The port of ``styletransfer_tpu/native``, with its own copy of the C source
-(``crc32c.c``). The library is compiled with the system C compiler (``cc``,
+(``crc32c.c``), and a Zstandard decoder (``zstd.c``) for the chunks and
+B-tree nodes of ``.orbax`` checkpoints (``ckpt_orbax.py``). Each library is
+compiled with the system C compiler (``cc``,
 ``gcc`` or ``clang``) into ``build/native/`` beside the package (listed in
 ``.gitignore``), named by a hash of its source as ``ops/cuda/_build.py``
 names the kernels, so an edited source is rebuilt and an unchanged one is
@@ -9,8 +11,11 @@ reused. It is written under a name unique to the process and renamed into
 place, so two processes never load a half-written library.
 
 When no compiler is found, or the library cannot be loaded, :func:`crc32c`
-logs one warning and computes in Python (``utils/tb.py``'s table): the
-package never requires a toolchain. This is host code, not a device kernel.
+logs one warning and computes in Python (``utils/tb.py``'s table).
+:func:`zstd_decompress` has no such fallback (a decoder in Python would take
+seconds per checkpoint): without a compiler it raises, naming the compilers
+it tried, and only reading a compressed ``.orbax`` checkpoint needs it. This
+is host code, not a device kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ COMPILERS = ("cc", "gcc", "clang")
 
 _lock = threading.Lock()
 _crc32c_fn: Optional[Callable[[bytes], int]] = None
+_zstd_lib: Optional[ctypes.CDLL] = None
 
 
 def _target(src_name: str) -> str:
@@ -90,3 +96,42 @@ def crc32c(data: bytes) -> int:
             if _crc32c_fn is None:
                 _crc32c_fn = _load_crc32c()
     return _crc32c_fn(bytes(data))
+
+
+def _load_zstd() -> ctypes.CDLL:
+    path = _build("zstd.c")
+    if path is None:
+        raise RuntimeError(
+            f"no C compiler ({', '.join(COMPILERS)}) could build native/zstd.c, the zstd "
+            "decoder that reading an .orbax checkpoint needs")
+    lib = ctypes.CDLL(path)
+    lib.stx_zstd_decompress.restype = ctypes.c_int
+    lib.stx_zstd_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_size_t]
+    lib.stx_zstd_free.restype = None
+    lib.stx_zstd_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+    return lib
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """The content of the zstd frames in ``data`` (one or more, back to
+    back; skippable frames pass). ValueError naming the fault on malformed
+    input or a frame that needs a dictionary; RuntimeError when no C
+    compiler builds the decoder."""
+    global _zstd_lib
+    if _zstd_lib is None:
+        with _lock:
+            if _zstd_lib is None:
+                _zstd_lib = _load_zstd()
+    data = bytes(data)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(256)
+    if _zstd_lib.stx_zstd_decompress(data, len(data), ctypes.byref(out), ctypes.byref(size),
+                                     err, len(err)):
+        raise ValueError(f"zstd: {err.value.decode(errors='replace')}")
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        _zstd_lib.stx_zstd_free(out)

@@ -98,9 +98,9 @@ def _save_pth(params_tree, path):
 
 
 def test_pth_checkpoints_wait_for_a_later_slice(tmp_path, jax_params):
-    """(The name predates .pth loading.) A models directory holding only a
-    reference .pth loads through the layout converter, as the JAX package
-    loads it."""
+    """(The name predates .pth and .orbax loading.) A models directory
+    holding only a reference .pth loads through the layout converter, as the
+    JAX package loads it; a later .orbax epoch then wins."""
     _save_pth(jax_params, tmp_path / "fast_st_wave_epoch1.pth")
     params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
     assert epoch == 1
@@ -111,9 +111,12 @@ def test_pth_checkpoints_wait_for_a_later_slice(tmp_path, jax_params):
     assert jepoch == 1
     _assert_trees_equal(tckpt.load(str(tmp_path / "fast_st_wave_epoch1.pth")),
                         jax.device_get(want))
-    (tmp_path / "fast_st_wave_epoch2.orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+    # A newer epoch the JAX package wrote as .orbax is the one loaded.
+    newer = jax.device_get(jt.init_params(jax.random.PRNGKey(5)))
+    jckpt.save(newer, str(tmp_path / "fast_st_wave_epoch2.orbax"))
+    params, epoch = tckpt.load_latest_transformer("fast_st", "wave", str(tmp_path), device="cpu")
+    assert epoch == 2
+    _assert_trees_equal(tt.params_to_tree(params), newer)
 
 
 def test_msgpack_wins_over_pth_at_equal_epochs(tmp_path, jax_params):

@@ -12,11 +12,13 @@ from click.testing import CliRunner
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "styletransfer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "styletransfer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "requests",
+             "styletransfer_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),  # and the module it loads by path
+             os.path.join(ROOT, "scripts", "torch_orbax_fixture_arrays.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -96,6 +98,30 @@ def test_the_last_ported_modules_load_no_jax():
         "    pass\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'styletransfer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.subprocess
+def test_the_orbax_codec_and_the_downloader_load_no_jax():
+    """Reading the committed ``.orbax`` fixture (the zstd decoder included),
+    writing and reading one back, and the downloader bring in nothing of
+    JAX, orbax, tensorstore, zstandard or requests."""
+    code = (
+        "import sys\n"
+        "from styletransfer_tpu_torch import ckpt\n"
+        "from styletransfer_tpu_torch.data import coco, download, video\n"
+        "tree = ckpt.load('tests/torch_fixtures/seeded.orbax')\n"
+        "import tempfile, os\n"
+        "d = tempfile.mkdtemp()\n"
+        "ckpt.save(tree, os.path.join(d, 'x.orbax'))\n"
+        "assert ckpt.load(os.path.join(d, 'x.orbax')).keys() == tree.keys()\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -380,8 +380,20 @@ def test_readers_decode_as_the_jax_package(tmp_path):
     assert tdata.make_batches(list(range(7)), 3) == jdata.make_batches(list(range(7)), 3)
 
 
-def test_video_dataset_batches_like_jax(tmp_path):
+def test_video_dataset_batches_like_jax(tmp_path, monkeypatch):
+    import socket
+
     from styletransfer_tpu.data import video as jdata
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.data import download
+
+    # Built from a directory, the dataset first tries the sample videos'
+    # download: point it at a closed local port.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    monkeypatch.setattr(download, "SAMPLE_VIDEO_URLS", [f"http://127.0.0.1:{closed}/a.mp4"])
+    monkeypatch.setattr(constants, "PROJECT_ROOT_PATH", str(tmp_path))
 
     clips = [str(tmp_path / f"{i}.gif") for i in range(5)]
     got = tdata.VideoDataset(videos=clips, batch_size=2)
