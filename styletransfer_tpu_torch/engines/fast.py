@@ -51,7 +51,7 @@ from styletransfer_tpu_torch.models import transformer, vgg
 from styletransfer_tpu_torch.ops import layers, losses
 from styletransfer_tpu_torch.parallel import distributed, prefetch
 from styletransfer_tpu_torch.parallel import mesh as mesh_lib
-from styletransfer_tpu_torch.utils import aot, tb
+from styletransfer_tpu_torch.utils import aot, profiling, tb
 from styletransfer_tpu_torch.utils import images as img_utils
 from styletransfer_tpu_torch.utils.logging import get_logger
 
@@ -96,20 +96,23 @@ def loss_fn(
     of the stylized batch. Returns ``(total, {"total", "style", "content",
     "tv"})``. With ``shards`` the batch is this rank's slice of a global
     batch, and the mean over the ranks of the result is the global batch's
-    (see ``parallel/distributed.py``)."""
-    batch = img_utils.maybe_normalize_on_device(batch)
-    transformed = transformer.apply_stacked(params, batch, compute_dtype)
-    perceptual, comps = vgg.perceptual_loss(
-        vgg_params, transformed, batch, style_grams,
-        style_weight=style_weight, content_weight=content_weight,
-        compute_dtype=compute_dtype,
-    )
-    tv = losses.total_variation_loss(transformed)
-    if shards is not None:
-        # A sum over the batch: its share of the ranks' mean is world times
-        # this rank's sum.
-        tv = tv * shards.world
-    total = perceptual + tv
+    (see ``parallel/distributed.py``). The transform net's forward is the
+    span ``train.forward``, the rest ``train.loss``."""
+    with profiling.span("train.forward"):
+        batch = img_utils.maybe_normalize_on_device(batch)
+        transformed = transformer.apply_stacked(params, batch, compute_dtype)
+    with profiling.span("train.loss"):
+        perceptual, comps = vgg.perceptual_loss(
+            vgg_params, transformed, batch, style_grams,
+            style_weight=style_weight, content_weight=content_weight,
+            compute_dtype=compute_dtype,
+        )
+        tv = losses.total_variation_loss(transformed)
+        if shards is not None:
+            # A sum over the batch: its share of the ranks' mean is world
+            # times this rank's sum.
+            tv = tv * shards.world
+        total = perceptual + tv
     return total, {"total": total, "style": comps["style"], "content": comps["content"],
                    "tv": tv}
 
@@ -127,23 +130,29 @@ def make_step(objective: Callable, remat: bool = False,
     ``remat=True`` checkpoints the objective (``torch.utils.checkpoint``):
     the backward recomputes the forward's activations instead of keeping
     them, about a third more work for much less memory. The recomputation
-    runs the instance-norm forward kernels a second time."""
+    runs the instance-norm forward kernels a second time.
+
+    A step is the span ``train.step``, which holds ``train.backward`` and
+    ``train.optimizer`` (Adam) besides the objective's own."""
     layers.disable_tf32()
 
     def train_step(params: transformer.TransformerNet, optimizer: torch.optim.Optimizer,
                    *inputs) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad(set_to_none=True)
-        if remat:
-            total, metrics = torch_checkpoint.checkpoint(objective, params, *inputs,
-                                                         use_reentrant=False)
-        else:
-            total, metrics = objective(params, *inputs)
-        total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if shards is not None:
-            metrics = shards.average(params, metrics)
-        optimizer.step()
-        return metrics
+        with profiling.span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            if remat:
+                total, metrics = torch_checkpoint.checkpoint(objective, params, *inputs,
+                                                             use_reentrant=False)
+            else:
+                total, metrics = objective(params, *inputs)
+            with profiling.span("train.backward"):
+                total.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if shards is not None:
+                metrics = shards.average(params, metrics)
+            with profiling.span("train.optimizer"):
+                optimizer.step()
+            return metrics
 
     return train_step
 
@@ -427,16 +436,18 @@ def make_serve_fn(precision: str = "f32", pad_mode: str = "reflect") -> Callable
     f32 runs in full f32: TF32 is switched off for cuDNN convs and matmuls
     (both default differently), so the output stays within 1/255 of the
     f32 reference. ``pad_mode="zeros"`` serves checkpoints that the original
-    reference trained (see ``transformer.apply``)."""
+    reference trained (see ``transformer.apply``). A call is the span
+    ``serve.forward``."""
     compute_dtype = _compute_dtype(precision)
     if pad_mode not in ("reflect", "zeros"):
         raise ValueError(f"pad_mode must be 'reflect' or 'zeros', got {pad_mode!r}")
     layers.disable_tf32()
 
     def serve_fn(params: transformer.TransformerNet, batch_u8: torch.Tensor) -> torch.Tensor:
-        x = img_utils.maybe_normalize_on_device(batch_u8)
-        y = transformer.apply(params, x, compute_dtype=compute_dtype, pad_mode=pad_mode)
-        return img_utils.to_uint8_on_device(y)
+        with profiling.span("serve.forward"):
+            x = img_utils.maybe_normalize_on_device(batch_u8)
+            y = transformer.apply(params, x, compute_dtype=compute_dtype, pad_mode=pad_mode)
+            return img_utils.to_uint8_on_device(y)
 
     return serve_fn
 

@@ -30,6 +30,13 @@ with :func:`import_torch_state_dict` / :func:`export_torch_state_dict`, and
 :func:`init_video_params` builds the 6-channel video net, warm-started from
 a fast_st net where one is given.
 
+Both forwards mark each layer as a span (``utils/profiling.py``): the
+convs ``tn.conv1`` .. ``tn.conv_out`` and ``tn.res<i>.conv<j>``, each
+holding all of its layer's work as implemented here (pads, weight
+re-layouts, phase forms, bias adds), and the norms ``tn.in1`` ..
+``tn.up2_in`` and ``tn.res<i>.in<j>``. While spans are recorded the
+stacked forward also marks each conv's backward, ``tn.<conv>.bwd``.
+
 Architecture (identical to the reference):
 - conv 9x9 s1 (3 or 6)->32, IN, ReLU; conv 3x3 s2 32->64, IN, ReLU;
   conv 3x3 s2 64->128, IN, ReLU
@@ -53,6 +60,7 @@ from styletransfer_tpu_torch.ops.cuda.conv3x3_flat import conv3x3_same
 from styletransfer_tpu_torch.ops.cuda.conv_direct import conv_direct
 from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
+from styletransfer_tpu_torch.utils import profiling
 
 NUM_RESIDUAL_BLOCKS = 5
 
@@ -100,6 +108,13 @@ class TransformerNet(nn.Module):
 _CONVS = [("conv1", 9, None, 32), ("conv2", 3, 32, 64), ("conv3", 3, 64, 128),
           ("up1_conv", 3, 128, 64), ("up2_conv", 3, 64, 32), ("conv_out", 9, 32, 3)]
 _NORMS = [("in1", 32), ("in2", 64), ("in3", 128), ("up1_in", 64), ("up2_in", 32)]
+# Span names by layer, made once: a forward formats no string. _RES_SPANS[i]
+# holds block i + 1's (conv1, in1, conv2, in2).
+_SPAN = {name: "tn." + name for name in [n for n, *_ in _CONVS] + [n for n, _ in _NORMS]}
+_RES_SPANS = [tuple(f"tn.res{i + 1}.{layer}" for layer in ("conv1", "in1", "conv2", "in2"))
+              for i in range(NUM_RESIDUAL_BLOCKS)]
+_BWD_SPAN = {s: s + ".bwd" for s in [_SPAN[n] for n, *_ in _CONVS]
+             + [s for spans in _RES_SPANS for s in spans[0::2]]}
 
 
 def init_params(
@@ -206,9 +221,16 @@ def _conv(x, kernel, bias, stride, cd, padding="valid", fixed_order=False):
     return conv_direct(x.contiguous(), kernel.to(x.dtype), bias, stride)
 
 
-def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding, fixed_order):
-    x = _conv(x, conv.kernel, conv.bias, stride, cd, padding, fixed_order)
-    return fused_instance_norm(x, norm.scale, norm.bias, relu=True)
+def _conv_in_relu(x, conv: Conv, norm: InstanceNorm, stride, cd, padding, fixed_order,
+                  spans, upsample=False):
+    """conv (after a nearest x2 upsample with ``upsample``), IN, ReLU; the
+    conv and the norm are the spans ``spans``."""
+    with profiling.span(spans[0]):
+        h = layers.upsample_nearest(x, 2) if upsample else x
+        h = _conv(h, conv.kernel, conv.bias, stride, cd, padding, fixed_order)
+    profiling.backward_span(_BWD_SPAN[spans[0]], h, x)
+    with profiling.span(spans[1]):
+        return fused_instance_norm(h, norm.scale, norm.bias, relu=True)
 
 
 def _res_conv(x, p: Conv, cd, padding, fixed_order):
@@ -220,13 +242,20 @@ def _res_conv(x, p: Conv, cd, padding, fixed_order):
     return _conv(x, p.kernel, p.bias, 1, cd, padding, fixed_order)
 
 
-def _residual_block(x, p: ResidualBlock, cd, padding, fixed_order):
+def _residual_block(x, p: ResidualBlock, cd, padding, fixed_order, spans):
     """conv-IN-ReLU-conv, then IN of (out + the block's input): the residual
-    add is inside the second norm's kernel."""
-    out = _res_conv(x, p.conv1, cd, padding, fixed_order)
-    out = fused_instance_norm(out, p.in1.scale, p.in1.bias, relu=True)
-    out = _res_conv(out, p.conv2, cd, padding, fixed_order)
-    return fused_instance_norm(out, p.in2.scale, p.in2.bias, residual=x)
+    add is inside the second norm's kernel. ``spans``: the four layers'."""
+    conv1, in1, conv2, in2 = spans
+    with profiling.span(conv1):
+        h = _res_conv(x, p.conv1, cd, padding, fixed_order)
+    profiling.backward_span(_BWD_SPAN[conv1], h, x)
+    with profiling.span(in1):
+        y = fused_instance_norm(h, p.in1.scale, p.in1.bias, relu=True)
+    with profiling.span(conv2):
+        h = _res_conv(y, p.conv2, cd, padding, fixed_order)
+    profiling.backward_span(_BWD_SPAN[conv2], h, y)
+    with profiling.span(in2):
+        return fused_instance_norm(h, p.in2.scale, p.in2.bias, residual=x)
 
 
 def apply_stacked(
@@ -256,16 +285,19 @@ def apply_stacked(
     if cd is not None:
         x = x.to(cd)
     fo = fixed_order
-    x = _conv_in_relu(x, params.conv1, params.in1, 1, cd, pad_mode, fo)
-    x = _conv_in_relu(x, params.conv2, params.in2, 2, cd, pad_mode, fo)
-    x = _conv_in_relu(x, params.conv3, params.in3, 2, cd, pad_mode, fo)
+    sp = _SPAN
+    x = _conv_in_relu(x, params.conv1, params.in1, 1, cd, pad_mode, fo, (sp["conv1"], sp["in1"]))
+    x = _conv_in_relu(x, params.conv2, params.in2, 2, cd, pad_mode, fo, (sp["conv2"], sp["in2"]))
+    x = _conv_in_relu(x, params.conv3, params.in3, 2, cd, pad_mode, fo, (sp["conv3"], sp["in3"]))
     for i in range(NUM_RESIDUAL_BLOCKS):
-        x = _residual_block(x, getattr(params, f"res{i + 1}"), cd, pad_mode, fo)
-    x = layers.upsample_nearest(x, 2)
-    x = _conv_in_relu(x, params.up1_conv, params.up1_in, 1, cd, pad_mode, fo)
-    x = layers.upsample_nearest(x, 2)
-    x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode, fo)
-    out = _conv(x, params.conv_out.kernel, params.conv_out.bias, 1, cd, pad_mode, fo)
+        x = _residual_block(x, getattr(params, f"res{i + 1}"), cd, pad_mode, fo, _RES_SPANS[i])
+    x = _conv_in_relu(x, params.up1_conv, params.up1_in, 1, cd, pad_mode, fo,
+                      (sp["up1_conv"], sp["up1_in"]), upsample=True)
+    x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode, fo,
+                      (sp["up2_conv"], sp["up2_in"]), upsample=True)
+    with profiling.span(sp["conv_out"]):
+        out = _conv(x, params.conv_out.kernel, params.conv_out.bias, 1, cd, pad_mode, fo)
+    profiling.backward_span(_BWD_SPAN[sp["conv_out"]], out, x)
     return out.to(in_dtype)
 
 
@@ -336,36 +368,52 @@ def apply(
         x = x.to(cd)
 
     fo = fixed_order
-    x = layers.reflect_pad(x, 4)
-    h = _conv_valid(x, params.conv1, 1, cd, fo)
-    y = _in_pad(h, params.in1, pad=1)                              # [B,H+2,W+2,32]
-    h = _conv_valid(y, params.conv2, 2, cd, fo)
-    y = _in_pad(h, params.in2, pad=1)
-    h = _conv_valid(y, params.conv3, 2, cd, fo)
-    y = _in_pad(h, params.in3, pad=1)
+    span = profiling.span
+    with span(_SPAN["conv1"]):
+        h = _conv_valid(layers.reflect_pad(x, 4), params.conv1, 1, cd, fo)
+    with span(_SPAN["in1"]):
+        y = _in_pad(h, params.in1, pad=1)                          # [B,H+2,W+2,32]
+    with span(_SPAN["conv2"]):
+        h = _conv_valid(y, params.conv2, 2, cd, fo)
+    with span(_SPAN["in2"]):
+        y = _in_pad(h, params.in2, pad=1)
+    with span(_SPAN["conv3"]):
+        h = _conv_valid(y, params.conv3, 2, cd, fo)
+    with span(_SPAN["in3"]):
+        y = _in_pad(h, params.in3, pad=1)
 
     for i in range(NUM_RESIDUAL_BLOCKS):
         r = getattr(params, f"res{i + 1}")
-        h1, s1, ss1 = _conv3x3(y, r.conv1, cd)
-        y1 = _in_pad(h1, r.in1, pad=1, stats=(s1, ss1))
-        h2, _, _ = _conv3x3(y1, r.conv2, cd)
+        conv1, in1, conv2, in2 = _RES_SPANS[i]
+        with span(conv1):
+            h1, s1, ss1 = _conv3x3(y, r.conv1, cd)
+        with span(in1):
+            y1 = _in_pad(h1, r.in1, pad=1, stats=(s1, ss1))
+        with span(conv2):
+            h2, _, _ = _conv3x3(y1, r.conv2, cd)
         last = i == NUM_RESIDUAL_BLOCKS - 1
         # The block's input is the interior of the padded y. The last block
         # feeds a phase-form upsample conv, which wants EDGE padding.
-        y = _in_pad(h2, r.in2, pad=1, relu=False, residual=y, res_pad=1,
-                    mode="edge" if last else "reflect")
+        with span(in2):
+            y = _in_pad(h2, r.in2, pad=1, relu=False, residual=y, res_pad=1,
+                        mode="edge" if last else "reflect")
 
     # Decoder in 2x2 phase form; the phase output is reassembled
     # (depth_to_space) before the IN kernel, whose statistics over the
     # reassembled tensor are the statistics pooled over the phases.
-    h = _conv_phase_up(y, params.up1_conv, cd, fo)                 # [B,h,w,4*64]
-    y = _in_pad(layers.depth_to_space(h, 2), params.up1_in, pad=1, mode="edge")
-    h = _conv_phase_up(y, params.up2_conv, cd, fo)                 # [B,2h,2w,4*32]
-    y = _in_pad(layers.depth_to_space(h, 2), params.up2_in, pad=4)  # conv_out is 9x9
+    with span(_SPAN["up1_conv"]):
+        h = layers.depth_to_space(_conv_phase_up(y, params.up1_conv, cd, fo), 2)  # [B,2h,2w,64]
+    with span(_SPAN["up1_in"]):
+        y = _in_pad(h, params.up1_in, pad=1, mode="edge")
+    with span(_SPAN["up2_conv"]):
+        h = layers.depth_to_space(_conv_phase_up(y, params.up2_conv, cd, fo), 2)
+    with span(_SPAN["up2_in"]):
+        y = _in_pad(h, params.up2_in, pad=4)                       # conv_out is 9x9
     # Final 9x9 32->3 conv in 4x4 space-to-depth phase form (3x3, 512->48).
-    kp = layers.phase_conv_kernel(params.conv_out.kernel, 4)
-    out = _conv(layers.space_to_depth(y, 4), kp, None, 1, cd, fixed_order=fo)
-    out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
+    with span(_SPAN["conv_out"]):
+        kp = layers.phase_conv_kernel(params.conv_out.kernel, 4)
+        out = _conv(layers.space_to_depth(y, 4), kp, None, 1, cd, fixed_order=fo)
+        out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
     return out.to(in_dtype)
 
 

@@ -7,6 +7,10 @@ the device, up to ``size`` batches ahead of the consumer. ``"cuda"`` is
 the consumer's current device (a distributed rank's GPU), resolved before
 the producer thread starts: a thread's current device is its own.
 
+Spans (``utils/profiling.py``): the producer's ``data.load`` (the next
+host batch) and ``data.copy`` (its copy to the device), the consumer's
+``data.wait`` (blocked on the queue).
+
 The generator cleans up after itself: if the consumer stops early
 (``break``, an exception, ``max_steps_per_epoch``), the producer is told to
 stop, the queued batches are dropped and the thread is joined.
@@ -20,6 +24,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from styletransfer_tpu_torch.utils import profiling
 
 _SENTINEL = object()
 
@@ -67,15 +73,21 @@ def prefetch_to_device(iterable: Iterable, device, size: int = 2) -> Iterator[to
 
     def producer() -> None:
         try:
-            for batch in iterable:
-                if stream is None:
-                    item = (to_device(batch, device), None)
-                else:
-                    with torch.cuda.stream(stream):
-                        t = to_device(batch, device)
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
-                    item = (t, ready)
+            batches = iter(iterable)
+            while True:
+                with profiling.span("data.load"):
+                    batch = next(batches, _SENTINEL)
+                if batch is _SENTINEL:
+                    break
+                with profiling.span("data.copy"):
+                    if stream is None:
+                        item = (to_device(batch, device), None)
+                    else:
+                        with torch.cuda.stream(stream):
+                            t = to_device(batch, device)
+                            ready = torch.cuda.Event()
+                            ready.record(stream)
+                        item = (t, ready)
                 if not _put(item):
                     return
         except Exception as exc:  # noqa: BLE001 - raised again on the consumer side
@@ -87,7 +99,8 @@ def prefetch_to_device(iterable: Iterable, device, size: int = 2) -> Iterator[to
     thread.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("data.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]
