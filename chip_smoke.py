@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --convs       # phases 1-2 and conv3x3_valid only
+    python3 chip_smoke.py --convs       # phases 1-2, conv3x3_valid and upconv_phase only
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
     python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
@@ -50,12 +50,22 @@ It imports nothing of JAX. Phases:
    JAX package leaves to XLA, in the video stylizer) at those six convs of a
    256 px forward, at batch 64 and 1, against its plain version, with a
    bit-identical repeat, lanes bit for bit as each image alone, and times
-   beside F.conv2d;
+   beside F.conv2d; and upconv_phase (not a TPU kernel either: the f32
+   serving forward's two phase-form upsample convs) at both of its serving
+   calls (batch 64, 256 px) and at ragged photo-sized grids (batch 1),
+   against its plain version (the largest gap over the largest output), with
+   a bit-identical repeat, one launch a call on its own counter, and device
+   times beside the plain version and cuDNN's conv alone (the phase conv and
+   the published conv, each on the heuristic pick and the cudnn.benchmark
+   best);
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
    counters must show 10 conv3x3 and 15 IN-pad launches per forward, the
-   conv3x3 ones all on the f32_fma or bf16_wgmma route, and the first two
+   conv3x3 ones all on the f32_fma or bf16_wgmma route, and 2 upconv_phase
+   launches per f32 forward (none in bf16, which every serving path below
+   holds too, and none on the video, zero-padded, training and Gatys
+   paths), and the first two
    outputs must match the port's own CPU run; then the same images at 300 px
    in bf16, whose 75-wide residual convs take the bf16_wgmma route too, and
    four of them at 1040 px in bf16, whose 260-wide residual convs take the
@@ -329,13 +339,21 @@ SOURCES = {
     # fixed order for the video stylizer.
     "conv_direct": ("styletransfer_tpu_torch/csrc/conv_direct.cu",
                     "styletransfer_tpu/ops/layers.py:93"),
+    # Not the port of a TPU kernel either: the phase-form upsample conv that
+    # the JAX package leaves to XLA (the phase kernel, then depth_to_space).
+    "upconv_phase": ("styletransfer_tpu_torch/csrc/upconv_phase.cu",
+                     "styletransfer_tpu/ops/layers.py:334"),
 }
 # conv3x3_valid's kernel on each route of valid_plan.
 ROUTE_SOURCES = {"f32_fma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
                  "bf16_mma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
                  "bf16_wgmma": "styletransfer_tpu_torch/csrc/conv3x3_wgmma.cu"}
 # Which path launches each kernel: its JSON launch count is that path's.
-SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad")
+SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad", "upconv_phase")
+# upconv_phase launches per pad-early serving forward: the two upsample convs
+# in f32; bf16 keeps them on cuDNN, and the video stylizer (fixed_order) on
+# conv_direct.
+UPCONV_PER_FORWARD = {"f32": 2, "bf16": 0}
 TRAINING_KERNELS = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
 GATYS_KERNELS = ("conv3x3_flat", "conv3x3_im2col")
 
@@ -465,7 +483,7 @@ def allclose(torch, a, b, rtol, atol) -> bool:
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
     from styletransfer_tpu_torch.ops.cuda import (
-        conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm)
+        conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm, upconv_phase)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
             "conv3x3_valid.f32_fma": (conv3x3, "fma_launches"),
@@ -480,7 +498,8 @@ def counters():
                                                   "bwd_per_image_launches"),
             "conv3x3_flat": (conv3x3_flat, "flat_launches"),
             "conv3x3_im2col": (conv3x3_flat, "im2col_launches"),
-            "conv_direct": (conv_direct, "launches")}
+            "conv_direct": (conv_direct, "launches"),
+            "upconv_phase": (upconv_phase, "launches")}
 
 
 def reset_counts() -> None:
@@ -996,6 +1015,124 @@ def direct_phase(torch, F, cdm, dtype):
                      f"space-to-depth)"}
 
 
+# upconv_phase's calls, (label, B, h, w, C, O) of the small grid: the
+# serving forward's up1_conv and up2_conv at batch BATCH and SIZE px, and
+# ragged photo-sized grids at batch 1 (no tile of the kernel divides h or w).
+UPCONV_CALLS = (("up1_conv", BATCH, SIZE // 4, SIZE // 4, 128, 64),
+                ("up2_conv", BATCH, SIZE // 2, SIZE // 2, 64, 32),
+                ("up1_conv ragged", 1, 379, 505, 128, 64),
+                ("up2_conv ragged", 1, 757, 1009, 64, 32))
+# Its largest gap from the plain version (cuDNN's 3x3 phase conv, TF32 off),
+# over the largest plain output: the same f32 products summed in another
+# order.
+UPCONV_REL = 1e-5
+
+
+def upconv_phase_phase(torch, F, up):
+    """upconv_phase against its plain version at the serving forward's two
+    calls and at ragged photo-sized grids: the largest gap over the largest
+    output, a bit-identical repeat, one launch a call on its own counter and
+    no other; device times of the kernel, the plain version (the phase conv,
+    the bias, depth_to_space) and the library's conv alone (the 3x3 phase
+    conv on the small grid and the published conv on the upsampled,
+    reflect-padded grid, each on cuDNN's heuristic pick and on its best
+    algorithm, cudnn.benchmark), and the bound. Returns its JSON entry with
+    the two serving calls' totals: a forward's."""
+    from styletransfer_tpu_torch.ops import layers
+
+    name = "upconv_phase"
+    g = torch.Generator(device="cuda").manual_seed(17)
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_best_ms": 0.0,
+             "ops_ms": 0.0, "bytes_ms": 0.0}
+    worst = 0.0
+    calls = []
+    benchmark = torch.backends.cudnn.benchmark
+    for label, B, h, w, C, O in UPCONV_CALLS:
+        s = torch.randn(B, h, w, C, device="cuda", generator=g)
+        k = torch.randn(3, 3, C, O, device="cuda", generator=g) / (9 * C) ** 0.5
+        b = torch.randn(O, device="cuda", generator=g) * 0.1
+        y = layers.edge_pad(s, 1)
+        taps = layers.upsample_phase_taps(k)
+        tag = f"{name} float32 {label} y[{B},{h + 2},{w + 2},{C}] -> {O}"
+        reset_counts()
+        out = up.upconv_phase(y, taps, b)
+        again = up.upconv_phase(y, taps, b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {key: 0 for key in counts}
+        want[name] = 2
+        check(counts == want, f"{tag}: two calls launched {counts} (want 2 {name}, no other)")
+        pout = up.upconv_phase_plain(y, taps, b)
+        rel = max_err(out, pout) / float(pout.abs().max())
+        worst = max(worst, rel)
+        check(out.shape == pout.shape == (B, 2 * h, 2 * w, O) and rel <= UPCONV_REL
+              and torch.equal(out, again),
+              f"{tag}: max gap {rel:.3g} of the largest output (limit {UPCONV_REL:.0e}); the "
+              f"repeat bit-identical")
+        ms = device_ms(torch, lambda: up.upconv_phase(y, taps, b), iters=10)
+        plain_ms = device_ms(torch, lambda: up.upconv_phase_plain(y, taps, b), iters=5)
+        flops = 2.0 * 16 * C * O * B * h * w
+        nbytes = (y.numel() + taps.numel() + out.numel() + O) * 4
+        bound_ms, bound_by = bound(flops, nbytes, "float32")
+        call = {"call": label, "y": [B, h + 2, w + 2, C], "O": O, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_rel_err": rel}
+        line = (f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"({bound_by}), {bound_ms / ms:.3f} of the bound")
+        del again, pout
+        if B == BATCH:
+            # The library's conv alone, on NCHW views of the channels-last
+            # tensors: the phase conv, and the conv that it stands for.
+            yc = y.permute(0, 3, 1, 2)
+            kp = layers.upsample_phase_kernel(k).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            u = layers.reflect_pad(layers.upsample_nearest(s, 2), 1).permute(0, 3, 1, 2)
+            kc = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            try:
+                for best in (False, True):
+                    torch.backends.cudnn.benchmark = best
+                    pick = "best" if best else "heuristic"
+                    call[f"library_phase_{pick}_ms"] = device_ms(
+                        torch, lambda: F.conv2d(yc, kp), iters=5)
+                    call[f"library_published_{pick}_ms"] = device_ms(
+                        torch, lambda: F.conv2d(u, kc), iters=5)
+            finally:
+                torch.backends.cudnn.benchmark = benchmark
+            library_ms = call["library_phase_heuristic_ms"]
+            library_best_ms = min(call[f"library_{c}_best_ms"] for c in ("phase", "published"))
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["library_ms"] += library_ms
+            total["library_best_ms"] += library_best_ms
+            total["ops_ms"] += flops / PEAK_FLOPS["float32"] * 1e3
+            total["bytes_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
+            line += (f"; library_ms (cuDNN, conv alone) phase conv "
+                     f"{call['library_phase_heuristic_ms']:.4f} heuristic, "
+                     f"{call['library_phase_best_ms']:.4f} best; published conv "
+                     f"{call['library_published_heuristic_ms']:.4f} heuristic, "
+                     f"{call['library_published_best_ms']:.4f} best")
+            del yc, kp, u, kc
+        print(line, flush=True)
+        calls.append(call)
+        del s, y, out
+        torch.cuda.empty_cache()
+    bound_ms = max(total["ops_ms"], total["bytes_ms"])
+    print(f"{name} float32: the two upsample convs of a forward at batch {BATCH}: kernel_ms "
+          f"{total['ms']:.4f} plain_ms {total['plain_ms']:.4f} library_ms "
+          f"{total['library_ms']:.4f} (heuristic), {total['library_best_ms']:.4f} (best) "
+          f"bound_ms {bound_ms:.4f}", flush=True)
+    return {"name": f"{name}.float32", "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "max_rel_err": worst, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
+            "library_ms": total["library_ms"], "library_best_ms": total["library_best_ms"],
+            "calls": calls,
+            "note": "not a TPU kernel: the phase-form upsample conv the JAX package leaves to XLA",
+            "shape": f"the two upsample convs of a {SIZE} px serving forward at batch {BATCH} "
+                     f"(up1 128->64 on {SIZE // 4}x{SIZE // 4}, up2 64->32 on "
+                     f"{SIZE // 2}x{SIZE // 2}, phase form)"}
+
+
 def stat_free_phase(torch, F, cf, dtype):
     """conv3x3_flat and conv3x3_im2col against their plain versions on the
     ten conv shapes of a 256 px Gatys closure (conv1_2 also with ReLU), on
@@ -1155,10 +1292,12 @@ def main_path(torch, np, in_dir, imgs):
         launches[precision] = counts
         route = "f32_fma" if precision == "f32" else "bf16_wgmma"
         want = {k: 0 for k in counts}
-        want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10, "instance_norm_pad": 15})
+        want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10, "instance_norm_pad": 15,
+                     "upconv_phase": UPCONV_PER_FORWARD[precision]})
         check(counts == want,
               f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, all "
-              f"on the {route} route, 15 IN-pad, no training kernel)")
+              f"on the {route} route, 15 IN-pad, {UPCONV_PER_FORWARD[precision]} upconv_phase, "
+              f"no training kernel)")
         check(len(paths) == BATCH, f"serving path {precision}: {len(paths)} PNGs written")
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(outs.shape == (BATCH, SIZE, SIZE, 3) and outs.dtype == np.uint8,
@@ -1353,9 +1492,11 @@ def multistyle_phase(torch, np, instance_norm, in_dir):
                 counts = read_counts()
                 want = {k: 0 for k in counts}
                 want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10,
-                             "instance_norm_pad": 15})
+                             "instance_norm_pad": 15,
+                             "upconv_phase": UPCONV_PER_FORWARD[precision]})
                 check(counts == want, f"convert-image-multi {precision} {tag}: launched "
-                      f"{counts} (want 10 conv3x3 on {route} and 15 IN-pad)")
+                      f"{counts} (want 10 conv3x3 on {route}, 15 IN-pad and "
+                      f"{UPCONV_PER_FORWARD[precision]} upconv_phase)")
                 launches[(precision, tag)] = counts
                 cli.main(common + ["-o", f"cpu_{precision}/", "--device", "cpu"],
                          standalone_mode=False)
@@ -1376,10 +1517,13 @@ def multistyle_phase(torch, np, instance_norm, in_dir):
         reset_counts()
         y = engine.stylize(card, x, idx, cd)
         counts = read_counts()
+        up = UPCONV_PER_FORWARD[precision]
         check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15
+              and counts["upconv_phase"] == up
               and y.shape == x.shape and bool(torch.isfinite(y).all()),
               f"multi-style {precision}: a batch of {BATCH} images of {MULTI_STYLES} mixed "
-              f"styles: 10 conv3x3 and 15 IN-pad launches, output {tuple(y.shape)} finite")
+              f"styles: 10 conv3x3, 15 IN-pad and {up} upconv_phase launches, output "
+              f"{tuple(y.shape)} finite")
         ms = time_ms(torch, lambda: engine.stylize(card, x, idx, cd), iters=10, warmup=2)
         print(f"multi-style {precision}: stylize batch {BATCH}, {MULTI_STYLES} styles mixed: "
               f"{ms:.3f} ms = {BATCH / (ms / 1e3):.1f} img/s", flush=True)
@@ -1489,10 +1633,12 @@ def train_path(torch, np, in_dir):
         served = read_counts()
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(len(paths) == BATCH and outs.shape == (BATCH, SIZE, SIZE, 3)
-              and served["conv3x3_valid"] == 10 and served["instance_norm_pad"] == 15,
+              and served["conv3x3_valid"] == 10 and served["instance_norm_pad"] == 15
+              and served["upconv_phase"] == UPCONV_PER_FORWARD[precision],
               f"training path {precision}: the trained checkpoint stylized {len(paths)} images "
               f"through process_dir ({served['conv3x3_valid']} conv3x3, "
-              f"{served['instance_norm_pad']} IN-pad launches)")
+              f"{served['instance_norm_pad']} IN-pad, {served['upconv_phase']} upconv_phase "
+              f"launches)")
     return launches
 
 
@@ -2421,7 +2567,8 @@ def multistyle_train_path(torch, np, in_dir):
                      "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
                      "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD * TRAIN_STEPS,
                      "conv3x3_valid": 10 * previews, f"conv3x3_valid.{route}": 10 * previews,
-                     "instance_norm_pad": NORMS_PER_FORWARD * previews})
+                     "instance_norm_pad": NORMS_PER_FORWARD * previews,
+                     "upconv_phase": UPCONV_PER_FORWARD[precision] * previews})
         for k in GATYS_KERNELS:
             want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
@@ -2462,9 +2609,10 @@ def multistyle_train_path(torch, np, in_dir):
             cli.main(common + ["-o", "card/", "--device", "cuda"], standalone_mode=False)
             torch.cuda.synchronize()
             counts = read_counts()
-            check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15,
-                  f"the trained checkpoint through convert-image-multi {tag}: 10 conv3x3 and "
-                  f"15 IN-pad launches")
+            check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15
+                  and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"],
+                  f"the trained checkpoint through convert-image-multi {tag}: 10 conv3x3, "
+                  f"15 IN-pad and {UPCONV_PER_FORWARD['f32']} upconv_phase launches")
             cli.main(common + ["-o", "cpu/", "--device", "cpu"], standalone_mode=False)
             fname = f"converted_fast_multi_st_smoke_f32_{tag}.png"
             got = np.asarray(Image.open(os.path.join(root, "card", fname)))
@@ -2673,10 +2821,12 @@ def daemon_path(torch, np, in_dir, multi_models):
                   f"fast_st serve {precision}: READY, {served} OK, STATS with device_rtt_ms "
                   f"({stats}), ERR for a malformed line, OK RELOAD epoch=1, in request order")
             calls = counts["conv3x3_valid"] // 10
+            up = UPCONV_PER_FORWARD[precision]
             check(calls >= 2 + served // DAEMON_BATCH and counts["conv3x3_valid"] == 10 * calls
-                  and counts["instance_norm_pad"] == 15 * calls,
+                  and counts["instance_norm_pad"] == 15 * calls
+                  and counts["upconv_phase"] == up * calls,
                   f"fast_st serve {precision}: {calls} forwards (warm-ups included), 10 "
-                  f"conv3x3 and 15 IN-pad launches each")
+                  f"conv3x3, 15 IN-pad and {up} upconv_phase launches each")
             launches[("serve", precision)] = counts
             rates[("serve", precision)] = served / (out.last - out.ready)
             # Against the port's CPU forward: the first images of each bucket,
@@ -2717,11 +2867,13 @@ def daemon_path(torch, np, in_dir, multi_models):
                   f"fast_st serve-multi {precision}: READY and {len(mlines)} OK, indices and "
                   f"blends mixed")
             calls = counts["conv3x3_valid"] // 10
+            up = UPCONV_PER_FORWARD[precision]
             check(calls >= 1 + len(mlines) // DAEMON_BATCH
                   and counts["conv3x3_valid"] == 10 * calls
-                  and counts["instance_norm_pad"] == 15 * calls,
-                  f"fast_st serve-multi {precision}: {calls} forwards, 10 conv3x3 and 15 "
-                  f"IN-pad launches each")
+                  and counts["instance_norm_pad"] == 15 * calls
+                  and counts["upconv_phase"] == up * calls,
+                  f"fast_st serve-multi {precision}: {calls} forwards, 10 conv3x3, 15 "
+                  f"IN-pad and {up} upconv_phase launches each")
             launches[("serve_multi", precision)] = counts
             rates[("serve_multi", precision)] = len(mlines) / (out.last - out.ready)
             cpu_params = engine.load_params("smoke_f32", TRAIN_STYLES, multi_models, "cpu")
@@ -3037,11 +3189,13 @@ def transport_path(torch, np, in_dir):
                       + (" (then EOF after the goodbye, OK SHUTDOWN)" if transport == "tcp"
                          else ""))
                 calls = counts["conv3x3_valid"] // 10
+                up = UPCONV_PER_FORWARD[precision]
                 check(calls >= 2 + DAEMON_REQUESTS // DAEMON_BATCH - 1
                       and counts["conv3x3_valid"] == 10 * calls
-                      and counts["instance_norm_pad"] == 15 * calls,
+                      and counts["instance_norm_pad"] == 15 * calls
+                      and counts["upconv_phase"] == up * calls,
                       f"fast_st serve {transport} {precision}: {calls} forwards (the warm-up "
-                      f"included), 10 conv3x3 and 15 IN-pad launches each")
+                      f"included), 10 conv3x3, 15 IN-pad and {up} upconv_phase launches each")
                 for n in names[:DAEMON_CHECKED]:
                     _frames_checked(np, f"fast_st serve {transport} {precision} {n}: card vs "
                                     "CPU", [got[n]], [want[n]], precision)
@@ -3827,10 +3981,13 @@ def placement_phase(torch, np, in_dir, card):
             outs[label] = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
             if label == "two":
                 launches[("process_dir", precision)] = counts = read_counts()
-                check(counts["conv3x3_valid"] == 20 and counts["instance_norm_pad"] == 30,
+                up = UPCONV_PER_FORWARD[precision]
+                check(counts["conv3x3_valid"] == 20 and counts["instance_norm_pad"] == 30
+                      and counts["upconv_phase"] == 2 * up,
                       f"placement {precision}: process_dir of {BATCH} images over "
-                      f"{PLACEMENT_DEVICES} launched {counts['conv3x3_valid']} conv3x3 and "
-                      f"{counts['instance_norm_pad']} IN-pad (10 and 15 per shard's forward)")
+                      f"{PLACEMENT_DEVICES} launched {counts['conv3x3_valid']} conv3x3, "
+                      f"{counts['instance_norm_pad']} IN-pad and {counts['upconv_phase']} "
+                      f"upconv_phase (10, 15 and {up} per shard's forward)")
         diff = np.abs(outs["two"].astype(np.int32) - outs["one"].astype(np.int32))
         max_steps, mean_steps = MAIN_TOL[precision]
         check(outs["two"].shape == (BATCH, SIZE, SIZE, 3) and int(diff.max()) <= max_steps
@@ -3893,10 +4050,12 @@ def placement_phase(torch, np, in_dir, card):
     forwards = 2 * -(-PAR_SERVE_REQUESTS // DAEMON_BATCH)
     check(n == PAR_SERVE_REQUESTS and all(ln.startswith("OK ") for ln in out.lines[1:])
           and counts["conv3x3_valid"] == 10 * forwards
-          and counts["instance_norm_pad"] == 15 * forwards,
+          and counts["instance_norm_pad"] == 15 * forwards
+          and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"] * forwards,
           f"placement: fast_st serve at batch {DAEMON_BATCH} over two slots answered {n} "
-          f"requests OK with {counts['conv3x3_valid']} conv3x3 and "
-          f"{counts['instance_norm_pad']} IN-pad launches after READY (10 and 15 per shard)")
+          f"requests OK with {counts['conv3x3_valid']} conv3x3, "
+          f"{counts['instance_norm_pad']} IN-pad and {counts['upconv_phase']} upconv_phase "
+          f"launches after READY (10, 15 and {UPCONV_PER_FORWARD['f32']} per shard)")
     return launches
 
 
@@ -4411,8 +4570,9 @@ def aot_phase(torch, np, card):
                 # Two forwards (an image, a batch of AOT_IMAGES); on graphs
                 # each is WARMUP eager runs and one capture, then a replay.
                 forwards = 2 * (aot.WARMUP + 1) if flag == "1" else 2
-                got = {k: counts[k] for k in per_forward}
-                want = {k: v * forwards for k, v in per_forward.items()}
+                per = {**per_forward, "upconv_phase": UPCONV_PER_FORWARD[precision]}
+                got = {k: counts[k] for k in per}
+                want = {k: v * forwards for k, v in per.items()}
                 graphs = (aot.captures, aot.replays)
                 check(got == want and graphs == ((2, 2) if flag == "1" else (0, 0))
                       and len(outs[flag]) == 1 + AOT_IMAGES,
@@ -4671,10 +4831,11 @@ def ckpt_phase(torch, np, in_dir, card):
             launches[f"process_dir_{fmt}"] = counts = read_counts()
             want_counts = {k: 0 for k in counts}
             want_counts.update({"conv3x3_valid": 10, "conv3x3_valid.f32_fma": 10,
-                                "instance_norm_pad": 15})
+                                "instance_norm_pad": 15, "upconv_phase": UPCONV_PER_FORWARD["f32"]})
             check(counts == want_counts,
                   f"orbax: process_dir from the .{fmt} epoch launched {counts} (want 10 "
-                  f"conv3x3 on the f32_fma route and 15 IN-pad per forward)")
+                  f"conv3x3 on the f32_fma route, 15 IN-pad and "
+                  f"{UPCONV_PER_FORWARD['f32']} upconv_phase per forward)")
             outs[fmt] = {os.path.basename(p): open(p, "rb").read() for p in paths}
         pixels_same = outs["orbax"].keys() == outs["msgpack"].keys() and all(
             np.array_equal(np.asarray(Image.open(os.path.join(WORK, "ckpt_orbax", n))),
@@ -4747,7 +4908,8 @@ def main() -> int:
 
         from styletransfer_tpu_torch.ops import layers
         from styletransfer_tpu_torch.ops.cuda import (
-            _build, conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm)
+            _build, conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm,
+            upconv_phase)
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -4778,6 +4940,7 @@ def main() -> int:
         if sys.argv[1:] == ["--convs"]:
             for dtype in (torch.float32, torch.bfloat16):
                 conv_phase(torch, F, conv3x3, dtype)
+            upconv_phase_phase(torch, F, upconv_phase)
             print(card)
             return 0
         if sys.argv[1:] == ["--video"]:
@@ -4841,6 +5004,7 @@ def main() -> int:
             per_image[dtype] = fused_affine_phase(torch, fused_instance_norm, dtype)
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
             entries.append(direct_phase(torch, F, conv_direct, dtype))
+        entries.append(upconv_phase_phase(torch, F, upconv_phase))
         check_routes(instance_norm, entries)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)

@@ -4,22 +4,24 @@ The port of ``styletransfer_tpu/models/transformer.py``: parameters as
 ``nn.Module``s named after the JAX parameter keys, the stacked forward
 (:func:`apply_stacked`, differentiable, every instance norm on the fused-IN
 kernels; the training forward and ``pad_mode="zeros"``), and for serving
-the pad-early forward (``_apply_padearly`` there) on two CUDA kernels:
+the pad-early forward (``_apply_padearly`` there) on three CUDA kernels:
 
 - ``conv3x3_valid`` runs the ten 3x3 128->128 residual convs and hands the
   per-image sums of its output to the instance norm after the first conv
   of each block;
 - ``instance_norm_pad`` runs all 15 instance norms, each writing its output
   already padded (reflect, or edge before a phase-form upsample conv) for the
-  next conv.
+  next conv;
+- ``upconv_phase`` runs the two upsample convs in f32: each phase's 2x2
+  taps on the small grid, the bias and the reassembly in one kernel.
 
 The other convs (9x9 conv1, stride-2 conv2/conv3, the phase-form upsample
-convs and the space-to-depth conv_out) run as ``F.conv2d``, as the JAX
-package leaves them to XLA; with ``fixed_order=True`` (the video stylizer)
-they run on ``conv_direct`` instead, whose sums do not depend on the batch,
-so that every image of a batch comes out bit for bit as it would alone.
-With ``pad_mode="zeros"`` (the reference's own
-checkpoints) the forward is the stacked one, its ten residual convs on
+convs in bf16 and the space-to-depth conv_out) run as ``F.conv2d``, as the
+JAX package leaves them to XLA; with ``fixed_order=True`` (the video
+stylizer) they and the upsample convs run on ``conv_direct`` instead, whose
+sums do not depend on the batch, so that every image of a batch comes out
+bit for bit as it would alone. With ``pad_mode="zeros"`` (the reference's
+own checkpoints) the forward is the stacked one, its ten residual convs on
 ``conv3x3_flat`` (``conv3x3_same``: a zero-padded 3x3 conv with no
 statistics) wherever no weight gradient is asked for. On CPU tensors the
 kernels' wrappers compute their plain PyTorch versions, which the tests hold
@@ -60,6 +62,7 @@ from styletransfer_tpu_torch.ops.cuda.conv3x3_flat import conv3x3_same
 from styletransfer_tpu_torch.ops.cuda.conv_direct import conv_direct
 from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
+from styletransfer_tpu_torch.ops.cuda.upconv_phase import upconv_phase
 from styletransfer_tpu_torch.utils import profiling
 
 NUM_RESIDUAL_BLOCKS = 5
@@ -318,11 +321,17 @@ def _in_pad(h, p: InstanceNorm, pad, relu=True, residual=None, res_pad=0,
 
 
 def _conv_phase_up(y_padded, p: Conv, cd, fixed_order):
-    """Phase-form ``upsample x2 -> reflect-pad 1 -> conv3x3``: one VALID conv
-    on the small grid (input edge-padded by 1), output [B, h, w, 4*Cout] with
-    channel order (py, px, o)."""
+    """Phase-form ``upsample x2 -> reflect-pad 1 -> conv3x3`` of the small
+    grid (input edge-padded by 1): [B, 2h, 2w, Cout]. In f32 without
+    ``fixed_order``, ``upconv_phase`` (each phase's 2x2 taps, the bias and the
+    reassembly in one kernel; its plain version on the CPU); otherwise one
+    VALID conv of the 3x3 phase kernel (:func:`_conv`), output channel order
+    (py, px, o), then ``depth_to_space``."""
+    if y_padded.dtype == torch.float32 and not fixed_order:
+        return upconv_phase(y_padded, layers.upsample_phase_taps(p.kernel), p.bias)
     kp = layers.upsample_phase_kernel(p.kernel)
-    return _conv(y_padded, kp, p.bias.repeat(4), 1, cd, fixed_order=fixed_order)
+    return layers.depth_to_space(
+        _conv(y_padded, kp, p.bias.repeat(4), 1, cd, fixed_order=fixed_order), 2)
 
 
 @torch.no_grad()
@@ -402,11 +411,11 @@ def apply(
     # (depth_to_space) before the IN kernel, whose statistics over the
     # reassembled tensor are the statistics pooled over the phases.
     with span(_SPAN["up1_conv"]):
-        h = layers.depth_to_space(_conv_phase_up(y, params.up1_conv, cd, fo), 2)  # [B,2h,2w,64]
+        h = _conv_phase_up(y, params.up1_conv, cd, fo)                # [B,2h,2w,64]
     with span(_SPAN["up1_in"]):
         y = _in_pad(h, params.up1_in, pad=1, mode="edge")
     with span(_SPAN["up2_conv"]):
-        h = layers.depth_to_space(_conv_phase_up(y, params.up2_conv, cd, fo), 2)
+        h = _conv_phase_up(y, params.up2_conv, cd, fo)
     with span(_SPAN["up2_in"]):
         y = _in_pad(h, params.up2_in, pad=4)                       # conv_out is 9x9
     # Final 9x9 32->3 conv in 4x4 space-to-depth phase form (3x3, 512->48).

@@ -265,6 +265,34 @@ def _phase_index(k: int, block: int, device) -> Tuple[torch.Tensor, torch.Tensor
 _UP_COMBOS = np.array([[[1, 0, 0], [0, 1, 1]], [[1, 1, 0], [0, 0, 1]]], np.float32)
 
 
+def upsample_phase_taps(kernel: torch.Tensor) -> torch.Tensor:
+    """The 2x2 taps of each phase of ``nearest-upsample x2 -> reflect-pad 1
+    -> conv3x3`` with a [3, 3, C, O] kernel: [2(py), 2(px), 2(ty), 2(tx), C, O],
+    contiguous. Output pixel (2Y+py, 2X+px) is the sum over (ty, tx) of
+    ``edge_pad(s, 1)[Y+py+ty, X+px+tx] @ taps[py, px, ty, tx]``."""
+    k, k2, _, _ = kernel.shape
+    if (k, k2) != (3, 3):
+        raise ValueError(f"the upsample phase form is for 3x3 kernels, got {k}x{k2}")
+    key = ("up", kernel.dtype, kernel.device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = (torch.as_tensor(_UP_COMBOS, dtype=kernel.dtype,
+                                           device=kernel.device),)
+    (m,) = _CONSTANTS[key]
+    return torch.einsum("ptd,qse,deco->pqtsco", m, m, kernel).contiguous()
+
+
+def phase_taps_kernel(taps: torch.Tensor) -> torch.Tensor:
+    """The [3, 3, C, 4*O] phase kernel (output channel order (py, px, o)) of
+    :func:`upsample_phase_taps`' taps: each phase's 2x2 support at offset
+    (py, px) of the 3x3 kernel, zeros elsewhere."""
+    c, o = taps.shape[4:]
+    blocks = []
+    for py in range(2):
+        row = [F.pad(taps[py, px], (0, 0, 0, 0, px, 1 - px, py, 1 - py)) for px in range(2)]
+        blocks.append(torch.stack(row, dim=3))  # [3, 3, C, 2(px), O]
+    return torch.stack(blocks, dim=3).reshape(3, 3, c, 4 * o)  # [3,3,C,2(py),2(px),O]
+
+
 def upsample_phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
     """Rearrange a [3, 3, C, O] kernel so that one VALID conv on the SMALL
     grid computes ``nearest-upsample x2 -> reflect-pad 1 -> conv3x3`` in 2x2
@@ -273,20 +301,7 @@ def upsample_phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
     ``conv(edge_pad(s, 1), upsample_phase_kernel(K))`` equals
     ``space_to_depth(conv3x3(reflect_pad(upsample2(s), 1), K), 2)``. Each
     phase's 2x2 support sits at offset (py, px) in the 3x3 kernel."""
-    k, k2, c, o = kernel.shape
-    if (k, k2) != (3, 3):
-        raise ValueError(f"upsample_phase_kernel is for 3x3 kernels, got {k}x{k2}")
-    key = ("up", kernel.dtype, kernel.device)
-    if key not in _CONSTANTS:
-        _CONSTANTS[key] = (torch.as_tensor(_UP_COMBOS, dtype=kernel.dtype,
-                                           device=kernel.device),)
-    (m,) = _CONSTANTS[key]
-    kp = torch.einsum("ptd,qse,deco->pqtsco", m, m, kernel)
-    blocks = []
-    for py in range(2):
-        row = [F.pad(kp[py, px], (0, 0, 0, 0, px, 1 - px, py, 1 - py)) for px in range(2)]
-        blocks.append(torch.stack(row, dim=3))  # [3, 3, C, 2(px), O]
-    return torch.stack(blocks, dim=3).reshape(3, 3, c, 4 * o)  # [3,3,C,2(py),2(px),O]
+    return phase_taps_kernel(upsample_phase_taps(kernel))
 
 
 def init_conv(

@@ -442,6 +442,7 @@ _GROUPS = (
     ("IN kernel (IN-pad / fused-IN forward)", ("::in_kernel<",)),
     ("fused-IN backward kernel", ("::inb_kernel<",)),
     ("conv_direct kernel", ("::direct_kernel<",)),
+    ("upconv_phase kernel", ("upconv_phase_",)),
     ("cuDNN convolutions", ("conv", "cudnn", "implicit", "winograd", "fft", "fprop", "dgrad",
                             "wgrad", "pointwise_mult_and_sum")),
     ("matrix-vector products and solves (L-BFGS history)", ("gemv", "trsm")),

@@ -16,7 +16,7 @@ import torch
 from styletransfer_tpu_torch.models import transformer
 from styletransfer_tpu_torch.ops import layers
 from styletransfer_tpu_torch.ops.cuda import (conv3x3, conv3x3_flat, conv_direct,
-                                             fused_instance_norm, instance_norm)
+                                             fused_instance_norm, instance_norm, upconv_phase)
 
 pytestmark = pytest.mark.cuda
 
@@ -931,3 +931,82 @@ def test_multistyle_on_the_kernels_matches_the_cpu(cuda, precision, steps):
         want = fn(params, x, arg, cd)
         u8 = images.to_uint8_on_device
         assert int((u8(got.cpu()).int() - u8(want).int()).abs().max()) <= steps
+
+
+# upconv_phase's shapes: (B, h, w, C, O) of the small grid. The serving
+# forward's up1_conv and up2_conv at batch 64 and 256 px, and a ragged
+# photo-sized grid at batch 1 (no tile divides h or w) for each pair.
+_UPCONV_SHAPES = [(64, 64, 64, 128, 64), (64, 128, 128, 64, 32),
+                  (1, 379, 505, 128, 64), (1, 757, 1009, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", _UPCONV_SHAPES)
+def test_upconv_phase_matches_plain_and_repeats_bit_for_bit(cuda, shape):
+    """Against the plain version (cuDNN's phase conv, TF32 off): the largest
+    gap at most 1e-5 of the largest output, the same products in another
+    order."""
+    B, h, w, C, O = shape
+    g = torch.Generator(device=cuda).manual_seed(h)
+    y = layers.edge_pad(torch.randn(B, h, w, C, device=cuda, generator=g), 1)
+    k = torch.randn(3, 3, C, O, device=cuda, generator=g) / (9 * C) ** 0.5
+    b = torch.randn(O, device=cuda, generator=g) * 0.1
+    taps = layers.upsample_phase_taps(k)
+    before = upconv_phase.launches
+    out = upconv_phase.upconv_phase(y, taps, b)
+    again = upconv_phase.upconv_phase(y, taps, b)
+    torch.cuda.synchronize()
+    assert upconv_phase.launches == before + 2
+    want = upconv_phase.upconv_phase_plain(y, taps, b)
+    assert out.shape == want.shape == (B, 2 * h, 2 * w, O)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(out, again)
+
+
+def test_upconv_phase_runs_in_the_f32_serving_forward_alone(cuda):
+    """Two launches per f32 pad-early forward, none in a training step, a
+    fixed_order forward or a bf16 forward (cuDNN and conv_direct as before),
+    and none in the zero-padded forward."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import vgg
+
+    params = transformer.init_params(seed=4, device=cuda)
+    x = torch.rand(2, 64, 64, 3, device=cuda) * 255
+
+    def launches(fn):
+        before = upconv_phase.launches
+        fn()
+        torch.cuda.synchronize()
+        return upconv_phase.launches - before
+
+    assert launches(lambda: transformer.apply(params, x)) == 2
+    assert launches(lambda: transformer.apply(params, x, fixed_order=True)) == 0
+    assert launches(lambda: transformer.apply(params, x, torch.bfloat16)) == 0
+    assert launches(lambda: transformer.apply(params, x, pad_mode="zeros")) == 0
+    vgg_params = vgg.init_params(seed=0, device=cuda)
+    grams = vgg.style_gram_targets(vgg_params, torch.rand(1, 64, 64, 3, device=cuda) * 255)
+    step = fast.make_train_step(vgg_params, grams)
+    opt = fast.make_optimizer(params)
+    assert launches(lambda: step(params, opt, x)) == 0
+
+
+def test_upconv_phase_replays_in_a_cuda_graph(cuda, monkeypatch):
+    """The f32 serving forward captured by aot.cached_compile: a replay gives
+    the eager output bit for bit, and moves no launch counter."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.utils import aot
+
+    monkeypatch.setenv("STX_AOT_CACHE", "1")
+    params = transformer.init_params(seed=7, device=cuda)
+    batch = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, size=(4, 128, 128, 3), dtype=np.uint8)).to(cuda)
+    serve = fast.make_serve_fn("f32")
+    eager = serve(params, batch)
+    graphed = aot.cached_compile(serve, (params, batch), "upconv_phase_test")
+    captures = aot.captures
+    first = graphed(params, batch)
+    assert aot.captures == captures + 1
+    before = upconv_phase.launches
+    replayed = graphed(params, batch)
+    torch.cuda.synchronize()
+    assert upconv_phase.launches == before
+    assert torch.equal(first, eager) and torch.equal(replayed, eager)

@@ -13,7 +13,7 @@ import torch
 
 from styletransfer_tpu.models import transformer as jt
 from styletransfer_tpu_torch.models import transformer as tt
-from styletransfer_tpu_torch.ops.cuda import conv3x3, instance_norm
+from styletransfer_tpu_torch.ops.cuda import conv3x3, instance_norm, upconv_phase
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "golden.npz")
 
@@ -69,9 +69,9 @@ def test_golden_transformer_out(port_params):
 
 
 def test_forward_on_cpu_launches_no_kernel(port_params):
-    before = conv3x3.launches, instance_norm.launches
+    before = conv3x3.launches, instance_norm.launches, upconv_phase.launches
     tt.apply(port_params, torch.zeros(1, 16, 16, 3))
-    assert (conv3x3.launches, instance_norm.launches) == before
+    assert (conv3x3.launches, instance_norm.launches, upconv_phase.launches) == before
 
 
 @pytest.mark.parametrize("in_channels", [3, 6])

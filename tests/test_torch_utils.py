@@ -331,3 +331,20 @@ def test_trace_writes_a_chrome_trace(tmp_path, caplog):
     events = json.loads(path.read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
     assert any(str(path) in r.message for r in caplog.records)
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::upconv_phase_f32_kernel<64>(float const*, float const*, "
+     "float const*, float*, Shape)", "upconv_phase kernel"),
+    ("void (anonymous namespace)::conv3x3_f32_kernel<8>(Args)", "conv3x3 kernel"),
+    ("void (anonymous namespace)::direct_kernel<float, 9>(Args)", "conv_direct kernel"),
+    ("void pointwise_mult_and_sum_complex<float2, 8, 4>(float2*)", "cuDNN convolutions"),
+    ("void at::native::vectorized_elementwise_kernel<4>(int)",
+     "other (copies, pads, elementwise)"),
+])
+def test_profile_groups_each_kernel_by_its_name(kernel, group):
+    """The profile's breakdown: each hand-written kernel in its own group,
+    ahead of the library convs, whose keys ("conv") its name also holds."""
+    from styletransfer_tpu_torch.utils.profiling import _group
+
+    assert _group(kernel) == group
