@@ -13,6 +13,7 @@
     python3 chip_smoke.py --zoom        # phases 1-2, gatys_st --optimizer lbfgs-zoom, doctor
     python3 chip_smoke.py --aot         # phases 1-2, CUDA graphs, start-up, precision, CRC32C
     python3 chip_smoke.py --ckpt        # phases 1-2, .orbax epochs, the zstd decoder, downloads
+    python3 chip_smoke.py --adain       # phases 1-2, upconv_phase, AdaIN's kernels and forward
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -76,7 +77,19 @@ It imports nothing of JAX. Phases:
    [N, C] give the same bits), ``fast_st convert-image-multi`` by index and
    by blend on a seeded 4-style checkpoint (10 conv3x3_valid and 15 IN-pad
    launches each; against the port's CPU run within the serving limits),
-   and a mixed batch of 64 (launches, finite output, img/s);
+   and a mixed batch of 64 (launches, finite output, img/s); then AdaIN's
+   other kernels at its forward's shapes (``ADAIN_CALLS``: conv3x3_valid at
+   each of its ten shapes with the ReLU, conv3x3_im2col at conv1_1 of 32
+   images, conv3x3_flat's 64 -> 3 and the IN-pad with [N, C] affines, each
+   against its plain version with a bit-identical repeat, its launches and
+   its device times beside cuDNN's and the bound), and its
+   serving forward (``engines.adain.make_serve_fn``, seeded weights, 16
+   pairs of 512 px content and style, each pair its own style, also alone
+   with ``--adain``): per forward 13 conv3x3_valid launches (all f32_fma),
+   1 conv3x3_im2col, 1 conv3x3_flat, 1 IN-pad and 3 upconv_phase, the
+   output within one level of the plain reference
+   (``h100bench/reference/adain.py``, f32, TF32 off), a bit-identical
+   repeat, and its device ms and img/s;
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
@@ -1015,13 +1028,23 @@ def direct_phase(torch, F, cdm, dtype):
                      f"space-to-depth)"}
 
 
-# upconv_phase's calls, (label, B, h, w, C, O) of the small grid: the
+# AdaIN's serving forward (models/adain.py): pairs a call and the side of
+# content and style, the benchmark cell's.
+ADAIN_BATCH = 16
+ADAIN_SIZE = 512
+# upconv_phase's calls, (label, B, h, w, C, O, relu) of the small grid: the
 # serving forward's up1_conv and up2_conv at batch BATCH and SIZE px, and
-# ragged photo-sized grids at batch 1 (no tile of the kernel divides h or w).
-UPCONV_CALLS = (("up1_conv", BATCH, SIZE // 4, SIZE // 4, 128, 64),
-                ("up2_conv", BATCH, SIZE // 2, SIZE // 2, 64, 32),
-                ("up1_conv ragged", 1, 379, 505, 128, 64),
-                ("up2_conv ragged", 1, 757, 1009, 64, 32))
+# ragged photo-sized grids at batch 1 (no tile of the kernel divides h or w);
+# AdaIN's decoder's up1 .. up3 (bias and ReLU) at batch ADAIN_BATCH and
+# ADAIN_SIZE px, and a ragged grid of its widest.
+UPCONV_CALLS = (("up1_conv", BATCH, SIZE // 4, SIZE // 4, 128, 64, False),
+                ("up2_conv", BATCH, SIZE // 2, SIZE // 2, 64, 32, False),
+                ("up1_conv ragged", 1, 379, 505, 128, 64, False),
+                ("up2_conv ragged", 1, 757, 1009, 64, 32, False),
+                ("adain up1", ADAIN_BATCH, ADAIN_SIZE // 8, ADAIN_SIZE // 8, 256, 256, True),
+                ("adain up2", ADAIN_BATCH, ADAIN_SIZE // 4, ADAIN_SIZE // 4, 128, 128, True),
+                ("adain up3", ADAIN_BATCH, ADAIN_SIZE // 2, ADAIN_SIZE // 2, 64, 64, True),
+                ("adain up1 ragged", 1, 93, 125, 256, 256, True))
 # Its largest gap from the plain version (cuDNN's 3x3 phase conv, TF32 off),
 # over the largest plain output: the same f32 products summed in another
 # order.
@@ -1030,57 +1053,58 @@ UPCONV_REL = 1e-5
 
 def upconv_phase_phase(torch, F, up):
     """upconv_phase against its plain version at the serving forward's two
-    calls and at ragged photo-sized grids: the largest gap over the largest
-    output, a bit-identical repeat, one launch a call on its own counter and
-    no other; device times of the kernel, the plain version (the phase conv,
-    the bias, depth_to_space) and the library's conv alone (the 3x3 phase
-    conv on the small grid and the published conv on the upsampled,
+    calls, at AdaIN's decoder's three (with the ReLU) and at ragged grids:
+    the largest gap over the largest output, a bit-identical repeat, one
+    launch a call on its own counter and no other; device times of the
+    kernel, the plain version (the phase conv, the bias, depth_to_space, the
+    ReLU) and, at the forwards' calls, the library's conv alone (the 3x3
+    phase conv on the small grid and the published conv on the upsampled,
     reflect-padded grid, each on cuDNN's heuristic pick and on its best
     algorithm, cudnn.benchmark), and the bound. Returns its JSON entry with
-    the two serving calls' totals: a forward's."""
+    the two serving calls' totals, a forward's, and AdaIN's three's."""
     from styletransfer_tpu_torch.ops import layers
 
     name = "upconv_phase"
     g = torch.Generator(device="cuda").manual_seed(17)
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_best_ms": 0.0,
-             "ops_ms": 0.0, "bytes_ms": 0.0}
+    totals = {b: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_best_ms": 0.0,
+                  "ops_ms": 0.0, "bytes_ms": 0.0} for b in (BATCH, ADAIN_BATCH)}
     worst = 0.0
     calls = []
     benchmark = torch.backends.cudnn.benchmark
-    for label, B, h, w, C, O in UPCONV_CALLS:
+    for label, B, h, w, C, O, relu in UPCONV_CALLS:
         s = torch.randn(B, h, w, C, device="cuda", generator=g)
         k = torch.randn(3, 3, C, O, device="cuda", generator=g) / (9 * C) ** 0.5
         b = torch.randn(O, device="cuda", generator=g) * 0.1
         y = layers.edge_pad(s, 1)
         taps = layers.upsample_phase_taps(k)
-        tag = f"{name} float32 {label} y[{B},{h + 2},{w + 2},{C}] -> {O}"
+        tag = f"{name} float32 {label} y[{B},{h + 2},{w + 2},{C}] -> {O}{' relu' * relu}"
         reset_counts()
-        out = up.upconv_phase(y, taps, b)
-        again = up.upconv_phase(y, taps, b)
+        out = up.upconv_phase(y, taps, b, relu)
+        again = up.upconv_phase(y, taps, b, relu)
         torch.cuda.synchronize()
         counts = read_counts()
         want = {key: 0 for key in counts}
         want[name] = 2
         check(counts == want, f"{tag}: two calls launched {counts} (want 2 {name}, no other)")
-        pout = up.upconv_phase_plain(y, taps, b)
+        pout = up.upconv_phase_plain(y, taps, b, relu)
         rel = max_err(out, pout) / float(pout.abs().max())
         worst = max(worst, rel)
         check(out.shape == pout.shape == (B, 2 * h, 2 * w, O) and rel <= UPCONV_REL
               and torch.equal(out, again),
               f"{tag}: max gap {rel:.3g} of the largest output (limit {UPCONV_REL:.0e}); the "
               f"repeat bit-identical")
-        ms = device_ms(torch, lambda: up.upconv_phase(y, taps, b), iters=10)
-        plain_ms = device_ms(torch, lambda: up.upconv_phase_plain(y, taps, b), iters=5)
+        ms = device_ms(torch, lambda: up.upconv_phase(y, taps, b, relu), iters=10)
+        plain_ms = device_ms(torch, lambda: up.upconv_phase_plain(y, taps, b, relu), iters=5)
         flops = 2.0 * 16 * C * O * B * h * w
         nbytes = (y.numel() + taps.numel() + out.numel() + O) * 4
         bound_ms, bound_by = bound(flops, nbytes, "float32")
-        call = {"call": label, "y": [B, h + 2, w + 2, C], "O": O, "ms": ms,
+        call = {"call": label, "y": [B, h + 2, w + 2, C], "O": O, "relu": relu, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "max_rel_err": rel}
         line = (f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
                 f"({bound_by}), {bound_ms / ms:.3f} of the bound")
         del again, pout
-        if B == BATCH:
+        if B in totals:
             # The library's conv alone, on NCHW views of the channels-last
             # tensors: the phase conv, and the conv that it stands for.
             yc = y.permute(0, 3, 1, 2)
@@ -1100,6 +1124,7 @@ def upconv_phase_phase(torch, F, up):
                 torch.backends.cudnn.benchmark = benchmark
             library_ms = call["library_phase_heuristic_ms"]
             library_best_ms = min(call[f"library_{c}_best_ms"] for c in ("phase", "published"))
+            total = totals[B]
             total["ms"] += ms
             total["plain_ms"] += plain_ms
             total["library_ms"] += library_ms
@@ -1116,21 +1141,231 @@ def upconv_phase_phase(torch, F, up):
         calls.append(call)
         del s, y, out
         torch.cuda.empty_cache()
+    for B, what in ((BATCH, "the two upsample convs of a forward"),
+                    (ADAIN_BATCH, "AdaIN's three upsample convs of a forward")):
+        t = totals[B]
+        print(f"{name} float32: {what} at batch {B}: kernel_ms {t['ms']:.4f} plain_ms "
+              f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} (heuristic), "
+              f"{t['library_best_ms']:.4f} (best) bound_ms "
+              f"{max(t['ops_ms'], t['bytes_ms']):.4f}", flush=True)
+    total, adain = totals[BATCH], totals[ADAIN_BATCH]
     bound_ms = max(total["ops_ms"], total["bytes_ms"])
-    print(f"{name} float32: the two upsample convs of a forward at batch {BATCH}: kernel_ms "
-          f"{total['ms']:.4f} plain_ms {total['plain_ms']:.4f} library_ms "
-          f"{total['library_ms']:.4f} (heuristic), {total['library_best_ms']:.4f} (best) "
-          f"bound_ms {bound_ms:.4f}", flush=True)
     return {"name": f"{name}.float32", "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "max_rel_err": worst, "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "operations" if total["ops_ms"] > total["bytes_ms"] else "bytes",
             "library_ms": total["library_ms"], "library_best_ms": total["library_best_ms"],
-            "calls": calls,
+            "adain_ms": adain["ms"], "adain_plain_ms": adain["plain_ms"],
+            "adain_bound_ms": max(adain["ops_ms"], adain["bytes_ms"]),
+            "adain_library_ms": adain["library_ms"],
+            "adain_library_best_ms": adain["library_best_ms"], "calls": calls,
             "note": "not a TPU kernel: the phase-form upsample conv the JAX package leaves to XLA",
             "shape": f"the two upsample convs of a {SIZE} px serving forward at batch {BATCH} "
                      f"(up1 128->64 on {SIZE // 4}x{SIZE // 4}, up2 64->32 on "
                      f"{SIZE // 2}x{SIZE // 2}, phase form)"}
+
+
+# One AdaIN forward's launches (models/adain.py): the eight encoder convs
+# after conv1_1 and the decoder's five plain 3x3 convs on conv3x3_valid (f32
+# FMA), conv1_1 (the 1x1 conv folded in) on conv3x3_im2col, conv_out (64 -> 3)
+# on conv3x3_flat, AdaIN on one IN-pad, the three upsample convs on
+# upconv_phase.
+ADAIN_PER_FORWARD = {"conv3x3_valid": 13, "conv3x3_valid.f32_fma": 13, "conv3x3_im2col": 1,
+                     "conv3x3_flat": 1, "instance_norm_pad": 1, "upconv_phase": 3}
+# The output against the rounded plain reference: (max level steps, mean).
+ADAIN_TOL = (1, 1e-3)
+
+
+def adain_path(torch, np):
+    """AdaIN's serving forward at ADAIN_BATCH pairs of ADAIN_SIZE px on
+    seeded weights, each pair its own style: the launches of two forwards
+    (ADAIN_PER_FORWARD each, no other kernel), a bit-identical repeat, the
+    output against the plain reference in blocks of 4 pairs (levels of
+    the rounded reference), device ms a forward and img/s. Returns the
+    launches of one forward and the rate."""
+    from h100bench.reference import adain as ref
+    from styletransfer_tpu_torch.engines import adain as engine
+    from styletransfer_tpu_torch.models import adain
+
+    params = adain.init_params(seed=0, device="cuda")
+    rng = np.random.default_rng(31)
+    shape = (ADAIN_BATCH, ADAIN_SIZE, ADAIN_SIZE, 3)
+    content = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+    style = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+    serve = engine.make_serve_fn("f32")
+    serve(params, content, style)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = serve(params, content, style)
+    again = serve(params, content, style)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {key: 2 * ADAIN_PER_FORWARD.get(key, 0) for key in counts}
+    check(counts == want, f"adain: two forwards launched {counts} (want {want})")
+    vgg, dec = (({k: v.cuda() for k, v in sd.items()})
+                for sd in adain.export_torch_state_dict(params))
+    steps, gaps = 0, []
+    with ref.precision(tf32=False):
+        for i in range(0, ADAIN_BATCH, 4):
+            r = ref.stylize(vgg, dec, content[i:i + 4].permute(0, 3, 1, 2).float() / 255,
+                            style[i:i + 4].permute(0, 3, 1, 2).float() / 255)
+            levels = torch.round(torch.clamp(r, 0, 1) * 255).permute(0, 2, 3, 1)
+            gap = (out[i:i + 4].float() - levels).abs()
+            steps = max(steps, int(gap.max()))
+            gaps.append(float(gap.mean()))
+    mean = float(np.mean(gaps))
+    check(steps <= ADAIN_TOL[0] and mean <= ADAIN_TOL[1] and torch.equal(out, again),
+          f"adain: {steps} level steps (limit {ADAIN_TOL[0]}), mean {mean:.3g} (limit "
+          f"{ADAIN_TOL[1]}) from the plain reference; the repeat bit-identical")
+    # The card takes about 180 ms a forward, the host a few to issue one: events
+    # around calls as the host issues them time the card (the ~150 launches of
+    # five forwards overflow the queue that device_ms fills behind a spin).
+    ms = time_ms(torch, lambda: serve(params, content, style), iters=5, warmup=1)
+    rate = ADAIN_BATCH / (ms / 1e3)
+    print(f"adain float32 serving forward, {ADAIN_BATCH} pairs of {ADAIN_SIZE} px: {ms:.2f} "
+          f"ms, {rate:.1f} img/s, launches {ADAIN_PER_FORWARD} a forward, {steps} level "
+          f"steps and mean {mean:.3g} from the plain reference", flush=True)
+    return {k: v // 2 for k, v in counts.items()}, rate
+
+
+# The other kernels of one AdaIN forward at ADAIN_BATCH pairs of ADAIN_SIZE
+# px (upconv_phase's three are in UPCONV_CALLS): (kernel, call, images as a
+# multiple of ADAIN_BATCH (the encoder runs content and style as one batch),
+# ADAIN_SIZE over the output side, C, O, ReLU, calls a forward). Each conv's
+# input is reflect-padded by 1; the IN-pad writes the decoder's padded input.
+ADAIN_CALLS = (
+    ("conv3x3_im2col", "enc.conv1_1", 2, 1, 3, 64, True, 1),
+    ("conv3x3_valid", "enc.conv1_2", 2, 1, 64, 64, True, 1),
+    ("conv3x3_valid", "enc.conv2_1", 2, 2, 64, 128, True, 1),
+    ("conv3x3_valid", "enc.conv2_2", 2, 2, 128, 128, True, 1),
+    ("conv3x3_valid", "enc.conv3_1", 2, 4, 128, 256, True, 1),
+    ("conv3x3_valid", "enc.conv3_2..conv3_4", 2, 4, 256, 256, True, 3),
+    ("conv3x3_valid", "enc.conv4_1", 2, 8, 256, 512, True, 1),
+    ("instance_norm_pad", "norm", 1, 8, 512, 512, False, 1),
+    ("conv3x3_valid", "dec.conv1", 1, 8, 512, 256, True, 1),
+    ("conv3x3_valid", "dec.conv2..conv3", 1, 4, 256, 256, True, 2),
+    ("conv3x3_valid", "dec.conv4", 1, 4, 256, 128, True, 1),
+    ("conv3x3_valid", "dec.conv5", 1, 2, 128, 64, True, 1),
+    ("conv3x3_flat", "dec.conv_out", 1, 1, 64, 3, False, 1),
+)
+
+
+def adain_kernels(torch, F):
+    """Each kernel of AdaIN's forward but upconv_phase (ADAIN_CALLS) through
+    its wrapper on card tensors at the forward's shapes, against its plain
+    version at the tolerance of TOL (conv3x3_valid's sums at SUMS_TOL): a
+    bit-identical repeat, two launches on the kernel's counter (and
+    conv3x3_valid's on its f32 FMA route) and none on another; device times
+    of the kernel, the plain version and, for a conv, cuDNN's conv alone
+    (channels-last, TF32 off), and the bound. Returns one JSON entry a
+    kernel with its calls and the totals of a forward; ``counter`` names the
+    launch counter whose count a forward the caller adds."""
+    from styletransfer_tpu_torch.ops import layers
+    from styletransfer_tpu_torch.ops.cuda import conv3x3, conv3x3_flat, instance_norm
+
+    layers.disable_tf32()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    fns = {"conv3x3_valid": (conv3x3.conv3x3_valid, conv3x3.conv3x3_valid_plain),
+           "conv3x3_im2col": (conv3x3_flat.conv3x3_im2col, conv3x3_flat.conv3x3_im2col_plain),
+           "conv3x3_flat": (conv3x3_flat.conv3x3_flat, conv3x3_flat.conv3x3_flat_plain),
+           "instance_norm_pad": (instance_norm.instance_norm_pad,
+                                 instance_norm.instance_norm_pad_plain)}
+    entries = {}
+    for kernel, label, mult, div, C, O, relu, count in ADAIN_CALLS:
+        B, H = mult * ADAIN_BATCH, ADAIN_SIZE // div
+        rtol, atol = TOL[(kernel, "float32")]
+        fn, plain = fns[kernel]
+        if kernel == "instance_norm_pad":
+            x = torch.randn(B, H, H, C, device="cuda", generator=g) * 2 + 0.5
+            scale = torch.rand(B, C, device="cuda", generator=g) + 0.5
+            bias = torch.randn(B, C, device="cuda", generator=g)
+            args = (x, scale, bias)
+            kwargs = dict(pad=1)
+            plan = instance_norm.in_plan(B, H, H, C, torch.float32, False)
+            flops = 8.0 * x.numel()
+            nbytes = (x.numel() + B * (H + 2) ** 2 * C + 2 * B * C) * 4
+            shape = f"x[{B},{H},{H},{C}] [N, C] affines, reflect pad 1"
+        else:
+            interior = (torch.rand if C == 3 else torch.randn)(B, H, H, C, device="cuda",
+                                                              generator=g)
+            x = layers.reflect_pad(interior, 1)
+            del interior
+            w = torch.randn(3, 3, C, O, device="cuda", generator=g) * (2.0 / (9 * C)) ** 0.5
+            b = torch.randn(O, device="cuda", generator=g) * 0.1
+            args = (x, w, b, relu)
+            kwargs = {}
+            plan = {"conv3x3_valid": lambda: conv3x3.valid_plan(B, H, H, C, O, torch.float32),
+                    "conv3x3_im2col": lambda: conv3x3_flat.im2col_plan(B, H, H, C, O,
+                                                                       torch.float32),
+                    "conv3x3_flat": lambda: conv3x3_flat.flat_plan(B, H, H, C, O,
+                                                                   torch.float32)}[kernel]()
+            flops = 2.0 * B * H * H * 9 * C * O
+            nbytes = (x.numel() + w.numel() + B * H * H * O + O) * 4
+            shape = f"x[{B},{H + 2},{H + 2},{C}] -> {O}{' relu' * relu}"
+        tag = f"{kernel} float32 adain {label} {shape} ({plan})"
+        reset_counts()
+        out = fn(*args, **kwargs)
+        again = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {key: 0 for key in counts}
+        want[kernel] = 2
+        if kernel == "conv3x3_valid":
+            want["conv3x3_valid.f32_fma"] = 2
+        check(counts == want, f"{tag}: two calls launched {counts} (want {want})")
+        pout = plain(*args, **kwargs)
+        outs, pouts, agains = ((t,) if torch.is_tensor(t) else t for t in (out, pout, again))
+        err = max_err(outs[0], pouts[0])
+        check(allclose(torch, outs[0], pouts[0], rtol, atol),
+              f"{tag}: max_abs_err {err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        if len(outs) == 3:
+            check(all(allclose(torch, u, v, *SUMS_TOL) for u, v in zip(outs[1:], pouts[1:])),
+                  f"{tag} sums/sumsqs: max_abs_err {max_err(outs[1], pouts[1]):.3g} / "
+                  f"{max_err(outs[2], pouts[2]):.3g} (rtol {SUMS_TOL[0]}, atol {SUMS_TOL[1]})")
+        check(all(torch.equal(u, v) for u, v in zip(outs, agains)),
+              f"{tag}: the repeat is bit-identical")
+        del out, again, pout, outs, pouts, agains
+        ms = device_ms(torch, lambda: fn(*args, **kwargs), iters=5)
+        plain_ms = device_ms(torch, lambda: plain(*args, **kwargs), iters=2, warmup=1)
+        library_ms = None
+        if kernel != "instance_norm_pad":
+            # The one PyTorch call that computes the same function: cuDNN on
+            # the channels-last views, TF32 off (the conv without the ReLU).
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            library_ms = device_ms(torch, lambda: F.conv2d(xc, wc, b), iters=3, warmup=1)
+            del xc, wc
+        bound_ms, bound_by = bound(flops, nbytes, "float32")
+        library = "" if library_ms is None else f"library_ms {library_ms:.4f} "
+        print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} {library}bound_ms "
+              f"{bound_ms:.4f} ({bound_by}), {bound_ms / ms:.3f} of the bound; x{count} a "
+              f"forward", flush=True)
+        e = entries.setdefault(kernel, {
+            "name": f"{kernel}_adain.float32", "route": "cuda", "source": SOURCES[kernel][0],
+            "replaces": SOURCES[kernel][1], "counter": ("conv3x3_valid.f32_fma"
+                                                        if kernel == "conv3x3_valid" else kernel),
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": None if library_ms is None else 0.0, "calls": [],
+            "shape": f"its calls of one AdaIN forward at {ADAIN_BATCH} pairs of {ADAIN_SIZE} "
+                     f"px, summed"})
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["ms"] += ms * count
+        e["plain_ms"] += plain_ms * count
+        e["bound_ms"] += bound_ms * count
+        if library_ms is not None:
+            e["library_ms"] += library_ms * count
+        e["calls"].append({"call": label, "shape": shape, "plan": str(plan), "count": count,
+                           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err})
+        del x, args
+        torch.cuda.empty_cache()
+    for e in entries.values():
+        library = "" if e["library_ms"] is None else f" library_ms {e['library_ms']:.4f}"
+        print(f"{e['name']}: {len(e['calls'])} shapes, {sum(c['count'] for c in e['calls'])} "
+              f"calls of a forward: kernel_ms {e['ms']:.4f} plain_ms {e['plain_ms']:.4f}"
+              f"{library} bound_ms {e['bound_ms']:.4f} ({e['bound_ms'] / e['ms']:.3f} of the "
+              f"bound)", flush=True)
+    return list(entries.values())
 
 
 def stat_free_phase(torch, F, cf, dtype):
@@ -4990,6 +5225,12 @@ def main() -> int:
             aot_phase(torch, np, card)
             print(card)
             return 0
+        if sys.argv[1:] == ["--adain"]:
+            upconv_phase_phase(torch, F, upconv_phase)
+            adain_kernels(torch, F)
+            adain_path(torch, np)
+            print(card)
+            return 0
         if sys.argv[1:] == ["--ckpt"]:
             in_dir, _ = write_inputs(np)
             ckpt_phase(torch, np, in_dir, card)
@@ -5009,6 +5250,8 @@ def main() -> int:
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         multi_launches = multistyle_phase(torch, np, instance_norm, in_dir)
+        adain_entries = adain_kernels(torch, F)
+        adain_launches, adain_rate = adain_path(torch, np)
         train_launches = train_path(torch, np, in_dir)
         parity_phase(torch, np)
         step_rate = step_rates(torch, np)
@@ -5072,6 +5315,8 @@ def main() -> int:
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
                 gatys_launches if kernel in GATYS_KERNELS else train_launches)
         e["launches"] = path[precision][kernel]
+        if precision == "f32" and kernel in ADAIN_PER_FORWARD:  # one AdaIN forward
+            e["adain_launches"] = adain_launches[kernel]
     for e in entries:  # each kernel's launches in the network slice's daemons
         kernel, dn = e["name"].split(".")
         precision = "f32" if dn == "float32" else "bf16"
@@ -5118,6 +5363,9 @@ def main() -> int:
         if precision == "f32":
             route = "conv3x3_valid.f32_fma" if counter == "conv3x3_valid" else counter
             e["ckpt_launches"] = {path: c[route] for path, c in ckpt_launches.items()}
+    for e in adain_entries:  # each kernel's launches in one AdaIN forward
+        e["launches"] = adain_launches[e.pop("counter")]
+    entries += adain_entries
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
@@ -5126,6 +5374,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")
+    print(f"AdaIN serving img/s at {ADAIN_BATCH} pairs, {ADAIN_SIZE} px: f32 {adain_rate:.1f} "
+          f"on {card}")
     print(f"zeros path img/s at batch {BATCH}, 256 px: f32 {zeros_rates['f32']:.1f}, "
           f"bf16 {zeros_rates['bf16']:.1f} on {card}")
     print("daemons requests/s at batch %d: " % DAEMON_BATCH + ", ".join(

@@ -1,0 +1,29 @@
+"""conv3x3_valid's share of its roofline in AdaIN's forward: the bound of
+the traced forwards' convs on it (``counts_adain.conv3x3_valid_bound_s``:
+the encoder's eight 3x3 convs after conv1_1 over content and style, the
+decoder's five plain 3x3 convs; each conv's f32 operations over 67 TFLOP/s
+or its bytes over 3.35 TB/s) over the device time of the kernels named
+``conv3x3_*`` (``groups``), which holds neither the reflect pads nor the
+pools. None unless the kernel's ``launches`` counter read as many calls a
+forward as ``counts_adain.conv3x3_valid_calls``."""
+
+from h100bench import counts_adain, readers
+
+LAYER = "kernels"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "device_trace"
+MOVES = "stylize_img_per_s"
+WORKLOADS = ("adain.offline-b16-512",)
+
+
+def read(layer, config, traffic):
+    forwards = layer.get("forwards", 0)
+    if not forwards:
+        return None
+    side, style_side = layer["side"], layer["style_side"]
+    if layer.get("conv3x3_valid_calls") != forwards * counts_adain.conv3x3_valid_calls(
+            side, style_side):
+        return None
+    bound = forwards * counts_adain.conv3x3_valid_bound_s(layer["batch"], side, style_side)
+    return readers.roofline(layer, "conv3x3_valid", bound)

@@ -2,8 +2,9 @@
 
 The JAX package's ``train``, ``train-multi``, ``pack-dataset``,
 ``convert-image``, ``convert-dir``, ``convert-image-multi``, ``serve`` and
-``serve-multi`` commands, with the same arguments and output names, plus
-``--device`` (default ``cuda``; there is no silent fallback to the CPU) on
+``serve-multi`` commands, with the same arguments and output names, and
+``convert-adain`` (AdaIN arbitrary style transfer, which the JAX package does
+not have; ``engines/adain.py``), plus ``--device`` (default ``cuda``; there is no silent fallback to the CPU) on
 all but the host-only ``pack-dataset``. ``train`` and ``train-multi`` take
 ``--packed`` (a file written by ``pack-dataset``; ``data/packed.py``),
 ``--distributed`` (one process per GPU over ``torch.distributed``,
@@ -254,6 +255,33 @@ def convert_dir(input_dir, style_name, batch_size, out_dir, size, precision, pad
         input_dir=input_dir, style_name=style_name, batch_size=batch_size,
         out_dir=out_dir, size=size, precision=precision, pad_mode=pad_mode,
         device=device,
+    )
+
+
+@fast_st.command("convert-adain")
+@click.argument("input-dir")
+@click.option("--style-image", required=True, help="The style image every input is given")
+@click.option("--weights", required=True,
+              help="Directory of the AdaIN weights (vgg_normalised.pth, decoder.pth)")
+@click.option("--alpha", default=1.0, show_default=True, type=float,
+              help="Style strength: 1 is the style's statistics, 0 the content's")
+@click.option("-b", "--batch-size", default=16, show_default=True, help="Inference batch size")
+@click.option("-o", "--out-dir", default="results/",
+              help="The results directory where converted images are saved")
+@click.option("--size", default=512, show_default=True, type=int,
+              help="Working resolution of content and style (a multiple of 8)")
+@_device_option
+def convert_adain(input_dir, style_image, weights, alpha, batch_size, out_dir, size, device):
+    """
+    Stylizes every image in `input-dir` (png/jpg/jpeg/bmp/webp) with any
+    style image by AdaIN (Huang & Belongie 2017), in batches; outputs are
+    saved as `converted_adain_{style}_{name}.png` in `out-dir`. f32 only.
+    """
+    from styletransfer_tpu_torch.engines import adain
+
+    adain.process_dir(
+        input_dir=input_dir, style_image=style_image, weights_dir=weights, out_dir=out_dir,
+        batch_size=batch_size, alpha=alpha, size=size, device=device,
     )
 
 

@@ -493,6 +493,15 @@ def process_image(
     return out_file
 
 
+def image_files(in_dir: str) -> List[str]:
+    """The image files of ``in_dir`` (``IMAGE_EXTS``), sorted; raises if
+    there are none."""
+    files = sorted(f for f in os.listdir(in_dir) if f.lower().endswith(IMAGE_EXTS))
+    if not files:
+        raise FileNotFoundError(f"No images ({'/'.join(IMAGE_EXTS)}) in {in_dir}")
+    return files
+
+
 def process_dir(
     input_dir: str,
     style_name: str,
@@ -517,24 +526,36 @@ def process_dir(
     (``utils/aot.py``).
     """
     dev = constants.resolve_device(device)
-    logger = get_logger()
     in_dir = os.path.join(constants.PROJECT_ROOT_PATH, input_dir)
-    files = sorted(f for f in os.listdir(in_dir) if f.lower().endswith(IMAGE_EXTS))
-    if not files:
-        raise FileNotFoundError(f"No images ({'/'.join(IMAGE_EXTS)}) in {in_dir}")
+    files = image_files(in_dir)
     params = _load_params(params, style_name, models_path, dev)
     placement = mesh_lib.serving_placement(min(batch_size, len(files)), params, devices, dev)
     # Under STX_AOT_CACHE=1, a CUDA graph of the forward for each replica and
     # batch shape (a ragged last batch gets its own).
     serve_fn = aot.cached_compile(make_serve_fn(precision, pad_mode), placement.replicas,
                                   "fast_serve")
-    sz = size or constants.IMSIZE
-    out_dir = os.path.join(constants.PROJECT_ROOT_PATH, out_dir)
+    return stylize_files(
+        in_dir, files, batch_size, size or constants.IMSIZE,
+        lambda batch: placement.run(serve_fn, batch).cpu().numpy(),
+        os.path.join(constants.PROJECT_ROOT_PATH, out_dir),
+        lambda stem: f"converted_fast_st_{style_name}_{stem}.png")
+
+
+def stylize_files(in_dir: str, files: Sequence[str], batch_size: int, size: int,
+                  run: Callable[[np.ndarray], np.ndarray], out_dir: str,
+                  out_name: Callable[[str], str]) -> List[str]:
+    """The batched directory path that ``convert-dir`` and
+    ``convert-adain`` share: ``files`` of ``in_dir`` decoded on host threads
+    (cropped and resized to ``size``, uint8) up to ``PREFETCH_BATCHES``
+    batches ahead, ``run`` on each stacked batch ([B, size, size, 3] uint8
+    in, the same out), each image saved as ``out_dir/out_name(stem)``.
+    Unreadable files are skipped with a warning; returns the saved paths."""
+    logger = get_logger()
     os.makedirs(out_dir, exist_ok=True)
 
     def decode(name):
         try:
-            return name, img_utils.load_image_uint8(os.path.join(in_dir, name), size=sz)[0]
+            return name, img_utils.load_image_uint8(os.path.join(in_dir, name), size=size)[0]
         except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
             logger.warning("Skipping unreadable image %s (%s)", name, exc)
             return name, None
@@ -556,10 +577,9 @@ def process_dir(
             good = [(n, a) for n, a in chunk if a is not None]
             if not good:
                 continue
-            out = placement.run(serve_fn, np.stack([a for _, a in good])).cpu().numpy()
+            out = run(np.stack([a for _, a in good]))
             for (name, _), img in zip(good, out):
-                stem = os.path.splitext(name)[0]
-                path = os.path.join(out_dir, f"converted_fast_st_{style_name}_{stem}.png")
+                path = os.path.join(out_dir, out_name(os.path.splitext(name)[0]))
                 img_utils.save_uint8(img, path)
                 out_paths.append(path)
     dt = time.time() - t0

@@ -6,12 +6,14 @@ one 3x3 VALID conv of the phase kernel (``ops/layers.py::
 upsample_phase_kernel``) and a ``depth_to_space``. ``csrc/upconv_phase.cu``
 multiplies only each phase's 2x2 taps (``ops/layers.py::
 upsample_phase_taps``, 4/9 of that conv's products) and adds the bias and
-writes the reassembled [B, 2h, 2w, O] tensor in its epilogue; its header
-says what bounds it on the card.
+writes the reassembled [B, 2h, 2w, O] tensor in its epilogue, with the
+ReLU where asked; its header says what bounds it on the card.
 
 :func:`upconv_phase` launches the kernel on CUDA tensors and computes
 :func:`upconv_phase_plain` on CPU tensors. ``launches`` counts the kernel's
-launches: two per f32 serving forward (``models/transformer.py::apply``).
+launches: two per f32 serving forward of the transform net
+(``models/transformer.py::apply``), three per AdaIN forward
+(``models/adain.py::apply``).
 """
 
 from __future__ import annotations
@@ -28,18 +30,23 @@ from styletransfer_tpu_torch.ops.cuda import _build, check_cuda_inputs
 launches = 0
 
 # The kernel's input channels per chunk, and the output channels it is built
-# for; the wrapper takes the transform net's input channels.
+# for (up to 64 in one block, wider ones split over blocks of 64); the
+# wrapper takes the input channels of the transform net's two convs (128 ->
+# 64, 64 -> 32) and of AdaIN's decoder's three (256, 128 and 64, each to as
+# many).
 CHUNK = 8
-OUT_CHANNELS = (32, 64)
-IN_CHANNELS = (64, 128)
+OUT_CHANNELS = (32, 64, 128, 256)
+IN_CHANNELS = (64, 128, 256)
 
 
-def upconv_phase_plain(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def upconv_phase_plain(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                       relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version: one VALID conv of the 3x3 phase kernel on the
     small grid, + the bias of each phase, then ``depth_to_space`` (the JAX
-    package's arithmetic, cuDNN's on the card)."""
+    package's arithmetic, cuDNN's on the card), then the ReLU."""
     kp = layers.phase_taps_kernel(taps)
-    return layers.depth_to_space(layers.conv2d(y, kp, bias.repeat(4)), 2)
+    out = layers.depth_to_space(layers.conv2d(y, kp, bias.repeat(4)), 2)
+    return torch.relu(out) if relu else out
 
 
 def _check(y, taps, bias) -> None:
@@ -60,17 +67,18 @@ def _check(y, taps, bias) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def upconv_phase(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def upconv_phase(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                 relu: bool = False) -> torch.Tensor:
     """``y`` [B, h+2, w+2, C] f32 (the small grid edge-padded by 1), ``taps``
     [2, 2, 2, 2, C, O] f32 (:func:`layers.upsample_phase_taps`), ``bias`` [O]
     f32 -> [B, 2h, 2w, O] f32: ``conv3x3(reflect_pad(upsample2(s), 1)) +
-    bias``. C is 64 or 128 and O 32 or 64; anything else raises. Forward
-    only."""
+    bias``, then a ReLU with ``relu``. C is 64, 128 or 256 and O 32, 64, 128
+    or 256; anything else raises. Forward only."""
     _check(y, taps, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (y, taps, bias)):
         raise NotImplementedError("upconv_phase has no backward; call it without gradients")
     if y.device.type == "cpu":
-        return upconv_phase_plain(y, taps, bias)
+        return upconv_phase_plain(y, taps, bias, relu)
     global launches
     check_cuda_inputs(y, taps, bias)
     B, Hp, Wp, C = y.shape
@@ -79,7 +87,7 @@ def upconv_phase(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> tor
     lib = _library()
     with torch.cuda.device(y.device):  # the library launches on the current device
         err = lib.stx_upconv_phase_f32(y.data_ptr(), taps.data_ptr(), bias.data_ptr(),
-                                       out.data_ptr(), B, Hp, Wp, C, O,
+                                       out.data_ptr(), B, Hp, Wp, C, O, int(relu),
                                        torch.cuda.current_stream(y.device).cuda_stream)
     if err:
         raise RuntimeError(f"upconv_phase kernel launch failed for y {tuple(y.shape)} -> {O}: "
@@ -92,7 +100,7 @@ def upconv_phase(y: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> tor
 def _library() -> ctypes.CDLL:
     lib = _build.library("upconv_phase")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stx_upconv_phase_f32.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.stx_upconv_phase_f32.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.stx_upconv_phase_f32.restype = i
     lib.stx_upconv_phase_error_string.argtypes = [i]
     lib.stx_upconv_phase_error_string.restype = ctypes.c_char_p
