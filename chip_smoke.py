@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --convs       # phases 1-2, conv3x3_valid and upconv_phase only
+    python3 chip_smoke.py --convs       # phases 1-2, conv3x3_valid, upconv_phase, conv9x9
     python3 chip_smoke.py --stat-free   # phases 1-2 and the stat-free convs only
     python3 chip_smoke.py --norms       # phases 1-2 and the instance norms only
     python3 chip_smoke.py --video       # phases 1-2, conv_direct, video / zeros, multi-style
@@ -58,15 +58,22 @@ It imports nothing of JAX. Phases:
    a bit-identical repeat, one launch a call on its own counter, and device
    times beside the plain version and cuDNN's conv alone (the phase conv and
    the published conv, each on the heuristic pick and the cudnn.benchmark
-   best);
+   best); and conv9x9 (not a TPU kernel either: conv_out, the 9x9 32 -> 3
+   conv, and its input gradient 3 -> 32) at the serving forward's call
+   (batch 64), a train step's two calls (batch 4) and a ragged photo (batch
+   1), against its plain version, with a bit-identical repeat, image 0 bit
+   for bit image 0 alone, its plan, and device times beside cuDNN's 9x9
+   conv, the former serving phase form and cuDNN's input gradient;
 4. drive the serving path, fast_st inference: a seeded checkpoint written
    with ``ckpt.save``, 64 seeded 256x256 PNGs, ``engines.fast.process_dir``
    from the checkpoint load to the saved PNGs, in f32 and bf16. The launch
    counters must show 10 conv3x3 and 15 IN-pad launches per forward, the
-   conv3x3 ones all on the f32_fma or bf16_wgmma route, and 2 upconv_phase
+   conv3x3 ones all on the f32_fma or bf16_wgmma route, 2 upconv_phase
    launches per f32 forward (none in bf16, which every serving path below
    holds too, and none on the video, zero-padded, training and Gatys
-   paths), and the first two
+   paths) and 1 conv9x9 per f32 forward (also on the zero-padded path and
+   in f32 previews and evals; none in bf16 and on the video stylizer),
+   and the first two
    outputs must match the port's own CPU run; then the same images at 300 px
    in bf16, whose 75-wide residual convs take the bf16_wgmma route too, and
    four of them at 1040 px in bf16, whose 260-wide residual convs take the
@@ -94,7 +101,8 @@ It imports nothing of JAX. Phases:
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. The counters must show 15
    fused-IN forward and 15 backward launches per step (and 15 forward
-   launches per eval or preview forward) and the VGG tower's conv kernels
+   launches per eval or preview forward), 2 conv9x9 per f32 step (conv_out's
+   forward and input gradient) and the VGG tower's conv kernels
    (per step 2 conv3x3_im2col and 12 conv3x3_flat: the output's forward and
    input gradient, the content target's forward), every logged loss must be
    finite, and the epoch checkpoint must load and serve through
@@ -356,17 +364,28 @@ SOURCES = {
     # the JAX package leaves to XLA (the phase kernel, then depth_to_space).
     "upconv_phase": ("styletransfer_tpu_torch/csrc/upconv_phase.cu",
                      "styletransfer_tpu/ops/layers.py:334"),
+    # Nor this: conv_out's 9x9 conv and its input gradient, which the JAX
+    # package leaves to XLA (the space-to-depth conv, or the 9x9 conv, and
+    # its autodiff).
+    "conv9x9": ("styletransfer_tpu_torch/csrc/conv9x9.cu",
+                "styletransfer_tpu/ops/layers.py:93"),
 }
 # conv3x3_valid's kernel on each route of valid_plan.
 ROUTE_SOURCES = {"f32_fma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
                  "bf16_mma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
                  "bf16_wgmma": "styletransfer_tpu_torch/csrc/conv3x3_wgmma.cu"}
 # Which path launches each kernel: its JSON launch count is that path's.
-SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad", "upconv_phase")
+SERVING_KERNELS = ("conv3x3_valid", "instance_norm_pad", "upconv_phase", "conv9x9")
 # upconv_phase launches per pad-early serving forward: the two upsample convs
 # in f32; bf16 keeps them on cuDNN, and the video stylizer (fixed_order) on
 # conv_direct.
 UPCONV_PER_FORWARD = {"f32": 2, "bf16": 0}
+# conv9x9 launches: one per f32 forward of the transform net (conv_out of the
+# serving, stacked and zero-padded forwards), two per f32 training step (its
+# forward and input gradient); bf16 keeps conv_out on cuDNN, and the video
+# stylizer (fixed_order) on conv_direct.
+CONV9X9_PER_FORWARD = {"f32": 1, "bf16": 0}
+CONV9X9_PER_STEP = {"f32": 2, "bf16": 0}
 TRAINING_KERNELS = ("fused_instance_norm_fwd", "fused_instance_norm_bwd")
 GATYS_KERNELS = ("conv3x3_flat", "conv3x3_im2col")
 
@@ -496,7 +515,8 @@ def allclose(torch, a, b, rtol, atol) -> bool:
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
     from styletransfer_tpu_torch.ops.cuda import (
-        conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm, upconv_phase)
+        conv3x3, conv3x3_flat, conv9x9, conv_direct, fused_instance_norm, instance_norm,
+        upconv_phase)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
             "conv3x3_valid.f32_fma": (conv3x3, "fma_launches"),
@@ -512,7 +532,14 @@ def counters():
             "conv3x3_flat": (conv3x3_flat, "flat_launches"),
             "conv3x3_im2col": (conv3x3_flat, "im2col_launches"),
             "conv_direct": (conv_direct, "launches"),
-            "upconv_phase": (upconv_phase, "launches")}
+            "upconv_phase": (upconv_phase, "launches"),
+            "conv9x9": (conv9x9, "launches")}
+
+
+def with_conv9x9(per_step: dict, precision: str) -> dict:
+    """A training step's launches with conv9x9's (none in bf16)."""
+    n = CONV9X9_PER_STEP[precision]
+    return {**per_step, "conv9x9": n} if n else dict(per_step)
 
 
 def reset_counts() -> None:
@@ -1028,6 +1055,118 @@ def direct_phase(torch, F, cdm, dtype):
                      f"space-to-depth)"}
 
 
+# conv9x9's calls, (label, B, Hp, Wp, C, O) of its padded input: conv_out of
+# the serving forward (batch BATCH) and of a train step (batch TRAIN_BATCH),
+# the step's input gradient (3 -> 32 on dy zero-padded by 8), and a ragged
+# 756 x 1012 photo at batch 1 (no tile divides its sides).
+CONV9X9_CALLS = (("conv_out", BATCH, SIZE + 8, SIZE + 8, 32, 3),
+                 ("conv_out train", TRAIN_BATCH, SIZE + 8, SIZE + 8, 32, 3),
+                 ("conv_out.dx train", TRAIN_BATCH, SIZE + 16, SIZE + 16, 3, 32),
+                 ("conv_out photo", 1, 764, 1020, 32, 3))
+# Its largest gap from the plain version (cuDNN's 9x9 conv, TF32 off), over
+# the largest plain output: the same f32 products summed in another order.
+CONV9X9_REL = 1e-5
+
+
+def conv9x9_phase(torch, F, c9):
+    """conv9x9 against its plain version at each of CONV9X9_CALLS: the
+    largest gap over the largest output, a bit-identical repeat, image 0 of
+    the batch bit for bit image 0 alone, one launch a call on its own
+    counter and no other; the plan; device times of the kernel, the plain
+    version and cuDNN's calls for the same conv (the 9x9 conv, on the
+    heuristic pick and cudnn.benchmark's best; at the forward's shapes the
+    former serving form, space-to-depth, the 3x3 512 -> 48 phase conv,
+    depth_to_space and the bias; at the input gradient cuDNN's dgrad, what
+    autograd of the 9x9 conv ran), and the bound. Returns its JSON entry:
+    the serving call's times, and each call's."""
+    from styletransfer_tpu_torch.ops import layers
+
+    name = "conv9x9"
+    g = torch.Generator(device="cuda").manual_seed(19)
+    worst = 0.0
+    calls = []
+    benchmark = torch.backends.cudnn.benchmark
+    for label, B, Hp, Wp, C, O in CONV9X9_CALLS:
+        H, W = Hp - 8, Wp - 8
+        xp = torch.randn(B, Hp, Wp, C, device="cuda", generator=g)
+        w = torch.randn(9, 9, C, O, device="cuda", generator=g) / (81 * C) ** 0.5
+        b = torch.randn(O, device="cuda", generator=g) * 0.1 if O == 3 else None
+        plan = c9.plan(B, H, W, C, O, torch.cuda.get_device_properties(0).multi_processor_count)
+        tag = f"{name} float32 {label} xp[{B},{Hp},{Wp},{C}] -> {O}"
+        reset_counts()
+        out = c9.conv9x9_valid(xp, w, b)
+        again = c9.conv9x9_valid(xp, w, b)
+        alone = c9.conv9x9_valid(xp[:1].contiguous(), w, b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {key: 0 for key in counts}
+        want[name] = 3
+        check(counts == want, f"{tag}: three calls launched {counts} (want 3 {name}, no other)")
+        pout = c9.conv9x9_plain(xp, w, b)
+        rel = max_err(out, pout) / float(pout.abs().max())
+        worst = max(worst, rel)
+        check(out.shape == pout.shape == (B, H, W, O) and rel <= CONV9X9_REL
+              and torch.equal(out, again) and torch.equal(out[:1], alone),
+              f"{tag}: max gap {rel:.3g} of the largest output (limit {CONV9X9_REL:.0e}); the "
+              f"repeat and image 0 alone bit-identical; plan {plan}")
+        del again, alone, pout
+        ms = device_ms(torch, lambda: c9.conv9x9_valid(xp, w, b), iters=10)
+        plain_ms = device_ms(torch, lambda: c9.conv9x9_plain(xp, w, b), iters=5)
+        flops = 2.0 * 81 * C * O * B * H * W
+        nbytes = (xp.numel() + w.numel() + out.numel() + O) * 4
+        bound_ms, bound_by = bound(flops, nbytes, "float32")
+        call = {"call": label, "xp": [B, Hp, Wp, C], "O": O, "plan": plan, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_rel_err": rel}
+        # cuDNN's calls for the same conv, on NCHW views of the channels-last tensors.
+        xc = xp.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library = {"conv": lambda: F.conv2d(xc, wc)}
+        if O == 3:
+            kp = layers.phase_conv_kernel(w, 4)
+            library["phase_form"] = lambda: layers.depth_to_space(
+                layers.conv2d(layers.space_to_depth(xp, 4), kp), 4) + b
+        else:
+            # The input gradient that autograd of the forward's 9x9 conv ran:
+            # x [B, H, W, 32], dy [B, H - 8, W - 8, 3] is xp's interior.
+            dy = xp[:, 8:-8, 8:-8, :].contiguous().permute(0, 3, 1, 2)
+            wf = w.flip((0, 1)).permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+            xin = torch.empty(B, H, W, O, device="cuda").permute(0, 3, 1, 2)
+            library["dgrad"] = lambda: torch.ops.aten.convolution_backward(
+                dy, xin, wf, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                [True, False, False])[0]
+        try:
+            for best in (False, True):
+                torch.backends.cudnn.benchmark = best
+                pick = "best" if best else "heuristic"
+                for form, fn in library.items():
+                    call[f"library_{form}_{pick}_ms"] = device_ms(torch, fn, iters=5)
+        finally:
+            torch.backends.cudnn.benchmark = benchmark
+        line = (f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"({bound_by}), {bound_ms / ms:.3f} of the bound; library_ms (cuDNN) " +
+                ", ".join(f"{k[len('library_'):-len('_ms')]} {v:.4f}" for k, v in call.items()
+                          if k.startswith("library_")))
+        print(line, flush=True)
+        calls.append(call)
+        del xp, out, library
+        torch.cuda.empty_cache()
+    serve = calls[0]
+    return {"name": f"{name}.float32", "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "max_rel_err": worst, "ms": serve["ms"],
+            "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+            "bound_by": serve["bound_by"],
+            "library_ms": serve["library_phase_form_heuristic_ms"],
+            "library_conv_ms": serve["library_conv_heuristic_ms"],
+            "train_ms": calls[1]["ms"] + calls[2]["ms"],
+            "train_library_ms": (calls[1]["library_conv_heuristic_ms"]
+                                 + calls[2]["library_dgrad_heuristic_ms"]), "calls": calls,
+            "note": "not a TPU kernel: conv_out's 9x9 conv and its input gradient, which the "
+                    "JAX package leaves to XLA",
+            "shape": f"conv_out of a {SIZE} px serving forward at batch {BATCH} (32 -> 3, 9x9, "
+                     f"on up2_in's reflect-padded output)"}
+
+
 # AdaIN's serving forward (models/adain.py): pairs a call and the side of
 # content and style, the benchmark cell's.
 ADAIN_BATCH = 16
@@ -1528,11 +1667,12 @@ def main_path(torch, np, in_dir, imgs):
         route = "f32_fma" if precision == "f32" else "bf16_wgmma"
         want = {k: 0 for k in counts}
         want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10, "instance_norm_pad": 15,
-                     "upconv_phase": UPCONV_PER_FORWARD[precision]})
+                     "upconv_phase": UPCONV_PER_FORWARD[precision],
+                     "conv9x9": CONV9X9_PER_FORWARD[precision]})
         check(counts == want,
               f"serving path {precision}: one forward launched {counts} (want 10 conv3x3, all "
               f"on the {route} route, 15 IN-pad, {UPCONV_PER_FORWARD[precision]} upconv_phase, "
-              f"no training kernel)")
+              f"{CONV9X9_PER_FORWARD[precision]} conv9x9, no training kernel)")
         check(len(paths) == BATCH, f"serving path {precision}: {len(paths)} PNGs written")
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(outs.shape == (BATCH, SIZE, SIZE, 3) and outs.dtype == np.uint8,
@@ -1728,10 +1868,12 @@ def multistyle_phase(torch, np, instance_norm, in_dir):
                 want = {k: 0 for k in counts}
                 want.update({"conv3x3_valid": 10, f"conv3x3_valid.{route}": 10,
                              "instance_norm_pad": 15,
-                             "upconv_phase": UPCONV_PER_FORWARD[precision]})
+                             "upconv_phase": UPCONV_PER_FORWARD[precision],
+                             "conv9x9": CONV9X9_PER_FORWARD[precision]})
                 check(counts == want, f"convert-image-multi {precision} {tag}: launched "
-                      f"{counts} (want 10 conv3x3 on {route}, 15 IN-pad and "
-                      f"{UPCONV_PER_FORWARD[precision]} upconv_phase)")
+                      f"{counts} (want 10 conv3x3 on {route}, 15 IN-pad, "
+                      f"{UPCONV_PER_FORWARD[precision]} upconv_phase and "
+                      f"{CONV9X9_PER_FORWARD[precision]} conv9x9)")
                 launches[(precision, tag)] = counts
                 cli.main(common + ["-o", f"cpu_{precision}/", "--device", "cpu"],
                          standalone_mode=False)
@@ -1755,6 +1897,7 @@ def multistyle_phase(torch, np, instance_norm, in_dir):
         up = UPCONV_PER_FORWARD[precision]
         check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15
               and counts["upconv_phase"] == up
+              and counts["conv9x9"] == CONV9X9_PER_FORWARD[precision]
               and y.shape == x.shape and bool(torch.isfinite(y).all()),
               f"multi-style {precision}: a batch of {BATCH} images of {MULTI_STYLES} mixed "
               f"styles: 10 conv3x3, 15 IN-pad and {up} upconv_phase launches, output "
@@ -1833,14 +1976,18 @@ def train_path(torch, np, in_dir):
         want = {k: 0 for k in counts}
         want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
                                                                      + eval_forwards),
-                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS})
+                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
+                     "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                                 + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
         for k in GATYS_KERNELS:
             want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
         check(counts == want,
               f"training path {precision}: {TRAIN_STEPS} steps, {previews} previews and "
               f"{eval_forwards} eval forwards launched {counts} (want {want}: 15 IN forward and "
-              f"15 backward per step, 15 forward per preview or eval forward; VGG convs "
+              f"15 backward per step, 15 forward per preview or eval forward; conv9x9 "
+              f"{CONV9X9_PER_STEP[precision]} per step and {CONV9X9_PER_FORWARD[precision]} per "
+              f"preview or eval forward; VGG convs "
               f"{VGG_PER_STEP} per step, {VGG_PER_EVAL} per eval forward, "
               f"{VGG_STYLE_TARGETS} for the style targets)")
         check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train),
@@ -1869,7 +2016,8 @@ def train_path(torch, np, in_dir):
         outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
         check(len(paths) == BATCH and outs.shape == (BATCH, SIZE, SIZE, 3)
               and served["conv3x3_valid"] == 10 and served["instance_norm_pad"] == 15
-              and served["upconv_phase"] == UPCONV_PER_FORWARD[precision],
+              and served["upconv_phase"] == UPCONV_PER_FORWARD[precision]
+              and served["conv9x9"] == CONV9X9_PER_FORWARD[precision],
               f"training path {precision}: the trained checkpoint stylized {len(paths)} images "
               f"through process_dir ({served['conv3x3_valid']} conv3x3, "
               f"{served['instance_norm_pad']} IN-pad, {served['upconv_phase']} upconv_phase "
@@ -2245,12 +2393,16 @@ def video_train_path(torch, np):
         for k, n in VIDEO_PER_STEP.items():
             want[k] = n * steps
         want["fused_instance_norm_fwd"] += NORMS_PER_FORWARD * previews
+        # The previews run the stacked forward in f32 whatever the precision.
+        want["conv9x9"] = (CONV9X9_PER_STEP[precision] * steps
+                           + CONV9X9_PER_FORWARD["f32"] * previews)
         for k, n in VGG_STYLE_TARGETS.items():
             want[k] += n
         check(counts == want,
               f"video train {precision}: {steps} frame steps and {previews} preview launched "
-              f"{counts} (want {VIDEO_PER_STEP} per frame step, 15 fused-IN forwards per "
-              f"preview, {VGG_STYLE_TARGETS} for the style targets)")
+              f"{counts} (want {VIDEO_PER_STEP} and {CONV9X9_PER_STEP[precision]} conv9x9 per "
+              f"frame step, 15 fused-IN forwards and 1 conv9x9 per preview, "
+              f"{VGG_STYLE_TARGETS} for the style targets)")
         check(len(log.train) == len(range(0, steps, 20))
               and all(math.isfinite(v) for v in log.train),
               f"video train {precision}: logged losses {['%.4f' % v for v in log.train]} "
@@ -2570,10 +2722,11 @@ def zeros_path(torch, np, in_dir, imgs):
             counts = read_counts()
             launches[precision] = counts
             want = {k: 0 for k in counts}
-            want.update(ZEROS_PER_FORWARD)
+            want.update(ZEROS_PER_FORWARD, conv9x9=CONV9X9_PER_FORWARD[precision])
             check(counts == want and pads[0] == 10,
                   f"zeros path {precision}: one forward launched {counts} and {pads[0]} zero-pad "
-                  f"copies (want {ZEROS_PER_FORWARD} and 10 copies; no conv3x3_valid, no IN-pad)")
+                  f"copies (want {ZEROS_PER_FORWARD}, {CONV9X9_PER_FORWARD[precision]} conv9x9 "
+                  f"and 10 copies; no conv3x3_valid, no IN-pad)")
             outs = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
             check(outs.shape == (BATCH, SIZE, SIZE, 3),
                   f"zeros path {precision}: {len(paths)} PNGs {outs.shape}")
@@ -2803,7 +2956,9 @@ def multistyle_train_path(torch, np, in_dir):
                      "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD * TRAIN_STEPS,
                      "conv3x3_valid": 10 * previews, f"conv3x3_valid.{route}": 10 * previews,
                      "instance_norm_pad": NORMS_PER_FORWARD * previews,
-                     "upconv_phase": UPCONV_PER_FORWARD[precision] * previews})
+                     "upconv_phase": UPCONV_PER_FORWARD[precision] * previews,
+                     "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                                 + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
         for k in GATYS_KERNELS:
             want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
@@ -2845,7 +3000,8 @@ def multistyle_train_path(torch, np, in_dir):
             torch.cuda.synchronize()
             counts = read_counts()
             check(counts["conv3x3_valid"] == 10 and counts["instance_norm_pad"] == 15
-                  and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"],
+                  and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"]
+                  and counts["conv9x9"] == CONV9X9_PER_FORWARD["f32"],
                   f"the trained checkpoint through convert-image-multi {tag}: 10 conv3x3, "
                   f"15 IN-pad and {UPCONV_PER_FORWARD['f32']} upconv_phase launches")
             cli.main(common + ["-o", "cpu/", "--device", "cpu"], standalone_mode=False)
@@ -3059,7 +3215,8 @@ def daemon_path(torch, np, in_dir, multi_models):
             up = UPCONV_PER_FORWARD[precision]
             check(calls >= 2 + served // DAEMON_BATCH and counts["conv3x3_valid"] == 10 * calls
                   and counts["instance_norm_pad"] == 15 * calls
-                  and counts["upconv_phase"] == up * calls,
+                  and counts["upconv_phase"] == up * calls
+                  and counts["conv9x9"] == CONV9X9_PER_FORWARD[precision] * calls,
                   f"fast_st serve {precision}: {calls} forwards (warm-ups included), 10 "
                   f"conv3x3, 15 IN-pad and {up} upconv_phase launches each")
             launches[("serve", precision)] = counts
@@ -3106,7 +3263,8 @@ def daemon_path(torch, np, in_dir, multi_models):
             check(calls >= 1 + len(mlines) // DAEMON_BATCH
                   and counts["conv3x3_valid"] == 10 * calls
                   and counts["instance_norm_pad"] == 15 * calls
-                  and counts["upconv_phase"] == up * calls,
+                  and counts["upconv_phase"] == up * calls
+                  and counts["conv9x9"] == CONV9X9_PER_FORWARD[precision] * calls,
                   f"fast_st serve-multi {precision}: {calls} forwards, 10 conv3x3, 15 "
                   f"IN-pad and {up} upconv_phase launches each")
             launches[("serve_multi", precision)] = counts
@@ -3428,7 +3586,8 @@ def transport_path(torch, np, in_dir):
                 check(calls >= 2 + DAEMON_REQUESTS // DAEMON_BATCH - 1
                       and counts["conv3x3_valid"] == 10 * calls
                       and counts["instance_norm_pad"] == 15 * calls
-                      and counts["upconv_phase"] == up * calls,
+                      and counts["upconv_phase"] == up * calls
+                      and counts["conv9x9"] == CONV9X9_PER_FORWARD[precision] * calls,
                       f"fast_st serve {transport} {precision}: {calls} forwards (the warm-up "
                       f"included), 10 conv3x3, 15 IN-pad and {up} upconv_phase launches each")
                 for n in names[:DAEMON_CHECKED]:
@@ -4114,9 +4273,10 @@ def two_rank_phase(torch, np, in_dir, card):
     for precision in ("f32", "bf16"):
         for r in res:
             counts = r[f"{precision}.launches"]
-            want = {k: PER_RANK_STEP.get(k, 0) for k in counts}
+            per = with_conv9x9(PER_RANK_STEP, precision)
+            want = {k: per.get(k, 0) for k in counts}
             check(counts == want, f"two ranks {precision}: rank {r['rank']}'s step launched "
-                  f"{counts} (want {PER_RANK_STEP})")
+                  f"{counts} (want {per})")
         launches[precision] = res[0][f"{precision}.launches"]
         cd = torch.bfloat16 if precision == "bf16" else None
         step = fast.make_train_step(vgg_params, grams, compute_dtype=cd)
@@ -4218,7 +4378,8 @@ def placement_phase(torch, np, in_dir, card):
                 launches[("process_dir", precision)] = counts = read_counts()
                 up = UPCONV_PER_FORWARD[precision]
                 check(counts["conv3x3_valid"] == 20 and counts["instance_norm_pad"] == 30
-                      and counts["upconv_phase"] == 2 * up,
+                      and counts["upconv_phase"] == 2 * up
+                      and counts["conv9x9"] == 2 * CONV9X9_PER_FORWARD[precision],
                       f"placement {precision}: process_dir of {BATCH} images over "
                       f"{PLACEMENT_DEVICES} launched {counts['conv3x3_valid']} conv3x3, "
                       f"{counts['instance_norm_pad']} IN-pad and {counts['upconv_phase']} "
@@ -4286,7 +4447,8 @@ def placement_phase(torch, np, in_dir, card):
     check(n == PAR_SERVE_REQUESTS and all(ln.startswith("OK ") for ln in out.lines[1:])
           and counts["conv3x3_valid"] == 10 * forwards
           and counts["instance_norm_pad"] == 15 * forwards
-          and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"] * forwards,
+          and counts["upconv_phase"] == UPCONV_PER_FORWARD["f32"] * forwards
+          and counts["conv9x9"] == CONV9X9_PER_FORWARD["f32"] * forwards,
           f"placement: fast_st serve at batch {DAEMON_BATCH} over two slots answered {n} "
           f"requests OK with {counts['conv3x3_valid']} conv3x3, "
           f"{counts['instance_norm_pad']} IN-pad and {counts['upconv_phase']} upconv_phase "
@@ -4443,11 +4605,13 @@ def packed_path(torch, np):
             counts = read_counts()
             launches[precision] = counts
             _steps_checked(torch, f"packed static_train {precision}", steps, TRAIN_STEPS,
-                           PER_STEP)
+                           with_conv9x9(PER_STEP, precision))
             want = {k: 0 for k in counts}
             want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (
                 TRAIN_STEPS + previews + eval_forwards),
-                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS})
+                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
+                "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                            + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
             for k in GATYS_KERNELS:
                 want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
                            + VGG_STYLE_TARGETS[k])
@@ -4522,7 +4686,7 @@ def packed_path(torch, np):
     wall = time.perf_counter() - t0
     launches["train_multi"] = read_counts()
     _steps_checked(torch, "fast_st train-multi --packed", multi_steps, len(train_loader),
-                   PER_MULTI_STEP)
+                   with_conv9x9(PER_MULTI_STEP, "f32"))
     check(all(math.isfinite(v) for v in log.train + log.test) and len(log.test) == 1
           and os.path.isfile(os.path.join(root, "data", "models",
                                           "fast_multi_st_packed_epoch0.msgpack")),
@@ -4805,7 +4969,8 @@ def aot_phase(torch, np, card):
                 # Two forwards (an image, a batch of AOT_IMAGES); on graphs
                 # each is WARMUP eager runs and one capture, then a replay.
                 forwards = 2 * (aot.WARMUP + 1) if flag == "1" else 2
-                per = {**per_forward, "upconv_phase": UPCONV_PER_FORWARD[precision]}
+                per = {**per_forward, "upconv_phase": UPCONV_PER_FORWARD[precision],
+                       "conv9x9": CONV9X9_PER_FORWARD[precision]}
                 got = {k: counts[k] for k in per}
                 want = {k: v * forwards for k, v in per.items()}
                 graphs = (aot.captures, aot.replays)
@@ -5066,7 +5231,8 @@ def ckpt_phase(torch, np, in_dir, card):
             launches[f"process_dir_{fmt}"] = counts = read_counts()
             want_counts = {k: 0 for k in counts}
             want_counts.update({"conv3x3_valid": 10, "conv3x3_valid.f32_fma": 10,
-                                "instance_norm_pad": 15, "upconv_phase": UPCONV_PER_FORWARD["f32"]})
+                                "instance_norm_pad": 15, "upconv_phase": UPCONV_PER_FORWARD["f32"],
+                                "conv9x9": CONV9X9_PER_FORWARD["f32"]})
             check(counts == want_counts,
                   f"orbax: process_dir from the .{fmt} epoch launched {counts} (want 10 "
                   f"conv3x3 on the f32_fma route, 15 IN-pad and "
@@ -5143,8 +5309,8 @@ def main() -> int:
 
         from styletransfer_tpu_torch.ops import layers
         from styletransfer_tpu_torch.ops.cuda import (
-            _build, conv3x3, conv3x3_flat, conv_direct, fused_instance_norm, instance_norm,
-            upconv_phase)
+            _build, conv3x3, conv3x3_flat, conv9x9, conv_direct, fused_instance_norm,
+            instance_norm, upconv_phase)
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -5176,6 +5342,7 @@ def main() -> int:
             for dtype in (torch.float32, torch.bfloat16):
                 conv_phase(torch, F, conv3x3, dtype)
             upconv_phase_phase(torch, F, upconv_phase)
+            conv9x9_phase(torch, F, conv9x9)
             print(card)
             return 0
         if sys.argv[1:] == ["--video"]:
@@ -5246,6 +5413,7 @@ def main() -> int:
             entries += stat_free_phase(torch, F, conv3x3_flat, dtype)
             entries.append(direct_phase(torch, F, conv_direct, dtype))
         entries.append(upconv_phase_phase(torch, F, upconv_phase))
+        entries.append(conv9x9_phase(torch, F, conv9x9))
         check_routes(instance_norm, entries)
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
@@ -5315,6 +5483,8 @@ def main() -> int:
         path = (serve_launches if kernel.startswith(SERVING_KERNELS) else
                 gatys_launches if kernel in GATYS_KERNELS else train_launches)
         e["launches"] = path[precision][kernel]
+        if kernel == "conv9x9":  # also the training path's forwards and input gradients
+            e["train_launches"] = train_launches[precision][kernel]
         if precision == "f32" and kernel in ADAIN_PER_FORWARD:  # one AdaIN forward
             e["adain_launches"] = adain_launches[kernel]
     for e in entries:  # each kernel's launches in the network slice's daemons

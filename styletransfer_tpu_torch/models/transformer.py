@@ -13,14 +13,17 @@ the pad-early forward (``_apply_padearly`` there) on three CUDA kernels:
   already padded (reflect, or edge before a phase-form upsample conv) for the
   next conv;
 - ``upconv_phase`` runs the two upsample convs in f32: each phase's 2x2
-  taps on the small grid, the bias and the reassembly in one kernel.
+  taps on the small grid, the bias and the reassembly in one kernel;
+- ``conv9x9`` runs conv_out in f32, the 9x9 32->3 conv on up2_in's padded
+  output with the bias in its epilogue (in the stacked forward too, where
+  ``Conv9x9Function`` takes its input gradient on the same kernel).
 
-The other convs (9x9 conv1, stride-2 conv2/conv3, the phase-form upsample
-convs in bf16 and the space-to-depth conv_out) run as ``F.conv2d``, as the
+The other convs (9x9 conv1, stride-2 conv2/conv3, and in bf16 the phase-form
+upsample convs and the space-to-depth conv_out) run as ``F.conv2d``, as the
 JAX package leaves them to XLA; with ``fixed_order=True`` (the video
-stylizer) they and the upsample convs run on ``conv_direct`` instead, whose
-sums do not depend on the batch, so that every image of a batch comes out
-bit for bit as it would alone. With ``pad_mode="zeros"`` (the reference's
+stylizer) they, the upsample convs and conv_out run on ``conv_direct``
+instead, whose sums do not depend on the batch, so that every image of a
+batch comes out bit for bit as it would alone. With ``pad_mode="zeros"`` (the reference's
 own checkpoints) the forward is the stacked one, its ten residual convs on
 ``conv3x3_flat`` (``conv3x3_same``: a zero-padded 3x3 conv with no
 statistics) wherever no weight gradient is asked for. On CPU tensors the
@@ -59,6 +62,7 @@ from styletransfer_tpu_torch import constants
 from styletransfer_tpu_torch.ops import layers
 from styletransfer_tpu_torch.ops.cuda.conv3x3 import conv3x3_valid
 from styletransfer_tpu_torch.ops.cuda.conv3x3_flat import conv3x3_same
+from styletransfer_tpu_torch.ops.cuda.conv9x9 import Conv9x9Function, conv9x9_valid
 from styletransfer_tpu_torch.ops.cuda.conv_direct import conv_direct
 from styletransfer_tpu_torch.ops.cuda.fused_instance_norm import fused_instance_norm
 from styletransfer_tpu_torch.ops.cuda.instance_norm import instance_norm_pad
@@ -273,7 +277,9 @@ def apply_stacked(
 
     Each conv pads its own input (``pad_mode`` "reflect" or "zeros") and
     runs as ``F.conv2d``, except the ten residual convs of a zero-padded
-    forward that takes no weight gradient, which run on ``conv3x3_flat``;
+    forward that takes no weight gradient, which run on ``conv3x3_flat``,
+    and conv_out in f32, which runs on ``conv9x9`` (``Conv9x9Function``: the
+    kernel forward and for the input gradient, cuDNN's weight gradient);
     all 15 instance norms run on the fused-IN kernels and their backward
     (``ops/cuda/fused_instance_norm.py``). This is the training forward; in
     exact arithmetic it equals the pad-early :func:`apply` (the two differ
@@ -299,9 +305,20 @@ def apply_stacked(
     x = _conv_in_relu(x, params.up2_conv, params.up2_in, 1, cd, pad_mode, fo,
                       (sp["up2_conv"], sp["up2_in"]), upsample=True)
     with profiling.span(sp["conv_out"]):
-        out = _conv(x, params.conv_out.kernel, params.conv_out.bias, 1, cd, pad_mode, fo)
+        out = _conv_out_stacked(x, params.conv_out, cd, pad_mode, fo)
     profiling.backward_span(_BWD_SPAN[sp["conv_out"]], out, x)
     return out.to(in_dtype)
+
+
+def _conv_out_stacked(x, p: Conv, cd, padding, fixed_order):
+    """conv_out of the stacked forward, padding its own input. In f32
+    without ``fixed_order``, the pad (autograd ops) and ``Conv9x9Function``
+    (the conv9x9 kernel forward and for the input gradient; its plain
+    version on the CPU); otherwise :func:`_conv`."""
+    if x.dtype == torch.float32 and not fixed_order:
+        xp = layers.reflect_pad(x, 4) if padding == "reflect" else layers.zero_pad(x, 4)
+        return Conv9x9Function.apply(xp, p.kernel, p.bias)
+    return _conv(x, p.kernel, p.bias, 1, cd, padding, fixed_order)
 
 
 def _conv_valid(x, p: Conv, stride, cd, fixed_order):
@@ -334,6 +351,18 @@ def _conv_phase_up(y_padded, p: Conv, cd, fixed_order):
         _conv(y_padded, kp, p.bias.repeat(4), 1, cd, fixed_order=fixed_order), 2)
 
 
+def _conv_out(y_padded, p: Conv, cd, fixed_order):
+    """conv_out, the 9x9 32->3 conv, of its input reflect-padded by 4. In f32
+    without ``fixed_order``, ``conv9x9`` (the bias in its epilogue; its plain
+    version on the CPU); otherwise in 4x4 space-to-depth phase form (3x3,
+    512->48) as :func:`_conv`, then ``depth_to_space`` and the bias."""
+    if y_padded.dtype == torch.float32 and not fixed_order:
+        return conv9x9_valid(y_padded, p.kernel, p.bias)
+    kp = layers.phase_conv_kernel(p.kernel, 4)
+    out = _conv(layers.space_to_depth(y_padded, 4), kp, None, 1, cd, fixed_order=fixed_order)
+    return layers.depth_to_space(out, 4) + p.bias.to(out.dtype)
+
+
 @torch.no_grad()
 def apply(
     params: TransformerNet,
@@ -355,14 +384,15 @@ def apply(
     ``pad_mode="zeros"`` zero-pads every conv, as the reference's own
     checkpoints were trained (see the JAX ``apply``); it runs the stacked
     form (:func:`apply_stacked`), since zero padding belongs to the conv:
-    per forward 10 ``conv3x3_flat`` and 15 fused-IN forward launches.
+    per forward 10 ``conv3x3_flat`` and 15 fused-IN forward launches, and
+    in f32 one ``conv9x9``.
 
-    ``fixed_order=True`` runs the six convs that would go to ``F.conv2d``
-    (cuDNN, whose summation order follows the batch size) on
-    ``conv_direct``; every other op of the forward is per image and sums in
-    an order its plan fixes without the batch. So each image of the batch
-    comes out bit for bit as it would alone: the video stylizer's lanes
-    need this, image serving does not pay for it.
+    ``fixed_order=True`` runs the six convs outside the residual blocks on
+    ``conv_direct`` (cuDNN's summation order follows the batch size); every
+    other op of the forward is per image and sums in an order its plan
+    fixes without the batch. So each image of the batch comes out bit for
+    bit as it would alone: the video stylizer's lanes need this, image
+    serving does not pay for it.
 
     The instance-norm ``scale``/``bias`` may be [C] or per image [B, C]
     (multi-style, ``models/multistyle.py``).
@@ -418,11 +448,8 @@ def apply(
         h = _conv_phase_up(y, params.up2_conv, cd, fo)
     with span(_SPAN["up2_in"]):
         y = _in_pad(h, params.up2_in, pad=4)                       # conv_out is 9x9
-    # Final 9x9 32->3 conv in 4x4 space-to-depth phase form (3x3, 512->48).
     with span(_SPAN["conv_out"]):
-        kp = layers.phase_conv_kernel(params.conv_out.kernel, 4)
-        out = _conv(layers.space_to_depth(y, 4), kp, None, 1, cd, fixed_order=fo)
-        out = layers.depth_to_space(out, 4) + params.conv_out.bias.to(out.dtype)
+        out = _conv_out(y, params.conv_out, cd, fo)
     return out.to(in_dtype)
 
 

@@ -443,6 +443,7 @@ _GROUPS = (
     ("fused-IN backward kernel", ("::inb_kernel<",)),
     ("conv_direct kernel", ("::direct_kernel<",)),
     ("upconv_phase kernel", ("upconv_phase_",)),
+    ("conv9x9 kernel", ("conv9x9_",)),
     ("cuDNN convolutions", ("conv", "cudnn", "implicit", "winograd", "fft", "fprop", "dgrad",
                             "wgrad", "pointwise_mult_and_sum")),
     ("matrix-vector products and solves (L-BFGS history)", ("gemv", "trsm")),

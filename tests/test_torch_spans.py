@@ -182,9 +182,13 @@ def test_each_conv_backward_span_holds_its_layers_convolution_backward():
         with profiling.record_spans() as rec:
             out = transformer.apply_stacked(params, _batch())
             out.square().mean().backward()
+    # conv_out's backward is its Conv9x9Function's node (ops/cuda/conv9x9.py),
+    # the other 15 convs' cuDNN's convolution backward.
     nodes = [e for e in prof.profiler.kineto_results.events()
-             if "ConvolutionBackward" in e.name() and "evaluate_function" in e.name()]
+             if ("ConvolutionBackward" in e.name() or "Conv9x9FunctionBackward" in e.name())
+             and "evaluate_function" in e.name()]
     assert len(nodes) == 16
+    assert sum("Conv9x9FunctionBackward" in e.name() for e in nodes) == 1
     bwd = sorted((s for s in rec.spans if s.name.endswith(".bwd")), key=lambda s: s.start_ns)
     slack = 200_000  # the two clocks' readings, a fraction of a conv's backward
     for node, s in zip(sorted(nodes, key=lambda e: e.start_ns()), bwd):

@@ -336,6 +336,9 @@ def test_trace_writes_a_chrome_trace(tmp_path, caplog):
 @pytest.mark.parametrize("kernel,group", [
     ("void (anonymous namespace)::upconv_phase_f32_kernel<64>(float const*, float const*, "
      "float const*, float*, Shape)", "upconv_phase kernel"),
+    ("void (anonymous namespace)::conv9x9_f32_kernel<(anonymous namespace)::Tile<32, 3, 16, 3, "
+     "32, 8, 4, 1> >(float const*, float const*, float const*, float*, Shape)",
+     "conv9x9 kernel"),
     ("void (anonymous namespace)::conv3x3_f32_kernel<8>(Args)", "conv3x3 kernel"),
     ("void (anonymous namespace)::direct_kernel<float, 9>(Args)", "conv_direct kernel"),
     ("void pointwise_mult_and_sum_complex<float2, 8, 4>(float2*)", "cuDNN convolutions"),
