@@ -99,14 +99,19 @@ It imports nothing of JAX. Phases:
    repeat, and its device ms and img/s;
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
-   transform-net parameters, in f32 and bf16. The counters must show 15
-   fused-IN forward and 15 backward launches per step (and 15 forward
-   launches per eval or preview forward), 2 conv9x9 per f32 step (conv_out's
-   forward and input gradient) and the VGG tower's conv kernels
-   (per step 2 conv3x3_im2col and 12 conv3x3_flat: the output's forward and
-   input gradient, the content target's forward), every logged loss must be
-   finite, and the epoch checkpoint must load and serve through
-   ``process_dir``;
+   transform-net parameters, in f32 and bf16. Every step replays the
+   step's CUDA graph (one capture, a replay a step: the training graph
+   counters of ``utils/aot.py`` are printed), so the kernels launch in the
+   capture's passes alone (``aot.WARMUP`` warm-ups and the captured pass).
+   The counters must show 15 fused-IN forward and 15 backward launches per
+   forward-backward pass (and 15 forward launches per eval or preview
+   forward), 2 conv9x9 per f32 pass (conv_out's forward and input gradient)
+   and the VGG tower's conv kernels (per pass 2 conv3x3_im2col and 12
+   conv3x3_flat: the output's forward and input gradient, the content
+   target's forward), every logged loss must be finite, and the epoch
+   checkpoint must load and serve through ``process_dir``; then one step
+   while ``record_spans()`` records: eager, no graph counter moves, and it
+   launches a pass's kernels;
 6. one f32 training step on two images, card against the port's CPU run
    (loss components and every parameter's gradient);
 7. time steady-state training steps at batch 4 and 16, f32 and bf16;
@@ -147,9 +152,9 @@ It imports nothing of JAX. Phases:
    call shapes of a batch-4 train step (against the plain versions; with
    every row equal, dx bit for bit the [C] call's; device ms beside the
    [C] calls and the bound); ``engines.multistyle.train`` at batch 4 with 4
-   seeded styles for a few steps in f32 and bf16 (per step 15 fused-IN
-   forwards and 15 backwards, all with [N, C] affines, and the VGG
-   kernels; the preview on the serving kernels; finite losses; the step
+   seeded styles for a few steps in f32 and bf16 (every step on one CUDA
+   graph; per pass 15 fused-IN forwards and 15 backwards, all with [N, C]
+   affines, and the VGG kernels; the preview on the serving kernels; finite losses; the step
    state; [4, C] affines in the epoch checkpoint, which ``convert-image-
    multi`` serves by index and blend, card against CPU); one f32
    multi-style step card against CPU (undrawn styles' rows unchanged); the
@@ -182,7 +187,8 @@ It imports nothing of JAX. Phases:
    static_train for a few steps at batch 4, f32 and bf16, in a group of one
    against the same steps without a group, losses within 1e-5 with cuDNN's
    deterministic algorithms; steady steps with and without the all-reduce;
-   train_loop's ms per step in a group of one and without, in turns); two gloo
+   train_loop's ms per step in a group of one and without, in turns; no
+   training graph in the group, every step on one without it); two gloo
    ranks sharing cuda:0 (this script again with ``--rank-worker``), each
    holding 2 images of a global batch of 4 at 256 px with the published
    widths, f32 and bf16: per rank and step 15 fused-IN forwards and
@@ -192,7 +198,7 @@ It imports nothing of JAX. Phases:
    static_train over the group and each rank's checkpoint through
    process_dir, train-multi, and video_st train cut after a mid-batch step
    state and resumed from the carry sidecars, bit for bit the uninterrupted
-   run; the serving paths over the
+   run, and no training graph on either rank; the serving paths over the
    device list [cuda:0, cuda:0] (process_dir at batch 64 within the serving
    limits of one device, launches per shard; convert-dir lanes split 2 + 1,
    every clip exactly its stylize_clip, launches per shard and frame row;
@@ -200,9 +206,10 @@ It imports nothing of JAX. Phases:
    ``parallel/dryrun.py`` with two gloo ranks on cuda:0;
 13. the packed slice (also alone with ``--packed``): ``pack_synthetic`` of 64
    images at 256 px; ``static_train`` on its loaders for a few steps at
-   batch 4, f32 and bf16 (every step on a uint8 batch on the card,
-   launching 15 fused-IN forwards and backwards, 2 conv3x3_im2col and 12
-   conv3x3_flat; the eval and previews on uint8 batches; finite losses);
+   batch 4, f32 and bf16 (every step on a uint8 batch on the card and a
+   replay of its CUDA graph, captured once with 15 fused-IN forwards and
+   backwards, 2 conv3x3_im2col and 12 conv3x3_flat a pass; the eval and
+   previews on uint8 batches; finite losses);
    one f32 step on two of its images, card against CPU (losses 1e-5,
    parameters 1e-3 relative L2); ``fast_st train-multi --packed`` for an
    epoch of the file; the loop's ms per step on the packed file beside the
@@ -549,6 +556,31 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
+
+
+def graph_counts() -> tuple:
+    """The training graphs captured and replayed so far (``utils/aot.py``)."""
+    from styletransfer_tpu_torch.utils import aot
+
+    return aot.train_captures, aot.train_replays
+
+
+def graphed_since(before: tuple) -> tuple:
+    """The training graphs captured and replayed since ``before``."""
+    now = graph_counts()
+    return now[0] - before[0], now[1] - before[1]
+
+
+def step_passes(steps: int, graphs: tuple) -> int:
+    """The forward-backward passes that the kernels' launch counters saw in
+    ``steps`` training steps, of which ``graphs`` = (captures, replays) ran
+    on CUDA graphs: a graph's kernels launch in its capture (``aot.WARMUP``
+    warm-ups and the captured pass) and at no replay; an eager step
+    launches its own."""
+    from styletransfer_tpu_torch.utils import aot
+
+    captures, replays = graphs
+    return steps - replays + (aot.WARMUP + 1) * captures
 
 
 def conv_phase(torch, F, conv3x3, dtype):
@@ -1930,6 +1962,35 @@ def _style_image(np):
     return images.normalize(coco.synthetic_image(10_000, SIZE))[None].astype(np.float32)
 
 
+def spans_step_checked(torch, np, vgg_params, style, precision) -> None:
+    """One make_train_step step while ``record_spans()`` records: the eager
+    step (no training graph captured or replayed), launching one
+    forward-backward pass's kernels."""
+    from styletransfer_tpu_torch.engines import fast
+    from styletransfer_tpu_torch.models import transformer, vgg
+    from styletransfer_tpu_torch.utils import profiling
+
+    grams = vgg.style_gram_targets(vgg_params, torch.from_numpy(style).cuda())
+    step = fast.make_train_step(vgg_params, grams,
+                                compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+    params = transformer.init_params(seed=0, device="cuda")
+    x = torch.from_numpy(_parallel_batch(np)).cuda()
+    reset_counts()
+    before = graph_counts()
+    with profiling.record_spans() as rec:
+        loss = float(step(params, fast.make_optimizer(params), x)["total"])
+    graphs = graphed_since(before)
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = with_conv9x9(PER_STEP, precision)
+    print(f"training step {precision} under record_spans: training graphs {graphs[0]} captured, "
+          f"{graphs[1]} replays; {len(rec.spans)} spans", flush=True)
+    check(graphs == (0, 0) and counts == want and math.isfinite(loss)
+          and "train.step" in {s.name for s in rec.spans},
+          f"training step {precision} under record_spans: eager ({graphs[0]} graphs captured, "
+          f"{graphs[1]} replays), launched {counts} (want {want}), loss finite, span "
+          f"train.step recorded")
+
+
 def train_path(torch, np, in_dir):
     """The training path: static_train for TRAIN_STEPS steps at batch 4, in
     f32 and bf16, from seeded parameters on the synthetic corpus; then its
@@ -1958,6 +2019,7 @@ def train_path(torch, np, in_dir):
         logger = get_logger()
         logger.addHandler(log)
         reset_counts()
+        before = graph_counts()
         t0 = time.perf_counter()
         try:
             fast.static_train(
@@ -1971,25 +2033,34 @@ def train_path(torch, np, in_dir):
         finally:
             logger.removeHandler(log)
         wall = time.perf_counter() - t0
+        graphs = graphed_since(before)
+        passes = step_passes(TRAIN_STEPS, graphs)
+        print(f"training path {precision}: training graphs {graphs[0]} captured, {graphs[1]} "
+              f"replays in {TRAIN_STEPS} steps", flush=True)
+        check(graphs == (1, TRAIN_STEPS),
+              f"training path {precision}: {graphs[0]} training graphs captured and "
+              f"{graphs[1]} replays (want 1 and {TRAIN_STEPS}: every step on one graph)")
         counts = read_counts()
         launches[precision] = counts
         want = {k: 0 for k in counts}
-        want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (TRAIN_STEPS + previews
+        want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (passes + previews
                                                                      + eval_forwards),
-                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
-                     "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * passes,
+                     "conv9x9": (CONV9X9_PER_STEP[precision] * passes
                                  + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
         for k in GATYS_KERNELS:
-            want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+            want[k] = (VGG_PER_STEP[k] * passes + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
         check(counts == want,
-              f"training path {precision}: {TRAIN_STEPS} steps, {previews} previews and "
+              f"training path {precision}: {TRAIN_STEPS} steps ({passes} forward-backward "
+              f"passes launched: the graph's capture), {previews} previews and "
               f"{eval_forwards} eval forwards launched {counts} (want {want}: 15 IN forward and "
-              f"15 backward per step, 15 forward per preview or eval forward; conv9x9 "
-              f"{CONV9X9_PER_STEP[precision]} per step and {CONV9X9_PER_FORWARD[precision]} per "
+              f"15 backward per pass, 15 forward per preview or eval forward; conv9x9 "
+              f"{CONV9X9_PER_STEP[precision]} per pass and {CONV9X9_PER_FORWARD[precision]} per "
               f"preview or eval forward; VGG convs "
-              f"{VGG_PER_STEP} per step, {VGG_PER_EVAL} per eval forward, "
+              f"{VGG_PER_STEP} per pass, {VGG_PER_EVAL} per eval forward, "
               f"{VGG_STYLE_TARGETS} for the style targets)")
+        spans_step_checked(torch, np, vgg_params, style, precision)
         check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train),
               f"training path {precision}: logged losses {['%.4f' % v for v in log.train]} "
               f"all finite")
@@ -2934,6 +3005,7 @@ def multistyle_train_path(torch, np, in_dir):
         logger = get_logger()
         logger.addHandler(log)
         reset_counts()
+        before = graph_counts()
         t0 = time.perf_counter()
         try:
             params = engine.train(
@@ -2946,26 +3018,34 @@ def multistyle_train_path(torch, np, in_dir):
         finally:
             logger.removeHandler(log)
         wall = time.perf_counter() - t0
+        graphs = graphed_since(before)
+        passes = step_passes(TRAIN_STEPS, graphs)
+        print(f"multi-style training {precision}: training graphs {graphs[0]} captured, "
+              f"{graphs[1]} replays in {TRAIN_STEPS} steps", flush=True)
+        check(graphs == (1, TRAIN_STEPS),
+              f"multi-style training {precision}: {graphs[0]} training graphs captured and "
+              f"{graphs[1]} replays (want 1 and {TRAIN_STEPS}: every step on one graph)")
         counts = read_counts()
         launches[precision] = counts
         route = "f32_fma" if precision == "f32" else "bf16_wgmma"
-        fwd = NORMS_PER_FORWARD * (TRAIN_STEPS + eval_forwards)
+        fwd = NORMS_PER_FORWARD * (passes + eval_forwards)
         want = {k: 0 for k in counts}
         want.update({"fused_instance_norm_fwd": fwd, "fused_instance_norm_fwd.per_image": fwd,
-                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
-                     "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD * TRAIN_STEPS,
+                     "fused_instance_norm_bwd": NORMS_PER_FORWARD * passes,
+                     "fused_instance_norm_bwd.per_image": NORMS_PER_FORWARD * passes,
                      "conv3x3_valid": 10 * previews, f"conv3x3_valid.{route}": 10 * previews,
                      "instance_norm_pad": NORMS_PER_FORWARD * previews,
                      "upconv_phase": UPCONV_PER_FORWARD[precision] * previews,
-                     "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                     "conv9x9": (CONV9X9_PER_STEP[precision] * passes
                                  + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
         for k in GATYS_KERNELS:
-            want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+            want[k] = (VGG_PER_STEP[k] * passes + VGG_PER_EVAL[k] * eval_forwards
                        + VGG_STYLE_TARGETS[k])
         check(counts == want,
-              f"multi-style training {precision}: {TRAIN_STEPS} steps, {previews} previews, "
-              f"{eval_forwards} eval forwards launched {counts} (want {want}: per step 15 "
-              f"fused-IN forwards and 15 backwards with [N, C] affines)")
+              f"multi-style training {precision}: {TRAIN_STEPS} steps ({passes} forward-backward "
+              f"passes launched: the graph's capture), {previews} previews, {eval_forwards} eval "
+              f"forwards launched {counts} (want {want}: per pass 15 fused-IN forwards and 15 "
+              f"backwards with [N, C] affines)")
         check(len(log.train) == TRAIN_STEPS and all(math.isfinite(v) for v in log.train)
               and len(log.test) == 1 and math.isfinite(log.test[0]),
               f"multi-style training {precision}: logged losses "
@@ -3107,8 +3187,8 @@ def multistyle_step_rates(torch, np):
             else:
                 params = multistyle.init_params(seed=0, num_styles=TRAIN_STYLES, device="cuda")
                 step = engine.make_train_step(vgg_params, grams, compute_dtype=cd)
-                run = lambda: step(params, opt, x,  # noqa: E731
-                                   draws.integers(0, TRAIN_STYLES, TRAIN_BATCH))
+                run = lambda: step(params, opt, x, multistyle.style_index(  # noqa: E731
+                    draws.integers(0, TRAIN_STYLES, TRAIN_BATCH), "cuda"))
             opt = fast.make_optimizer(params)
             for _ in range(3):
                 run()
@@ -4046,6 +4126,7 @@ def rank_worker(torch, np, out_dir, in_dir) -> int:
         "video_st", "smoke", os.path.join(out_dir, "video_cut")))
     arrays["video.resumed"], res["video.resumed_steps"], res["video.resumed_losses"] = \
         video_run("video_cut")
+    res["train_graphs"] = list(graph_counts())
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -4093,6 +4174,7 @@ def nccl_phase(torch, np, card):
                     image_dir=os.path.join(WORK, "no_images"))
                 log = _LossLog()
                 get_logger().addHandler(log)
+                before = graph_counts()
                 t0 = time.perf_counter()
                 try:
                     fast.static_train(
@@ -4109,6 +4191,14 @@ def nccl_phase(torch, np, card):
                 finally:
                     get_logger().removeHandler(log)
                 runs[(label, precision)] = (log.train + log.test, time.perf_counter() - t0)
+                graphs = graphed_since(before)
+                want = (0, 0) if grouped else (1, PARALLEL_STEPS)
+                print(f"nccl {label} {precision}: training graphs {graphs[0]} captured, "
+                      f"{graphs[1]} replays in {PARALLEL_STEPS} steps", flush=True)
+                check(graphs == want,
+                      f"nccl {label} {precision}: {graphs[0]} training graphs captured and "
+                      f"{graphs[1]} replays (want {want}: none in a group, whose step holds "
+                      f"its all-reduce, one graph for every step without)")
             if grouped:
                 # Steady steps at batch 4 with the step's all-reduce (a
                 # group of one) and without it, in turns.
@@ -4312,6 +4402,12 @@ def two_rank_phase(torch, np, in_dir, card):
                   f"two ranks {precision}: rank {r['rank']} served the trained checkpoint "
                   f"through process_dir ({n} PNGs, {conv} conv3x3, {norm} IN-pad launches)")
     for r in res:
+        print(f"two ranks: rank {r['rank']}'s training graphs {r['train_graphs'][0]} captured, "
+              f"{r['train_graphs'][1]} replays", flush=True)
+        check(r["train_graphs"] == [0, 0],
+              f"two ranks: rank {r['rank']} trained eagerly, every step with its all-reduce "
+              f"({r['train_graphs'][0]} training graphs captured, {r['train_graphs'][1]} "
+              f"replays; want none)")
         check(len(r["multi.losses"]) == MULTI_PAR_STEPS
               and all(math.isfinite(v) for v in r["multi.losses"]),
               f"two ranks: rank {r['rank']}'s train-multi logged "
@@ -4507,11 +4603,12 @@ def _step_recording(module, steps):
         step = real(*args, **kwargs)
 
         def recorded(params, optimizer, batch, *rest):
-            before = read_counts()
+            before, graphs = read_counts(), graph_counts()
             metrics = step(params, optimizer, batch, *rest)
             after = read_counts()
             steps.append((batch.dtype, batch.device.type,
-                          {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+                          {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                          tuple(batch.shape), graphed_since(graphs)))
             return metrics
 
         return recorded
@@ -4521,10 +4618,25 @@ def _step_recording(module, steps):
 
 
 def _steps_checked(torch, label, steps, n, per_step):
-    check(len(steps) == n and all(dt == torch.uint8 and dev == "cuda" for dt, dev, _ in steps)
-          and all(d == per_step for _, _, d in steps),
-          f"{label}: {len(steps)} steps on uint8 batches on the card, each launching "
-          f"{steps[0][2] if steps else None} (want {n} steps of {per_step})")
+    """``n`` steps on uint8 batches on the card, each a replay of its batch
+    shape's CUDA graph, captured at the shape's first step: that step
+    launches ``per_step`` for each pass of the capture, the others none.
+    Returns the forward-backward passes the counters saw."""
+    passes = [step_passes(1, graphs) for *_, graphs in steps]
+    want = [{k: v * p for k, v in per_step.items()} if p else {} for p in passes]
+    captures = sum(graphs[0] for *_, graphs in steps)
+    replays = sum(graphs[1] for *_, graphs in steps)
+    shapes = {shape for *_, shape, _ in steps}
+    print(f"{label}: training graphs {captures} captured, {replays} replays in {len(steps)} "
+          f"steps", flush=True)
+    check(len(steps) == n and all(dt == torch.uint8 and dev == "cuda" for dt, dev, *_ in steps)
+          and [d for _, _, d, *_ in steps] == want and replays == n
+          and captures == len(shapes),
+          f"{label}: {len(steps)} steps on uint8 batches on the card, {replays} of them "
+          f"replays of {captures} training graphs ({len(shapes)} batch shapes), launching "
+          f"{[d for _, _, d, *_ in steps]} (want {n} steps, each a replay, {per_step} a pass: "
+          f"{want})")
+    return sum(passes)
 
 
 def _loop_ms(torch, fast, prefetch, vgg_params, grams, loader, precision) -> float:
@@ -4604,16 +4716,16 @@ def packed_path(torch, np):
             wall = time.perf_counter() - t0
             counts = read_counts()
             launches[precision] = counts
-            _steps_checked(torch, f"packed static_train {precision}", steps, TRAIN_STEPS,
-                           with_conv9x9(PER_STEP, precision))
+            passes = _steps_checked(torch, f"packed static_train {precision}", steps,
+                                    TRAIN_STEPS, with_conv9x9(PER_STEP, precision))
             want = {k: 0 for k in counts}
             want.update({"fused_instance_norm_fwd": NORMS_PER_FORWARD * (
-                TRAIN_STEPS + previews + eval_forwards),
-                "fused_instance_norm_bwd": NORMS_PER_FORWARD * TRAIN_STEPS,
-                "conv9x9": (CONV9X9_PER_STEP[precision] * TRAIN_STEPS
+                passes + previews + eval_forwards),
+                "fused_instance_norm_bwd": NORMS_PER_FORWARD * passes,
+                "conv9x9": (CONV9X9_PER_STEP[precision] * passes
                             + CONV9X9_PER_FORWARD[precision] * (previews + eval_forwards))})
             for k in GATYS_KERNELS:
-                want[k] = (VGG_PER_STEP[k] * TRAIN_STEPS + VGG_PER_EVAL[k] * eval_forwards
+                want[k] = (VGG_PER_STEP[k] * passes + VGG_PER_EVAL[k] * eval_forwards
                            + VGG_STYLE_TARGETS[k])
             check(counts == want and eval_forwards == 1,
                   f"packed static_train {precision}: {TRAIN_STEPS} steps, {previews} previews "
@@ -5199,17 +5311,19 @@ def ckpt_phase(torch, np, in_dir, card):
 
         params = transformer.init_params(seed=0, device="cuda")
         reset_counts()
+        before = graph_counts()
         train(params)
         torch.cuda.synchronize()
+        passes = step_passes(ORBAX_TRAIN_STEPS, graphed_since(before))
         launches["static_train"] = counts = read_counts()
         epoch_dir = ckpt.checkpoint_path("fast_st", "smoke", 0, models)
         check(epoch_dir.endswith(".orbax") and os.path.isdir(epoch_dir)
               and sorted(os.listdir(models)) == [os.path.basename(epoch_dir)],
               f"orbax: static_train under STX_CKPT_BACKEND=orbax wrote {sorted(os.listdir(models))}"
               f" (one .orbax epoch directory)")
-        check(counts["fused_instance_norm_bwd"] == NORMS_PER_FORWARD * ORBAX_TRAIN_STEPS
-              and counts["fused_instance_norm_fwd"] >= NORMS_PER_FORWARD * ORBAX_TRAIN_STEPS,
-              f"orbax: static_train {ORBAX_TRAIN_STEPS} steps launched "
+        check(counts["fused_instance_norm_bwd"] == NORMS_PER_FORWARD * passes
+              and counts["fused_instance_norm_fwd"] >= NORMS_PER_FORWARD * passes,
+              f"orbax: static_train {ORBAX_TRAIN_STEPS} steps ({passes} passes) launched "
               f"{counts['fused_instance_norm_fwd']} fused-IN forwards and "
               f"{counts['fused_instance_norm_bwd']} backwards")
         path, epoch = ckpt.find_latest("fast_st", "smoke", models)

@@ -7,9 +7,11 @@ Training (``static_train``): the transform net's stacked forward
 and their backward), the VGG perceptual loss and total variation, autograd,
 and ``torch.optim.Adam`` (optax ``adam``'s arithmetic). Params, gradients
 and Adam state stay f32 under ``precision="bf16"``, which runs only the
-activations in bf16. Host work per step is feeding the next batch (decoded
-on threads, copied ahead by ``parallel.prefetch``) and reading the loss back
-on the logging cadence. The reference's cadences and TensorBoard tags are
+activations in bf16. On CUDA the forward, loss and backward replay from
+one CUDA graph (``make_step``) and Adam runs eagerly after it. Host work
+per step is feeding the next batch (decoded on threads, copied ahead by
+``parallel.prefetch``), launching the graph and Adam, and reading the loss
+back on the logging cadence. The reference's cadences and TensorBoard tags are
 kept: the loss every 20 steps (``data/fst_train_loss``), a preview every 50
 (``data/fst_images``), the eval every 150 (``data/fst_test_loss``).
 
@@ -133,11 +135,33 @@ def make_step(objective: Callable, remat: bool = False,
     runs the instance-norm forward kernels a second time.
 
     A step is the span ``train.step``, which holds ``train.backward`` and
-    ``train.optimizer`` (Adam) besides the objective's own."""
+    ``train.optimizer`` (Adam) besides the objective's own.
+
+    On CUDA the forward, loss and backward replay from a CUDA graph
+    (``utils/aot.py::GradGraphs``: one per device, shape and dtype of the
+    inputs and identity of ``params``), so a step costs the host one graph
+    launch and Adam's eager update instead of some 800 launches. The step
+    runs eagerly instead where an input is not a CUDA tensor, with
+    ``shards`` (its all-reduce runs in the step, at any world size), with
+    ``remat``, while ``profiling.record_spans()`` records (so that the
+    spans time the eager step), and where a capture failed."""
     layers.disable_tf32()
+
+    def gradients(params: transformer.TransformerNet, *inputs) -> Dict[str, torch.Tensor]:
+        params.zero_grad(set_to_none=True)
+        total, metrics = objective(params, *inputs)
+        total.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    graphs = None if remat or shards is not None else aot.GradGraphs(gradients, "train step")
 
     def train_step(params: transformer.TransformerNet, optimizer: torch.optim.Optimizer,
                    *inputs) -> Dict[str, torch.Tensor]:
+        if graphs is not None and not profiling.recording():
+            metrics = graphs(params, *inputs)
+            if metrics is not None:
+                optimizer.step()
+                return metrics
         with profiling.span("train.step"):
             optimizer.zero_grad(set_to_none=True)
             if remat:

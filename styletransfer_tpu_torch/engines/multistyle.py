@@ -200,7 +200,8 @@ def train(
         # [rank * b, (rank + 1) * b).
         b = batch.shape[0]
         idx = rng.integers(0, n_styles, b * world)[rank * b:(rank + 1) * b]
-        return step(params, optimizer, batch, idx)
+        # On the batch's device, so that the step's CUDA graph takes it.
+        return step(params, optimizer, batch, multistyle.style_index(idx, batch.device))
 
     def eval_step_rr(params, batch):
         # Round robin over the global batch, so that every style is

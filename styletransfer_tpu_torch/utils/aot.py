@@ -1,4 +1,4 @@
-"""Serving executables on CUDA graphs, for the fixed serving shapes.
+"""Serving executables, and the training step's gradients, on CUDA graphs.
 
 The port of ``styletransfer_tpu/utils/aot.py``. JAX's ``cached_compile``
 gives the serving commands one compiled program per fixed input shape. The
@@ -32,6 +32,12 @@ What is captured:
   the capture, not at a replay; :data:`captures` and :data:`replays` count
   the graphs.
 
+:class:`GradGraphs` is the training step's counterpart (the JAX package
+runs its step as one ``jit`` program): ``engines/fast.py::make_step``
+replays the forward, loss and backward from one graph per key, on by
+default, and runs Adam eagerly after it. :data:`train_captures` and
+:data:`train_replays` count those graphs.
+
 Nothing is written to disk: a graph holds device addresses and cannot
 outlive its process. What persists between processes is the kernel build
 cache (``utils/cache.py``), so JAX's ``STX_AOT_CACHE_DIR``, its pickled
@@ -42,7 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +60,9 @@ WARMUP = 2
 # Graphs captured and replays run in this process.
 captures = 0
 replays = 0
+# The same of the training steps' graphs (GradGraphs).
+train_captures = 0
+train_replays = 0
 
 
 def _enabled() -> bool:
@@ -148,6 +157,68 @@ class _Graphed:
             graph.replay()
             replays += 1
             return _clone(out)
+
+
+class GradGraphs:
+    """``grad_fn(params, *inputs) -> metrics``, a forward and backward that
+    leaves every gradient in ``p.grad`` and returns a dict of 0-d tensors,
+    replayed from one CUDA graph per key: the device, shape and dtype of
+    each input and the identity of ``params`` (an ``nn.Module``).
+
+    ``grad_fn`` must set the gradients to None before its backward, so that
+    the captured backward allocates them in the graph's pool: a replay
+    rewrites them there, and each replay points ``p.grad`` at them again
+    (an eager step in between may have set them to None). The warm-ups on
+    the capture stream only write gradients, which the replay overwrites.
+    A capture that fails logs a WARNING and leaves its key to the eager
+    step; every key is captured once, so a ragged last batch costs one
+    capture in a run, not one an epoch."""
+
+    def __init__(self, grad_fn: Callable, name: str):
+        self.grad_fn = grad_fn
+        self.name = name
+        # key -> (graph, static inputs, static metrics, [(param, grad)],
+        # keep-alive), or None where the capture failed.
+        self._graphs: Dict[Tuple, Any] = {}
+
+    def _record(self, key: Tuple, params: torch.nn.Module, inputs: Sequence[torch.Tensor]):
+        global train_captures
+        static = [torch.empty_like(a).copy_(a) for a in inputs]
+        try:
+            graph, out, keep = _capture(self.grad_fn, [params, *static], inputs[0].device)
+        except Exception as exc:  # noqa: BLE001 - training goes on eagerly
+            get_logger().warning("CUDA graph: capturing %s at %s failed (%s); running it "
+                                 "eagerly", self.name, key, exc)
+            self._graphs[key] = None
+            return None
+        grads = [(p, p.grad) for p in params.parameters() if p.grad is not None]
+        train_captures += 1
+        get_logger().info("CUDA graph: captured %s at %s", self.name, key)
+        self._graphs[key] = entry = (graph, static, out, grads, keep)
+        return entry
+
+    def __call__(self, params: torch.nn.Module, *inputs) -> Optional[Dict[str, torch.Tensor]]:
+        """One replay's metrics, cloned (a caller may keep them past the next
+        replay), with every gradient in ``p.grad``; None where the step is
+        to run eagerly: an input that is not a CUDA tensor, or a key whose
+        capture failed."""
+        global train_replays
+        if not all(isinstance(a, torch.Tensor) and a.is_cuda for a in inputs):
+            return None
+        key = _key((params, *inputs))
+        with torch.cuda.device(inputs[0].device):
+            entry = (self._graphs[key] if key in self._graphs
+                     else self._record(key, params, inputs))
+            if entry is None:
+                return None
+            graph, static, out, grads, _ = entry
+            for s, a in zip(static, inputs):
+                s.copy_(a)
+            graph.replay()
+            train_replays += 1
+            for p, g in grads:
+                p.grad = g
+            return {k: v.clone() for k, v in out.items()}
 
 
 def cached_compile(fn: Callable, example_args: Sequence[Any], name: str) -> Callable:

@@ -184,6 +184,11 @@ def record_spans() -> Iterator[SpanRecording]:
             rec._close()
 
 
+def recording() -> bool:
+    """Whether a :func:`record_spans` block is open."""
+    return _recording is not None
+
+
 def _last_node(out: torch.Tensor):
     """Of the autograd nodes that made ``out`` from leaves alone, the one
     autograd runs last: the first made (one device's ready nodes run
@@ -540,7 +545,9 @@ def profile_forward(precision: str, batch: int, size: int, iters: int = 5) -> Di
 
 def profile_train_step(precision: str, batch: int, size: int, iters: int = 5) -> Dict:
     """One training step (forward, backward, Adam) on seeded parameters,
-    seeded VGG and a seeded batch."""
+    seeded VGG and a seeded batch. ``wall_ms`` times the step as it runs,
+    from its CUDA graph; the profiled stretch records spans, so it times
+    the eager step, whose launches the spans name."""
     from styletransfer_tpu_torch.engines import fast
     from styletransfer_tpu_torch.models import transformer, vgg
 
