@@ -14,6 +14,7 @@
     python3 chip_smoke.py --aot         # phases 1-2, CUDA graphs, start-up, precision, CRC32C
     python3 chip_smoke.py --ckpt        # phases 1-2, .orbax epochs, the zstd decoder, downloads
     python3 chip_smoke.py --adain       # phases 1-2, upconv_phase, AdaIN's kernels and forward
+    python3 chip_smoke.py --sanet       # phases 1-2, upconv_phase, SANet's kernels and forward
 
 Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 It imports nothing of JAX. Phases:
@@ -96,7 +97,26 @@ It imports nothing of JAX. Phases:
    1 conv3x3_im2col, 1 conv3x3_flat, 1 IN-pad and 3 upconv_phase, the
    output within one level of the plain reference
    (``h100bench/reference/adain.py``, f32, TF32 off), a bit-identical
-   repeat, and its device ms and img/s;
+   repeat, and its device ms and img/s; then SANet (also alone with
+   ``--sanet``, with upconv_phase's calls): its other kernels at its
+   forward's shapes (``SANET_CALLS``: ADAIN_CALLS' convs at 4 pairs of 1024
+   px, conv4_2 .. conv4_4 and conv5_1 512 -> 512, the merge 512 -> 512
+   without the ReLU; upconv_phase's three in ``UPCONV_CALLS``), each as
+   AdaIN's are checked and timed; the attention kernel (``csrc/attention.cu``, not a TPU
+   kernel) at the forward's two calls (4 pairs of 1024 px: 16,384 and 4,096
+   positions) and a ragged photo's relu4_1 call, against its plain version
+   with a bit-identical repeat, image 0 alone bit for bit and its launches,
+   its device ms beside the plain version, the bound and, as yardsticks the
+   port never calls, ``F.scaled_dot_product_attention(scale=1.0)`` in f32;
+   the serving forward (``engines.sanet.make_serve_fn``, seeded weights, 4
+   pairs of 1024 px content and style on smooth seeded images): per forward
+   18 conv3x3_valid launches (f32_fma), 1 conv3x3_im2col, 1 conv3x3_flat,
+   3 upconv_phase and 2 attention, within one level of the plain reference
+   (``h100bench/reference/sanet.py``) in blocks of one pair, a bit-identical
+   repeat, device ms, img/s, peak memory and the seeded logits' spread; a
+   ragged photo (content 1008 x 752, style 512 px) against the reference;
+   and ``fast_st convert-sanet`` on 4 PNGs at 1024 px against the serving
+   forward;
 5. drive the training path, fast_st training: ``engines.fast.static_train``
    for a few steps at batch 4 on the synthetic corpus, seeded VGG and
    transform-net parameters, in f32 and bf16. Every step replays the
@@ -376,6 +396,8 @@ SOURCES = {
     # its autodiff).
     "conv9x9": ("styletransfer_tpu_torch/csrc/conv9x9.cu",
                 "styletransfer_tpu/ops/layers.py:93"),
+    # Nor this: SANet's attention; the JAX package has no attention.
+    "attention": ("styletransfer_tpu_torch/csrc/attention.cu", "none"),
 }
 # conv3x3_valid's kernel on each route of valid_plan.
 ROUTE_SOURCES = {"f32_fma": "styletransfer_tpu_torch/csrc/conv3x3.cu",
@@ -522,8 +544,8 @@ def allclose(torch, a, b, rtol, atol) -> bool:
 def counters():
     """Each kernel's launch counter: (module, attribute)."""
     from styletransfer_tpu_torch.ops.cuda import (
-        conv3x3, conv3x3_flat, conv9x9, conv_direct, fused_instance_norm, instance_norm,
-        upconv_phase)
+        attention, conv3x3, conv3x3_flat, conv9x9, conv_direct, fused_instance_norm,
+        instance_norm, upconv_phase)
 
     return {"conv3x3_valid": (conv3x3, "launches"),
             "conv3x3_valid.f32_fma": (conv3x3, "fma_launches"),
@@ -540,7 +562,8 @@ def counters():
             "conv3x3_im2col": (conv3x3_flat, "im2col_launches"),
             "conv_direct": (conv_direct, "launches"),
             "upconv_phase": (upconv_phase, "launches"),
-            "conv9x9": (conv9x9, "launches")}
+            "conv9x9": (conv9x9, "launches"),
+            "attention": (attention, "launches")}
 
 
 def with_conv9x9(per_step: dict, precision: str) -> dict:
@@ -1203,11 +1226,16 @@ def conv9x9_phase(torch, F, c9):
 # content and style, the benchmark cell's.
 ADAIN_BATCH = 16
 ADAIN_SIZE = 512
+# SANet's serving forward (models/sanet.py): pairs a call and the side of
+# content and style, the benchmark cell's.
+SANET_BATCH = 4
+SANET_SIZE = 1024
 # upconv_phase's calls, (label, B, h, w, C, O, relu) of the small grid: the
 # serving forward's up1_conv and up2_conv at batch BATCH and SIZE px, and
 # ragged photo-sized grids at batch 1 (no tile of the kernel divides h or w);
 # AdaIN's decoder's up1 .. up3 (bias and ReLU) at batch ADAIN_BATCH and
-# ADAIN_SIZE px, and a ragged grid of its widest.
+# ADAIN_SIZE px, and a ragged grid of its widest; the same decoder's three
+# in SANet's forward at batch SANET_BATCH and SANET_SIZE px.
 UPCONV_CALLS = (("up1_conv", BATCH, SIZE // 4, SIZE // 4, 128, 64, False),
                 ("up2_conv", BATCH, SIZE // 2, SIZE // 2, 64, 32, False),
                 ("up1_conv ragged", 1, 379, 505, 128, 64, False),
@@ -1215,7 +1243,10 @@ UPCONV_CALLS = (("up1_conv", BATCH, SIZE // 4, SIZE // 4, 128, 64, False),
                 ("adain up1", ADAIN_BATCH, ADAIN_SIZE // 8, ADAIN_SIZE // 8, 256, 256, True),
                 ("adain up2", ADAIN_BATCH, ADAIN_SIZE // 4, ADAIN_SIZE // 4, 128, 128, True),
                 ("adain up3", ADAIN_BATCH, ADAIN_SIZE // 2, ADAIN_SIZE // 2, 64, 64, True),
-                ("adain up1 ragged", 1, 93, 125, 256, 256, True))
+                ("adain up1 ragged", 1, 93, 125, 256, 256, True),
+                ("sanet up1", SANET_BATCH, SANET_SIZE // 8, SANET_SIZE // 8, 256, 256, True),
+                ("sanet up2", SANET_BATCH, SANET_SIZE // 4, SANET_SIZE // 4, 128, 128, True),
+                ("sanet up3", SANET_BATCH, SANET_SIZE // 2, SANET_SIZE // 2, 64, 64, True))
 # Its largest gap from the plain version (cuDNN's 3x3 phase conv, TF32 off),
 # over the largest plain output: the same f32 products summed in another
 # order.
@@ -1224,7 +1255,8 @@ UPCONV_REL = 1e-5
 
 def upconv_phase_phase(torch, F, up):
     """upconv_phase against its plain version at the serving forward's two
-    calls, at AdaIN's decoder's three (with the ReLU) and at ragged grids:
+    calls, at AdaIN's decoder's three (with the ReLU), at SANet's three (the
+    same decoder at 1024 px) and at ragged grids:
     the largest gap over the largest output, a bit-identical repeat, one
     launch a call on its own counter and no other; device times of the
     kernel, the plain version (the phase conv, the bias, depth_to_space, the
@@ -1232,13 +1264,14 @@ def upconv_phase_phase(torch, F, up):
     phase conv on the small grid and the published conv on the upsampled,
     reflect-padded grid, each on cuDNN's heuristic pick and on its best
     algorithm, cudnn.benchmark), and the bound. Returns its JSON entry with
-    the two serving calls' totals, a forward's, and AdaIN's three's."""
+    the two serving calls' totals, a forward's, AdaIN's three's and
+    SANet's three's."""
     from styletransfer_tpu_torch.ops import layers
 
     name = "upconv_phase"
     g = torch.Generator(device="cuda").manual_seed(17)
     totals = {b: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_best_ms": 0.0,
-                  "ops_ms": 0.0, "bytes_ms": 0.0} for b in (BATCH, ADAIN_BATCH)}
+                  "ops_ms": 0.0, "bytes_ms": 0.0} for b in (BATCH, ADAIN_BATCH, SANET_BATCH)}
     worst = 0.0
     calls = []
     benchmark = torch.backends.cudnn.benchmark
@@ -1313,13 +1346,14 @@ def upconv_phase_phase(torch, F, up):
         del s, y, out
         torch.cuda.empty_cache()
     for B, what in ((BATCH, "the two upsample convs of a forward"),
-                    (ADAIN_BATCH, "AdaIN's three upsample convs of a forward")):
+                    (ADAIN_BATCH, "AdaIN's three upsample convs of a forward"),
+                    (SANET_BATCH, "SANet's three upsample convs of a forward")):
         t = totals[B]
         print(f"{name} float32: {what} at batch {B}: kernel_ms {t['ms']:.4f} plain_ms "
               f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} (heuristic), "
               f"{t['library_best_ms']:.4f} (best) bound_ms "
               f"{max(t['ops_ms'], t['bytes_ms']):.4f}", flush=True)
-    total, adain = totals[BATCH], totals[ADAIN_BATCH]
+    total, adain, sanet = totals[BATCH], totals[ADAIN_BATCH], totals[SANET_BATCH]
     bound_ms = max(total["ops_ms"], total["bytes_ms"])
     return {"name": f"{name}.float32", "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "max_rel_err": worst, "ms": total["ms"],
@@ -1329,7 +1363,11 @@ def upconv_phase_phase(torch, F, up):
             "adain_ms": adain["ms"], "adain_plain_ms": adain["plain_ms"],
             "adain_bound_ms": max(adain["ops_ms"], adain["bytes_ms"]),
             "adain_library_ms": adain["library_ms"],
-            "adain_library_best_ms": adain["library_best_ms"], "calls": calls,
+            "adain_library_best_ms": adain["library_best_ms"],
+            "sanet_ms": sanet["ms"], "sanet_plain_ms": sanet["plain_ms"],
+            "sanet_bound_ms": max(sanet["ops_ms"], sanet["bytes_ms"]),
+            "sanet_library_ms": sanet["library_ms"],
+            "sanet_library_best_ms": sanet["library_best_ms"], "calls": calls,
             "note": "not a TPU kernel: the phase-form upsample conv the JAX package leaves to XLA",
             "shape": f"the two upsample convs of a {SIZE} px serving forward at batch {BATCH} "
                      f"(up1 128->64 on {SIZE // 4}x{SIZE // 4}, up2 64->32 on "
@@ -1421,16 +1459,18 @@ ADAIN_CALLS = (
 )
 
 
-def adain_kernels(torch, F):
-    """Each kernel of AdaIN's forward but upconv_phase (ADAIN_CALLS) through
-    its wrapper on card tensors at the forward's shapes, against its plain
-    version at the tolerance of TOL (conv3x3_valid's sums at SUMS_TOL): a
-    bit-identical repeat, two launches on the kernel's counter (and
-    conv3x3_valid's on its f32 FMA route) and none on another; device times
-    of the kernel, the plain version and, for a conv, cuDNN's conv alone
-    (channels-last, TF32 off), and the bound. Returns one JSON entry a
-    kernel with its calls and the totals of a forward; ``counter`` names the
-    launch counter whose count a forward the caller adds."""
+def pair_kernels(torch, F, model, batch, size, table):
+    """Each kernel but upconv_phase of one forward of ``model`` (AdaIN or
+    SANet) at ``batch`` pairs of ``size`` px (``table``: ADAIN_CALLS or
+    SANET_CALLS) through its wrapper on card tensors at the forward's
+    shapes, against its plain version at the tolerance of TOL
+    (conv3x3_valid's sums at SUMS_TOL): a bit-identical repeat, two launches
+    on the kernel's counter (and conv3x3_valid's on its f32 FMA route) and
+    none on another; device times of the kernel, the plain version and, for
+    a conv, cuDNN's conv alone (channels-last, TF32 off), and the bound.
+    Returns one JSON entry a kernel, ``<kernel>_<model>.float32``, with its
+    calls and the totals of a forward; ``counter`` names the launch counter
+    whose count a forward the caller adds."""
     from styletransfer_tpu_torch.ops import layers
     from styletransfer_tpu_torch.ops.cuda import conv3x3, conv3x3_flat, instance_norm
 
@@ -1442,8 +1482,9 @@ def adain_kernels(torch, F):
            "instance_norm_pad": (instance_norm.instance_norm_pad,
                                  instance_norm.instance_norm_pad_plain)}
     entries = {}
-    for kernel, label, mult, div, C, O, relu, count in ADAIN_CALLS:
-        B, H = mult * ADAIN_BATCH, ADAIN_SIZE // div
+    tag_of = model.lower()
+    for kernel, label, mult, div, C, O, relu, count in table:
+        B, H = mult * batch, size // div
         rtol, atol = TOL[(kernel, "float32")]
         fn, plain = fns[kernel]
         if kernel == "instance_norm_pad":
@@ -1473,7 +1514,7 @@ def adain_kernels(torch, F):
             flops = 2.0 * B * H * H * 9 * C * O
             nbytes = (x.numel() + w.numel() + B * H * H * O + O) * 4
             shape = f"x[{B},{H + 2},{H + 2},{C}] -> {O}{' relu' * relu}"
-        tag = f"{kernel} float32 adain {label} {shape} ({plan})"
+        tag = f"{kernel} float32 {tag_of} {label} {shape} ({plan})"
         reset_counts()
         out = fn(*args, **kwargs)
         again = fn(*args, **kwargs)
@@ -1512,13 +1553,13 @@ def adain_kernels(torch, F):
               f"{bound_ms:.4f} ({bound_by}), {bound_ms / ms:.3f} of the bound; x{count} a "
               f"forward", flush=True)
         e = entries.setdefault(kernel, {
-            "name": f"{kernel}_adain.float32", "route": "cuda", "source": SOURCES[kernel][0],
+            "name": f"{kernel}_{tag_of}.float32", "route": "cuda", "source": SOURCES[kernel][0],
             "replaces": SOURCES[kernel][1], "counter": ("conv3x3_valid.f32_fma"
                                                         if kernel == "conv3x3_valid" else kernel),
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "library_ms": None if library_ms is None else 0.0, "calls": [],
-            "shape": f"its calls of one AdaIN forward at {ADAIN_BATCH} pairs of {ADAIN_SIZE} "
-                     f"px, summed"})
+            "shape": f"its calls of one {model} forward at {batch} pairs of {size} px, "
+                     f"summed"})
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["ms"] += ms * count
         e["plain_ms"] += plain_ms * count
@@ -1537,6 +1578,234 @@ def adain_kernels(torch, F):
               f"{library} bound_ms {e['bound_ms']:.4f} ({e['bound_ms'] / e['ms']:.3f} of the "
               f"bound)", flush=True)
     return list(entries.values())
+
+
+# SANet's ragged photo: content 1008 x 752 against a 512 px style.
+SANET_PHOTO = ((1008, 752), (512, 512))
+# The other kernels of one SANet forward at SANET_BATCH pairs of SANET_SIZE
+# px (upconv_phase's three are in UPCONV_CALLS), in ADAIN_CALLS' form:
+# AdaIN's encoder to conv4_1, conv4_2 .. conv5_1 (512 -> 512), the merge
+# (512 -> 512 at relu4_1's grid, no ReLU), AdaIN's decoder; no IN-pad.
+SANET_CALLS = ADAIN_CALLS[:7] + (
+    ("conv3x3_valid", "enc.conv4_2..conv4_4", 2, 8, 512, 512, True, 3),
+    ("conv3x3_valid", "enc.conv5_1", 2, 16, 512, 512, True, 1),
+    ("conv3x3_valid", "merge", 1, 8, 512, 512, False, 1),
+) + ADAIN_CALLS[8:]
+# One SANet forward's launches at equal sides: the encoder's 12 convs after
+# conv1_1 (to conv5_1), the merge and the decoder's 5 plain convs on
+# conv3x3_valid, conv1_1 on im2col, conv_out on flat, the three upsample
+# convs, the two attentions. At unequal sides content and style are encoded
+# apart: twice the encoder's convs.
+SANET_PER_FORWARD = {"conv3x3_valid": 18, "conv3x3_valid.f32_fma": 18, "conv3x3_im2col": 1,
+                     "conv3x3_flat": 1, "upconv_phase": 3, "attention": 2}
+SANET_APART = {**SANET_PER_FORWARD, "conv3x3_valid": 30, "conv3x3_valid.f32_fma": 30,
+               "conv3x3_im2col": 2}
+# The output against the rounded plain reference: (max level steps, mean).
+SANET_TOL = (1, 1e-3)
+# The attention's calls: (label, B, key batch, Nq, Nk): the forward's two at
+# SANET_BATCH pairs of SANET_SIZE px, and the photo's relu4_1 (126 x 94
+# positions against 64 x 64).
+SANET_ATTENTION_CALLS = (("r4_1", SANET_BATCH, SANET_BATCH, (SANET_SIZE // 8) ** 2,
+                          (SANET_SIZE // 8) ** 2),
+                         ("r5_1", SANET_BATCH, SANET_BATCH, (SANET_SIZE // 16) ** 2,
+                          (SANET_SIZE // 16) ** 2),
+                         ("photo r4_1", 1, 1, 126 * 94, 64 * 64))
+# The kernel's largest gap from the plain version (cuBLAS f32 products, TF32
+# off, the softmax apart), over the largest plain output.
+ATTENTION_REL = 2e-5
+
+
+def sanet_kernels(torch, F):
+    """The attention kernel at SANET_ATTENTION_CALLS on seeded q, k, v whose
+    scores spread by 3 a row (as SANet's seeded ones): against its plain
+    version, a bit-identical repeat, image 0 alone bit for bit, one launch a
+    call on its counter and none on another; device ms of the kernel, the
+    plain version (``torch.softmax(q @ k^T) @ v``, which writes the score
+    matrix) and F.scaled_dot_product_attention(scale=1.0) in f32 (a
+    yardstick the port never calls), and the bound. Returns the kernel's
+    JSON entry, its calls and the totals of a forward."""
+    from styletransfer_tpu_torch.ops.cuda import attention as attn
+
+    calls = []
+    for label, B, kb, nq, nk in SANET_ATTENTION_CALLS:
+        g = torch.Generator(device="cuda").manual_seed(nq + nk)
+        q = torch.randn(B, nq, 512, device="cuda", generator=g)
+        k = torch.randn(kb, nk, 512, device="cuda", generator=g) * 3 / 512 ** 0.5
+        v = torch.randn(kb, nk, 512, device="cuda", generator=g)
+        tag = f"attention float32 sanet {label} q[{B},{nq},512] k,v[{kb},{nk},512]"
+        reset_counts()
+        out = attn.attention(q, k, v)
+        again = attn.attention(q, k, v)
+        alone = attn.attention(q[:1], k[:1], v[:1])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {key: 0 for key in counts}
+        want["attention"] = 3
+        check(counts == want, f"{tag}: three calls launched {counts} (want {want})")
+        plain = attn.attention_plain(q, k, v)
+        rel = max_err(out, plain) / float(plain.abs().max())
+        check(rel <= ATTENTION_REL and torch.equal(out, again) and torch.equal(out[:1], alone),
+              f"{tag}: largest gap {rel:.3g} of the largest output (limit {ATTENTION_REL}), "
+              f"the repeat and image 0 alone bit-identical")
+        del out, again, alone, plain
+        torch.cuda.empty_cache()
+        ms = device_ms(torch, lambda: attn.attention(q, k, v), iters=5, warmup=1)
+        plain_ms = device_ms(torch, lambda: attn.attention_plain(q, k, v), iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        sdpa_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                            iters=2, warmup=1)
+        flops = 4.0 * B * nq * nk * 512
+        nbytes = (2 * B * nq + 2 * kb * nk) * 512 * 4
+        bound_ms, bound_by = bound(flops, nbytes, "float32")
+        print(f"{tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms (sdpa, scale 1, "
+              f"f32) {sdpa_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}), {bound_ms / ms:.3f} of "
+              f"the bound, {flops / ms / 1e9:.1f} TFLOP/s; gap to plain {rel:.3g}", flush=True)
+        calls.append({"call": label, "shape": f"q[{B},{nq},512] k,v[{kb},{nk},512]", "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": sdpa_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_rel_err": rel})
+        del q, k, v
+        torch.cuda.empty_cache()
+    forward = calls[:2]
+    entry = {"name": "attention_sanet.float32", "route": "cuda",
+             "source": SOURCES["attention"][0], "replaces": SOURCES["attention"][1],
+             "counter": "attention", "max_rel_err": max(c["max_rel_err"] for c in calls),
+             "ms": sum(c["ms"] for c in forward), "plain_ms": sum(c["plain_ms"] for c in forward),
+             "library_ms": sum(c["library_ms"] for c in forward),
+             "bound_ms": sum(c["bound_ms"] for c in forward), "calls": calls,
+             "note": "not a TPU kernel: SANet's style attention; the JAX package has none",
+             "shape": f"its two calls of one SANet forward at {SANET_BATCH} pairs of "
+                      f"{SANET_SIZE} px, summed"}
+    print(f"attention_sanet.float32: a forward's two calls: kernel_ms {entry['ms']:.4f} "
+          f"plain_ms {entry['plain_ms']:.4f} library_ms {entry['library_ms']:.4f} bound_ms "
+          f"{entry['bound_ms']:.4f} ({entry['bound_ms'] / entry['ms']:.3f} of the bound)",
+          flush=True)
+    return [entry]
+
+
+def _sanet_against_reference(torch, ref, released, out, content, style, label):
+    """The serving output's levels against the rounded reference, pair by
+    pair: (max level steps, mean)."""
+    steps, gaps = 0, []
+    with ref.precision(tf32=False):
+        for i in range(content.shape[0]):
+            s = style[i if style.shape[0] > 1 else 0]
+            r = ref.stylize(*released, content[i:i + 1].permute(0, 3, 1, 2).float() / 255,
+                            s[None].permute(0, 3, 1, 2).float() / 255)
+            levels = torch.round(torch.clamp(r, 0, 1) * 255).permute(0, 2, 3, 1)
+            gap = (out[i:i + 1].float() - levels).abs()
+            steps = max(steps, int(gap.max()))
+            gaps.append(float(gap.mean()))
+            del r, levels, gap
+    mean = sum(gaps) / len(gaps)
+    check(steps <= SANET_TOL[0] and mean <= SANET_TOL[1],
+          f"sanet {label}: {steps} level steps (limit {SANET_TOL[0]}), mean {mean:.3g} (limit "
+          f"{SANET_TOL[1]}) from the plain reference")
+    return steps, mean
+
+
+def sanet_path(torch, np):
+    """SANet's serving forward at SANET_BATCH pairs of SANET_SIZE px on
+    seeded weights and smooth seeded images, each pair its own style: the
+    launches of two forwards (SANET_PER_FORWARD each, no other kernel), a
+    bit-identical repeat, the output against the plain reference pair by
+    pair, device ms, img/s, peak memory and the scores' spread a row; the
+    ragged photo; convert-sanet. Returns the launches of one forward and
+    the rate."""
+    from PIL import Image
+
+    from h100bench import inputs
+    from h100bench.reference import sanet as ref
+    from styletransfer_tpu_torch import constants
+    from styletransfer_tpu_torch.engines import sanet as engine
+    from styletransfer_tpu_torch.models import sanet
+
+    params = sanet.init_params(seed=0, device="cuda")
+    released = [{k: v.cuda() for k, v in sd.items()} for sd in
+                sanet.export_torch_state_dict(params)]
+    g = inputs.generator("cuda", 37, inputs.IMAGES)
+    content = inputs.images(SANET_BATCH, SANET_SIZE, g, "cuda")
+    style = inputs.images(SANET_BATCH, SANET_SIZE, g, "cuda")
+    serve = engine.make_serve_fn("f32")
+    serve(params, content, style)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(params, content, style)
+    again = serve(params, content, style)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    want = {key: 2 * SANET_PER_FORWARD.get(key, 0) for key in counts}
+    check(counts == want and torch.equal(out, again),
+          f"sanet: two forwards launched {counts} (want {want}), the repeat bit-identical")
+    steps, mean = _sanet_against_reference(torch, ref, released, out, content, style,
+                                           f"{SANET_BATCH} pairs of {SANET_SIZE} px")
+    # The scores' spread a row at each tap, pair 0 (init_params' LOGIT_GAIN).
+    with ref.precision(tf32=False):
+        vgg, _, tr = released
+        c = ref.encoder(vgg, content[:1].permute(0, 3, 1, 2).float() / 255)
+        s = ref.encoder(vgg, style[:1].permute(0, 3, 1, 2).float() / 255)
+        spread = []
+        for which, name in enumerate(ref.BLOCKS):
+            f = ref._conv(ref.mean_variance_norm(c[which]), tr, f"{name}.f").flatten(2)
+            gg = ref._conv(ref.mean_variance_norm(s[which]), tr, f"{name}.g").flatten(2)
+            scores = torch.bmm(f.transpose(1, 2), gg)
+            spread.append(float(scores.std(dim=-1).mean()))
+            del f, gg, scores
+        del c, s
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: serve(params, content, style), iters=3, warmup=1)
+    rate = SANET_BATCH / (ms / 1e3)
+    print(f"sanet float32 serving forward, {SANET_BATCH} pairs of {SANET_SIZE} px: {ms:.2f} ms, "
+          f"{rate:.2f} img/s, peak memory {peak} bytes, launches {SANET_PER_FORWARD} a forward, "
+          f"{steps} level steps and mean {mean:.3g} from the plain reference; scores' spread a "
+          f"row {spread[0]:.3f} at relu4_1, {spread[1]:.3f} at relu5_1", flush=True)
+    del out, again
+    # The ragged photo: its own sides, encoded apart from the style.
+    (h, w), (hs, ws) = SANET_PHOTO
+    g = torch.Generator(device="cuda").manual_seed(41)
+    photo = torch.randint(0, 256, (1, h, w, 3), device="cuda", generator=g, dtype=torch.uint8)
+    photo_style = torch.randint(0, 256, (1, hs, ws, 3), device="cuda", generator=g,
+                                dtype=torch.uint8)
+    reset_counts()
+    out = serve(params, photo, photo_style)
+    again = serve(params, photo, photo_style)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {key: 2 * SANET_APART.get(key, 0) for key in counts}
+    check(counts == want and torch.equal(out, again) and out.shape == (1, h, w, 3),
+          f"sanet photo {h}x{w}, style {hs}x{ws}: two forwards launched {counts} (want {want}), "
+          f"the repeat bit-identical")
+    _sanet_against_reference(torch, ref, released, out, photo, photo_style,
+                             f"photo {h}x{w}, style {hs}x{ws}")
+    del out, again
+    # convert-sanet over 4 PNGs at the cell's side, one style image.
+    work = os.path.join(WORK, "sanet")
+    os.makedirs(os.path.join(work, "in"), exist_ok=True)
+    os.makedirs(os.path.join(work, "weights"), exist_ok=True)
+    for sd, name in zip(sanet.export_torch_state_dict(params),
+                        (engine.VGG_FILE, engine.DECODER_FILE, engine.TRANSFORMER_FILE)):
+        torch.save(sd, os.path.join(work, "weights", name))
+    pics = content.cpu().numpy()
+    for i, pic in enumerate(pics):
+        Image.fromarray(pic).save(os.path.join(work, "in", f"pic{i}.png"))
+    Image.fromarray(style[0].cpu().numpy()).save(os.path.join(work, "style.png"))
+    reset_counts()
+    old_root = constants.PROJECT_ROOT_PATH
+    constants.PROJECT_ROOT_PATH = work
+    try:
+        paths = engine.process_dir("in", "style.png", "weights", out_dir="out",
+                                   batch_size=SANET_BATCH, size=SANET_SIZE, device="cuda")
+    finally:
+        constants.PROJECT_ROOT_PATH = old_root
+    counts = read_counts()
+    want = {key: SANET_APART.get(key, 0) for key in counts}
+    direct = serve(params, content, style[:1]).cpu().numpy()
+    written = np.stack([np.asarray(Image.open(p)) for p in sorted(paths)])
+    check(counts == want and len(paths) == SANET_BATCH and np.array_equal(written, direct),
+          f"convert-sanet: {len(paths)} PNGs at {SANET_SIZE} px, launched {counts} (want {want}), "
+          f"each the serving forward's output bit for bit")
+    return dict(SANET_PER_FORWARD), rate
 
 
 def stat_free_phase(torch, F, cf, dtype):
@@ -5508,8 +5777,15 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--adain"]:
             upconv_phase_phase(torch, F, upconv_phase)
-            adain_kernels(torch, F)
+            pair_kernels(torch, F, "AdaIN", ADAIN_BATCH, ADAIN_SIZE, ADAIN_CALLS)
             adain_path(torch, np)
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--sanet"]:
+            upconv_phase_phase(torch, F, upconv_phase)
+            pair_kernels(torch, F, "SANet", SANET_BATCH, SANET_SIZE, SANET_CALLS)
+            sanet_kernels(torch, F)
+            sanet_path(torch, np)
             print(card)
             return 0
         if sys.argv[1:] == ["--ckpt"]:
@@ -5532,8 +5808,11 @@ def main() -> int:
         in_dir, imgs = write_inputs(np)
         serve_launches, rates = main_path(torch, np, in_dir, imgs)
         multi_launches = multistyle_phase(torch, np, instance_norm, in_dir)
-        adain_entries = adain_kernels(torch, F)
+        adain_entries = pair_kernels(torch, F, "AdaIN", ADAIN_BATCH, ADAIN_SIZE, ADAIN_CALLS)
         adain_launches, adain_rate = adain_path(torch, np)
+        sanet_entries = (pair_kernels(torch, F, "SANet", SANET_BATCH, SANET_SIZE, SANET_CALLS)
+                         + sanet_kernels(torch, F))
+        sanet_launches, sanet_rate = sanet_path(torch, np)
         train_launches = train_path(torch, np, in_dir)
         parity_phase(torch, np)
         step_rate = step_rates(torch, np)
@@ -5601,6 +5880,8 @@ def main() -> int:
             e["train_launches"] = train_launches[precision][kernel]
         if precision == "f32" and kernel in ADAIN_PER_FORWARD:  # one AdaIN forward
             e["adain_launches"] = adain_launches[kernel]
+        if precision == "f32" and kernel in SANET_PER_FORWARD:  # one SANet forward
+            e["sanet_launches"] = sanet_launches[kernel]
     for e in entries:  # each kernel's launches in the network slice's daemons
         kernel, dn = e["name"].split(".")
         precision = "f32" if dn == "float32" else "bf16"
@@ -5650,6 +5931,9 @@ def main() -> int:
     for e in adain_entries:  # each kernel's launches in one AdaIN forward
         e["launches"] = adain_launches[e.pop("counter")]
     entries += adain_entries
+    for e in sanet_entries:  # each kernel's launches in one SANet forward
+        e["launches"] = sanet_launches[e.pop("counter")]
+    entries += sanet_entries
     unused = [e["name"] for e in entries if e["launches"] == 0 and "forced" not in e]
     if unused:
         print(f"chip_smoke: FAILED: {unused} launched no time on their main path",
@@ -5659,6 +5943,8 @@ def main() -> int:
     print(f"serving path img/s at batch {BATCH}, 256 px: f32 {rates['f32']:.1f}, "
           f"bf16 {rates['bf16']:.1f} on {card}")
     print(f"AdaIN serving img/s at {ADAIN_BATCH} pairs, {ADAIN_SIZE} px: f32 {adain_rate:.1f} "
+          f"on {card}")
+    print(f"SANet serving img/s at {SANET_BATCH} pairs, {SANET_SIZE} px: f32 {sanet_rate:.2f} "
           f"on {card}")
     print(f"zeros path img/s at batch {BATCH}, 256 px: f32 {zeros_rates['f32']:.1f}, "
           f"bf16 {zeros_rates['bf16']:.1f} on {card}")

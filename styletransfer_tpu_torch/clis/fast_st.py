@@ -4,7 +4,8 @@ The JAX package's ``train``, ``train-multi``, ``pack-dataset``,
 ``convert-image``, ``convert-dir``, ``convert-image-multi``, ``serve`` and
 ``serve-multi`` commands, with the same arguments and output names, and
 ``convert-adain`` (AdaIN arbitrary style transfer, which the JAX package does
-not have; ``engines/adain.py``), plus ``--device`` (default ``cuda``; there is no silent fallback to the CPU) on
+not have; ``engines/adain.py``), ``convert-sanet`` (SANet's style attention,
+nor that; ``engines/sanet.py``), plus ``--device`` (default ``cuda``; there is no silent fallback to the CPU) on
 all but the host-only ``pack-dataset``. ``train`` and ``train-multi`` take
 ``--packed`` (a file written by ``pack-dataset``; ``data/packed.py``),
 ``--distributed`` (one process per GPU over ``torch.distributed``,
@@ -282,6 +283,33 @@ def convert_adain(input_dir, style_image, weights, alpha, batch_size, out_dir, s
     adain.process_dir(
         input_dir=input_dir, style_image=style_image, weights_dir=weights, out_dir=out_dir,
         batch_size=batch_size, alpha=alpha, size=size, device=device,
+    )
+
+
+@fast_st.command("convert-sanet")
+@click.argument("input-dir")
+@click.option("--style-image", required=True, help="The style image every input is given")
+@click.option("--weights", required=True,
+              help="Directory of the SANet weights (vgg_normalised.pth, "
+                   "decoder_iter_500000.pth, transformer_iter_500000.pth)")
+@click.option("-b", "--batch-size", default=4, show_default=True, help="Inference batch size")
+@click.option("-o", "--out-dir", default="results/",
+              help="The results directory where converted images are saved")
+@click.option("--size", default=1024, show_default=True, type=int,
+              help="Working resolution of content and style (a multiple of 16)")
+@_device_option
+def convert_sanet(input_dir, style_image, weights, batch_size, out_dir, size, device):
+    """
+    Stylizes every image in `input-dir` (png/jpg/jpeg/bmp/webp) with any
+    style image by SANet's style attention (Park & Lee 2019), in batches;
+    outputs are saved as `converted_sanet_{style}_{name}.png` in `out-dir`.
+    f32 only.
+    """
+    from styletransfer_tpu_torch.engines import sanet
+
+    sanet.process_dir(
+        input_dir=input_dir, style_image=style_image, weights_dir=weights, out_dir=out_dir,
+        batch_size=batch_size, size=size, device=device,
     )
 
 

@@ -42,10 +42,16 @@ Weights: :func:`import_torch_state_dict` reads the released files' layout
 (``vgg_normalised.pth``, ``decoder.pth``: OIHW ``nn.Sequential`` keys) and
 :func:`export_torch_state_dict` writes it; :func:`init_params` makes seeded
 ones that keep activations in range through the 19 convs.
+
+SANet (``models/sanet.py``) runs this encoder on to relu5_1
+(:data:`ENCODER5`: conv4_2 .. conv5_1 after pool4 follows conv4_4) and
+this decoder, under span names of its own: :func:`encode` and
+:func:`decode` take the span prefix, and :func:`encode` the tap.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -71,7 +77,12 @@ ENCODER = (
     ("conv3_3", 3, 256, 256, 22), ("conv3_4", 3, 256, 256, 25),
     ("conv4_1", 3, 256, 512, 29),
 )
-POOL_AFTER = ("conv1_2", "conv2_2", "conv3_4")
+# The normalized VGG on to relu5_1, SANet's second tap: the same rows.
+ENCODER5 = (
+    ("conv4_2", 3, 512, 512, 32), ("conv4_3", 3, 512, 512, 35),
+    ("conv4_4", 3, 512, 512, 38), ("conv5_1", 3, 512, 512, 42),
+)
+POOL_AFTER = ("conv1_2", "conv2_2", "conv3_4", "conv4_4")
 # The decoder: (name, in, out, nearest x2 upsample before it, index in
 # decoder.pth's nn.Sequential); every conv is 3x3 and all but the last are
 # followed by a ReLU.
@@ -88,11 +99,22 @@ DOWNSCALE = 8  # three pools: the image sides must be multiples of this
 OUT_GAIN = 0.1
 OUT_BIAS = 0.5
 
-# Span names, made once: a forward formats no string.
-_ENC_SPAN = {name: "adain.enc." + name for name, *_ in ENCODER}
-_POOL_SPAN = {name: f"adain.enc.pool{i + 1}" for i, name in enumerate(POOL_AFTER)}
-_DEC_SPAN = {name: "adain.dec." + name for name, *_ in DECODER}
+# The encoder's taps: the last conv of each.
+TAPS = {"relu4_1": "conv4_1", "relu5_1": "conv5_1"}
 NORM_SPAN = "adain.norm"
+
+
+@functools.lru_cache(maxsize=None)
+def _spans(prefix: str) -> Dict[str, str]:
+    """Span names of a prefix, made once: a forward formats no string.
+    Keys ``enc.<conv>``, ``pool.<conv>`` (the pool after that conv) and
+    ``dec.<conv>``; names ``<prefix>.enc.<conv>``, ``<prefix>.enc.pool<i>``
+    and ``<prefix>.dec.<conv>``."""
+    names = {"enc." + name: f"{prefix}.enc.{name}" for name, *_ in ENCODER + ENCODER5}
+    names.update({f"pool.{name}": f"{prefix}.enc.pool{i + 1}"
+                  for i, name in enumerate(POOL_AFTER)})
+    names.update({"dec." + name: f"{prefix}.dec.{name}" for name, *_ in DECODER})
+    return names
 
 
 class _Convs(nn.Module):
@@ -104,7 +126,8 @@ class _Convs(nn.Module):
 
 class AdaINNet(nn.Module):
     """AdaIN's parameters: ``enc.<conv>`` (``conv0`` the 1x1, ``conv1_1`` ..
-    ``conv4_1``) and ``dec.<conv>`` (:data:`DECODER`), each a
+    ``conv4_1``, and ``conv4_2`` .. ``conv5_1`` where the VGG goes on to
+    relu5_1) and ``dec.<conv>`` (:data:`DECODER`), each a
     :class:`transformer.Conv` with an HWIO ``kernel`` and a ``bias``."""
 
     def __init__(self, enc: Mapping[str, Conv], dec: Mapping[str, Conv]):
@@ -120,23 +143,29 @@ def init_params(seed: int = 0, device=constants.DEFAULT_DEVICE) -> AdaINNet:
     last conv He-normal times :data:`OUT_GAIN` with biases
     :data:`OUT_BIAS`, so that the output lies about [0, 1] and few of its
     levels clamp."""
-    dev = constants.resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    return AdaINNet(*seeded_convs(torch.Generator().manual_seed(seed),
+                                  constants.resolve_device(device)))
 
+
+def seeded_convs(gen: torch.Generator, dev, tap: str = "relu4_1"
+                 ) -> Tuple[Dict[str, Conv], Dict[str, Conv]]:
+    """The encoder's convs to ``tap`` and the decoder's, drawn from ``gen``
+    by :func:`init_params`'s rule (the relu5_1 convs He-normal too)."""
     def conv(k, cin, cout, std, bias=None):
         kernel = torch.randn((k, k, cin, cout), generator=gen) * std
         b = (torch.rand((cout,), generator=gen) * 0.2 - 0.1) if bias is None \
             else torch.full((cout,), bias)
         return Conv(kernel.to(dev), b.to(dev))
 
+    rows = ENCODER + (ENCODER5 if tap == "relu5_1" else ())
     enc = {name: conv(k, cin, cout, (2.0 / (k * k * cin)) ** 0.5 if k == 3 else (1.0 / cin) ** 0.5)
-           for name, k, cin, cout, _ in ENCODER}
+           for name, k, cin, cout, _ in rows}
     dec = {}
     for name, cin, cout, _, _ in DECODER:
         he = (2.0 / (9 * cin)) ** 0.5
         dec[name] = (conv(3, cin, cout, he * OUT_GAIN, OUT_BIAS) if name == "conv_out"
                      else conv(3, cin, cout, he))
-    return AdaINNet(enc, dec)
+    return enc, dec
 
 
 def _fold_input_conv(conv0: Conv, conv1_1: Conv) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,31 +177,41 @@ def _fold_input_conv(conv0: Conv, conv1_1: Conv) -> Tuple[torch.Tensor, torch.Te
     return kernel, bias
 
 
-def _check_side(x: torch.Tensor, what: str) -> None:
+def check_side(x: torch.Tensor, what: str, multiple: int = DOWNSCALE) -> None:
+    """Raise unless ``x`` is [B, H, W, 3] with H and W multiples of
+    ``multiple`` and at least twice it."""
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"{what} must be [B, H, W, 3], got {tuple(x.shape)}")
     h, w = x.shape[1], x.shape[2]
-    if h % DOWNSCALE or w % DOWNSCALE or min(h, w) < 2 * DOWNSCALE:
-        raise ValueError(f"{what}'s sides must be multiples of {DOWNSCALE} and at least "
-                         f"{2 * DOWNSCALE}, got {h}x{w}")
+    if h % multiple or w % multiple or min(h, w) < 2 * multiple:
+        raise ValueError(f"{what}'s sides must be multiples of {multiple} and at least "
+                         f"{2 * multiple}, got {h}x{w}")
 
 
 @torch.no_grad()
-def encode(params: AdaINNet, x: torch.Tensor) -> torch.Tensor:
-    """relu4_1 of ``x`` [N, H, W, 3] f32 in [0, 1]: [N, H/8, W/8, 512]."""
+def encode(params: AdaINNet, x: torch.Tensor, tap: str = "relu4_1", prefix: str = "adain"):
+    """relu4_1 of ``x`` [N, H, W, 3] f32 in [0, 1]: [N, H/8, W/8, 512]. With
+    ``tap="relu5_1"`` (the params must hold :data:`ENCODER5`) the pair
+    (relu4_1, relu5_1 [N, H/16, W/16, 512]). Spans ``<prefix>.enc.*``."""
+    if tap not in TAPS:
+        raise ValueError(f"tap must be one of {sorted(TAPS)}, got {tap!r}")
     span = profiling.span
+    names = _spans(prefix)
     enc = params.enc
-    with span(_ENC_SPAN["conv1_1"]):
+    with span(names["enc.conv1_1"]):
         kernel, bias = _fold_input_conv(enc.conv0, enc.conv1_1)
         h = conv3x3_im2col(layers.reflect_pad(x, 1), kernel, bias, relu=True)
-    for name, *_ in ENCODER[2:]:
-        with span(_ENC_SPAN[name]):
+    relu4_1 = None
+    for name, *_ in ENCODER[2:] + (ENCODER5 if tap == "relu5_1" else ()):
+        with span(names["enc." + name]):
             conv = getattr(enc, name)
             h, _, _ = conv3x3_valid(layers.reflect_pad(h, 1), conv.kernel, conv.bias, relu=True)
+        if name == TAPS["relu4_1"]:
+            relu4_1 = h
         if name in POOL_AFTER:
-            with span(_POOL_SPAN[name]):
+            with span(names["pool." + name]):
                 h = layers.max_pool(h)
-    return h
+    return h if tap == "relu4_1" else (relu4_1, h)
 
 
 def adain_affine(content_feat: torch.Tensor, style_feat: torch.Tensor,
@@ -193,14 +232,15 @@ def adain_affine(content_feat: torch.Tensor, style_feat: torch.Tensor,
 
 
 @torch.no_grad()
-def decode(params: AdaINNet, t_padded: torch.Tensor) -> torch.Tensor:
-    """g of the AdaIN output, reflect-padded by 1: [N, 8h, 8w, 3], not
-    clamped."""
+def decode(params: AdaINNet, t_padded: torch.Tensor, prefix: str = "adain") -> torch.Tensor:
+    """g of the AdaIN output (or of SANet's merge), reflect-padded by 1:
+    [N, 8h, 8w, 3], not clamped. Spans ``<prefix>.dec.*``."""
     span = profiling.span
+    names = _spans(prefix)
     h = t_padded
     for name, _, _, up, _ in DECODER:
         conv = getattr(params.dec, name)
-        with span(_DEC_SPAN[name]):
+        with span(names["dec." + name]):
             if up:
                 h = upconv_phase(layers.edge_pad(h, 1), layers.upsample_phase_taps(conv.kernel),
                                  conv.bias, relu=True)
@@ -221,8 +261,8 @@ def apply(params: AdaINNet, content: torch.Tensor, style: torch.Tensor,
     [0, 1], NHWC, on the params' device; every side a multiple of 8 and at
     least 16. Pair i takes style i (a style batch of one serves every
     image). Returns [B, H, W, 3] f32, unclamped. Forward only, f32."""
-    _check_side(content, "content")
-    _check_side(style, "style")
+    check_side(content, "content")
+    check_side(style, "style")
     if style.shape[0] not in (1, content.shape[0]):
         raise ValueError(f"style batch {style.shape[0]} must be 1 or the content's "
                          f"{content.shape[0]}")
@@ -242,10 +282,10 @@ def apply(params: AdaINNet, content: torch.Tensor, style: torch.Tensor,
 
 
 def import_torch_state_dict(vgg: Mapping[str, object], decoder: Mapping[str, object],
-                            device=constants.DEFAULT_DEVICE) -> AdaINNet:
+                            device=constants.DEFAULT_DEVICE, tap: str = "relu4_1") -> AdaINNet:
     """The released layout (``vgg_normalised.pth``: keys ``<i>.weight`` /
-    ``<i>.bias`` of the normalized VGG's ``nn.Sequential``, the layers past
-    relu4_1 ignored; ``decoder.pth``: the decoder's) as the port's
+    ``<i>.bias`` of the normalized VGG's ``nn.Sequential``, read to ``tap``,
+    the later layers ignored; ``decoder.pth``: the decoder's) as the port's
     parameters, HWIO kernels. Tensors or arrays."""
     dev = constants.resolve_device(device)
 
@@ -256,7 +296,8 @@ def import_torch_state_dict(vgg: Mapping[str, object], decoder: Mapping[str, obj
         return Conv(w.detach().float().permute(2, 3, 1, 0).contiguous().to(dev),
                     b.detach().float().clone().to(dev))
 
-    enc = {name: conv(vgg, idx) for name, _, _, _, idx in ENCODER}
+    rows = ENCODER + (ENCODER5 if tap == "relu5_1" else ())
+    enc = {name: conv(vgg, idx) for name, _, _, _, idx in rows}
     dec = {name: conv(decoder, idx) for name, _, _, _, idx in DECODER}
     return AdaINNet(enc, dec)
 
@@ -265,15 +306,17 @@ def export_torch_state_dict(params: AdaINNet) -> Tuple[Dict[str, torch.Tensor],
                                                       Dict[str, torch.Tensor]]:
     """The inverse of :func:`import_torch_state_dict`: ``(vgg, decoder)``
     state dicts of CPU tensors in the released layout (the VGG's up to
-    relu4_1), which ``torch.save`` writes as the two files."""
+    relu4_1, or relu5_1 where the params go on), which ``torch.save``
+    writes as the two files."""
     def put(out, idx, conv):
         out[f"{idx}.weight"] = conv.kernel.detach().permute(3, 2, 0, 1).contiguous().cpu()
         out[f"{idx}.bias"] = conv.bias.detach().clone().cpu()
 
     vgg: Dict[str, torch.Tensor] = {}
     decoder: Dict[str, torch.Tensor] = {}
-    for name, _, _, _, idx in ENCODER:
-        put(vgg, idx, getattr(params.enc, name))
+    for name, _, _, _, idx in ENCODER + ENCODER5:
+        if hasattr(params.enc, name):
+            put(vgg, idx, getattr(params.enc, name))
     for name, _, _, _, idx in DECODER:
         put(decoder, idx, getattr(params.dec, name))
     return vgg, decoder

@@ -205,6 +205,24 @@ def test_a_forward_while_nothing_records_registers_no_backward_span():
     assert rec.spans == []
 
 
+def test_sanet_marks_its_35_layers_under_the_forward_and_an_attention_span_a_block():
+    from styletransfer_tpu_torch.engines import sanet as sanet_engine
+    from styletransfer_tpu_torch.models import sanet
+
+    params = sanet.init_params(seed=0, device="cpu")
+    content = _batch(1, 64, seed=2).to(torch.uint8)
+    style = _batch(1, 64, seed=3).to(torch.uint8)
+    with profiling.record_spans() as rec:
+        sanet_engine.make_serve_fn()(params, content, style)
+    names = _names(rec, "sanet.")
+    assert len(names) == 1 + 17 + 8 + 1 + 9 and names[0] == "sanet.forward"
+    assert [n for n in names if n.endswith(".attn")] == ["sanet.r4_1.attn", "sanet.r5_1.attn"]
+    assert "sanet.enc.pool4" in names and "sanet.enc.conv5_1" in names
+    forward = next(s for s in rec.spans if s.name == "sanet.forward")
+    assert all(s.cause == forward.id for s in rec.spans if s.name != "sanet.forward")
+    assert not any(n.startswith("adain.") for n in _names(rec))
+
+
 def _train_setup(side=32):
     params = _params()
     vgg_params = vgg.init_params(seed=0, device="cpu")
